@@ -18,11 +18,10 @@ from pathlib import Path
 
 import torch
 
-from superresolution_def_tpu.obs import save_tris_preview
-
 from ..data import DataIterator, PatchDataset, load_manifest, write_tiff_u16
 from ..kernels import make_fused_swinir
 from ..models import SwinIR, detect_swinir_params, load_torch_state_dict
+from ..obs import save_tris_preview
 from ..ops.metrics import TrainMetrics, psnr, ssim
 
 
@@ -36,7 +35,16 @@ def _torch_candidates(folder: Path) -> list[Path]:
     return list(dict.fromkeys(out))
 
 
-def load_generator(folder: str | Path, device: torch.device | str = "cpu"):
+def resolve_device(device: torch.device | str) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device must exist. There is no
+    quiet fall-back to the CPU: the caller asks for it."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --device cpu (device='cpu') to run on the CPU")
+    return device
+
+
+def load_generator(folder: str | Path, device: torch.device | str = "cuda"):
     """Returns ``(model, info)``: the first loadable SwinIR ``.pth`` of ``folder``."""
     folder = Path(folder)
     for cand in _torch_candidates(folder):
@@ -76,16 +84,17 @@ def run_test(
     write_csv: bool = False,
     manifest: str | None = None,
     impl: str | None = None,
+    device: torch.device | str = "cuda",
 ) -> dict:
     """Evaluate a run folder on its targets' test split and write artifacts.
 
     ``impl='fused'`` routes every Swin block through the fused-block kernel in
-    bf16; otherwise the fp32 ``nn.Module`` forward runs. It runs on the first
-    CUDA card when there is one, else on the CPU.
+    bf16; otherwise the fp32 ``nn.Module`` forward runs. It runs on
+    ``device``, the card unless the caller asks for the CPU.
     """
     if arch != "swin":
         raise NotImplementedError(f"arch {arch!r} is not ported yet; only 'swin' is")
-    device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = resolve_device(device)
     folder = Path(folder)
     model, info = load_generator(folder, device)
     forward = model
@@ -111,7 +120,7 @@ def run_test(
     csv_rows = []
     metrics = TrainMetrics()
 
-    batches = DataIterator(PatchDataset(entries, lr_size, hr_size), 1).batches()
+    batches = DataIterator(PatchDataset(entries, lr_size, hr_size), 1).epoch()
     with torch.no_grad():
         for i, batch in enumerate(batches):
             lr01 = torch.from_numpy(batch["lr"].astype("float32")).to(device) / 65535.0

@@ -1,10 +1,15 @@
-"""Command-line entry of the port; only ``infer`` is ported so far.
+"""Command-line entry of the port: ``train`` and ``infer`` for SwinIR.
 
+  python -m superresolution_def_tpu_torch.cli.main train --arch swin \
+      --target T1 [--bf16] [--batch-size 8] [--accum-steps 1] [--epochs 300]
   python -m superresolution_def_tpu_torch.cli.main infer --arch swin \
       [--impl fused] [--folder RUN] [--data-root DATA]
 
-The flags are those of the JAX ``sr infer``. Without ``--folder`` the run
-folders under ``--outputs-root`` are offered in a numbered menu.
+The flags are those of the JAX ``sr train`` / ``sr infer``, plus ``--device``:
+both run on the card (``cuda``) unless ``--device cpu`` is given, and raise
+without a card. ``train --bf16`` on the card runs the fused-block kernels.
+Without ``--folder`` (``infer``) or ``--target`` (``train``) the run
+folders or targets are offered in a numbered menu.
 """
 
 from __future__ import annotations
@@ -21,6 +26,29 @@ def _pick_from(items: list[str], what: str) -> str:
     for i, t in enumerate(items, 1):
         print(f"  [{i}] {t}")
     return items[int(input(f"Select {what}: ").strip()) - 1]
+
+
+def cmd_train(args) -> dict:
+    from .trainers import SwinTrainConfig, train_swin_run
+
+    if args.target:
+        targets = args.target.split(",")
+    else:
+        found = sorted(p.name for p in Path(args.data_root).glob("*")
+                       if (p / "8_dataset_split" / "splits_json" / "train.json").exists())
+        targets = [_pick_from(found, "targets")]
+    cfg = SwinTrainConfig(
+        targets=tuple(targets), data_root=args.data_root, outputs_root=args.outputs_root,
+        epochs=args.epochs, use_bf16=args.bf16, vgg_weights=args.vgg_weights, seed=args.seed,
+        max_steps_per_epoch=args.max_steps_per_epoch, device=args.device)
+    for flag, field in (("batch_size", "batch_size"), ("accum_steps", "accum_steps"),
+                        ("img_size", "img_size"), ("embed_dim", "embed_dim")):
+        if getattr(args, flag):
+            setattr(cfg, field, getattr(args, flag))
+    if args.depths:
+        cfg.depths = tuple(int(x) for x in args.depths.split(","))
+        cfg.num_heads = (args.num_heads,) * len(cfg.depths)
+    return train_swin_run(cfg)
 
 
 def cmd_infer(args) -> dict:
@@ -43,6 +71,7 @@ def cmd_infer(args) -> dict:
         limit=args.limit,
         manifest=args.manifest,
         impl=args.impl,
+        device=args.device,
     )
     print(
         f"Test: {result['num_images']} images  "
@@ -54,6 +83,26 @@ def cmd_infer(args) -> dict:
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(prog="sr", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    pt = sub.add_parser("train", help="train a GAN generator")
+    pt.add_argument("--arch", choices=["swin"], default="swin",
+                    help="generator architecture (the HAT hybrid is not ported yet)")
+    pt.add_argument("--target", default=None, help="comma-separated targets")
+    pt.add_argument("--data-root", default="data")
+    pt.add_argument("--outputs-root", default="outputs")
+    pt.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    pt.add_argument("--epochs", type=int, default=300)
+    pt.add_argument("--batch-size", type=int, default=None, help="micro-batch (default 8)")
+    pt.add_argument("--accum-steps", type=int, default=None, help="default 1")
+    pt.add_argument("--bf16", action="store_true",
+                    help="bf16 compute; on the card the generator runs the fused-block kernels")
+    pt.add_argument("--vgg-weights", default=None, help="npz of the JAX package's VGG19 params")
+    pt.add_argument("--seed", type=int, default=0)
+    pt.add_argument("--img-size", type=int, default=None)
+    pt.add_argument("--embed-dim", type=int, default=None)
+    pt.add_argument("--depths", default=None, help="comma list, e.g. 6,6,6,6,6,6")
+    pt.add_argument("--num-heads", type=int, default=6)
+    pt.add_argument("--max-steps-per-epoch", type=int, default=None)
 
     pi = sub.add_parser("infer", help="evaluate a trained run on its test split")
     pi.add_argument("--arch", choices=["swin"], default="swin",
@@ -67,12 +116,13 @@ def main(argv=None) -> dict:
     pi.add_argument("--hr-size", type=int, default=512,
                     help="HR patch size of the dataset (reference: 512)")
     pi.add_argument("--manifest", default=None)
+    pi.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     pi.add_argument("--impl", choices=["fused"], default=None,
                     help="'fused' = every Swin block through the fused-block CUDA "
                          "kernel, bf16")
 
     args = p.parse_args(argv)
-    return cmd_infer(args)
+    return cmd_train(args) if args.cmd == "train" else cmd_infer(args)
 
 
 if __name__ == "__main__":

@@ -36,24 +36,22 @@
 //   - one window per block, so every window re-reads the weights from L2;
 //   - C = 180 is padded to 192 and head_dim 30 to 32 with zeros (6% and 7%
 //     wasted tensor-core work).
+//
+// K2, the training forward, is the same kernel compiled with STORE_H: it also
+// stores h = x + proj(attn), rounded to bf16, for the backward (K3 and K4 in
+// swin_block_train.cu). It replaces superresolution_def_tpu/kernels/
+// swin_block.py::fused_swin_block_fwd_h (body _make_kernel_fwd_h). The one
+// store changes no arithmetic, so K2's `out` is bit-identical to K1's. The
+// TPU kernel feeds LN2 the fp32 h and stores h in bf16; here LN2 reads the
+// bf16 h, as K1 does, so the stored h is exactly what LN2 saw and K3's
+// recomputation of LN2 from it matches the forward. Its bound is K1's plus
+// one more (Bw, 64, C) bf16 store: compute-bound at the flagship widths.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "swin_common.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int N = 64;          // tokens per window (8 x 8)
-constexpr int THREADS = 256;   // 8 warps
-constexpr int NWARPS = THREADS / 32;
-constexpr int TILE = 64;       // output-column and k extent of one weight tile
-constexpr int STAGES = 2;      // weight tiles in flight per block
-constexpr int DP = 32;         // head_dim padded to two 16-wide k steps
-constexpr int MAX_C = 256;     // LayerNorm keeps a row in 8 registers per lane
-constexpr int LDQ = DP + 8;    // bf16 row stride of q, k, v (conflict-free ldmatrix)
-constexpr int LDT = TILE + 8;  // bf16 row stride of a weight tile and the MLP chunk
+using namespace swin;
 
 struct Params {
   const bf16* x;
@@ -71,11 +69,10 @@ struct Params {
   const bf16* w2;
   const float* b2;
   bf16* out;
+  bf16* h_out;  // K2 only: h rounded to bf16
   int c, cp, heads, hd, hidden, hidden_p;
   float scale;
 };
-
-__host__ __device__ inline int round16(int v) { return (v + 15) / 16 * 16; }
 
 // fp32 vectors staged in shared memory once per window, at these offsets (in
 // units of C, b1 last): the epilogues and LayerNorms read them there
@@ -87,8 +84,6 @@ struct Layout {
   int lda;  // bf16 row stride of the two 64 x cp activation buffers
   size_t a, attn, big, ring, vec, red, qmap, total;
 };
-
-__host__ __device__ inline size_t align128(size_t v) { return (v + 127) & ~size_t(127); }
 
 __host__ __device__ inline Layout make_layout(int c, int cp, int hidden_p) {
   Layout L;
@@ -105,118 +100,6 @@ __host__ __device__ inline Layout make_layout(int c, int cp, int hidden_p) {
   L.qmap = o; o += align128(sizeof(int) * 2 * DP);       // pair column -> q/k/v offset
   L.total = o;
   return L;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float s = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-  return 0.5f * x * (1.0f + tanhf(s));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 8-byte asynchronous global -> shared copy; zero-fills when !valid.
-__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 8 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
-
-// Four 8x8 bf16 matrices; lane l addresses row (l & 15), column block (l >> 4)
-// of a 16x16 block for the A-operand and transposed-B layouts.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// d += a (16x16, row) . b (16x8, col), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// LayerNorm of 64 rows of width C, one warp per row, two-pass fp32 statistics;
-// writes bf16 rows of width CP with zeros in the padding columns.
-template <typename Load>
-__device__ __forceinline__ void layer_norm_rows(bf16* dst, int ldd, int C, int CP, Load load,
-                                                const float* w, const float* b) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < N; r += NWARPS) {
-    float v[MAX_C / 32];
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < MAX_C / 32; ++i) {
-      const int c = lane + 32 * i;
-      v[i] = c < C ? load(r, c) : 0.f;
-      s += v[i];
-    }
-    const float mu = warp_sum(s) / C;
-    float q = 0.f;
-#pragma unroll
-    for (int i = 0; i < MAX_C / 32; ++i) {
-      const int c = lane + 32 * i;
-      const float d = c < C ? v[i] - mu : 0.f;
-      q += d * d;
-    }
-    const float rstd = rsqrtf(warp_sum(q) / C + 1e-5f);
-#pragma unroll
-    for (int i = 0; i < MAX_C / 32; ++i) {
-      const int c = lane + 32 * i;
-      if (c < CP)
-        dst[r * ldd + c] = __float2bfloat16(c < C ? (v[i] - mu) * rstd * w[c] + b[c] : 0.f);
-    }
-  }
-}
-
-// Start copying w[k0 : k0+kn, n0 : n0+nn] (row stride ldw) into the 64 x 64
-// tile t, zero-filling the rest. Needs ldw, n0 and nn multiples of 4 and w
-// 8-byte aligned (checked by the host entry).
-__device__ __forceinline__ void issue_tile(bf16* t, const bf16* w, int ldw, int k0, int kn,
-                                           int n0, int nn) {
-#pragma unroll
-  for (int u = 0; u < TILE * TILE / 4 / THREADS; ++u) {
-    const int i = threadIdx.x + u * THREADS, kk = i >> 4, jj = (i & 15) * 4;
-    const bool ok = kk < kn && jj < nn;
-    cp_async8(t + kk * LDT + jj, ok ? w + (size_t)(k0 + kk) * ldw + n0 + jj : w, ok);
-  }
 }
 
 // Attention of one head for the 16 query rows q0..q0+15 of this warp, all in
@@ -302,75 +185,9 @@ __device__ __forceinline__ void attention_rows(const bf16* qh, const bf16* kh, c
   }
 }
 
-struct Tile {
-  const bf16* w;  // weight matrix, (in, out) row-major
-  int ldw, k0, kn, n0, nn;  // rows k0 .. k0+kn, columns n0 .. n0+nn
-};
-
-// Streams `steps` weight tiles (tile_of(s) says which) through the ring, one
-// barrier each, and calls body(s, tile) once tile s has landed in shared
-// memory; the copy of tile s+1 is in flight meanwhile. The barrier before
-// each body also orders every shared-memory write of the previous bodies
-// before the next one. Ends with a barrier.
-template <typename TileOf, typename Body>
-__device__ __forceinline__ void pipeline(int steps, bf16* ring, TileOf tile_of, Body body) {
-  auto issue = [&](int s) {
-    if (s < steps) {
-      const Tile t = tile_of(s);
-      issue_tile(ring + (s % STAGES) * TILE * LDT, t.w, t.ldw, t.k0, t.kn, t.n0, t.nn);
-    }
-    cp_async_commit();  // an empty group past the end keeps the wait count uniform
-  };
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) issue(s);
-  for (int s = 0; s < steps; ++s) {
-    cp_async_wait<STAGES - 2>();  // this thread's copies of tile s have landed
-    __syncthreads();              // everyone's have; tile s-1 is consumed
-    issue(s + STAGES - 1);        // into the slot tile s-1 used
-    body(s, ring + (s % STAGES) * TILE * LDT);
-  }
-  __syncthreads();
-}
-
-// The warp's share of a 64 x 64 output tile: rows 16*(w & 3), columns
-// 32*(w >> 2) (two 16-wide halves; `hi` says whether the second is live).
-// acc += a[rows, 0 : 16*ksteps] . t[0 : 16*ksteps, columns].
-__device__ __forceinline__ void mma_tile(float (&acc)[4][4], const bf16* a, int lda,
-                                         int ksteps, const bf16* t, bool hi) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = (warp & 3) * 16, c0 = (warp >> 2) * 32;
-  for (int kk = 0; kk < ksteps; ++kk) {
-    uint32_t fa[4], fb[4];
-    ldsm_x4(fa, a + (r0 + (lane & 15)) * lda + kk * 16 + (lane >> 4) * 8);
-    ldsm_x4_trans(fb, t + (kk * 16 + (lane & 15)) * LDT + c0 + (lane >> 4) * 8);
-    mma_bf16(acc[0], fa, fb[0], fb[1]);
-    mma_bf16(acc[1], fa, fb[2], fb[3]);
-    if (hi) {
-      ldsm_x4_trans(fb, t + (kk * 16 + (lane & 15)) * LDT + c0 + 16 + (lane >> 4) * 8);
-      mma_bf16(acc[2], fa, fb[0], fb[1]);
-      mma_bf16(acc[3], fa, fb[2], fb[3]);
-    }
-  }
-}
-
-// Calls f(row, col, v[col], v[col+1]) for every accumulator pair of the warp's
-// share of a tile whose first column is n0 (columns of dead halves skipped).
-template <typename F>
-__device__ __forceinline__ void for_pairs(const float (&acc)[4][4], int n0, bool hi, F f) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = (warp & 3) * 16 + (lane >> 2);
-  const int col = n0 + (warp >> 2) * 32 + (lane & 3) * 2;
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    if (t < 2 || hi) {
-      f(r, col + t * 8, acc[t][0], acc[t][1]);
-      f(r + 8, col + t * 8, acc[t][2], acc[t][3]);
-    }
-  }
-}
-
 // NCH = ceil(C / 64): the column chunks of the residual h held in registers.
-template <int NCH>
+// STORE_H: K2, which also writes bf16(h) to p.h_out.
+template <int NCH, bool STORE_H>
 __global__ void __launch_bounds__(THREADS, 2) swin_block_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L = make_layout(p.c, p.cp, p.hidden_p);
@@ -500,6 +317,10 @@ __global__ void __launch_bounds__(THREADS, 2) swin_block_kernel(const Params p) 
           const float2 x2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xx));
           h[ch][t][2 * half] = x2.x + (h[ch][t][2 * half] + vec[V_BPROJ * C + col]);
           h[ch][t][2 * half + 1] = x2.y + (h[ch][t][2 * half + 1] + vec[V_BPROJ * C + col + 1]);
+          if constexpr (STORE_H)
+            *reinterpret_cast<__nv_bfloat162*>(p.h_out + (size_t)blockIdx.x * N * C + r * C +
+                                               col) =
+                __floats2bfloat162_rn(h[ch][t][2 * half], h[ch][t][2 * half + 1]);
         }
       }
 
@@ -612,27 +433,21 @@ __global__ void __launch_bounds__(THREADS, 2) swin_block_kernel(const Params p) 
       }
 }
 
-template <int NCH>
+template <int NCH, bool STORE_H>
 cudaError_t launch(const Params& p, int bw, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(swin_block_kernel<NCH>,
+  cudaError_t err = cudaFuncSetAttribute(swin_block_kernel<NCH, STORE_H>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  swin_block_kernel<NCH><<<bw, THREADS, smem, stream>>>(p);
+  swin_block_kernel<NCH, STORE_H><<<bw, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// C entry point, bound with ctypes. Returns a cudaError_t: the launch is
-// asynchronous on `stream`, so 0 means the kernel was accepted, not finished.
-// Weights are (in, out) row-major bf16; LN parameters, biases and the
-// (heads, 64, 64) relative-position bias are fp32.
-extern "C" int swin_block_bf16(const void* x, const void* ln1_w, const void* ln1_b,
-                               const void* wqkv, const void* bqkv, const void* bias,
-                               const void* wproj, const void* bproj, const void* ln2_w,
-                               const void* ln2_b, const void* w1, const void* b1, const void* w2,
-                               const void* b2, void* out, int bw, int c, int heads, int hidden,
-                               float scale, void* stream) {
+template <bool STORE_H>
+int run(const void* x, const void* ln1_w, const void* ln1_b, const void* wqkv, const void* bqkv,
+        const void* bias, const void* wproj, const void* bproj, const void* ln2_w,
+        const void* ln2_b, const void* w1, const void* b1, const void* w2, const void* b2,
+        void* out, void* h_out, int bw, int c, int heads, int hidden, float scale,
+        void* stream) {
   // a head pair's columns are copied in 4-element (8-byte) vectors
   const int hd = heads > 0 ? c / heads : 0;
   if (bw <= 0 || c <= 0 || c > MAX_C || c % 4 != 0 || heads <= 0 || c % heads != 0 ||
@@ -643,6 +458,8 @@ extern "C" int swin_block_bf16(const void* x, const void* ln1_w, const void* ln1
   for (const void* ptr : aligned8)
     if (reinterpret_cast<uintptr_t>(ptr) % 8 != 0) return (int)cudaErrorMisalignedAddress;
   if (reinterpret_cast<uintptr_t>(x) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  if (STORE_H && reinterpret_cast<uintptr_t>(h_out) % 4 != 0)
+    return (int)cudaErrorMisalignedAddress;
   Params p;
   p.x = static_cast<const bf16*>(x);
   p.ln1_w = static_cast<const float*>(ln1_w);
@@ -659,6 +476,7 @@ extern "C" int swin_block_bf16(const void* x, const void* ln1_w, const void* ln1
   p.w2 = static_cast<const bf16*>(w2);
   p.b2 = static_cast<const float*>(b2);
   p.out = static_cast<bf16*>(out);
+  p.h_out = static_cast<bf16*>(h_out);
   p.c = c;
   p.cp = round16(c);
   p.heads = heads;
@@ -669,11 +487,40 @@ extern "C" int swin_block_bf16(const void* x, const void* ln1_w, const void* ln1
   const size_t smem = make_layout(c, p.cp, p.hidden_p).total;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((c + TILE - 1) / TILE) {
-    case 1: return (int)launch<1>(p, bw, smem, s);
-    case 2: return (int)launch<2>(p, bw, smem, s);
-    case 3: return (int)launch<3>(p, bw, smem, s);
-    default: return (int)launch<4>(p, bw, smem, s);
+    case 1: return (int)launch<1, STORE_H>(p, bw, smem, s);
+    case 2: return (int)launch<2, STORE_H>(p, bw, smem, s);
+    case 3: return (int)launch<3, STORE_H>(p, bw, smem, s);
+    default: return (int)launch<4, STORE_H>(p, bw, smem, s);
   }
+}
+
+}  // namespace
+
+// C entry point, bound with ctypes. Returns a cudaError_t: the launch is
+// asynchronous on `stream`, so 0 means the kernel was accepted, not finished.
+// Weights are (in, out) row-major bf16; LN parameters, biases and the
+// (heads, 64, 64) relative-position bias are fp32.
+extern "C" int swin_block_bf16(const void* x, const void* ln1_w, const void* ln1_b,
+                               const void* wqkv, const void* bqkv, const void* bias,
+                               const void* wproj, const void* bproj, const void* ln2_w,
+                               const void* ln2_b, const void* w1, const void* b1, const void* w2,
+                               const void* b2, void* out, int bw, int c, int heads, int hidden,
+                               float scale, void* stream) {
+  return run<false>(x, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj, ln2_w, ln2_b, w1, b1, w2,
+                    b2, out, nullptr, bw, c, heads, hidden, scale, stream);
+}
+
+// K2: as swin_block_bf16, and also h = x + proj(attn) in bf16 to h_out
+// (same shape as out).
+extern "C" int swin_block_fwd_h_bf16(const void* x, const void* ln1_w, const void* ln1_b,
+                                     const void* wqkv, const void* bqkv, const void* bias,
+                                     const void* wproj, const void* bproj, const void* ln2_w,
+                                     const void* ln2_b, const void* w1, const void* b1,
+                                     const void* w2, const void* b2, void* out, void* h_out,
+                                     int bw, int c, int heads, int hidden, float scale,
+                                     void* stream) {
+  return run<true>(x, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj, ln2_w, ln2_b, w1, b1, w2,
+                   b2, out, h_out, bw, c, heads, hidden, scale, stream);
 }
 
 // Dynamic shared memory one block needs, for the wrapper's shape check.

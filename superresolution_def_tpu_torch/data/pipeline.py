@@ -1,10 +1,12 @@
 """Host input pipeline: threaded PIL TIFF decode into uint16 batches.
 
-The JAX ``data/pipeline.py`` for evaluation: batches in manifest order,
-decoded on a thread pool and kept a few batches ahead by a producer thread.
-A file that fails to decode is replaced by another sample chosen
-deterministically from the failing index (astronomical_dataset_swin.py:53-55).
-The last batch wraps around to the start when the split does not divide.
+The JAX ``data/pipeline.py`` for one process: batches in manifest order or
+in a seeded per-epoch shuffle (the JAX ``_epoch_order``, so both packages
+see the same batch order), decoded on a thread pool and kept a few batches
+ahead by a producer thread. A file that fails to decode is replaced by
+another sample chosen deterministically from the failing index
+(astronomical_dataset_swin.py:53-55). Unless ``drop_last``, the last batch
+wraps around to the start when the split does not divide.
 """
 
 from __future__ import annotations
@@ -57,19 +59,31 @@ class PatchDataset:
                 cur = int(np.random.default_rng(idx * 1000003 + tries).integers(len(self.entries)))
 
 
-class DataIterator:
-    """Yields ``{'lr': (B, h, w, 1), 'hr': (B, H, W, 1)}`` uint16 batches in order."""
+def _epoch_order(n: int, epoch: int, shuffle: bool, seed: int = 0) -> np.ndarray:
+    if shuffle:
+        return np.random.default_rng(seed + epoch).permutation(n)
+    return np.arange(n)
 
-    def __init__(self, dataset: PatchDataset, batch_size: int):
+
+class DataIterator:
+    """Yields ``{'lr': (B, h, w, 1), 'hr': (B, H, W, 1)}`` uint16 batches."""
+
+    def __init__(self, dataset: PatchDataset, batch_size: int, *, shuffle: bool = False,
+                 drop_last: bool = False, seed: int = 0):
         self.ds = dataset
         self.batch = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
 
-    def batches(self) -> Iterator[dict[str, np.ndarray]]:
+    def epoch(self, epoch: int = 0) -> Iterator[dict[str, np.ndarray]]:
+        """One pass over the split; ``epoch`` seeds the shuffle."""
         n = len(self.ds)
-        if n == 0:
+        nb = n // self.batch if self.drop_last else -(-n // self.batch)
+        if nb == 0:
             return iter(())
-        nb = -(-n // self.batch)
-        order = np.resize(np.arange(n), nb * self.batch)  # wrap-around padding
+        # wrap-around padding, like DistributedSampler
+        order = np.resize(_epoch_order(n, epoch, self.shuffle, self.seed), nb * self.batch)
         out_q: queue.Queue = queue.Queue(maxsize=PREFETCH_BATCHES)
         stop = threading.Event()
 

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``_build/lib<name>-<hash>.so`` inside the package (``.gitignore`` lists
-the directory). The hash covers the source and the compiler flags, so an
-edited source is rebuilt on its next load and an unchanged one is reused.
-Nothing here runs at import time: the first :func:`load_library` call builds.
+the directory). The hash covers the source, the shared ``csrc/*.cuh``
+headers and the compiler flags, so an edited source is rebuilt on its next
+load and an unchanged one is reused. Nothing here runs at import time: the
+first :func:`load_library` (or :func:`build_all`) call builds.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PACKAGE_ROOT = Path(__file__).resolve().parent.parent
@@ -43,8 +45,11 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -66,6 +71,13 @@ def build(name: str) -> Path:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
     os.replace(tmp, out)
     return out
+
+
+def build_all(names) -> list[Path]:
+    """Build several sources at once, one nvcc process each."""
+    names = list(names)
+    with ThreadPoolExecutor(len(names)) as pool:
+        return list(pool.map(build, names))
 
 
 def build_log(name: str) -> str:

@@ -4,7 +4,9 @@
 are the JAX package's ``models/torch_port.py`` helpers working on tensors.
 :func:`swinir_state_dict_from_jax` is the exact inverse of its
 ``swinir_from_torch``: it turns the JAX SwinIR params tree (numpy arrays)
-into this package's ``state_dict``.
+into this package's ``state_dict``; :func:`discriminator_swin_state_dict_from_jax`
+and :func:`vgg19_state_dict_from_jax` invert ``discriminator_swin_from_torch``
+and ``vgg19_from_torch`` the same way.
 """
 
 from __future__ import annotations
@@ -114,4 +116,36 @@ def swinir_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Ten
         out[key + ".attn.relative_position_bias_table"] = _t(
             p["attn"]["relative_position_bias_table"]
         )
+    return out
+
+
+_SWIN_D_KEYS = [("conv0_0", "conv0.0", False), ("conv0_1", "conv0.2", False)]
+_SWIN_D_KEYS += [(f"conv{i}", f"conv{i}.model.0", False) for i in range(1, 5)]
+_SWIN_D_KEYS += [(f"up{i}", f"up{i}.model.0", True) for i in range(1, 5)]
+_SWIN_D_KEYS += [("final_0", "final_conv.0", False), ("final_1", "final_conv.2", False)]
+
+
+def discriminator_swin_state_dict_from_jax(params: Mapping[str, Any],
+                                           spectral: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The JAX ``UNetDiscriminatorSNSwin`` params and ``spectral`` (u, v) ->
+    this package's ``state_dict``: the inverse of ``discriminator_swin_from_torch``."""
+    out: dict[str, torch.Tensor] = {}
+    for name, key, transpose in _SWIN_D_KEYS:
+        kernel = _t(params[name]["kernel"])  # (kh, kw, I, O)
+        # torch Conv2d (O, I, kh, kw); ConvTranspose2d (I, O, kh, kw)
+        w = kernel.permute(2, 3, 0, 1) if transpose else kernel.permute(3, 2, 0, 1)
+        out[key + ".weight_orig"] = w.contiguous()
+        out[key + ".weight_u"] = _t(spectral[name]["u"])
+        out[key + ".weight_v"] = _t(spectral[name]["v"])
+    return out
+
+
+def vgg19_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The JAX ``VGG19Features`` params (``conv_{i}``) -> ``features.{i}.*``: the
+    inverse of ``train/vgg.py::vgg19_from_torch``."""
+    out: dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        i = int(name.split("_")[1])
+        out[f"features.{i}.weight"] = _t(p["kernel"]).permute(3, 2, 0, 1).contiguous()
+        out[f"features.{i}.bias"] = _t(p["bias"])
     return out

@@ -7,6 +7,7 @@ from .windows import (
 from .pixelshuffle import pixel_shuffle
 from .padding import reflect_pad_2d
 from .metrics import psnr, ssim, TrainMetrics
+from .resize import interpolate_bilinear
 
 __all__ = [
     "window_partition",
@@ -18,4 +19,5 @@ __all__ = [
     "psnr",
     "ssim",
     "TrainMetrics",
+    "interpolate_bilinear",
 ]

@@ -61,8 +61,24 @@ def test_unreadable_file_is_substituted_like_jax(tmp_path):
 def test_iterator_yields_manifest_order_with_wraparound(tmp_path):
     entries = _split(tmp_path, n=5)
     ds = PatchDataset(entries, lr_size=4, hr_size=16)
-    batches = list(DataIterator(ds, 2).batches())
+    batches = list(DataIterator(ds, 2).epoch())
     assert [b["lr"].shape for b in batches] == [(2, 4, 4, 1)] * 3
     order = [0, 1, 2, 3, 4, 0]
     got = np.concatenate([b["hr"] for b in batches])
     np.testing.assert_array_equal(got, np.stack([ds[i]["hr"] for i in order]))
+
+
+def test_shuffled_epochs_match_jax_batch_order(tmp_path):
+    """The seeded per-epoch shuffle (drop_last) gives the JAX iterator's batches."""
+    entries = _split(tmp_path, n=7)
+    ours = DataIterator(PatchDataset(entries, 4, 16), 3, shuffle=True, drop_last=True, seed=5)
+    ref = jpipeline.DataIterator(jpipeline.PatchDataset(entries, 4, 16, use_native=False), 3,
+                                 shuffle=True, drop_last=True, seed=5, num_threads=2)
+    for epoch in (1, 2):
+        got, want = list(ours.epoch(epoch)), list(ref.epoch(epoch))
+        assert len(got) == len(want) == 2
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a["lr"], b["lr"])
+            np.testing.assert_array_equal(a["hr"], b["hr"])
+    first = [b["hr"] for b in ours.epoch(1)]
+    assert any(not np.array_equal(a, b["hr"]) for a, b in zip(first, ours.epoch(2)))

@@ -1,7 +1,11 @@
 """Guards on the port's boundaries, each in a fresh interpreter.
 
-- The port never loads jax: the conftest of this suite imports it, so the
-  check runs the CPU slice in a subprocess and inspects its ``sys.modules``.
+- The port never loads jax nor any module of the JAX package: the conftest
+  of this suite imports jax, so the check runs the CPU slice (``train``, then
+  ``infer`` of what it trained and of a saved model) in a subprocess and
+  inspects its ``sys.modules``.
+- ``train`` and ``infer`` run on the card unless ``--device cpu`` is given:
+  without a card and without it they raise.
 - ``chip_smoke.py`` has no CPU fallback: without a GPU, or without the rest
   of the repository beside it, it fails and prints no result line.
 """
@@ -15,6 +19,7 @@ import textwrap
 from pathlib import Path
 
 import pytest
+import torch
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -39,18 +44,26 @@ SLICE = textwrap.dedent(
         write_tiff_u16(d / "hr.tiff", hr)
         write_tiff_u16(d / "lr.tiff", hr.reshape(16, 4, 16, 4).mean(axis=(1, 3)))
         entries.append(ManifestEntry(f"p{i}", str(d / "hr.tiff"), str(d / "lr.tiff")))
-    write_manifest(root / "data" / "T1" / "8_dataset_split" / "splits_json" / "test.json", entries)
+    splits = root / "data" / "T1" / "8_dataset_split" / "splits_json"
+    for split in ("train", "val", "test"):
+        write_manifest(splits / f"{split}.json", entries)
+    main(["train", "--target", "T1", "--data-root", str(root / "data"),
+          "--outputs-root", str(root / "trained"), "--device", "cpu", "--epochs", "1",
+          "--batch-size", "2", "--img-size", "16", "--embed-dim", "16", "--depths", "2",
+          "--num-heads", "2"])
     run = root / "outputs" / "T1_DDP_SwinIR"
     run.mkdir(parents=True)
     model = SwinIR(img_size=16, embed_dim=16, depths=(2,), num_heads=(2,), window_size=8,
                    mlp_ratio=2.0, upscale=4, generator=torch.Generator().manual_seed(0))
     torch.save({"net_g": model.state_dict()}, run / "best_gan_model.pth")
-    for impl in ([], ["--impl", "fused"]):
-        res = main(["infer", "--folder", str(run), "--data-root", str(root / "data"),
-                    "--lr-size", "16", "--hr-size", "64", *impl])
-        assert res["num_images"] == 2, res
+    for folder in (run, root / "trained" / "T1_DDP_SwinIR"):
+        for impl in ([], ["--impl", "fused"]):
+            res = main(["infer", "--folder", str(folder), "--data-root", str(root / "data"),
+                        "--lr-size", "16", "--hr-size", "64", "--device", "cpu", *impl])
+            assert res["num_images"] == 2, res
     print("JAX_LOADED", sorted(m for m in sys.modules if m.split(".")[0] in
-                               ("jax", "jaxlib", "flax", "optax", "orbax")))
+                               ("jax", "jaxlib", "flax", "optax", "orbax",
+                                "superresolution_def_tpu")))
     """
 )
 
@@ -58,10 +71,23 @@ SLICE = textwrap.dedent(
 def test_port_cpu_slice_never_loads_jax(tmp_path):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
+    env["OMP_NUM_THREADS"] = "1"  # one torch thread, as the suite's workers run
     proc = subprocess.run([sys.executable, "-c", SLICE], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().splitlines()[-1] == "JAX_LOADED []"
+
+
+@pytest.mark.parametrize("cmd", ["train", "infer"])
+def test_entry_points_raise_without_a_card_unless_asked_for_the_cpu(tmp_path, cmd):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from superresolution_def_tpu_torch.cli.main import main
+
+    args = {"train": ["train", "--target", "T1", "--data-root", str(tmp_path)],
+            "infer": ["infer", "--folder", str(tmp_path), "--data-root", str(tmp_path)]}[cmd]
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main(args)
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

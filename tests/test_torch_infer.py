@@ -92,7 +92,7 @@ def test_infer_matches_jax_run_test_fp32(workspace):
     root, ckpt = workspace
     ours_dir, ref_dir = _run_folder(root, ckpt, "port"), _run_folder(root, ckpt, "jax")
     ours = run_test(ours_dir, "swin", data_root=str(root / "data"), lr_size=16, hr_size=64,
-                    write_csv=True)
+                    write_csv=True, device="cpu")
     ref = jax_run_test(ref_dir, "swin", data_root=str(root / "data"), lr_size=16, hr_size=64,
                        write_csv=True)
     assert ours["num_images"] == ref["num_images"] == N_PAIRS
@@ -109,7 +109,8 @@ def test_infer_fused_cli_matches_jax_fused_run_test(workspace):
     root, ckpt = workspace
     ours_dir, ref_dir = _run_folder(root, ckpt, "port_fused"), _run_folder(root, ckpt, "jax_fused")
     ours = cli_main(["infer", "--arch", "swin", "--impl", "fused", "--folder", str(ours_dir),
-                     "--data-root", str(root / "data"), "--lr-size", "16", "--hr-size", "64"])
+                     "--data-root", str(root / "data"), "--lr-size", "16", "--hr-size", "64",
+                     "--device", "cpu"])
     with pltpu.force_tpu_interpret_mode():
         ref = jax_run_test(ref_dir, "swin", data_root=str(root / "data"), lr_size=16,
                            hr_size=64, impl="fused")
