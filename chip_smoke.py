@@ -28,7 +28,20 @@ exit code:
     checkpoint;
 11. train patches/s of the fused bf16 step and of the same step with the
     bf16 ``nn.Module`` generator, their peak memory, and the fused step's
-    ``torch.profiler`` top device ops and idle share.
+    ``torch.profiler`` top device ops and idle share;
+12. the HAT-hybrid kernels against their plain versions at the served
+    config's shapes (BASELINE config #2, batch 8 of 128x128): K5
+    (``fused_hab_block``, Bw=2048, C=90, 6 heads, hidden 360) unshifted and
+    shifted, K6 (``fused_ocab_block``, 64 queries against 144 overlap keys)
+    and K7 (``fused_rdb_cm``, B=8, F=48 at 256x256, G=24), with times;
+13. the hybrid slice: a seeded config-#2 ``best_hybrid_model.pth`` through
+    ``cli.main infer --arch hat --impl fused`` on the synthetic test split,
+    counting K5/K6/K7 launches (24, 4 and 36 per image) and checking every
+    artifact, ``test_metrics.csv`` included;
+14. the fused bf16 hybrid against the fp32 ``nn.Module`` on one patch,
+    beside the bf16 ``nn.Module``'s own distance;
+15. patches/s at batch 8 of the fused hybrid and of the bf16 ``nn.Module``,
+    and the fused forward's ``torch.profiler`` top device ops and idle share.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it fails at once:
@@ -39,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import importlib
 import json
 import statistics
 import subprocess
@@ -69,6 +83,11 @@ MICRO = 8
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 SWIN = "superresolution_def_tpu/kernels/swin_block.py"
+# HybridHATRealESRGAN x4 (BASELINE config #2), served at batch 8
+HYBRID = dict(img_size=128, in_chans=1, embed_dim=90, depths=(6,) * 4, num_heads=(6,) * 4,
+              window_size=8, num_rrdb=12, num_feat=48, num_grow_ch=24)
+HYBRID_BATCH = 8
+SOURCES = ["swin_block", "swin_block_train", "hab_block", "ocab", "rdb_cm"]
 
 
 def log(phase: str, msg: str) -> None:
@@ -160,6 +179,30 @@ def block_work(bw: int, c: int = 180, heads: int = 6, hidden: int = 720) -> dict
     }
 
 
+def hat_work(bw: int = 2048, c: int = 90, heads: int = 6, hidden: int = 360, nk: int = 144,
+             b: int = 8, hw: int = 256 * 256, f: int = 48, g: int = 24,
+             shifted_share: float = 0.5) -> dict:
+    """FLOPs and bytes of K5, K6 and K7 at the hybrid's shapes. K5: x and
+    conv_x in, out (bf16), the weights, and the (256, 64, 64) fp32 mask for
+    its shifted half of the calls; K6: x, q, out and the 144-key k and v
+    windows, the weights and the bias; K7: x in and out, the weights."""
+    n = 64
+    hd = c // heads
+    rows = bw * n * c * 2
+    w_block = (3 * c * c + c * c + 2 * c * hidden) * 2
+    mlp = 2 * 2 * n * c * hidden
+    k5 = bw * (2 * n * c * 3 * c + 2 * 2 * n * n * hd * heads + 2 * n * c * c + mlp)
+    k6 = bw * (2 * 2 * n * nk * c + 2 * n * c * c + mlp)
+    per_pixel = sum(2 * 9 * (f + i * g) * (g if i < 4 else f) for i in range(5))
+    w_rdb = sum(9 * (f + i * g) * (g if i < 4 else f) * 2 for i in range(5))
+    return {
+        "K5": (k5, 3 * rows + w_block + shifted_share * 256 * n * n * 4),
+        "K6": (k6, 3 * rows + 2 * bw * nk * c * 2 + (c * c + 2 * c * hidden) * 2
+               + heads * n * nk * 4),
+        "K7": (b * hw * per_pixel, 2 * b * f * hw * 2 + w_rdb),
+    }
+
+
 def least_ms(work: tuple) -> tuple[float, str]:
     """Least milliseconds for (flops, bytes) on the card, and what sets it."""
     t_ops, t_bytes = work[0] / PEAK_BF16_FLOPS * 1e3, work[1] / PEAK_BYTES * 1e3
@@ -214,15 +257,25 @@ def main() -> None:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from superresolution_def_tpu_torch.cli.main import main as cli_main
     from superresolution_def_tpu_torch.data import read_tiff_u16
-    from superresolution_def_tpu_torch.kernels import _build, swin_block
+    from superresolution_def_tpu_torch.kernels import _build, hab_block, ocab, swin_block
+    # the module, not the function of the same name that the package exports
+    rdb_cm = importlib.import_module("superresolution_def_tpu_torch.kernels.fused_rdb_cm")
     from superresolution_def_tpu_torch.kernels import (
+        fused_hab_block,
+        fused_ocab_block,
+        fused_rdb_cm,
         fused_swin_block,
+        hab_block_reference,
+        make_fused_hybrid,
         make_fused_swinir,
+        ocab_block_reference,
+        rdb_cm_reference,
         swin_block_bwd_attn,
         swin_block_bwd_mlp,
         swin_block_fwd_h,
     )
-    from superresolution_def_tpu_torch.models import SwinIR
+    from superresolution_def_tpu_torch.models import HybridHATRealESRGAN, SwinIR
+    from superresolution_def_tpu_torch.ops import shift_window_attn_mask
     from superresolution_def_tpu_torch.train import (
         CombinedGANLoss,
         VGG19Features,
@@ -245,15 +298,20 @@ def main() -> None:
 
     # 2. build every source at once
     t0 = time.perf_counter()
-    lib_path, train_lib_path = _build.build_all(["swin_block", "swin_block_train"])
+    paths = dict(zip(SOURCES, _build.build_all(SOURCES)))
+    lib_path, train_lib_path = paths["swin_block"], paths["swin_block_train"]
     swin_block._kernel_library()
     swin_block._train_library()
+    hab_block._library()
+    ocab._library()
+    rdb_cm._library()
     build_s = time.perf_counter() - t0
-    log("build", f"swin_block.cu -> {lib_path.name}, swin_block_train.cu -> "
-                 f"{train_lib_path.name}, both in {build_s:.1f} s")
-    for line in _build.build_log("swin_block").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log("build", line.strip().replace("ptxas info    : ", ""))
+    log("build", ", ".join(f"{k}.cu -> {v.name}" for k, v in paths.items())
+        + f", all {len(SOURCES)} at once in {build_s:.1f} s")
+    for name in ("swin_block", "hab_block", "ocab", "rdb_cm"):
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log("build", f"{name}: " + line.strip().replace("ptxas info    : ", ""))
 
     # 3. K1 against its plain version at the flagship shapes
     gen = torch.Generator().manual_seed(seed)
@@ -501,8 +559,149 @@ def main() -> None:
         f"{MICRO * 1e3 / step_ms['module']:.3f} patches/s ({step_ms['module']:.2f} ms/step, "
         f"peak {peak_gb['module']:.2f} GB)")
 
+    # 12. the hybrid's kernels against their plain versions at config #2's shapes
+    bw_hat = HYBRID_BATCH * (128 // 8) ** 2  # 2048 windows: batch 8 of 128x128
+    hgen = torch.Generator().manual_seed(seed + 6)
+    hargs = k1_inputs(hgen, device, bw=bw_hat, c=90, heads=6, hidden=360)
+    conv_x = (0.1 * torch.randn(bw_hat, 64, 90, generator=hgen)).to(device, torch.bfloat16)
+    mask = torch.from_numpy(shift_window_attn_mask(128, 128, 8, 4)).to(device)
+    hkw = dict(num_heads=6, scale=15**-0.5, conv_scale=0.01)
+    k5_err, k5_bound, k5_ms, k5_plain = {}, {}, {}, {}
+    for tag, m in (("unshifted", None), ("shifted", mask)):
+        a = (hargs[0], conv_x, m, *hargs[1:])
+        got = fused_hab_block(*a, **hkw)
+        torch.cuda.synchronize()
+        want = hab_block_reference(*a, **hkw)
+        k5_err[tag] = (got.float() - want.float()).abs().max().item()
+        k5_bound[tag] = K1_TOL * max(1.0, want.float().abs().max().item())
+        k5_ms[tag] = cuda_ms(lambda: fused_hab_block(*a, **hkw))
+        k5_plain[tag] = cuda_ms(lambda: hab_block_reference(*a, **hkw), reps=5, warmup=1, calls=2)
+        if not torch.isfinite(got).all() or not k5_err[tag] <= k5_bound[tag]:
+            raise SystemExit(f"K5 ({tag}) disagrees with its plain version: {k5_err[tag]}")
+    log("k5", f"Bw={bw_hat} C=90 heads=6 hidden=360 bf16 on {card}: " + "; ".join(
+        f"{t}: max|kernel-plain|={k5_err[t]:.3e} (bound {k5_bound[t]:.3e}), kernel "
+        f"{k5_ms[t]:.4f} ms, plain {k5_plain[t]:.4f} ms" for t in k5_err))
+    oargs = [hargs[0], *(torch.randn(bw_hat, n, 90, generator=hgen).to(device, torch.bfloat16)
+                         for n in (64, 144, 144)),
+             (0.5 * torch.randn(6, 64, 144, generator=hgen)).to(device), *hargs[6:]]
+    okw = dict(num_heads=6, scale=15**-0.5)
+    got = fused_ocab_block(*oargs, **okw)
+    torch.cuda.synchronize()
+    want = ocab_block_reference(*oargs, **okw)
+    k6_err = (got.float() - want.float()).abs().max().item()
+    k6_bound = K1_TOL * max(1.0, want.float().abs().max().item())
+    k6_times = (cuda_ms(lambda: fused_ocab_block(*oargs, **okw)),
+                cuda_ms(lambda: ocab_block_reference(*oargs, **okw), reps=5, warmup=1, calls=2))
+    log("k6", f"Bw={bw_hat} nq=64 nk=144 C=90 heads=6 hidden=360 bf16 on {card}: "
+              f"max|kernel-plain|={k6_err:.3e} (bound {k6_bound:.3e}), kernel "
+              f"{k6_times[0]:.4f} ms, plain {k6_times[1]:.4f} ms")
+    if not torch.isfinite(got).all() or not k6_err <= k6_bound:
+        raise SystemExit(f"K6 disagrees with its plain version: {k6_err} > {k6_bound}")
+    del hargs, conv_x, oargs, got, want
+    rgen = np.random.default_rng(seed + 7)
+    f, g = HYBRID["num_feat"], HYBRID["num_grow_ch"]
+    xr = torch.from_numpy(0.5 * rgen.standard_normal((HYBRID_BATCH, f, 256 * 256)).astype(
+        np.float32)).to(device, torch.bfloat16)
+    ks = [torch.from_numpy((rgen.standard_normal((3, 3, f + i * g, g if i < 4 else f))
+                            * np.sqrt(2.0 / (9 * (f + i * g)))).astype(np.float32)).to(device)
+          for i in range(5)]
+    bs = [torch.from_numpy((0.05 * rgen.standard_normal(g if i < 4 else f)).astype(np.float32))
+          .to(device) for i in range(5)]
+    rkw = dict(h=256, w=256)
+    got = fused_rdb_cm(xr, ks, bs, **rkw)
+    torch.cuda.synchronize()
+    want = rdb_cm_reference(xr, ks, bs, **rkw)
+    k7_err = (got.float() - want.float()).abs().max().item()
+    k7_bound = K1_TOL * max(1.0, want.float().abs().max().item())
+    k7_times = (cuda_ms(lambda: fused_rdb_cm(xr, ks, bs, **rkw), reps=10),
+                cuda_ms(lambda: rdb_cm_reference(xr, ks, bs, **rkw), reps=5, warmup=1, calls=2))
+    log("k7", f"B={HYBRID_BATCH} F={f} G={g} 256x256 bf16 on {card}: max|kernel-plain|="
+              f"{k7_err:.3e} (bound {k7_bound:.3e}), kernel {k7_times[0]:.4f} ms, plain "
+              f"{k7_times[1]:.4f} ms (fp32 convs, no TF32)")
+    if not torch.isfinite(got).all() or not k7_err <= k7_bound:
+        raise SystemExit(f"K7 disagrees with its plain version: {k7_err} > {k7_bound}")
+    del xr, ks, bs, got, want
+    torch.cuda.empty_cache()
+
+    # 13. the hybrid slice through the CLI (its main path: counts from 0)
+    hybrid = HybridHATRealESRGAN(**HYBRID, generator=torch.Generator().manual_seed(seed))
+    hat_counters = (fused_hab_block, fused_ocab_block, fused_rdb_cm)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_split(root / "data", np.random.default_rng(seed), {"test": N_IMAGES})
+        run = root / "outputs" / "T1_DDP_SwinIR"
+        (run / "checkpoints").mkdir(parents=True)
+        torch.save({"model_state_dict": hybrid.state_dict()},
+                   run / "checkpoints" / "best_hybrid_model.pth")
+        for fn in hat_counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        result = cli_main(["infer", "--arch", "hat", "--impl", "fused", "--folder", str(run),
+                           "--data-root", str(root / "data")])
+        torch.cuda.synchronize()
+        hat_s = time.perf_counter() - t0
+        hat_launches = {fn.__name__: fn.launches for fn in hat_counters}
+        out = run / "test_results"
+        missing = [f"test_{i:04d}_{s_}" for i in range(N_IMAGES) for s_ in ("sr.tiff", "tris.png")
+                   if not (out / f"test_{i:04d}_{s_}").exists()]
+        if not (out / "test_metrics.csv").exists():
+            missing.append("test_metrics.csv")
+        csv_rows = (out / "test_metrics.csv").read_text().strip().splitlines() if not missing else []
+        log("hat-slice", f"infer --arch hat --impl fused: {result['num_images']} images, "
+                         f"PSNR={result['psnr']:.4f} dB SSIM={result['ssim']:.6f}, launches "
+                         + ", ".join(f"{k} {v}" for k, v in hat_launches.items())
+                         + f", {hat_s:.2f} s wall; test_metrics.csv rows {len(csv_rows) - 1}")
+        if missing or result["num_images"] != N_IMAGES or len(csv_rows) != N_IMAGES + 1:
+            raise SystemExit(f"hat infer artifacts missing: {missing}, csv rows {len(csv_rows)}")
+        if not (np.isfinite(result["psnr"]) and np.isfinite(result["ssim"])):
+            raise SystemExit("hat infer metrics are not finite")
+        for fn, per_image in zip(hat_counters, (24, 4, 36)):
+            if hat_launches[fn.__name__] != per_image * N_IMAGES:
+                raise SystemExit(f"expected {per_image * N_IMAGES} {fn.__name__} launches, "
+                                 f"counted {hat_launches[fn.__name__]}")
+
+    # 14. fused bf16 hybrid against the fp32 module, one patch
+    hybrid = hybrid.to(device).eval()
+    fused_h = make_fused_hybrid(hybrid)
+    hybrid16 = copy.deepcopy(hybrid).to(torch.bfloat16)
+    with torch.no_grad():
+        ref = hybrid(x)
+        got = fused_h(x).float()
+        ref16 = hybrid16(x.to(torch.bfloat16)).float()
+    if got.shape != (1, 512, 512, 1) or not torch.isfinite(got).all():
+        raise SystemExit(f"fused hybrid gave {tuple(got.shape)} or non-finite values")
+    rel, rel16 = rel_l2(got, ref), rel_l2(ref16, ref)
+    log("hat-forward", f"128->512, rel L2 to the fp32 module: fused bf16 {rel:.3e}, "
+                       f"nn.Module bf16 {rel16:.3e} (bound max({FORWARD_REL_L2}, 2x)); fused "
+                       f"max abs {(got - ref).abs().max().item():.3e}")
+    if not rel <= max(FORWARD_REL_L2, 2 * rel16):
+        raise SystemExit(f"fused hybrid disagrees with the module: {rel} vs {rel16}")
+    del ref, got, ref16
+
+    # 15. hybrid throughput at batch 8 and the fused forward's profile
+    x8 = x.repeat(HYBRID_BATCH, 1, 1, 1)
+    torch.cuda.reset_peak_memory_stats()
+    hyb_ms = cuda_ms(lambda: fused_h(x8), reps=5, warmup=2, calls=2)
+    hyb_peak = torch.cuda.max_memory_allocated() / 1e9
+    x8_16 = x8.to(torch.bfloat16)
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        hyb16_ms = cuda_ms(lambda: hybrid16(x8_16), reps=5, warmup=2, calls=2)
+        hyb16_peak = torch.cuda.max_memory_allocated() / 1e9
+    log("hat-throughput", f"batch {HYBRID_BATCH}, 128->512 on {card}: fused "
+        f"{HYBRID_BATCH * 1e3 / hyb_ms:.3f} patches/s ({hyb_ms:.3f} ms, peak {hyb_peak:.2f} GB), "
+        f"nn.Module bf16 {HYBRID_BATCH * 1e3 / hyb16_ms:.3f} patches/s ({hyb16_ms:.3f} ms, "
+        f"peak {hyb16_peak:.2f} GB)")
+    ops, busy_ms, idle = device_profile(lambda: fused_h(x8))
+    log("hat-profile", f"fused hybrid forward, batch {HYBRID_BATCH} on {card}: device busy "
+                       f"{busy_ms:.3f} ms per forward, idle share {idle:.4f}; top device ops: "
+                       + "; ".join(f"{name[:60]} {t:.3f} ms x{n}" for name, t, n in ops[:10]))
+    del hybrid, hybrid16, fused_h, x8, x8_16
+    torch.cuda.empty_cache()
+
     work = block_work(768)
     work.update({k: v for k, v in block_work(bw_train).items() if k != "K1"})
+    work.update(hat_work(bw_hat))
     rows = [
         ("fused_swin_block", "K1", "swin_block.cu", 1220, launches, err, (k1_ms, plain_ms)),
         ("swin_block_fwd_h", "K2", "swin_block.cu", 918, train_launches["swin_block_fwd_h"],
@@ -511,16 +710,27 @@ def main() -> None:
          train_launches["swin_block_bwd_mlp"], k3_err, times["K3"]),
         ("swin_block_bwd_attn", "K4", "swin_block_train.cu", 989,
          train_launches["swin_block_bwd_attn"], k4_err, times["K4"]),
+        # K5's time is the mean of its unshifted and shifted calls, half each
+        # on the main path
+        ("fused_hab_block", "K5", "hab_block.cu", 310, hat_launches["fused_hab_block"],
+         max(k5_err.values()), (statistics.mean(k5_ms.values()),
+                                statistics.mean(k5_plain.values()))),
+        ("fused_ocab_block", "K6", "ocab.cu", 145, hat_launches["fused_ocab_block"], k6_err,
+         k6_times),
+        ("fused_rdb_cm", "K7", "rdb_cm.cu", 186, hat_launches["fused_rdb_cm"], k7_err, k7_times),
     ]
+    replaced = {"K5": SWIN, "K6": "superresolution_def_tpu/kernels/ocab.py",
+                "K7": "superresolution_def_tpu/kernels/fused_rdb_cm.py"}
     records = []
     for name, key, src, line, n, e, (ms, pms) in rows:
         bms, by = least_ms(work[key])
         records.append({
             "name": name, "route": "cuda",
             "source": f"superresolution_def_tpu_torch/csrc/{src}",
-            "replaces": f"{SWIN}:{line}", "launches": n, "max_abs_err": e, "ms": ms,
-            "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-            # no single PyTorch call computes a whole Swin block or its backward
+            "replaces": f"{replaced.get(key, SWIN)}:{line}", "launches": n, "max_abs_err": e,
+            "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            # no single PyTorch call computes a whole Swin/HAB block, its
+            # backward, an OCAB tail or a dense block
             "library_ms": None,
         })
     print(json.dumps({"kernels": records}), flush=True)

@@ -1,13 +1,15 @@
-"""Evaluate a trained SwinIR run on its test split (the JAX ``cli/infer.py``).
+"""Evaluate a trained SwinIR or HAT-hybrid run on its test split (the JAX ``cli/infer.py``).
 
-- checkpoint discovery in the JAX package's order for ``.pth`` files
-  (``best_gan_model.pth`` -> ``latest_checkpoint.pth`` -> any ``*.pth``, in
-  ``checkpoints/`` and the run folder), with ``module.``-strip and
-  shape-sniffed hyperparameters. Orbax checkpoints need jax and are not read;
+- checkpoint discovery in the JAX package's order for ``.pth`` files, in
+  ``checkpoints/`` and the run folder: for SwinIR ``best_gan_model.pth`` ->
+  ``latest_checkpoint.pth``, for the hybrid ``best_hybrid_model.pth``; then
+  ``hybrid_epoch_*.pth`` newest first, then any ``*.pth``; with
+  ``module.``-strip and shape-sniffed hyperparameters. Orbax checkpoints need
+  jax and are not read;
 - targets from the run-folder name (strip ``_DDP_SwinIR``, split on '_');
 - per image: SR -> nan_to_num -> clamp [0, 1] -> ``test_NNNN_sr.tiff``, the
   ``test_NNNN_tris.png`` comparison strip and PSNR/SSIM accumulation, plus
-  ``test_metrics.csv`` [ID, PSNR, SSIM] when asked.
+  ``test_metrics.csv`` [ID, PSNR, SSIM] (by default for the hybrid only).
 """
 
 from __future__ import annotations
@@ -19,15 +21,25 @@ from pathlib import Path
 import torch
 
 from ..data import DataIterator, PatchDataset, load_manifest, write_tiff_u16
-from ..kernels import make_fused_swinir
-from ..models import SwinIR, detect_swinir_params, load_torch_state_dict
+from ..kernels import make_fused_hybrid, make_fused_swinir
+from ..models import (
+    HybridHATRealESRGAN,
+    SwinIR,
+    detect_hybrid_params,
+    detect_swinir_params,
+    load_torch_state_dict,
+)
 from ..obs import save_tris_preview
 from ..ops.metrics import TrainMetrics, psnr, ssim
 
 
-def _torch_candidates(folder: Path) -> list[Path]:
+ARCHES = ("swin", "hat")
+
+
+def _torch_candidates(folder: Path, arch: str) -> list[Path]:
     ck = folder / "checkpoints"
-    names = ["best_gan_model.pth", "latest_checkpoint.pth"]
+    names = ["best_gan_model.pth", "latest_checkpoint.pth"] if arch == "swin" else [
+        "best_hybrid_model.pth"]
     out = [p for n in names for p in [ck / n, folder / n] if p.exists()]
     for base in (ck, folder):
         out += sorted(base.glob("hybrid_epoch_*.pth"), reverse=True)
@@ -44,24 +56,38 @@ def resolve_device(device: torch.device | str) -> torch.device:
     return device
 
 
-def load_generator(folder: str | Path, device: torch.device | str = "cuda"):
-    """Returns ``(model, info)``: the first loadable SwinIR ``.pth`` of ``folder``."""
+def _build(arch: str, sd) -> tuple[torch.nn.Module, dict]:
+    if arch == "swin":
+        det = detect_swinir_params(sd)
+        return SwinIR(
+            img_size=128, in_chans=1, embed_dim=det["embed_dim"],
+            depths=det["depths"], num_heads=det["num_heads"],
+            window_size=8, mlp_ratio=det["mlp_ratio"], upscale=4,
+        ), det
+    det = detect_hybrid_params(sd)
+    return HybridHATRealESRGAN(
+        img_size=128, in_chans=1, embed_dim=det["embed_dim"], depths=det["depths"],
+        num_heads=det["num_heads"], window_size=det["window_size"], num_rrdb=det["num_rrdb"],
+        num_feat=det["num_feat"], num_grow_ch=det["num_grow_ch"],
+    ), det
+
+
+def load_generator(folder: str | Path, device: torch.device | str = "cuda", arch: str = "swin"):
+    """Returns ``(model, info)``: the first loadable ``.pth`` of ``folder``
+    for ``arch`` ('swin': SwinIR, 'hat': HybridHATRealESRGAN)."""
+    if arch not in ARCHES:
+        raise ValueError(f"arch must be one of {ARCHES}, got {arch!r}")
     folder = Path(folder)
-    for cand in _torch_candidates(folder):
+    for cand in _torch_candidates(folder, arch):
         try:
             sd = load_torch_state_dict(str(cand))
         except (OSError, RuntimeError, EOFError, ValueError, pickle.UnpicklingError):
             continue
-        det = detect_swinir_params(sd)
-        model = SwinIR(
-            img_size=128, in_chans=1, embed_dim=det["embed_dim"],
-            depths=det["depths"], num_heads=det["num_heads"],
-            window_size=8, mlp_ratio=det["mlp_ratio"], upscale=4,
-        )
+        model, det = _build(arch, sd)
         # reference checkpoints may carry extra buffers (index tables, masks)
         missing = set(model.state_dict()) - set(sd)
         if missing:
-            raise KeyError(f"{cand}: missing SwinIR weights {sorted(missing)[:5]}")
+            raise KeyError(f"{cand}: missing {arch} weights {sorted(missing)[:5]}")
         model.load_state_dict(sd, strict=False)
         model = model.to(device).eval()
         return model, {"source": str(cand), "format": "torch", "detected": det}
@@ -81,25 +107,26 @@ def run_test(
     lr_size: int = 128,
     hr_size: int = 512,
     limit: int | None = None,
-    write_csv: bool = False,
+    write_csv: bool | None = None,
     manifest: str | None = None,
     impl: str | None = None,
     device: torch.device | str = "cuda",
 ) -> dict:
     """Evaluate a run folder on its targets' test split and write artifacts.
 
-    ``impl='fused'`` routes every Swin block through the fused-block kernel in
-    bf16; otherwise the fp32 ``nn.Module`` forward runs. It runs on
-    ``device``, the card unless the caller asks for the CPU.
+    ``impl='fused'`` runs bf16 through the fused kernels (SwinIR: every Swin
+    block through K1; the hybrid: HABs through K5, OCAB tails through K6, the
+    RRDB trunk through K7); otherwise the fp32 ``nn.Module`` forward runs. It
+    runs on ``device``, the card unless the caller asks for the CPU.
+    ``write_csv=None`` writes ``test_metrics.csv`` for the hybrid only, as the
+    JAX package does.
     """
-    if arch != "swin":
-        raise NotImplementedError(f"arch {arch!r} is not ported yet; only 'swin' is")
     device = resolve_device(device)
     folder = Path(folder)
-    model, info = load_generator(folder, device)
+    model, info = load_generator(folder, device, arch)
     forward = model
     if impl == "fused":
-        forward = make_fused_swinir(model)
+        forward = (make_fused_swinir if arch == "swin" else make_fused_hybrid)(model)
         info["impl"] = "fused"
 
     if manifest is not None:
@@ -117,6 +144,8 @@ def run_test(
 
     out_dir = folder / "test_results"
     out_dir.mkdir(parents=True, exist_ok=True)
+    if write_csv is None:
+        write_csv = arch == "hat"
     csv_rows = []
     metrics = TrainMetrics()
 

@@ -1,8 +1,9 @@
-"""Command-line entry of the port: ``train`` and ``infer`` for SwinIR.
+"""Command-line entry of the port: ``train`` for SwinIR, ``infer`` for SwinIR
+and the HAT hybrid.
 
   python -m superresolution_def_tpu_torch.cli.main train --arch swin \
       --target T1 [--bf16] [--batch-size 8] [--accum-steps 1] [--epochs 300]
-  python -m superresolution_def_tpu_torch.cli.main infer --arch swin \
+  python -m superresolution_def_tpu_torch.cli.main infer --arch {swin,hat} \
       [--impl fused] [--folder RUN] [--data-root DATA]
 
 The flags are those of the JAX ``sr train`` / ``sr infer``, plus ``--device``:
@@ -86,7 +87,7 @@ def main(argv=None) -> dict:
 
     pt = sub.add_parser("train", help="train a GAN generator")
     pt.add_argument("--arch", choices=["swin"], default="swin",
-                    help="generator architecture (the HAT hybrid is not ported yet)")
+                    help="generator architecture (training the HAT hybrid is not ported yet)")
     pt.add_argument("--target", default=None, help="comma-separated targets")
     pt.add_argument("--data-root", default="data")
     pt.add_argument("--outputs-root", default="outputs")
@@ -105,8 +106,8 @@ def main(argv=None) -> dict:
     pt.add_argument("--max-steps-per-epoch", type=int, default=None)
 
     pi = sub.add_parser("infer", help="evaluate a trained run on its test split")
-    pi.add_argument("--arch", choices=["swin"], default="swin",
-                    help="generator architecture (the HAT hybrid is not ported yet)")
+    pi.add_argument("--arch", choices=["swin", "hat"], default="swin",
+                    help="generator architecture: 'swin' (SwinIR) or 'hat' (HybridHATRealESRGAN)")
     pi.add_argument("--folder", default=None)
     pi.add_argument("--data-root", default="data")
     pi.add_argument("--outputs-root", default="outputs")
@@ -118,8 +119,8 @@ def main(argv=None) -> dict:
     pi.add_argument("--manifest", default=None)
     pi.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     pi.add_argument("--impl", choices=["fused"], default=None,
-                    help="'fused' = every Swin block through the fused-block CUDA "
-                         "kernel, bf16")
+                    help="'fused' = bf16 through the CUDA kernels (SwinIR: the fused "
+                         "Swin block; hat: the HAB, OCAB and dense-block kernels)")
 
     args = p.parse_args(argv)
     return cmd_train(args) if args.cmd == "train" else cmd_infer(args)

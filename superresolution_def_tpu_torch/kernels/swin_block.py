@@ -537,6 +537,16 @@ def _gather_rows(x2d: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     return x2d.view(word)[index].view(x2d.dtype)
 
 
+@functools.cache
+def token_order(b: int, h: int, w: int, ws: int, shift: int,
+                device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Roll by -shift then ws x ws window partition, as one permutation of the
+    b*h*w token rows (window slot i holds row fwd[i]), and its inverse."""
+    idx = torch.arange(b * h * w, device=device).reshape(b, h, w, 1)
+    fwd = window_partition(torch.roll(idx, (-shift, -shift), dims=(1, 2)), ws).reshape(-1)
+    return fwd, torch.argsort(fwd)
+
+
 class _GatherRows(torch.autograd.Function):
     """Row permutation whose backward is the same word-view gather with the
     inverse permutation (exact: it only moves data)."""
@@ -607,22 +617,10 @@ def make_fused_swinir(model, *, dtype: torch.dtype = torch.bfloat16,
     def conv3(wb, x):
         return F.conv2d(x.permute(0, 3, 1, 2), wb[0], wb[1], padding=1).permute(0, 2, 3, 1)
 
-    orders = {}
-
-    def token_order(b, h, w, shift, device):
-        """Roll by -shift then window partition, as one permutation of the
-        b*h*w token rows (window slot i holds row fwd[i]), and its inverse."""
-        key = (b, h, w, shift, device)
-        if key not in orders:
-            idx = torch.arange(b * h * w, device=device).reshape(b, h, w, 1)
-            fwd = window_partition(torch.roll(idx, (-shift, -shift), dims=(1, 2)), ws).reshape(-1)
-            orders[key] = fwd, torch.argsort(fwd)
-        return orders[key]
-
     def block(args, heads, shift, x):
         # the rolls and the window partition/reverse as one gather each way
         b, h, w, c = x.shape
-        fwd, inv = token_order(b, h, w, shift, x.device)
+        fwd, inv = token_order(b, h, w, ws, shift, x.device)
         scale = (c // heads) ** -0.5
         if torch.is_grad_enabled():
             xw = _GatherRows.apply(x.reshape(-1, c), fwd, inv).reshape(-1, n, c)

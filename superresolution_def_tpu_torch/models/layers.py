@@ -27,6 +27,19 @@ def conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
+def attention(q, k, v, bias, mask=None):
+    """Softmax attention of (Bw, heads, Nq, d) queries, already scaled, with
+    an additive (heads, Nq, Nk) bias and an optional (nW, Nq, Nk) mask tiled
+    over the batch of windows; softmax in fp32, the rest in q's dtype."""
+    attn = q @ k.transpose(-1, -2) + bias.to(q.dtype)
+    if mask is not None:
+        bw, h, n, m = attn.shape
+        nw = mask.shape[0]
+        attn = (attn.reshape(bw // nw, nw, h, n, m) + mask.to(q.dtype)[None, :, None]).reshape(
+            bw, h, n, m)
+    return torch.softmax(attn.float(), dim=-1).to(q.dtype) @ v
+
+
 @torch.no_grad()
 def reset_torch_default_(module: nn.Module, generator: torch.Generator) -> None:
     """Re-draw every Conv2d/Linear of ``module`` as torch's default init does."""

@@ -32,7 +32,7 @@ from ..ops import (
     window_partition,
     window_reverse,
 )
-from .layers import Mlp, conv_nhwc, reset_torch_default_, trunc_normal_
+from .layers import Mlp, attention, conv_nhwc, reset_torch_default_, trunc_normal_
 
 
 class WindowAttention(nn.Module):
@@ -53,12 +53,9 @@ class WindowAttention(nn.Module):
         h = self.num_heads
         d = c // h
         qkv = self.qkv(x).reshape(bw, n, 3, h, d).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0] * d**-0.5, qkv[1], qkv[2]
         bias = relative_position_bias(self.relative_position_bias_table, self.window_size)
-        attn = q @ k.transpose(-1, -2) + bias.to(q.dtype)
-        attn = torch.softmax(attn.float(), dim=-1).to(q.dtype)
-        out = (attn @ v).transpose(1, 2).reshape(bw, n, c)
-        return self.proj(out)
+        out = attention(qkv[0] * d**-0.5, qkv[1], qkv[2], bias)
+        return self.proj(out.transpose(1, 2).reshape(bw, n, c))
 
 
 class SwinTransformerBlock(nn.Module):

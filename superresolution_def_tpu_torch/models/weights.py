@@ -1,12 +1,15 @@
-"""Checkpoint loading, SwinIR shape sniffing, and the JAX -> torch weight bridge.
+"""Checkpoint loading, shape sniffing, and the JAX -> torch weight bridge.
 
-``unwrap_state_dict``, ``load_torch_state_dict`` and ``detect_swinir_params``
-are the JAX package's ``models/torch_port.py`` helpers working on tensors.
-:func:`swinir_state_dict_from_jax` is the exact inverse of its
-``swinir_from_torch``: it turns the JAX SwinIR params tree (numpy arrays)
-into this package's ``state_dict``; :func:`discriminator_swin_state_dict_from_jax`
-and :func:`vgg19_state_dict_from_jax` invert ``discriminator_swin_from_torch``
-and ``vgg19_from_torch`` the same way.
+``unwrap_state_dict``, ``load_torch_state_dict``, ``detect_swinir_params``
+and ``detect_hybrid_params`` are the JAX package's ``models/torch_port.py``
+helpers working on tensors. :func:`swinir_state_dict_from_jax` is the exact
+inverse of its ``swinir_from_torch``: it turns the JAX SwinIR params tree
+(numpy arrays) into this package's ``state_dict``;
+:func:`hat_state_dict_from_jax`, :func:`hybrid_state_dict_from_jax`,
+:func:`discriminator_swin_state_dict_from_jax` and
+:func:`vgg19_state_dict_from_jax` invert ``hat_from_torch``,
+``hybrid_from_torch``, ``discriminator_swin_from_torch`` and
+``vgg19_from_torch`` the same way.
 """
 
 from __future__ import annotations
@@ -148,4 +151,111 @@ def vgg19_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tens
         i = int(name.split("_")[1])
         out[f"features.{i}.weight"] = _t(p["kernel"]).permute(3, 2, 0, 1).contiguous()
         out[f"features.{i}.bias"] = _t(p["bias"])
+    return out
+
+
+def detect_hybrid_params(sd: Mapping[str, torch.Tensor]) -> dict:
+    """Shape-sniff the HybridHATRealESRGAN config (reference infer_hat.py:52-112).
+
+    The 'Soft' train config where keys are missing; the stage count from the
+    ``hat.layers.{i}`` keys, assuming 6 blocks and 6 heads per stage, as the
+    reference does.
+    """
+    params: dict[str, Any] = {
+        "embed_dim": 90, "depths": (6, 6, 6, 6), "num_heads": (6, 6, 6, 6), "window_size": 8,
+        "num_rrdb": 12, "num_feat": 48, "num_grow_ch": 24,
+    }
+    if "hat.conv_first.weight" in sd:
+        params["embed_dim"] = int(sd["hat.conv_first.weight"].shape[0])
+    if "conv_adapt.weight" in sd:
+        params["num_feat"] = int(sd["conv_adapt.weight"].shape[0])
+    if "rrdb_trunk.0.rdb1.conv1.weight" in sd:
+        params["num_grow_ch"] = int(sd["rrdb_trunk.0.rdb1.conv1.weight"].shape[0])
+    n_rrdb = n_stages = -1
+    for k in sd:
+        parts = k.split(".")
+        try:
+            if k.startswith("rrdb_trunk."):
+                n_rrdb = max(n_rrdb, int(parts[1]))
+            if k.startswith("hat.layers."):
+                n_stages = max(n_stages, int(parts[2]))
+        except (ValueError, IndexError):
+            continue
+    if n_rrdb >= 0:
+        params["num_rrdb"] = n_rrdb + 1
+    if n_stages >= 0:
+        params["depths"] = (6,) * (n_stages + 1)
+        params["num_heads"] = (6,) * (n_stages + 1)
+    return params
+
+
+def _hab(out, key, p) -> None:
+    _ln(out, key + ".norm1", p["norm1"])
+    _ln(out, key + ".norm2", p["norm2"])
+    _dense(out, key + ".mlp.fc1", p["mlp"]["fc1"])
+    _dense(out, key + ".mlp.fc2", p["mlp"]["fc2"])
+    _dense(out, key + ".attn.qkv", p["attn"]["qkv"])
+    _dense(out, key + ".attn.proj", p["attn"]["proj"])
+    out[key + ".attn.relative_position_bias_table"] = _t(
+        p["attn"]["relative_position_bias_table"])
+    cab = p["conv_block"]  # torch CAB Sequential: 0 conv, 1 GELU, 2 conv, 3 ChannelAttention
+    _conv(out, key + ".conv_block.cab.0", cab["conv1"])
+    _conv(out, key + ".conv_block.cab.2", cab["conv2"])
+    _conv(out, key + ".conv_block.cab.3.attention.1", cab["ca"]["ca_fc1"])
+    _conv(out, key + ".conv_block.cab.3.attention.3", cab["ca"]["ca_fc2"])
+
+
+def _ocab(out, key, p) -> None:
+    _ln(out, key + ".norm1", p["norm1"])
+    _ln(out, key + ".norm2", p["norm2"])
+    _dense(out, key + ".mlp.fc1", p["mlp"]["fc1"])
+    _dense(out, key + ".mlp.fc2", p["mlp"]["fc2"])
+    _dense(out, key + ".qkv", p["qkv"])
+    _dense(out, key + ".proj", p["proj"])
+    out[key + ".relative_position_bias_table"] = _t(p["relative_position_bias_table"])
+
+
+def hat_state_dict_from_jax(params: Mapping[str, Any], prefix: str = "") -> dict[str, torch.Tensor]:
+    """The JAX ``models.hat.HAT`` params tree -> this package's ``state_dict``
+    (keys under ``prefix``): the inverse of ``hat_from_torch``."""
+    out: dict[str, torch.Tensor] = {}
+    _conv(out, prefix + "conv_first", params["conv_first"])
+    _ln(out, prefix + "norm", params["norm"])
+    _conv(out, prefix + "conv_after_body", params["conv_after_body"])
+    if "patch_norm" in params:
+        _ln(out, prefix + "patch_embed.norm", params["patch_norm"])
+    if "conv_before_upsample" in params:
+        _conv(out, prefix + "conv_before_upsample.0", params["conv_before_upsample"])
+        _conv(out, prefix + "conv_last", params["conv_last"])
+    s = 0
+    while f"upsample_{s}" in params:
+        _conv(out, prefix + f"upsample.{2 * s}", params[f"upsample_{s}"])
+        s += 1
+    i = 0
+    while f"layers_{i}" in params:
+        layer = params[f"layers_{i}"]
+        _conv(out, prefix + f"layers.{i}.conv", layer["conv"])
+        rg = prefix + f"layers.{i}.residual_group"
+        j = 0
+        while f"blocks_{j}" in layer:
+            _hab(out, f"{rg}.blocks.{j}", layer[f"blocks_{j}"])
+            j += 1
+        _ocab(out, f"{rg}.overlap_attn", layer["overlap_attn"])
+        i += 1
+    return out
+
+
+def hybrid_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The JAX ``models.hybrid.HybridHATRealESRGAN`` params tree -> this
+    package's ``state_dict``: the inverse of ``hybrid_from_torch``."""
+    out = hat_state_dict_from_jax(params["hat"], prefix="hat.")
+    for name in ("conv_adapt", "conv_body", "conv_up", "conv_hr", "conv_last"):
+        _conv(out, name, params[name])
+    r = 0
+    while f"rrdb_trunk_{r}" in params:
+        for b in range(1, 4):
+            for c in range(1, 6):
+                _conv(out, f"rrdb_trunk.{r}.rdb{b}.conv{c}",
+                      params[f"rrdb_trunk_{r}"][f"rdb{b}"][f"conv{c}"])
+        r += 1
     return out

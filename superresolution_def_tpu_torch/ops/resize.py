@@ -1,8 +1,9 @@
-"""Bilinear interpolation with torch ``interpolate`` semantics, NHWC (the JAX ``ops/resize.py``).
+"""Nearest and bilinear resizing with torch ``interpolate`` semantics, NHWC (the JAX ``ops/resize.py``).
 
 Separable: a dense (out, in) weight matrix per axis, applied as two
 products over H then W. The swin discriminator uses it with
-``align_corners=True`` only when a skip's size differs from the upsampled one.
+``align_corners=True`` only when a skip's size differs from the upsampled one;
+the hybrid's head upsamples its trunk with :func:`resize_nearest`.
 """
 
 from __future__ import annotations
@@ -32,6 +33,14 @@ def _linear_weights(out_size: int, in_size: int, align_corners: bool) -> np.ndar
     np.add.at(w, (rows, lo), 1.0 - frac)
     np.add.at(w, (rows, hi), frac)
     return w
+
+
+def resize_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H*scale, W*scale, C): torch 'nearest' at an integer
+    factor, each pixel repeated scale x scale."""
+    b, h, w, c = x.shape
+    x = x[:, :, None, :, None, :].expand(b, h, scale, w, scale, c)
+    return x.reshape(b, h * scale, w * scale, c)
 
 
 def interpolate_bilinear(x: torch.Tensor, size: tuple[int, int],

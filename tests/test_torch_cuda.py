@@ -8,7 +8,11 @@ so run them there without it:
 
 Each kernel is checked at widths that take each of its code paths: one, two,
 three and four 64-column chunks of the residual, an odd head count, head_dim
-30 padded to 32, a hidden width that is not a tile multiple.
+30 padded to 32, a hidden width that is not a tile multiple. The HAT kernels
+K5 (HAB, shifted and unshifted) and K6 (OCAB tail) run at C = 90 (head_dim
+15, padded to 16), 30 (head_dim 5) and 180 with six heads; K7 (dense block)
+at F/G = 48/24, 64/32 and 16/8, on images 256 and 64 wide whose height is
+not a multiple of the kernel's tile. K5, K6 and K7 are held to K1's bound.
 
 Bounds. K1 and K2: bf16 io rounds the output to 8 significant bits, and
 kernel and plain version sum in different orders, so max |kernel - plain|
@@ -32,7 +36,12 @@ import pytest
 import torch
 
 from superresolution_def_tpu_torch.kernels import (
+    fused_hab_block,
+    fused_ocab_block,
+    fused_rdb_cm,
     fused_swin_block,
+    hab_block_reference,
+    make_fused_hybrid,
     make_fused_swinir,
     swin_block_bwd_attn,
     swin_block_bwd_attn_reference,
@@ -40,9 +49,12 @@ from superresolution_def_tpu_torch.kernels import (
     swin_block_bwd_mlp_reference,
     swin_block_fwd_h,
     swin_block_fwd_h_reference,
+    ocab_block_reference,
+    rdb_cm_reference,
     swin_block_reference,
 )
-from superresolution_def_tpu_torch.models import SwinIR
+from superresolution_def_tpu_torch.models import HybridHATRealESRGAN, SwinIR
+from superresolution_def_tpu_torch.ops import shift_window_attn_mask
 
 pytestmark = pytest.mark.cuda
 
@@ -247,3 +259,155 @@ def test_differentiable_fused_swinir_backward_matches_module(device):
     with torch.no_grad():  # evaluation under no_grad goes through K1
         fused(x)
     assert fused_swin_block.launches == counts[3] + 4
+
+
+def _hat_operands(seed, bw, c, heads, hidden, device, nk=None):
+    """K5 operands (x, conv_x, then the 13 block parameters) or, with nk, K6
+    operands (x, q, k, v, bias, then proj/LN2/MLP), numpy-seeded."""
+    rng = np.random.default_rng(seed)
+
+    def t(a, bf16=False):
+        out = torch.from_numpy(np.asarray(a, dtype=np.float32)).to(device)
+        return out.to(torch.bfloat16) if bf16 else out
+
+    def u(*shape, fan_in):
+        return rng.uniform(-1, 1, shape) / np.sqrt(fan_in)
+
+    tail = [t(u(c, c, fan_in=c), bf16=True), t(u(c, fan_in=c)),
+            t(1 + 0.1 * rng.standard_normal(c)), t(0.1 * rng.standard_normal(c)),
+            t(u(c, hidden, fan_in=c), bf16=True), t(u(hidden, fan_in=c)),
+            t(u(hidden, c, fan_in=hidden), bf16=True), t(u(c, fan_in=hidden))]
+    if nk is not None:
+        return [t(rng.standard_normal((bw, 64, c)), bf16=True),
+                t(rng.standard_normal((bw, 64, c)), bf16=True),
+                t(rng.standard_normal((bw, nk, c)), bf16=True),
+                t(rng.standard_normal((bw, nk, c)), bf16=True),
+                t(0.5 * rng.standard_normal((heads, 64, nk)))] + tail
+    return [t(rng.standard_normal((bw, 64, c)), bf16=True),
+            t(rng.standard_normal((bw, 64, c)), bf16=True),
+            t(1 + 0.1 * rng.standard_normal(c)), t(0.1 * rng.standard_normal(c)),
+            t(u(c, 3 * c, fan_in=c), bf16=True), t(u(3 * c, fan_in=c)),
+            t(0.5 * rng.standard_normal((heads, 64, 64)))] + tail
+
+
+HAT_WIDTHS = [
+    (16, 90, 6, 360),   # HAT's widths: head_dim 15, padded to 16
+    (8, 30, 6, 60),     # head_dim 5, padded to 6
+    (4, 180, 6, 720),   # head_dim 30, padded to 32
+]
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("bw,c,heads,hidden", HAT_WIDTHS)
+def test_hab_kernel_matches_plain_version(device, bw, c, heads, hidden, shifted):
+    x, convx, *params = _hat_operands(c + heads, bw, c, heads, hidden, device)
+    # the mask of one 16x16 image: four windows, so Bw holds several images
+    mask = torch.from_numpy(shift_window_attn_mask(16, 16, 8, 4)).to(device) if shifted else None
+    kw = dict(num_heads=heads, scale=(c // heads) ** -0.5, conv_scale=0.01)
+    before = fused_hab_block.launches
+    got = fused_hab_block(x, convx, mask, *params, **kw)
+    torch.cuda.synchronize()
+    assert fused_hab_block.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (bw, 64, c)
+    want = hab_block_reference(x, convx, mask, *params, **kw).float()
+    err = (got.float() - want).abs().max().item()
+    assert err <= K1_TOL * max(1.0, want.abs().max().item()), err
+
+
+@pytest.mark.parametrize("bw,c,heads,hidden", HAT_WIDTHS)
+def test_ocab_kernel_matches_plain_version(device, bw, c, heads, hidden):
+    args = _hat_operands(c + heads + 1, bw, c, heads, hidden, device, nk=144)
+    kw = dict(num_heads=heads, scale=(c // heads) ** -0.5)
+    before = fused_ocab_block.launches
+    got = fused_ocab_block(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_ocab_block.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (bw, 64, c)
+    want = ocab_block_reference(*args, **kw).float()
+    err = (got.float() - want).abs().max().item()
+    assert err <= K1_TOL * max(1.0, want.abs().max().item()), err
+
+
+def _rdb_operands(seed, b, f, g, h, w, device):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(0.5 * rng.standard_normal((b, f, h * w)).astype(np.float32))
+    ks = [torch.from_numpy((rng.standard_normal((3, 3, f + i * g, g if i < 4 else f))
+                            * np.sqrt(2.0 / (9 * (f + i * g)))).astype(np.float32)).to(device)
+          for i in range(5)]
+    bs = [torch.from_numpy((0.05 * rng.standard_normal(g if i < 4 else f)).astype(np.float32))
+          .to(device) for i in range(5)]
+    return x.to(device, torch.bfloat16), ks, bs
+
+
+@pytest.mark.parametrize("f,g,h,w", [
+    (48, 24, 20, 256),   # the hybrid's widths, a height off the 16-pixel tile
+    (48, 24, 64, 64),
+    (64, 32, 30, 64),    # the reference default widths (12-pixel tiles)
+    (16, 8, 20, 256),
+])
+def test_rdb_kernel_matches_plain_version(device, f, g, h, w):
+    x, ks, bs = _rdb_operands(f + h + w, 2, f, g, h, w, device)
+    before = fused_rdb_cm.launches
+    got = fused_rdb_cm(x, ks, bs, h=h, w=w)
+    torch.cuda.synchronize()
+    assert fused_rdb_cm.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    want = rdb_cm_reference(x, ks, bs, h=h, w=w).float()
+    err = (got.float() - want).abs().max().item()
+    assert err <= K1_TOL * max(1.0, want.abs().max().item()), err
+
+
+def test_hat_kernels_raise_on_what_they_do_not_take(device):
+    x, convx, *params = _hat_operands(0, 4, 90, 6, 360, device)
+    kw = dict(num_heads=6, scale=15**-0.5)
+    oargs = _hat_operands(1, 4, 90, 6, 360, device, nk=144)
+    xr, ks, bs = _rdb_operands(2, 1, 48, 24, 16, 16, device)
+    before = (fused_hab_block.launches, fused_ocab_block.launches, fused_rdb_cm.launches)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fused_hab_block(x.float(), convx, None, *params, **kw)
+    with pytest.raises(ValueError, match="N=64"):
+        fused_hab_block(x[:, :49].contiguous(), convx[:, :49].contiguous(), None, *params, **kw)
+    with pytest.raises(ValueError, match="mask"):
+        fused_hab_block(x, convx, torch.zeros(3, 64, 64, device=device), *params, **kw)
+    with pytest.raises(ValueError, match="device"):
+        fused_hab_block(x, convx, None, *params[:4], params[4].cpu(), *params[5:], **kw)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fused_ocab_block(oargs[0], oargs[1].float(), *oargs[2:], **kw)
+    with pytest.raises(ValueError, match="144"):
+        fused_ocab_block(*oargs[:2], torch.cat([oargs[2]] * 2, 1), torch.cat([oargs[3]] * 2, 1),
+                         *oargs[4:], **kw)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fused_rdb_cm(xr.float(), ks, bs, h=16, w=16)
+    with pytest.raises(ValueError, match="not compiled"):
+        fused_rdb_cm(xr[:, :40].contiguous(), [k[:, :, 8:] for k in ks], bs, h=16, w=16)
+    with pytest.raises(ValueError, match="device"):
+        fused_rdb_cm(xr, ks[:4] + [ks[4].cpu()], bs, h=16, w=16)
+    assert (fused_hab_block.launches, fused_ocab_block.launches,
+            fused_rdb_cm.launches) == before
+
+
+HYBRID = dict(img_size=16, in_chans=1, embed_dim=30, depths=(2, 2), num_heads=(6, 6),
+              window_size=8, num_rrdb=2, num_feat=48, num_grow_ch=24)
+
+
+def test_fused_hybrid_matches_module(device):
+    """bf16 fused hybrid (K5, K6, K7) against the fp32 module: relative L2
+    within max(2e-2, 2x the bf16 module's own distance)."""
+    model = HybridHATRealESRGAN(**HYBRID, generator=torch.Generator().manual_seed(0))
+    model = model.to(device).eval()
+    x = torch.from_numpy(np.random.default_rng(0).random((2, 16, 32, 1), dtype=np.float32))
+    x = x.to(device)
+    fused = make_fused_hybrid(model)
+    model16 = copy.deepcopy(model).to(torch.bfloat16)
+    before = (fused_hab_block.launches, fused_ocab_block.launches, fused_rdb_cm.launches)
+    with torch.no_grad():
+        want = model(x)
+        got = fused(x).float()
+        ref16 = model16(x.to(torch.bfloat16)).float()
+    assert (fused_hab_block.launches, fused_ocab_block.launches, fused_rdb_cm.launches) == (
+        before[0] + 4, before[1] + 2, before[2] + 6)
+    assert got.shape == want.shape == (2, 64, 128, 1)
+    assert torch.isfinite(got).all()
+    err, err16 = _rel_l2(got, want), _rel_l2(ref16, want)
+    print(f"fused bf16 {err:.4e}, nn.Module bf16 {err16:.4e}")
+    assert err <= max(2e-2, 2 * err16), (err, err16)

@@ -1,9 +1,10 @@
 """Guards on the port's boundaries, each in a fresh interpreter.
 
 - The port never loads jax nor any module of the JAX package: the conftest
-  of this suite imports jax, so the check runs the CPU slice (``train``, then
-  ``infer`` of what it trained and of a saved model) in a subprocess and
-  inspects its ``sys.modules``.
+  of this suite imports jax, so the check runs the CPU slices (``train``,
+  then ``infer`` of what it trained and of a saved model; ``infer --arch
+  hat`` of a saved hybrid, plain and fused) in a subprocess and inspects its
+  ``sys.modules``.
 - ``train`` and ``infer`` run on the card unless ``--device cpu`` is given:
   without a card and without it they raise.
 - ``chip_smoke.py`` has no CPU fallback: without a GPU, or without the rest
@@ -68,24 +69,72 @@ SLICE = textwrap.dedent(
 )
 
 
-def test_port_cpu_slice_never_loads_jax(tmp_path):
+HAT_SLICE = textwrap.dedent(
+    """
+    import sys, tempfile
+    from pathlib import Path
+    import numpy as np, torch
+    from superresolution_def_tpu_torch.cli.main import main
+    from superresolution_def_tpu_torch.data import ManifestEntry, write_manifest, write_tiff_u16
+    from superresolution_def_tpu_torch.models import HybridHATRealESRGAN
+
+    root = Path(tempfile.mkdtemp())
+    rng = np.random.default_rng(0)
+    entries = []
+    for i in range(2):
+        hr = rng.random((64, 64))
+        d = root / "data" / "T1" / f"p{i}"
+        write_tiff_u16(d / "hr.tiff", hr)
+        write_tiff_u16(d / "lr.tiff", hr.reshape(16, 4, 16, 4).mean(axis=(1, 3)))
+        entries.append(ManifestEntry(f"p{i}", str(d / "hr.tiff"), str(d / "lr.tiff")))
+    write_manifest(root / "data" / "T1" / "8_dataset_split" / "splits_json" / "test.json",
+                   entries)
+    run = root / "outputs" / "T1_DDP_SwinIR"
+    run.mkdir(parents=True)
+    model = HybridHATRealESRGAN(img_size=16, embed_dim=30, depths=(6,), num_heads=(6,),
+                                num_rrdb=1, num_feat=16, num_grow_ch=8)
+    torch.save({"model_state_dict": model.state_dict()}, run / "best_hybrid_model.pth")
+    for impl in ([], ["--impl", "fused"]):
+        res = main(["infer", "--arch", "hat", "--folder", str(run), "--data-root",
+                    str(root / "data"), "--lr-size", "16", "--hr-size", "64", "--device", "cpu",
+                    *impl])
+        assert res["num_images"] == 2, res
+        assert (run / "test_results" / "test_metrics.csv").exists()
+    print("JAX_LOADED", sorted(m for m in sys.modules if m.split(".")[0] in
+                               ("jax", "jaxlib", "flax", "optax", "orbax",
+                                "superresolution_def_tpu")))
+    """
+)
+
+
+def _run_slice(tmp_path, script):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
     env["OMP_NUM_THREADS"] = "1"  # one torch thread, as the suite's workers run
-    proc = subprocess.run([sys.executable, "-c", SLICE], cwd=tmp_path, env=env,
+    proc = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert proc.stdout.strip().splitlines()[-1] == "JAX_LOADED []"
+    return proc.stdout.strip().splitlines()[-1]
 
 
-@pytest.mark.parametrize("cmd", ["train", "infer"])
+def test_port_cpu_slice_never_loads_jax(tmp_path):
+    assert _run_slice(tmp_path, SLICE) == "JAX_LOADED []"
+
+
+def test_port_hat_cpu_slice_never_loads_jax(tmp_path):
+    assert _run_slice(tmp_path, HAT_SLICE) == "JAX_LOADED []"
+
+
+@pytest.mark.parametrize("cmd", ["train", "infer", "infer-hat"])
 def test_entry_points_raise_without_a_card_unless_asked_for_the_cpu(tmp_path, cmd):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
     from superresolution_def_tpu_torch.cli.main import main
 
     args = {"train": ["train", "--target", "T1", "--data-root", str(tmp_path)],
-            "infer": ["infer", "--folder", str(tmp_path), "--data-root", str(tmp_path)]}[cmd]
+            "infer": ["infer", "--folder", str(tmp_path), "--data-root", str(tmp_path)],
+            "infer-hat": ["infer", "--arch", "hat", "--impl", "fused", "--folder", str(tmp_path),
+                          "--data-root", str(tmp_path)]}[cmd]
     with pytest.raises(RuntimeError, match="--device cpu"):
         main(args)
 
