@@ -41,7 +41,24 @@ exit code:
 14. the fused bf16 hybrid against the fp32 ``nn.Module`` on one patch,
     beside the bf16 ``nn.Module``'s own distance;
 15. patches/s at batch 8 of the fused hybrid and of the bf16 ``nn.Module``,
-    and the fused forward's ``torch.profiler`` top device ops and idle share.
+    and the fused forward's ``torch.profiler`` top device ops and idle share;
+16. K8 (``fused_rdb_cm_bwd``, the dense-block backward) against its plain
+    version at the hybrid train step's shapes (B=2, F=48, G=24, 256x256,
+    bf16, dy ~ N(0, 1e-2)), run twice to show the same bits, with K7's
+    stashing forward at B=2, with times;
+17. gradients of the fused bf16 RRDB trunk (K7 forward, K8 backward) and of
+    the whole fused hybrid generator against fp32 autograd of the
+    ``nn.Module``, beside the bf16 ``nn.Module``'s own distance;
+18. the hybrid training slice: ``cli.main train --arch hat --bf16`` for 2
+    epochs (one L1-only warmup, one GAN) of 2 steps of micro 2 x accum 8 on
+    a synthetic 32-pair split, counting K7/K8 launches (288 each per step),
+    checking ``train_log.csv`` and the checkpoints, then ``infer --arch hat
+    --impl fused`` of the trained run;
+19. patches/s and peak memory of the hybrid GAN step, fused against the
+    bf16 ``nn.Module`` generator, at micro 2 x accum 8 and micro 8 x accum 2;
+20. the fused hybrid step's ``torch.profiler`` breakdown (K7, K8, AdamW and
+    EMA, the rest) and idle share, with the HAT backbone, D and VGG timed
+    alone at the step's shapes.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it fails at once:
@@ -87,7 +104,10 @@ SWIN = "superresolution_def_tpu/kernels/swin_block.py"
 HYBRID = dict(img_size=128, in_chans=1, embed_dim=90, depths=(6,) * 4, num_heads=(6,) * 4,
               window_size=8, num_rrdb=12, num_feat=48, num_grow_ch=24)
 HYBRID_BATCH = 8
-SOURCES = ["swin_block", "swin_block_train", "hab_block", "ocab", "rdb_cm"]
+# the hybrid GAN step (BASELINE config #4): the JAX trainer's split
+HAT_MICRO, HAT_ACCUM = 2, 8
+HAT_TRAIN_PAIRS = 32
+SOURCES = ["swin_block", "swin_block_train", "hab_block", "ocab", "rdb_cm", "rdb_cm_bwd"]
 
 
 def log(phase: str, msg: str) -> None:
@@ -180,12 +200,16 @@ def block_work(bw: int, c: int = 180, heads: int = 6, hidden: int = 720) -> dict
 
 
 def hat_work(bw: int = 2048, c: int = 90, heads: int = 6, hidden: int = 360, nk: int = 144,
-             b: int = 8, hw: int = 256 * 256, f: int = 48, g: int = 24,
-             shifted_share: float = 0.5) -> dict:
-    """FLOPs and bytes of K5, K6 and K7 at the hybrid's shapes. K5: x and
-    conv_x in, out (bf16), the weights, and the (256, 64, 64) fp32 mask for
-    its shifted half of the calls; K6: x, q, out and the 144-key k and v
-    windows, the weights and the bias; K7: x in and out, the weights."""
+             b: int = 8, b_train: int = HAT_MICRO, hw: int = 256 * 256, f: int = 48,
+             g: int = 24, shifted_share: float = 0.5) -> dict:
+    """FLOPs and bytes of K5, K6, K7 and K8 at the hybrid's shapes. K5: x
+    and conv_x in, out (bf16), the weights, and the (256, 64, 64) fp32 mask
+    for its shifted half of the calls; K6: x, q, out and the 144-key k and v
+    windows, the weights and the bias; K7 (batch ``b``): x in and out, the
+    weights. K8 (the train micro-batch ``b_train``): the least work is dx's
+    transposed convs and dW, each one product per forward weight and pixel
+    (2 x 269,568 FLOP a pixel at 48/24), with no recompute; x, dy in and dx
+    out (bf16), the weights read (bf16), dW and db written (fp32)."""
     n = 64
     hd = c // heads
     rows = bw * n * c * 2
@@ -200,6 +224,8 @@ def hat_work(bw: int = 2048, c: int = 90, heads: int = 6, hidden: int = 360, nk:
         "K6": (k6, 3 * rows + 2 * bw * nk * c * 2 + (c * c + 2 * c * hidden) * 2
                + heads * n * nk * 4),
         "K7": (b * hw * per_pixel, 2 * b * f * hw * 2 + w_rdb),
+        "K8": (2 * b_train * hw * per_pixel,
+               3 * b_train * f * hw * 2 + w_rdb + w_rdb * 2 + (4 * g + f) * 4),
     }
 
 
@@ -260,15 +286,20 @@ def main() -> None:
     from superresolution_def_tpu_torch.kernels import _build, hab_block, ocab, swin_block
     # the module, not the function of the same name that the package exports
     rdb_cm = importlib.import_module("superresolution_def_tpu_torch.kernels.fused_rdb_cm")
+    rdb_bwd = importlib.import_module("superresolution_def_tpu_torch.kernels.fused_rdb_cm_bwd")
     from superresolution_def_tpu_torch.kernels import (
         fused_hab_block,
         fused_ocab_block,
         fused_rdb_cm,
+        fused_rdb_cm_bwd,
+        fused_rrdb_trunk_cm_ad,
         fused_swin_block,
         hab_block_reference,
         make_fused_hybrid,
+        make_fused_hybrid_train,
         make_fused_swinir,
         ocab_block_reference,
+        rdb_cm_bwd_reference,
         rdb_cm_reference,
         swin_block_bwd_attn,
         swin_block_bwd_mlp,
@@ -279,9 +310,13 @@ def main() -> None:
     from superresolution_def_tpu_torch.train import (
         CombinedGANLoss,
         VGG19Features,
+        create_hat_train_state,
         create_swin_train_state,
+        make_hat_train_step,
         make_swin_train_step,
     )
+
+    from torch.func import functional_call
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -305,10 +340,11 @@ def main() -> None:
     hab_block._library()
     ocab._library()
     rdb_cm._library()
+    rdb_bwd._library()
     build_s = time.perf_counter() - t0
     log("build", ", ".join(f"{k}.cu -> {v.name}" for k, v in paths.items())
         + f", all {len(SOURCES)} at once in {build_s:.1f} s")
-    for name in ("swin_block", "hab_block", "ocab", "rdb_cm"):
+    for name in ("swin_block", "hab_block", "ocab", "rdb_cm", "rdb_cm_bwd"):
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log("build", f"{name}: " + line.strip().replace("ptxas info    : ", ""))
@@ -699,6 +735,250 @@ def main() -> None:
     del hybrid, hybrid16, fused_h, x8, x8_16
     torch.cuda.empty_cache()
 
+    # 16. K8 against its plain version at the hybrid train step's shapes,
+    # with K7's stashing forward at the same micro-batch
+    kgen = np.random.default_rng(seed + 8)
+    b2 = HAT_MICRO
+    xb = torch.from_numpy(0.5 * kgen.standard_normal((b2, f, 256 * 256)).astype(
+        np.float32)).to(device, torch.bfloat16)
+    dyb = torch.from_numpy(1e-2 * kgen.standard_normal((b2, f, 256 * 256)).astype(
+        np.float32)).to(device, torch.bfloat16)
+    ks = [torch.from_numpy((kgen.standard_normal((3, 3, f + i * g, g if i < 4 else f))
+                            * np.sqrt(2.0 / (9 * (f + i * g)))).astype(np.float32)).to(device)
+          for i in range(5)]
+    bs = [torch.from_numpy((0.05 * kgen.standard_normal(g if i < 4 else f)).astype(np.float32))
+          .to(device) for i in range(5)]
+    stash = torch.empty(b2, 256 * 256, f + 4 * g, dtype=torch.bfloat16, device=device)
+    same_k7 = torch.equal(fused_rdb_cm(xb, ks, bs, **rkw, stash=stash),
+                          fused_rdb_cm(xb, ks, bs, **rkw))
+    got8 = fused_rdb_cm_bwd(xb, dyb, ks, bs, **rkw, stash=stash)
+    again = fused_rdb_cm_bwd(xb, dyb, ks, bs, **rkw, stash=stash)
+    torch.cuda.synchronize()
+    got8 = [got8[0], *got8[1], *got8[2]]
+    same_bits = all(torch.equal(a, b) for a, b in zip(got8, [again[0], *again[1], *again[2]]))
+    want8 = rdb_cm_bwd_reference(xb, dyb, ks, bs, **rkw)
+    want8 = [want8[0], *want8[1], *want8[2]]
+    names8 = ["dx"] + [f"dW{i}" for i in range(1, 6)] + [f"db{i}" for i in range(1, 6)]
+    errs8 = {}
+    for name, a, b in zip(names8, got8, want8):
+        if not torch.isfinite(a).all():
+            raise SystemExit(f"K8's {name} is not finite")
+        errs8[name] = rel_l2(a, b)
+    k8_err = (got8[0].float() - want8[0].float()).abs().max().item()
+    del again, want8
+    packed7 = rdb_cm.pack_rdb_weights(ks, bs, device)
+    packed8 = rdb_bwd.pack_rdb_bwd_weights(ks, device)
+    k8_times = (cuda_ms(lambda: fused_rdb_cm_bwd(xb, dyb, ks, bs, **rkw, stash=stash,
+                                                 packed=packed8), reps=10),
+                cuda_ms(lambda: rdb_cm_bwd_reference(xb, dyb, ks, bs, **rkw), reps=5, warmup=1,
+                        calls=2))
+    k7b2_times = (cuda_ms(lambda: fused_rdb_cm(xb, ks, bs, **rkw, packed=packed7, stash=stash),
+                          reps=10),
+                  cuda_ms(lambda: rdb_cm_reference(xb, ks, bs, **rkw), reps=5, warmup=1,
+                          calls=2))
+    k8_bound = least_ms(hat_work(b=b2)["K8"])
+    log("k8", f"B={b2} F={f} G={g} 256x256 bf16, dy ~ N(0, 1e-2) on {card}: rel L2 vs plain "
+              f"(bound {BWD_REL_L2}): " + ", ".join(f"{k} {v:.3e}" for k, v in errs8.items())
+              + f"; max|dx-plain|={k8_err:.3e}; two runs bit-identical: {same_bits}")
+    log("k8", f"K8 {k8_times[0]:.4f} ms (bound {k8_bound[0]:.4f} ms, {k8_bound[1]}), plain "
+              f"{k8_times[1]:.4f} ms; K7 with stash at B={b2} {k7b2_times[0]:.4f} ms (bound "
+              f"{least_ms(hat_work(b=b2)['K7'])[0]:.4f} ms), plain {k7b2_times[1]:.4f} ms; "
+              f"K7's output with and without the stash identical: {same_k7}")
+    bad = {k: v for k, v in errs8.items() if not v <= BWD_REL_L2}
+    if bad or not same_bits or not same_k7:
+        raise SystemExit(f"K8 disagrees with its plain version {bad}, or is not reproducible "
+                         f"({same_bits}), or the stash changed K7's output ({same_k7})")
+    del xb, dyb, ks, bs, stash, got8, packed7, packed8
+    torch.cuda.empty_cache()
+
+    # 17. fused bf16 trunk and fused hybrid generator gradients against fp32
+    # autograd of the nn.Module
+    hyb = HybridHATRealESRGAN(**HYBRID, generator=torch.Generator().manual_seed(seed)).to(device)
+    hyb16 = copy.deepcopy(hyb).to(torch.bfloat16)
+    tgen = torch.Generator().manual_seed(seed + 9)
+    feat = (0.5 * torch.randn(1, 256, 256, f, generator=tgen)).to(device)
+    tprobe = torch.randn(1, 256, 256, f, generator=tgen).to(device)
+
+    def module_trunk(net, xin):
+        t = xin.permute(0, 3, 1, 2)
+        for rrdb in net.rrdb_trunk:
+            t = rrdb(t)
+        return t.permute(0, 2, 3, 1)
+
+    def fused_trunk(net, xin):
+        return fused_rrdb_trunk_cm_ad(
+            [[([c.weight for c in rdb.convs()], [c.bias for c in rdb.convs()])
+              for rdb in (rrdb.rdb1, rrdb.rdb2, rrdb.rdb3)] for rrdb in net.rrdb_trunk], xin)
+
+    def grads(forward, net, xin, probe_, names):
+        xi = xin.clone().requires_grad_()
+        net.zero_grad(set_to_none=True)
+        (forward(xi).float() * probe_).sum().backward()
+        named = dict(net.named_parameters())
+        return [xi.grad.float()] + [named[k].grad.float() for k in names]
+
+    lines = []
+    for what, names, want_fn, ref_fn, got_fn, xin, probe_ in (
+        ("trunk", ["rrdb_trunk.0.rdb1.conv1.weight", "rrdb_trunk.0.rdb1.conv5.bias",
+                   "rrdb_trunk.11.rdb3.conv5.weight"],
+         lambda xi: module_trunk(hyb, xi), lambda xi: module_trunk(hyb16, xi),
+         lambda xi: fused_trunk(hyb, xi), feat, tprobe),
+        ("generator", ["hat.conv_first.weight", "hat.layers.0.residual_group.blocks.0.attn.qkv.weight",
+                       "conv_adapt.weight", "rrdb_trunk.0.rdb1.conv1.weight", "conv_last.weight"],
+         hyb, hyb16, make_fused_hybrid_train(hyb), x, probe),
+    ):
+        want_g = grads(want_fn, hyb, xin, probe_, names)
+        ref16 = grads(ref_fn, hyb16, xin.to(torch.bfloat16), probe_, names)
+        got_g = grads(got_fn, hyb, xin.to(torch.bfloat16) if what == "trunk" else xin, probe_,
+                      names)
+        for name, gt, w, r in zip(["input", *names], got_g, want_g, ref16):
+            g_err, g_err16 = rel_l2(gt, w), rel_l2(r, w)
+            lines.append(f"{what} {name} {g_err:.3e} (nn.Module bf16 {g_err16:.3e})")
+            if not (torch.isfinite(gt).all() and g_err <= max(GRAD_REL_L2, 2 * g_err16)):
+                raise SystemExit(f"fused {what} gradient of {name} disagrees: {g_err} vs "
+                                 f"{g_err16}")
+    log("hat-autograd", "fused bf16 vs fp32 autograd, rel L2 (bound max(%g, 2x nn.Module bf16)): "
+        % GRAD_REL_L2 + "; ".join(lines))
+    del hyb, hyb16, feat, tprobe
+    torch.cuda.empty_cache()
+
+    # 18. the hybrid training slice through the CLI (its main path: counts from 0)
+    train_counters = (fused_rdb_cm, fused_rdb_cm_bwd)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_split(root / "data", np.random.default_rng(seed + 10),
+                    {"train": HAT_TRAIN_PAIRS, "test": N_IMAGES})
+        for fn in train_counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        last = cli_main(["train", "--arch", "hat", "--target", "T1", "--bf16",
+                         "--batch-size", str(HAT_MICRO), "--accum-steps", str(HAT_ACCUM),
+                         "--epochs", "2", "--warmup-epochs", "1", "--max-steps-per-epoch", "2",
+                         "--ckpt-interval", "1", "--img-interval", "1", "--csv-interval", "1",
+                         "--data-root", str(root / "data"), "--outputs-root",
+                         str(root / "outputs"), "--seed", str(seed)])
+        torch.cuda.synchronize()
+        hat_train_s = time.perf_counter() - t0
+        hat_train_launches = {fn.__name__: fn.launches for fn in train_counters}
+        run = root / "outputs" / "T1"
+        steps = 2 * 2
+        per_step = 3 * HYBRID["num_rrdb"] * HAT_ACCUM  # 288
+        rows = [r.split(",") for r in (run / "train_log.csv").read_text().strip().splitlines()]
+        ck = run / "checkpoints"
+        missing = [n for n in ("hybrid_epoch_1.pth", "hybrid_epoch_2.pth", "best_hybrid_model.pth",
+                               "best_hybrid_model_EMA.pth") if not (ck / n).exists()]
+        missing += [n for n in ("epoch_001_preview.png", "epoch_002_preview.png")
+                    if not (run / "previews" / n).exists()]
+        init = create_hat_train_state(torch.Generator().manual_seed(seed), device="cpu")
+        ep1, ep2 = (torch.load(ck / f"hybrid_epoch_{e}.pth", map_location="cpu",
+                               weights_only=False) for e in (1, 2))
+
+        def differs(a, b, suffix):
+            return any(not torch.equal(v, b[k]) for k, v in a.items() if k.endswith(suffix))
+
+        moved = {"G warmup": differs(init.g.state_dict(), ep1["net_g"], ""),
+                 "G GAN": differs(ep1["net_g"], ep2["net_g"], ""),
+                 "D warmup (must not)": differs(init.d.state_dict(), ep1["net_d"], ""),
+                 "D GAN": differs(ep1["net_d"], ep2["net_d"], "weight_orig"),
+                 "EMA": differs(ep2["net_g"], ep2["ema"], "")}
+        del init, ep1, ep2
+        log("hat-train", f"train --arch hat --bf16, micro {HAT_MICRO} x accum {HAT_ACCUM}, 2 "
+                         f"epochs (warmup, GAN) x 2 steps: G={last['g_total']:.5f} "
+                         f"L1={last['l1']:.5f} D={last['d_total']:.5f} PSNR={last['psnr']:.4f} "
+                         f"dB SSIM={last['ssim']:.5f}, {hat_train_s:.2f} s wall; launches "
+                         + ", ".join(f"{k} {v}" for k, v in hat_train_launches.items())
+                         + f"; moved {moved}; train_log.csv rows {len(rows) - 1}")
+        result = cli_main(["infer", "--arch", "hat", "--impl", "fused", "--folder", str(run),
+                           "--data-root", str(root / "data")])
+        log("hat-train", f"infer --arch hat --impl fused of the trained run: "
+                         f"{result['num_images']} images, PSNR={result['psnr']:.4f} dB "
+                         f"SSIM={result['ssim']:.6f}")
+        # K7 also runs in the two previews (one no-grad forward each)
+        want_launches = {"fused_rdb_cm_bwd": per_step * steps,
+                         "fused_rdb_cm": per_step * steps + 3 * HYBRID["num_rrdb"] * 2}
+        if hat_train_launches != want_launches:
+            raise SystemExit(f"expected launches {want_launches}, counted {hat_train_launches}")
+        if missing or len(rows) != 3 or rows[0][0] != "Epoch" or float(rows[1][4]) != 0.0:
+            raise SystemExit(f"hat train artifacts missing {missing} or train_log.csv {rows}")
+        expect = {k: k != "D warmup (must not)" for k in moved}
+        if moved != expect:
+            raise SystemExit(f"weights moved {moved}, expected {expect}")
+        if not all(np.isfinite(last[k]) for k in ("g_total", "l1", "d_total", "psnr", "ssim")):
+            raise SystemExit(f"non-finite hat train metrics: {last}")
+        if result["num_images"] != N_IMAGES or not np.isfinite(result["psnr"]):
+            raise SystemExit("infer of the trained hybrid failed")
+
+    # 19./20. hybrid GAN step throughput, fused vs nn.Module, and the profile
+    tb = np.random.default_rng(seed + 11)
+
+    def hat_batch(micro, accum):
+        return {"lr": tb.integers(0, 65535, (accum, micro, 128, 128, 1), dtype=np.uint16),
+                "hr": tb.integers(0, 65535, (accum, micro, 512, 512, 1), dtype=np.uint16)}
+
+    hat_step_ms, hat_step_peak = {}, {}
+    for impl, micro, accum in (("fused", HAT_MICRO, HAT_ACCUM), ("module", HAT_MICRO, HAT_ACCUM),
+                               ("fused", 8, 2)):
+        st = create_hat_train_state(torch.Generator().manual_seed(seed), dtype=torch.bfloat16,
+                                    fused=impl == "fused", device=device)
+        stp = make_hat_train_step(st, accum_steps=accum, criterion_g=CombinedGANLoss(
+            pixel_weight=1.0, perceptual_weight=1.0, adversarial_weight=0.005, vgg_apply=vgg))
+        hb = hat_batch(micro, accum)
+        torch.cuda.reset_peak_memory_stats()
+        key = f"{impl} {micro}x{accum}"
+        hat_step_ms[key] = cuda_ms(lambda: stp(hb, 1e-4, 1e-4), reps=3, warmup=1, calls=1)
+        hat_step_peak[key] = torch.cuda.max_memory_allocated() / 1e9
+        if key == f"fused {HAT_MICRO}x{HAT_ACCUM}":
+            ops, busy_ms, idle = device_profile(lambda: stp(hb, 1e-4, 1e-4), steps=1)
+            groups = {"K7": ("rdb_kernel",), "K8": ("chain_kernel", "wgrad_kernel",
+                                                    "reduce_kernel"),
+                      "AdamW+EMA": ("multi_tensor_apply",)}
+            split = {k: sum(t for name, t, _ in ops if any(p in name for p in pats))
+                     for k, pats in groups.items()}
+            split["rest"] = sum(t for _, t, _ in ops) - sum(split.values())
+            # the step's other parts, timed alone at its shapes, per step
+            xin = torch.from_numpy(hb["lr"][0].astype(np.float32) / 65535.0).to(device)
+            hr = torch.from_numpy(hb["hr"][0].astype(np.float32) / 65535.0).to(device)
+            dgen = torch.Generator(device).manual_seed(0)
+
+            def hat_fb():
+                params = {k: v.to(torch.bfloat16) for k, v in st.g.hat.named_parameters()}
+                out = functional_call(st.g.hat, params,
+                                                 (xin.to(torch.bfloat16), False, dgen))
+                out.float().sum().backward()
+
+            sr = hr.to(torch.bfloat16).requires_grad_()
+
+            def d_fb():
+                fake, real = st.d(sr, True), st.d(hr, True).detach()
+                torch.autograd.grad((fake.float() - real.float()).mean(), sr)
+                fake, real = st.d(sr.detach(), True), st.d(hr, True)
+                (real.float() - fake.float()).mean().backward()
+
+            def vgg_fb():
+                with torch.no_grad():
+                    tf = vgg(hr)
+                torch.autograd.grad((vgg(sr) - tf).abs().mean(), sr)
+
+            parts = {name: accum * cuda_ms(fn, reps=3, warmup=1, calls=2)
+                     for name, fn in (("HAT fwd+bwd", hat_fb), ("D (4 fwd, 2 bwd)", d_fb),
+                                      ("VGG fwd+bwd", vgg_fb))}
+            st.g.zero_grad(set_to_none=True)
+            st.d.zero_grad(set_to_none=True)
+            log("hat-train-profile",
+                f"fused hybrid GAN step, micro {micro} x accum {accum} on {card}: device busy "
+                f"{busy_ms:.3f} ms per step, idle share {idle:.4f}; by kernel group per step: "
+                + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+                + "; timed alone per step: " + ", ".join(f"{k} {v:.3f} ms"
+                                                        for k, v in parts.items())
+                + "; top device ops: " + "; ".join(f"{name[:60]} {t:.3f} ms x{n}"
+                                                    for name, t, n in ops[:10]))
+            del xin, hr, sr
+        del st, stp, hb
+        torch.cuda.empty_cache()
+    log("hat-train-throughput", f"hybrid GAN step, 128->512 on {card}: " + "; ".join(
+        f"{k} {int(k.split()[1].split('x')[0]) * int(k.split('x')[1]) * 1e3 / ms:.3f} patches/s "
+        f"({ms:.2f} ms/step, peak {hat_step_peak[k]:.2f} GB)" for k, ms in hat_step_ms.items()))
+
     work = block_work(768)
     work.update({k: v for k, v in block_work(bw_train).items() if k != "K1"})
     work.update(hat_work(bw_hat))
@@ -718,9 +998,12 @@ def main() -> None:
         ("fused_ocab_block", "K6", "ocab.cu", 145, hat_launches["fused_ocab_block"], k6_err,
          k6_times),
         ("fused_rdb_cm", "K7", "rdb_cm.cu", 186, hat_launches["fused_rdb_cm"], k7_err, k7_times),
+        ("fused_rdb_cm_bwd", "K8", "rdb_cm_bwd.cu", 338, hat_train_launches["fused_rdb_cm_bwd"],
+         k8_err, k8_times),
     ]
     replaced = {"K5": SWIN, "K6": "superresolution_def_tpu/kernels/ocab.py",
-                "K7": "superresolution_def_tpu/kernels/fused_rdb_cm.py"}
+                "K7": "superresolution_def_tpu/kernels/fused_rdb_cm.py",
+                "K8": "superresolution_def_tpu/kernels/fused_rdb_cm_bwd.py"}
     records = []
     for name, key, src, line, n, e, (ms, pms) in rows:
         bms, by = least_ms(work[key])
@@ -730,7 +1013,7 @@ def main() -> None:
             "replaces": f"{replaced.get(key, SWIN)}:{line}", "launches": n, "max_abs_err": e,
             "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
             # no single PyTorch call computes a whole Swin/HAB block, its
-            # backward, an OCAB tail or a dense block
+            # backward, an OCAB tail, a dense block or its backward
             "library_ms": None,
         })
     print(json.dumps({"kernels": records}), flush=True)

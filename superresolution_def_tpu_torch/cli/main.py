@@ -1,14 +1,14 @@
-"""Command-line entry of the port: ``train`` for SwinIR, ``infer`` for SwinIR
-and the HAT hybrid.
+"""Command-line entry of the port: ``train`` and ``infer`` for SwinIR and the HAT hybrid.
 
-  python -m superresolution_def_tpu_torch.cli.main train --arch swin \
-      --target T1 [--bf16] [--batch-size 8] [--accum-steps 1] [--epochs 300]
+  python -m superresolution_def_tpu_torch.cli.main train --arch {swin,hat} \
+      --target T1 [--bf16] [--batch-size N] [--accum-steps N] [--epochs 300]
   python -m superresolution_def_tpu_torch.cli.main infer --arch {swin,hat} \
       [--impl fused] [--folder RUN] [--data-root DATA]
 
 The flags are those of the JAX ``sr train`` / ``sr infer``, plus ``--device``:
 both run on the card (``cuda``) unless ``--device cpu`` is given, and raise
-without a card. ``train --bf16`` on the card runs the fused-block kernels.
+without a card. ``train --bf16`` on the card runs the kernels: for swin the
+fused Swin blocks (K2-K4), for hat the RRDB trunk's dense blocks (K7/K8).
 Without ``--folder`` (``infer``) or ``--target`` (``train``) the run
 folders or targets are offered in a numbered menu.
 """
@@ -30,7 +30,7 @@ def _pick_from(items: list[str], what: str) -> str:
 
 
 def cmd_train(args) -> dict:
-    from .trainers import SwinTrainConfig, train_swin_run
+    from .trainers import HATTrainConfig, SwinTrainConfig, train_hat_run, train_swin_run
 
     if args.target:
         targets = args.target.split(",")
@@ -38,18 +38,22 @@ def cmd_train(args) -> dict:
         found = sorted(p.name for p in Path(args.data_root).glob("*")
                        if (p / "8_dataset_split" / "splits_json" / "train.json").exists())
         targets = [_pick_from(found, "targets")]
-    cfg = SwinTrainConfig(
+    config = SwinTrainConfig if args.arch == "swin" else HATTrainConfig
+    cfg = config(
         targets=tuple(targets), data_root=args.data_root, outputs_root=args.outputs_root,
         epochs=args.epochs, use_bf16=args.bf16, vgg_weights=args.vgg_weights, seed=args.seed,
         max_steps_per_epoch=args.max_steps_per_epoch, device=args.device)
-    for flag, field in (("batch_size", "batch_size"), ("accum_steps", "accum_steps"),
-                        ("img_size", "img_size"), ("embed_dim", "embed_dim")):
-        if getattr(args, flag):
-            setattr(cfg, field, getattr(args, flag))
+    fields = ["batch_size", "accum_steps", "img_size", "embed_dim"]
+    if args.arch == "hat":
+        fields += ["warmup_epochs", "num_rrdb", "num_feat", "num_grow_ch", "ckpt_interval",
+                   "img_interval", "csv_interval", "pretrained_hat"]
+    for field in fields:
+        if getattr(args, field) is not None:
+            setattr(cfg, field, getattr(args, field))
     if args.depths:
         cfg.depths = tuple(int(x) for x in args.depths.split(","))
         cfg.num_heads = (args.num_heads,) * len(cfg.depths)
-    return train_swin_run(cfg)
+    return train_swin_run(cfg) if args.arch == "swin" else train_hat_run(cfg)
 
 
 def cmd_infer(args) -> dict:
@@ -86,17 +90,18 @@ def main(argv=None) -> dict:
     sub = p.add_subparsers(dest="cmd", required=True)
 
     pt = sub.add_parser("train", help="train a GAN generator")
-    pt.add_argument("--arch", choices=["swin"], default="swin",
-                    help="generator architecture (training the HAT hybrid is not ported yet)")
+    pt.add_argument("--arch", choices=["swin", "hat"], default="swin",
+                    help="generator architecture: 'swin' (SwinIR) or 'hat' (HybridHATRealESRGAN)")
     pt.add_argument("--target", default=None, help="comma-separated targets")
     pt.add_argument("--data-root", default="data")
     pt.add_argument("--outputs-root", default="outputs")
     pt.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     pt.add_argument("--epochs", type=int, default=300)
-    pt.add_argument("--batch-size", type=int, default=None, help="micro-batch (default 8)")
-    pt.add_argument("--accum-steps", type=int, default=None, help="default 1")
+    pt.add_argument("--batch-size", type=int, default=None,
+                    help="micro-batch (default: swin 8, hat 2)")
+    pt.add_argument("--accum-steps", type=int, default=None, help="default: swin 1, hat 8")
     pt.add_argument("--bf16", action="store_true",
-                    help="bf16 compute; on the card the generator runs the fused-block kernels")
+                    help="bf16 compute; on the card the generator runs the kernels")
     pt.add_argument("--vgg-weights", default=None, help="npz of the JAX package's VGG19 params")
     pt.add_argument("--seed", type=int, default=0)
     pt.add_argument("--img-size", type=int, default=None)
@@ -104,6 +109,17 @@ def main(argv=None) -> dict:
     pt.add_argument("--depths", default=None, help="comma list, e.g. 6,6,6,6,6,6")
     pt.add_argument("--num-heads", type=int, default=6)
     pt.add_argument("--max-steps-per-epoch", type=int, default=None)
+    hat = pt.add_argument_group("hat only")
+    hat.add_argument("--warmup-epochs", type=int, default=None,
+                     help="L1-only epochs before the GAN (default 30)")
+    hat.add_argument("--num-rrdb", type=int, default=None, help="default 12")
+    hat.add_argument("--num-feat", type=int, default=None, help="trunk width F (default 48)")
+    hat.add_argument("--num-grow-ch", type=int, default=None, help="growth width G (default 24)")
+    hat.add_argument("--ckpt-interval", type=int, default=None, help="epochs (default 5)")
+    hat.add_argument("--img-interval", type=int, default=None, help="epochs (default 10)")
+    hat.add_argument("--csv-interval", type=int, default=None, help="epochs (default 10)")
+    hat.add_argument("--pretrained-hat", default=None,
+                     help="a HAT-only .pth to seed the hybrid's backbone")
 
     pi = sub.add_parser("infer", help="evaluate a trained run on its test split")
     pi.add_argument("--arch", choices=["swin", "hat"], default="swin",

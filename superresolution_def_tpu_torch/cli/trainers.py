@@ -1,6 +1,6 @@
-"""SwinIR GAN training loop (the JAX ``cli/trainers.py::train_swin_run``).
+"""GAN training loops of SwinIR and the HAT-Real hybrid (the JAX ``cli/trainers.py``).
 
-Behaviour (train_swin.py:88-341): outputs/<targets>_DDP_SwinIR/{checkpoints,
+:func:`train_swin_run` (train_swin.py:88-341): outputs/<targets>_DDP_SwinIR/{checkpoints,
 images}; merged multi-target manifests; cosine LR per epoch (eta_min 1e-7);
 per epoch the steps, then EMA-copy validation (PSNR/SSIM), a CSV row
 [Epoch, Loss_G, Loss_D, PSNR, SSIM, Time_Sec], an [LR|SR|HR] preview,
@@ -8,6 +8,15 @@ per epoch the steps, then EMA-copy validation (PSNR/SSIM), a CSV row
 the port's ``infer`` reads) when the validation PSNR improves, and
 ``latest_checkpoint.pth`` with G, D (with its spectral buffers), both
 optimizers, the EMA copy, the epoch and the best PSNR.
+
+:func:`train_hat_run` (train_hat.py:88-330): outputs/<targets>/{checkpoints,
+previews}; L1-only warmup epochs, then the GAN; cosine LR per epoch; per
+epoch the steps' mean losses and live train PSNR/SSIM, every
+``csv_interval`` epochs a ``train_log.csv`` row, every ``ckpt_interval``
+``hybrid_epoch_{N}.pth`` (both networks, both optimizers, the EMA copy) and
+``best_hybrid_model.pth`` / ``best_hybrid_model_EMA.pth`` (G's and the EMA
+copy's weights, written unconditionally as the reference does), every
+``img_interval`` a preview of the last batch.
 
 One process on one device. Not ported yet: resume, TensorBoard, host-to-device
 prefetch overlap, multi-GPU.
@@ -24,14 +33,17 @@ import numpy as np
 import torch
 
 from ..data import DataIterator, PatchDataset, load_manifest
-from ..models import vgg19_state_dict_from_jax
-from ..obs import SWIN_CSV_COLUMNS, CSVLogger, save_tris_preview
+from ..models import load_torch_state_dict, vgg19_state_dict_from_jax
+from ..obs import HAT_CSV_COLUMNS, SWIN_CSV_COLUMNS, CSVLogger, save_tris_preview
 from ..train import (
+    HAT_METRICS,
     CombinedGANLoss,
     VGG19Features,
     cosine_annealing_lr,
+    create_hat_train_state,
     create_swin_train_state,
     make_eval_step,
+    make_hat_train_step,
     make_swin_train_step,
 )
 from .infer import resolve_device
@@ -68,13 +80,50 @@ class SwinTrainConfig:
         return "_".join(self.targets) + "_DDP_SwinIR"
 
 
-def _split_entries(cfg: SwinTrainConfig, split: str) -> list:
+@dataclasses.dataclass
+class HATTrainConfig:
+    targets: Sequence[str] = ("M1",)
+    data_root: str = "data"
+    outputs_root: str = "outputs"
+    epochs: int = 300
+    warmup_epochs: int = 30
+    # the JAX default split, micro 2 x accum 8 (the mean gradient over 16
+    # patches for any split); the reference envelope is micro 1 x accum 16
+    batch_size: int = 2
+    accum_steps: int = 8
+    lr_g: float = 1e-4
+    lr_d: float = 1e-4
+    ema_decay: float = 0.999
+    ckpt_interval: int = 5
+    img_interval: int = 10
+    csv_interval: int = 10
+    img_size: int = 128
+    embed_dim: int = 90
+    depths: tuple = (6, 6, 6, 6)
+    num_heads: tuple = (6, 6, 6, 6)
+    window_size: int = 8
+    num_rrdb: int = 12
+    num_feat: int = 48
+    num_grow_ch: int = 24
+    use_bf16: bool = False
+    vgg_weights: str | None = None  # npz of the JAX package's VGG params; None -> seeded
+    pretrained_hat: str | None = None  # a HAT-only .pth to seed the backbone
+    seed: int = 0
+    max_steps_per_epoch: int | None = None
+    device: str = "cuda"
+
+    @property
+    def run_name(self) -> str:
+        return "_".join(self.targets)
+
+
+def _split_entries(cfg, split: str) -> list:
     return [e for t in cfg.targets for e in load_manifest(
         Path(cfg.data_root) / t / "8_dataset_split" / "splits_json" / f"{split}.json",
         cfg.data_root)]
 
 
-def _load_vgg(cfg: SwinTrainConfig, dtype: torch.dtype, device) -> VGG19Features:
+def _load_vgg(cfg, dtype: torch.dtype, device) -> VGG19Features:
     """VGG19[:36] for the perceptual loss: the JAX package's npz when given
     (read with numpy), else seeded weights."""
     model = VGG19Features(cutoff=35, dtype=dtype, generator=torch.Generator().manual_seed(0))
@@ -169,4 +218,99 @@ def train_swin_run(cfg: SwinTrainConfig) -> dict:
             vb, sr = preview
             save_tris_preview(run_dir / "images" / f"epoch_{epoch:03d}.png",
                               vb["lr"][0] / 65535.0, sr, vb["hr"][0] / 65535.0)
+    return last
+
+
+def _load_pretrained_hat(path: str, model) -> None:
+    """Seed the hybrid's HAT backbone from a HAT-only ``.pth`` (keys bare or
+    under ``hat.``), non-strictly as the reference loads it
+    (hybridmodels_hat.py:133-143)."""
+    if not str(path).endswith(".pth"):
+        raise ValueError(f"--pretrained-hat takes a .pth file (orbax needs jax): {path}")
+    sd = load_torch_state_dict(path)
+    if any(k.startswith("hat.") for k in sd):
+        sd = {k[len("hat."):]: v for k, v in sd.items() if k.startswith("hat.")}
+    missing, _ = model.hat.load_state_dict(sd, strict=False)
+    if len(missing) == len(model.hat.state_dict()):
+        raise ValueError(f"{path} holds no weight of the HAT backbone")
+
+
+def train_hat_run(cfg: HATTrainConfig) -> dict:
+    """Full Hybrid-HAT GAN training. Returns the last epoch's metrics."""
+    device = resolve_device(cfg.device)
+    run_dir = Path(cfg.outputs_root) / cfg.run_name
+    (run_dir / "previews").mkdir(parents=True, exist_ok=True)
+    (run_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
+
+    train_ds = PatchDataset(_split_entries(cfg, "train"), cfg.img_size, cfg.img_size * 4)
+    per_step = cfg.batch_size * cfg.accum_steps
+    if len(train_ds) < per_step:
+        raise ValueError(f"train split has {len(train_ds)} pairs < one optimizer step "
+                         f"({cfg.batch_size} x {cfg.accum_steps} accum = {per_step})")
+    it = DataIterator(train_ds, per_step, shuffle=True, drop_last=True, seed=cfg.seed)
+
+    dtype = torch.bfloat16 if cfg.use_bf16 else torch.float32
+    # the fused trunk takes bf16 on the card; the CPU runs the module path
+    fused = device.type == "cuda" and cfg.use_bf16
+    state = create_hat_train_state(
+        torch.Generator().manual_seed(cfg.seed), img_size=cfg.img_size, embed_dim=cfg.embed_dim,
+        depths=cfg.depths, num_heads=cfg.num_heads, window_size=cfg.window_size,
+        num_rrdb=cfg.num_rrdb, num_feat=cfg.num_feat, num_grow_ch=cfg.num_grow_ch, dtype=dtype,
+        fused=fused, device=device)
+    if cfg.pretrained_hat:
+        _load_pretrained_hat(cfg.pretrained_hat, state.g)
+        state.ema.load_state_dict(state.g.state_dict())
+        print(f"Seeded HAT backbone from {cfg.pretrained_hat}")
+    criterion_g = CombinedGANLoss(pixel_weight=1.0, perceptual_weight=1.0,
+                                  adversarial_weight=0.005,
+                                  vgg_apply=_load_vgg(cfg, dtype, device))
+    step = make_hat_train_step(
+        state, accum_steps=cfg.accum_steps, criterion_g=criterion_g, ema_decay=cfg.ema_decay,
+        generator=torch.Generator().manual_seed(cfg.seed + 1),
+        drop_generator=torch.Generator(device).manual_seed(cfg.seed + 2))
+    csv_log = CSVLogger(run_dir / "train_log.csv", HAT_CSV_COLUMNS)
+    ckpt = run_dir / "checkpoints"
+
+    last = {}
+    for epoch in range(1, cfg.epochs + 1):
+        warmup = epoch <= cfg.warmup_epochs
+        lr_g = cosine_annealing_lr(epoch, cfg.lr_g, cfg.epochs)
+        lr_d = cosine_annealing_lr(epoch, cfg.lr_d, cfg.epochs)
+        sums = dict.fromkeys(HAT_METRICS, 0.0)
+        steps, last_batch = 0, None
+        for bi, b in enumerate(it.epoch(epoch)):
+            if cfg.max_steps_per_epoch and bi >= cfg.max_steps_per_epoch:
+                break
+            m = step({k: v.reshape(cfg.accum_steps, cfg.batch_size, *v.shape[1:])
+                      for k, v in b.items()}, lr_g, lr_d, warmup=warmup)
+            for k in sums:
+                sums[k] += m[k]
+            steps += 1
+            last_batch = b
+        n, cnt = max(steps, 1), max(sums["count"], 1.0)
+        last = {"epoch": epoch, "g_total": sums["loss_g"] / n, "l1": sums["l1"] / n,
+                "g_adv": sums["g_adv"] / n, "d_total": sums["loss_d"] / n,
+                "psnr": sums["psnr_sum"] / cnt, "ssim": sums["ssim_sum"] / cnt, "lr": lr_g}
+        print(f"Ep {epoch} [{'WARMUP' if warmup else 'GAN'}]: G={last['g_total']:.4f} "
+              f"L1={last['l1']:.4f} D={last['d_total']:.4f} PSNR={last['psnr']:.2f}", flush=True)
+        if epoch % cfg.csv_interval == 0:
+            csv_log.log({"Epoch": epoch, "G_Total": last["g_total"], "L1": last["l1"],
+                         "G_Adv": last["g_adv"], "D_Total": last["d_total"],
+                         "PSNR": last["psnr"], "SSIM": last["ssim"], "LR": lr_g})
+        if epoch % cfg.ckpt_interval == 0:
+            torch.save({"net_g": state.g.state_dict(), "net_d": state.d.state_dict(),
+                        "optimizer_g": state.g_opt.state_dict(),
+                        "optimizer_d": state.d_opt.state_dict(), "ema": state.ema.state_dict(),
+                        "epoch": epoch}, ckpt / f"hybrid_epoch_{epoch}.pth")
+            # the reference overwrites 'best' unconditionally (train_hat.py:314-322)
+            torch.save({"model_state_dict": state.g.state_dict()},
+                       ckpt / "best_hybrid_model.pth")
+            torch.save({"model_state_dict": state.ema.state_dict()},
+                       ckpt / "best_hybrid_model_EMA.pth")
+        if epoch % cfg.img_interval == 0 and last_batch is not None:
+            pv = {k: v[:1] for k, v in last_batch.items()}
+            out = make_eval_step(state.g_forward)(pv, device)
+            save_tris_preview(run_dir / "previews" / f"epoch_{epoch:03d}_preview.png",
+                              pv["lr"][0] / 65535.0, out["sr"][0].cpu().numpy(),
+                              pv["hr"][0] / 65535.0)
     return last

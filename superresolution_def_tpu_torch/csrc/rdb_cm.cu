@@ -15,6 +15,11 @@
 // feed the next convs; x5 = sum + bias and out = x5 * 0.2 + x in fp32, then
 // rounded. The RRDB residual (u * 0.2 + t) stays outside, in PyTorch.
 //
+// Training: given a stash pointer, each block also writes x, x1..x4 of its
+// output tile, pixel-major (B, H*W, F + 4G) bf16, for the backward kernel K8
+// (rdb_cm_bwd.cu). x1..x4 are the values the block computed and rounded, so
+// the backward sees exactly what a recompute would give.
+//
 // Design. The TPU kernel keeps whole 256-pixel rows with channels on
 // sublanes in its many megabytes of VMEM. Here one thread block (16 warps)
 // computes one TS x TS output tile (TS = 16 at F/G = 48/24) from a (TS+10)^2
@@ -57,6 +62,7 @@ constexpr int HALO = 5;  // one pixel per conv
 struct RdbParams {
   const bf16* x;          // (B, F, H*W)
   bf16* out;              // (B, F, H*W)
+  bf16* stash;            // (B, H*W, F + 4G) x, x1..x4 of the output tiles, or null
   const uint32_t* wfrag;  // the five convs' B fragments, conv after conv
   const float* bias;      // b1..b4 (G each), b5 (F)
   int h, w, ts, tiles_x;
@@ -202,19 +208,27 @@ __device__ __forceinline__ void intermediate_conv(const RdbParams& P, unsigned c
   bf16* dst = reinterpret_cast<bf16*>(smem + P.soff[I]);
   const float* bi = P.bias + (I - 1) * G;
   const int ps = P.ps[I], H = P.h, W = P.w;
+  constexpr int CS = F + 4 * G;
+  bf16* stash = P.stash == nullptr ? nullptr : P.stash + (size_t)blockIdx.y * H * W * CS;
   conv_phase<NTG, I, F, G>(P, smem, [&](int p0, int n0, int R, int M, float (&acc)[NTG][4]) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int p = p0 + g + 8 * half;
       if (p >= M) continue;
-      const int py = p / R, gy = ty0 - HI + py, gx = tx0 - HI + p - py * R;
+      const int py = p / R, px = p - py * R, gy = ty0 - HI + py, gx = tx0 - HI + px;
       const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      const bool core = stash != nullptr && inside && py >= HI && py < HI + P.ts && px >= HI &&
+                        px < HI + P.ts;
 #pragma unroll
       for (int j = 0; j < NTG; ++j) {
         const int n = n0 + j * 8 + tig * 2;
         const float v0 = inside ? lrelu02(acc[j][2 * half] + bi[n]) : 0.f;
         const float v1 = inside ? lrelu02(acc[j][2 * half + 1] + bi[n + 1]) : 0.f;
-        *reinterpret_cast<__nv_bfloat162*>(dst + p * ps + n) = __floats2bfloat162_rn(v0, v1);
+        const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
+        *reinterpret_cast<__nv_bfloat162*>(dst + p * ps + n) = v;
+        if (core)
+          *reinterpret_cast<__nv_bfloat162*>(stash + ((size_t)gy * W + gx) * CS + F +
+                                             (I - 1) * G + n) = v;
       }
     }
   });
@@ -235,27 +249,36 @@ __global__ void __launch_bounds__(THREADS7, 1) rdb_kernel(const RdbParams P) {
   // thread; eight iterations' loads are issued before their stores
   const int R0 = TS + 2 * HALO, total = (F / 2) * R0 * R0;
   bf16* xs = reinterpret_cast<bf16*>(smem + P.soff[0]);
+  bf16* stash = P.stash == nullptr ? nullptr : P.stash + (size_t)b * H * W * (F + 4 * G);
   constexpr int U = 8;
   for (int base = tid; base < total; base += THREADS7 * U) {
     float v[U][2];
     int at[U];
 #pragma unroll
+    long long sat[U];  // the stash index of a core pixel's channel pair, or -1
+#pragma unroll
     for (int k = 0; k < U; ++k) {
       const int idx = base + k * THREADS7;
       const int cp = idx / (R0 * R0), pix = idx - cp * R0 * R0;
-      const int ry = pix / R0, gy = ty0 - HALO + ry, gx = tx0 - HALO + pix - ry * R0;
+      const int ry = pix / R0, rx = pix - ry * R0, gy = ty0 - HALO + ry, gx = tx0 - HALO + rx;
       at[k] = idx < total ? pix * P.ps[0] + 2 * cp : -1;
+      sat[k] = -1;
       v[k][0] = v[k][1] = 0.f;
       if (idx < total && gy >= 0 && gy < H && gx >= 0 && gx < W) {
         const size_t off = ((size_t)(2 * cp) * H + gy) * W + gx;
         v[k][0] = __bfloat162float(xg[off]);
         v[k][1] = __bfloat162float(xg[off + (size_t)H * W]);
+        if (stash != nullptr && ry >= HALO && ry < HALO + TS && rx >= HALO && rx < HALO + TS)
+          sat[k] = ((long long)gy * W + gx) * (F + 4 * G) + 2 * cp;
       }
     }
 #pragma unroll
-    for (int k = 0; k < U; ++k)
+    for (int k = 0; k < U; ++k) {
       if (at[k] >= 0)
         *reinterpret_cast<__nv_bfloat162*>(xs + at[k]) = __floats2bfloat162_rn(v[k][0], v[k][1]);
+      if (sat[k] >= 0)
+        *reinterpret_cast<__nv_bfloat162*>(stash + sat[k]) = __floats2bfloat162_rn(v[k][0], v[k][1]);
+    }
   }
 
   // ---- conv1..conv4 (conv_phase synchronises before each group)
@@ -330,10 +353,12 @@ extern "C" int rdb_cm_tile(int f, int g) {
 
 // C entry point, bound with ctypes; returns a cudaError_t. x and out are
 // (bsz, f, h*w) bf16; wfrag holds the five convs' weights in B-fragment order
-// (the wrapper's pack_rdb_weights) at word offsets woff; bias is b1..b5 fp32.
+// (the wrapper's pack_rdb_weights) at word offsets woff; bias is b1..b5 fp32;
+// stash, when not null, receives x, x1..x4 as (bsz, h*w, f + 4g) bf16.
 // Takes F/G = 48/24, 64/32 and 16/8.
 extern "C" int rdb_cm_bf16(const void* x, const void* wfrag, const int* woff, const void* bias,
-                           void* out, int bsz, int f, int g, int h, int w, void* stream) {
+                           void* out, void* stash, int bsz, int f, int g, int h, int w,
+                           void* stream) {
   if (bsz <= 0 || h <= 0 || w <= 0 || !((f == 48 && g == 24) || (f == 64 && g == 32) ||
                                         (f == 16 && g == 8)))
     return (int)cudaErrorInvalidValue;
@@ -341,6 +366,7 @@ extern "C" int rdb_cm_bf16(const void* x, const void* wfrag, const int* woff, co
   RdbParams P = {};
   P.x = static_cast<const bf16*>(x);
   P.out = static_cast<bf16*>(out);
+  P.stash = static_cast<bf16*>(stash);
   P.wfrag = static_cast<const uint32_t*>(wfrag);
   P.bias = static_cast<const float*>(bias);
   P.h = h;

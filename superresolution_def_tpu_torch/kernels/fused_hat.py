@@ -1,9 +1,13 @@
-"""Fused HAT / HybridHATRealESRGAN inference forward (the JAX ``kernels/fused_hat.py``).
+"""Fused HAT / HybridHATRealESRGAN forwards (the JAX ``kernels/fused_hat.py``
+and the fused generator of ``train/state.py::create_hat_train_state``).
 
 :func:`make_fused_hat` runs every HAB through K5 (:func:`~.hab_block.fused_hab_block`)
 and every OCAB tail through K6 (:func:`~.ocab.fused_ocab_block`);
 :func:`make_fused_hybrid` adds the RRDB trunk through K7
-(:func:`~.fused_rdb_cm.fused_rrdb_trunk_cm`). The CAB branch (3x3 convs,
+(:func:`~.fused_rdb_cm.fused_rrdb_trunk_cm`). :func:`make_fused_hybrid_train`
+is the differentiable hybrid for training: the HAT backbone as its
+``nn.Module`` (with drop-path) and the trunk through K7 forward and K8
+backward (:func:`~.fused_rdb_cm_bwd.fused_rrdb_trunk_cm_ad`). The CAB branch (3x3 convs,
 GELU, channel attention), OCAB's LN1 and qkv product, the RHAG convs and the
 heads stay PyTorch ops, as the JAX package leaves them to XLA. The rolls and
 window partition/reverse around each HAB are one row gather each way
@@ -12,16 +16,19 @@ permutation as x: the sum x + attn + conv_scale * conv_x is formed in shifted
 space and rolled back, which is the reference's sum since rolls are
 permutations and the MLP and LN2 act per token.
 
-Inference only: the operands are cast, laid out and padded (or packed) for
-the kernels once, when the forward is made, and later changes to the model
-are not seen. Computes in ``dtype`` (bf16 by default) with LayerNorms in
-fp32; H and W must be window multiples.
+The inference forwards cast, lay out and pad (or pack) the operands for the
+kernels once, when the forward is made, and do not see later changes to the
+model; :func:`make_fused_hybrid_train` reads the parameters at every call
+and repacks a dense block's weights when they have changed. Computes in
+``dtype`` (bf16 by default) with LayerNorms in fp32; H and W must be window
+multiples.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.func import functional_call
 
 from ..ops import (
     overlap_windows,
@@ -34,6 +41,7 @@ from ..ops import (
 )
 from ..models.hat import shift_mask
 from .fused_rdb_cm import fused_rrdb_trunk_cm, pack_rdb_weights
+from .fused_rdb_cm_bwd import fused_rrdb_trunk_cm_ad
 from .hab_block import fused_hab_block, pad_hab_operands
 from .ocab import fused_ocab_block, pad_ocab_operands
 from .swin_block import _gather_rows, _gelu, _ln_f32, token_order
@@ -188,5 +196,34 @@ def make_fused_hybrid(model, *, dtype: torch.dtype = torch.bfloat16):
         feat = feat + _conv3(body, trunk)
         feat = F.leaky_relu(_conv3(up, resize_nearest(feat, 2)), 0.2)
         return _conv3(last, F.leaky_relu(_conv3(hr, feat), 0.2))
+
+    return forward
+
+
+def make_fused_hybrid_train(model, *, dtype: torch.dtype = torch.bfloat16):
+    """``forward(x, deterministic=True, generator=None)`` of a
+    :class:`~..models.HybridHATRealESRGAN` for training, as the JAX fused
+    ``core_fwd``: HAT through its ``nn.Module`` in ``dtype`` (parameters cast
+    inside autograd, drop-path on when ``deterministic`` is False, drawn from
+    ``generator``), ``lrelu(conv_adapt)``, the RRDB trunk through K7/K8 on the
+    fp32 master weights (rounded inside; their gradients come back fp32),
+    ``conv_body`` plus the residual, nearest x2 and ``conv_up``, ``conv_hr``,
+    ``conv_last``. It runs the kernels at every trunk width; on CPU tensors
+    their plain versions run."""
+    hat = model.hat
+
+    def wb(m):
+        return m.weight.to(dtype), m.bias.to(dtype)
+
+    def forward(x: torch.Tensor, deterministic: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        params = {k: v.to(dtype) for k, v in hat.named_parameters()}
+        hat_out = functional_call(hat, params, (x.to(dtype), deterministic, generator))
+        feat = F.leaky_relu(_conv3(wb(model.conv_adapt), hat_out), 0.2)
+        rrdbs = [[([c.weight for c in rdb.convs()], [c.bias for c in rdb.convs()])
+                  for rdb in (rrdb.rdb1, rrdb.rdb2, rrdb.rdb3)] for rrdb in model.rrdb_trunk]
+        feat = feat + _conv3(wb(model.conv_body), fused_rrdb_trunk_cm_ad(rrdbs, feat))
+        feat = F.leaky_relu(_conv3(wb(model.conv_up), resize_nearest(feat, 2)), 0.2)
+        return _conv3(wb(model.conv_last), F.leaky_relu(_conv3(wb(model.conv_hr), feat), 0.2))
 
     return forward

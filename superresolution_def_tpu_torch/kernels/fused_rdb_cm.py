@@ -31,17 +31,23 @@ def rdb_cm_reference(xf: torch.Tensor, kernels, biases, *, h: int, w: int) -> to
     sources, with the TPU kernel's rounding points (fp32 sums; x1..x4 =
     lrelu(sum + bias) rounded to the io dtype; out = (sum + b5) * 0.2 + x in
     fp32, then rounded). Weights are rounded to the io dtype first."""
-    dt = xf.dtype
-    rnd = _rounder(dt)
+    srcs, y = dense_block_sources(xf, kernels, biases, h=h, w=w)
     b, f, _ = xf.shape
-    x = xf.reshape(b, f, h, w).float()
-    srcs = [x]
+    return (y * 0.2 + srcs[0]).to(xf.dtype).reshape(b, f, h * w)
+
+
+def dense_block_sources(xf: torch.Tensor, kernels, biases, *, h: int, w: int):
+    """x, x1..x4 as fp32 NCHW holding io-dtype values, and conv5's fp32
+    ``sum + b5``: the forward of :func:`rdb_cm_reference` up to its output."""
+    rnd = _rounder(xf.dtype)
+    b, f, _ = xf.shape
+    srcs = [xf.reshape(b, f, h, w).float()]
     for i in range(5):
         wt = rnd(kernels[i].float()).permute(3, 2, 0, 1)  # HWIO -> OIHW
         y = F.conv2d(torch.cat(srcs, 1), wt, padding=1) + biases[i].float()[None, :, None, None]
         if i < 4:
             srcs.append(rnd(F.leaky_relu(y, 0.2)))
-    return (y * 0.2 + x).to(dt).reshape(b, f, h * w)
+    return srcs, y
 
 
 @functools.cache
@@ -86,7 +92,7 @@ def fragment_index(f: int, g: int) -> tuple[tuple[np.ndarray, ...], tuple[int, .
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = load_library("rdb_cm")
-    lib.rdb_cm_bf16.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.rdb_cm_bf16.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.rdb_cm_bf16.restype = ctypes.c_int
     return lib
 
@@ -109,7 +115,7 @@ def pack_rdb_weights(kernels, biases, device) -> tuple[torch.Tensor, tuple[int, 
 
 
 def fused_rdb_cm(xf: torch.Tensor, kernels, biases, *, h: int, w: int,
-                 packed: tuple | None = None) -> torch.Tensor:
+                 packed: tuple | None = None, stash: torch.Tensor | None = None) -> torch.Tensor:
     """K7: one dense block on ``(B, F, H*W)`` -> ``(B, F, H*W)``.
 
     ``kernels``/``biases``: the reference's HWIO conv1..conv5 weights
@@ -117,6 +123,9 @@ def fused_rdb_cm(xf: torch.Tensor, kernels, biases, *, h: int, w: int,
     launch the Hopper kernel (counted in ``fused_rdb_cm.launches``) or raise;
     CPU tensors take :func:`rdb_cm_reference`. ``packed``: the weights
     already through :func:`pack_rdb_weights` on the activation's device.
+    ``stash``: a ``(B, H*W, F + 4G)`` bf16 tensor that the kernel fills with
+    x, x1..x4 pixel-major for the backward (K8); the CPU path leaves it
+    untouched.
     """
     if not _on_cuda("fused_rdb_cm", xf):
         return rdb_cm_reference(xf, kernels, biases, h=h, w=w)
@@ -137,6 +146,11 @@ def fused_rdb_cm(xf: torch.Tensor, kernels, biases, *, h: int, w: int,
                              f"({cout},), got {tuple(k.shape)} and {tuple(b.shape)}")
         if k.device != xf.device or b.device != xf.device:
             raise ValueError(f"{name}: every operand must be on the activation's device")
+    if stash is not None and (stash.shape != (bsz, hw, f + 4 * g)
+                              or stash.dtype != torch.bfloat16 or stash.device != xf.device
+                              or not stash.is_contiguous()):
+        raise ValueError(f"{name}: stash must be a contiguous ({bsz}, {hw}, {f + 4 * g}) "
+                         f"bfloat16 tensor on the activation's device")
     lib = _library()
     wfrag, offsets, bias = packed or pack_rdb_weights(kernels, biases, xf.device)
     x = xf.contiguous()
@@ -144,7 +158,8 @@ def fused_rdb_cm(xf: torch.Tensor, kernels, biases, *, h: int, w: int,
     woff = (ctypes.c_int * 5)(*offsets)
     with torch.cuda.device(x.device):
         _check(lib.rdb_cm_bf16(x.data_ptr(), wfrag.data_ptr(), ctypes.addressof(woff),
-                               bias.data_ptr(), out.data_ptr(), bsz, f, g, h, w,
+                               bias.data_ptr(), out.data_ptr(),
+                               None if stash is None else stash.data_ptr(), bsz, f, g, h, w,
                                _stream(x.device)), "rdb_cm_bf16")
     fused_rdb_cm.launches += 1
     return out

@@ -1,4 +1,5 @@
-from .discriminators import UNetDiscriminatorSNSwin
+from .discriminators import UNetDiscriminatorSNHAT, UNetDiscriminatorSNSwin
+from .hat import DropPath, injected_drop_masks
 from .hat import HAT
 from .hybrid import HybridHATRealESRGAN
 from .spectral_norm import SNConv2d
@@ -6,6 +7,7 @@ from .swinir import SwinIR, SwinTransformerBlock, WindowAttention
 from .weights import (
     detect_hybrid_params,
     detect_swinir_params,
+    discriminator_hat_state_dict_from_jax,
     discriminator_swin_state_dict_from_jax,
     hat_state_dict_from_jax,
     hybrid_state_dict_from_jax,
@@ -16,14 +18,18 @@ from .weights import (
 )
 
 __all__ = [
+    "DropPath",
     "HAT",
     "HybridHATRealESRGAN",
     "detect_hybrid_params",
     "hat_state_dict_from_jax",
     "hybrid_state_dict_from_jax",
     "SNConv2d",
+    "UNetDiscriminatorSNHAT",
     "UNetDiscriminatorSNSwin",
+    "discriminator_hat_state_dict_from_jax",
     "discriminator_swin_state_dict_from_jax",
+    "injected_drop_masks",
     "vgg19_state_dict_from_jax",
     "SwinIR",
     "SwinTransformerBlock",

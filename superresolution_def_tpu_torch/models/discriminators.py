@@ -1,9 +1,15 @@
-"""U-Net discriminator with spectral norm, the swin variant (the JAX ``models/discriminators.py``).
+"""U-Net discriminators with spectral norm, both variants (the JAX ``models/discriminators.py``).
 
 UNetDiscriminatorSNSwin (models/discriminator_swin.py:6-84): every conv
 spectral-normalised, ConvTranspose upsampling, a bilinear
 (align_corners=True) size fix when a skip's size differs, channel CONCAT
 skips, LeakyReLU 0.2. NHWC in and out.
+
+UNetDiscriminatorSNHAT (models/discriminator_hat.py:8-50, Real-ESRGAN
+style): plain conv0 and conv9 with bias, spectral-normalised convs without
+bias elsewhere, bilinear (align_corners=False) x2 upsampling, ADDITIVE
+skips. Its keys are ``conv0.*``, ``conv{1-8}.weight_orig/_u/_v`` and
+``conv9.*``, as ``torch_port.discriminator_hat_from_torch`` reads them.
 
 Submodules carry the reference's state-dict keys (``conv0.0``, ``conv0.2``,
 ``conv{1-4}.model.0``, ``up{1-4}.model.0``, ``final_conv.0``,
@@ -20,6 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.resize import interpolate_bilinear
+from .layers import reset_torch_default_
 from .spectral_norm import SNConv2d
 
 
@@ -81,3 +88,57 @@ class UNetDiscriminatorSNSwin(nn.Module):
         d4 = up(self.up4, d3, x0)
         out = lr(sn(self.final_conv[0], d4))
         return sn(self.final_conv[2], out)
+
+
+class UNetDiscriminatorSNHAT(nn.Module):
+    def __init__(self, num_in_ch: int = 1, num_feat: int = 64, skip_connection: bool = True, *,
+                 dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        nf = num_feat
+        self.dtype = dtype
+        self.skip_connection = skip_connection
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.conv0 = nn.Conv2d(num_in_ch, nf, 3, 1, 1)
+        reset_torch_default_(self.conv0, generator)
+        for i, (cin, cout, k, s) in enumerate(
+                [(nf, 2 * nf, 4, 2), (2 * nf, 4 * nf, 4, 2), (4 * nf, 8 * nf, 4, 2),
+                 (8 * nf, 4 * nf, 3, 1), (4 * nf, 2 * nf, 3, 1), (2 * nf, nf, 3, 1),
+                 (nf, nf, 3, 1), (nf, nf, 3, 1)], 1):
+            setattr(self, f"conv{i}", SNConv2d(cin, cout, k, s, 1, generator=generator))
+        self.conv9 = nn.Conv2d(nf, 1, 3, 1, 1)
+        reset_torch_default_(self.conv9, generator)
+
+    def _plain(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), conv.weight.to(dt), conv.bias.to(dt),
+                     padding=1)
+        return y.permute(0, 2, 3, 1)
+
+    def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
+        def lr(t):
+            return F.leaky_relu(t, 0.2)
+
+        def sn(i, t):
+            return getattr(self, f"conv{i}")(t, update_stats, self.dtype)
+
+        def up(t):
+            return interpolate_bilinear(t, (t.shape[1] * 2, t.shape[2] * 2), align_corners=False)
+
+        x0 = lr(self._plain(self.conv0, x))
+        x1 = lr(sn(1, x0))
+        x2 = lr(sn(2, x1))
+        x3 = lr(sn(3, x2))
+        x4 = lr(sn(4, up(x3)))
+        if self.skip_connection:
+            x4 = x4 + x2
+        x5 = lr(sn(5, up(x4)))
+        if self.skip_connection:
+            x5 = x5 + x1
+        x6 = lr(sn(6, up(x5)))
+        if self.skip_connection:
+            x6 = x6 + x0
+        out = lr(sn(7, x6))
+        out = lr(sn(8, out))
+        return self._plain(self.conv9, out)

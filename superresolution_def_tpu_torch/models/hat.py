@@ -3,9 +3,11 @@
 Mirrors the JAX ``models/hat.py``: RHAG groups of HAB blocks (window
 attention with a shift mask, plus the channel-attention conv branch CAB
 scaled by ``conv_scale``) closed by an OCAB overlapping cross-attention block
-and a 3x3 conv, then pixel-shuffle reconstruction. Inference only: drop-path
-is the identity here (its training form comes with HAT training). GELU is
-the exact erf form, LayerNorm eps 1e-5, as in the flax model.
+and a 3x3 conv, then pixel-shuffle reconstruction. Drop-path (stochastic
+depth, rates ``linspace(0, drop_path_rate, sum(depths))`` over the HABs) is
+the identity unless ``forward`` is called with ``deterministic=False``; it
+then draws each sample's keep from ``generator``. GELU is the exact erf
+form, LayerNorm eps 1e-5, as in the flax model.
 
 ``state_dict()`` keys are the reference torch keys that the JAX
 ``torch_port.hat_from_torch`` reads (``conv_first.*``, ``patch_embed.norm.*``,
@@ -17,10 +19,12 @@ the exact erf form, LayerNorm eps 1e-5, as in the flax model.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
-from typing import Sequence
+from typing import Callable, Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -40,6 +44,49 @@ from .layers import Mlp, attention, conv_nhwc, reset_torch_default_, trunc_norma
 def shift_mask(h: int, w: int, ws: int, ss: int, device: torch.device) -> torch.Tensor:
     """The (nW, ws*ws, ws*ws) fp32 shift mask of an h x w image, on ``device``."""
     return torch.from_numpy(shift_window_attn_mask(h, w, ws, ss)).to(device)
+
+
+# test hook: (block index, call 0/1, x) -> the keep-mask of that call
+_DROP_MASKS: Callable | None = None
+
+
+@contextlib.contextmanager
+def injected_drop_masks(masks: Callable):
+    """Within the block, every training-mode :class:`DropPath` takes its
+    keep-mask from ``masks(block, call, x)`` (``block``: the HAB's index over
+    the whole network; ``call``: 0 for the attention branch, 1 for the MLP's)
+    instead of drawing it, so a test can feed the JAX draws."""
+    global _DROP_MASKS
+    _DROP_MASKS = masks
+    try:
+        yield
+    finally:
+        _DROP_MASKS = None
+
+
+class DropPath(nn.Module):
+    """Stochastic depth per sample (the JAX ``DropPath``, timm semantics):
+    each sample is kept with ``floor(keep + U)``, U uniform in x's dtype, and
+    scaled by ``1 / keep``. One module serves both branches of its HAB, two
+    independent draws."""
+
+    def __init__(self, rate: float, index: int):
+        super().__init__()
+        self.rate = rate
+        self.index = index
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: torch.Generator | None = None, call: int = 0) -> torch.Tensor:
+        if self.rate == 0.0 or deterministic:
+            return x
+        keep = 1.0 - self.rate
+        if _DROP_MASKS is not None:
+            mask = _DROP_MASKS(self.index, call, x)
+        else:
+            u = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), generator=generator,
+                           dtype=x.dtype, device=x.device)
+            mask = torch.floor(keep + u)
+        return x / keep * mask
 
 
 class ChannelAttention(nn.Module):
@@ -98,7 +145,8 @@ class HAB(nn.Module):
     """Hybrid attention block: (S)W-MSA + conv_scale * CAB, then the MLP."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int, shift_size: int,
-                 compress_ratio: int, squeeze_factor: int, conv_scale: float, mlp_ratio: float):
+                 compress_ratio: int, squeeze_factor: int, conv_scale: float, mlp_ratio: float,
+                 drop_path: float = 0.0, index: int = 0):
         super().__init__()
         self.window_size = window_size
         self.shift_size = shift_size
@@ -108,8 +156,10 @@ class HAB(nn.Module):
         self.attn = WindowAttentionRPI(dim, window_size, num_heads)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.drop_path = DropPath(drop_path, index)
 
-    def forward(self, x: torch.Tensor, x_size: tuple[int, int]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x_size: tuple[int, int], deterministic: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         hgt, wdt = x_size
         b, L, c = x.shape
         ws, ss = self.window_size, self.shift_size
@@ -126,8 +176,9 @@ class HAB(nn.Module):
         x = window_reverse(attn.reshape(-1, ws, ws, c), ws, hgt, wdt)
         if ss:
             x = torch.roll(x, shifts=(ss, ss), dims=(1, 2))
-        x = shortcut + x.reshape(b, L, c) + conv_x * self.conv_scale
-        return x + self.mlp(self.norm2(x))
+        x = (shortcut + self.drop_path(x.reshape(b, L, c), deterministic, generator, 0)
+             + conv_x * self.conv_scale)
+        return x + self.drop_path(self.mlp(self.norm2(x)), deterministic, generator, 1)
 
 
 class OCAB(nn.Module):
@@ -175,18 +226,22 @@ class ResidualGroup(nn.Module):
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
                  compress_ratio: int, squeeze_factor: int, conv_scale: float,
-                 overlap_ratio: float, mlp_ratio: float):
+                 overlap_ratio: float, mlp_ratio: float, drop_paths: Sequence[float] = (),
+                 first_index: int = 0):
         super().__init__()
+        drop_paths = tuple(drop_paths) or (0.0,) * depth
         self.blocks = nn.ModuleList(
             HAB(dim, num_heads, window_size, 0 if j % 2 == 0 else window_size // 2,
-                compress_ratio, squeeze_factor, conv_scale, mlp_ratio)
+                compress_ratio, squeeze_factor, conv_scale, mlp_ratio, drop_paths[j],
+                first_index + j)
             for j in range(depth)
         )
         self.overlap_attn = OCAB(dim, window_size, overlap_ratio, num_heads, mlp_ratio)
 
-    def forward(self, x: torch.Tensor, x_size: tuple[int, int]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x_size: tuple[int, int], deterministic: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         for blk in self.blocks:
-            x = blk(x, x_size)
+            x = blk(x, x_size, deterministic, generator)
         return self.overlap_attn(x, x_size)
 
 
@@ -198,9 +253,10 @@ class RHAG(nn.Module):
         self.residual_group = ResidualGroup(dim, **kw)
         self.conv = nn.Conv2d(dim, dim, 3, 1, 1)
 
-    def forward(self, x: torch.Tensor, x_size: tuple[int, int]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x_size: tuple[int, int], deterministic: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         b, L, c = x.shape
-        res = self.residual_group(x, x_size).reshape(b, *x_size, c)
+        res = self.residual_group(x, x_size, deterministic, generator).reshape(b, *x_size, c)
         return conv_nhwc(self.conv, res).reshape(b, L, c) + x
 
 
@@ -217,9 +273,9 @@ class HAT(nn.Module):
 
     The hybrid's backbone is img_size=128, in_chans=1, embed_dim=90,
     depths=(6,)*4, num_heads=(6,)*4, window_size=8, upscale=2 (pixelshuffle),
-    mlp_ratio 4. Parameters are drawn from ``generator`` (a fresh one seeded
-    0 if None): convs and linears as torch's default init, the bias tables
-    trunc-normal(0.02).
+    mlp_ratio 4, drop-path 0.1. Parameters are drawn from ``generator`` (a
+    fresh one seeded 0 if None): convs and linears as torch's default init,
+    the bias tables trunc-normal(0.02).
     """
 
     def __init__(self, *, img_size: int = 64, in_chans: int = 3, embed_dim: int = 96,
@@ -227,7 +283,8 @@ class HAT(nn.Module):
                  window_size: int = 7, compress_ratio: int = 3, squeeze_factor: int = 30,
                  conv_scale: float = 0.01, overlap_ratio: float = 0.5, mlp_ratio: float = 4.0,
                  patch_norm: bool = True, upscale: int = 2, img_range: float = 1.0,
-                 num_feat: int = 64, generator: torch.Generator | None = None):
+                 num_feat: int = 64, drop_path_rate: float = 0.1,
+                 generator: torch.Generator | None = None):
         super().__init__()
         self.img_size = img_size
         self.in_chans = in_chans
@@ -241,10 +298,13 @@ class HAT(nn.Module):
         self.img_range = img_range
         self.conv_first = nn.Conv2d(in_chans, embed_dim, 3, 1, 1)
         self.patch_embed = PatchEmbedNorm(embed_dim) if patch_norm else None
+        dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
+        starts = [sum(depths[:i]) for i in range(len(depths))]
         self.layers = nn.ModuleList(
             RHAG(embed_dim, depth=depth, num_heads=num_heads[i], window_size=window_size,
                  compress_ratio=compress_ratio, squeeze_factor=squeeze_factor,
-                 conv_scale=conv_scale, overlap_ratio=overlap_ratio, mlp_ratio=mlp_ratio)
+                 conv_scale=conv_scale, overlap_ratio=overlap_ratio, mlp_ratio=mlp_ratio,
+                 drop_paths=dpr[starts[i]:starts[i] + depth], first_index=starts[i])
             for i, depth in enumerate(depths)
         )
         self.norm = nn.LayerNorm(embed_dim, eps=1e-5)
@@ -271,7 +331,8 @@ class HAT(nn.Module):
             return torch.tensor([0.4488, 0.4371, 0.4040], dtype=x.dtype, device=x.device)
         return torch.zeros(self.in_chans, dtype=x.dtype, device=x.device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         b, h, w, _ = x.shape
         mean = self.mean(x)
         x = (x - mean) * self.img_range
@@ -280,7 +341,7 @@ class HAT(nn.Module):
         if self.patch_embed is not None:
             res = self.patch_embed.norm(res)
         for layer in self.layers:
-            res = layer(res, (h, w))
+            res = layer(res, (h, w), deterministic, generator)
         res = self.norm(res).reshape(b, h, w, self.embed_dim)
         feat = conv_nhwc(self.conv_after_body, res) + feat
         out = conv_nhwc(self.conv_before_upsample, feat)

@@ -65,20 +65,22 @@ class RRDBBlock(nn.Module):
 class HybridHATRealESRGAN(nn.Module):
     """x4 hybrid generator, NHWC in [0, 1]. The served config (BASELINE #2) is
     embed_dim=90, depths=(6,)*4, num_heads=(6,)*4, window_size=8, num_rrdb=12,
-    num_feat=48, num_grow_ch=24, in_chans=1. Parameters are drawn from
+    num_feat=48, num_grow_ch=24, in_chans=1, and HAT's drop-path 0.1, which
+    acts only in a ``deterministic=False`` forward. Parameters are drawn from
     ``generator`` (a fresh one seeded 0 if None)."""
 
     def __init__(self, *, img_size: int = 128, in_chans: int = 1, embed_dim: int = 180,
                  depths: Sequence[int] = (6,) * 6, num_heads: Sequence[int] = (6,) * 6,
                  window_size: int = 8, num_rrdb: int = 23, num_feat: int = 64,
-                 num_grow_ch: int = 32, generator: torch.Generator | None = None):
+                 num_grow_ch: int = 32, drop_path_rate: float = 0.1,
+                 generator: torch.Generator | None = None):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.num_rrdb = num_rrdb
         self.hat = HAT(img_size=img_size, in_chans=in_chans, embed_dim=embed_dim, depths=depths,
                        num_heads=num_heads, window_size=window_size, upscale=2, img_range=1.0,
-                       generator=generator)
+                       drop_path_rate=drop_path_rate, generator=generator)
         self.conv_adapt = nn.Conv2d(in_chans, num_feat, 3, 1, 1)
         self.rrdb_trunk = nn.ModuleList(RRDBBlock(num_feat, num_grow_ch)
                                         for _ in range(num_rrdb))
@@ -90,8 +92,10 @@ class HybridHATRealESRGAN(nn.Module):
             if isinstance(m, nn.Conv2d) and not name.startswith("hat."):
                 kaiming_normal_(m, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        feat = F.leaky_relu(conv_nhwc(self.conv_adapt, self.hat(x)), 0.2)
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        feat = F.leaky_relu(conv_nhwc(self.conv_adapt, self.hat(x, deterministic, generator)),
+                            0.2)
         trunk = feat.permute(0, 3, 1, 2)
         for rrdb in self.rrdb_trunk:
             trunk = rrdb(trunk)

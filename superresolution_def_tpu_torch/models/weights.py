@@ -6,10 +6,11 @@ helpers working on tensors. :func:`swinir_state_dict_from_jax` is the exact
 inverse of its ``swinir_from_torch``: it turns the JAX SwinIR params tree
 (numpy arrays) into this package's ``state_dict``;
 :func:`hat_state_dict_from_jax`, :func:`hybrid_state_dict_from_jax`,
-:func:`discriminator_swin_state_dict_from_jax` and
+:func:`discriminator_swin_state_dict_from_jax`,
+:func:`discriminator_hat_state_dict_from_jax` and
 :func:`vgg19_state_dict_from_jax` invert ``hat_from_torch``,
-``hybrid_from_torch``, ``discriminator_swin_from_torch`` and
-``vgg19_from_torch`` the same way.
+``hybrid_from_torch``, ``discriminator_swin_from_torch``,
+``discriminator_hat_from_torch`` and ``vgg19_from_torch`` the same way.
 """
 
 from __future__ import annotations
@@ -140,6 +141,22 @@ def discriminator_swin_state_dict_from_jax(params: Mapping[str, Any],
         out[key + ".weight_orig"] = w.contiguous()
         out[key + ".weight_u"] = _t(spectral[name]["u"])
         out[key + ".weight_v"] = _t(spectral[name]["v"])
+    return out
+
+
+def discriminator_hat_state_dict_from_jax(params: Mapping[str, Any],
+                                          spectral: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The JAX ``UNetDiscriminatorSNHAT`` params and ``spectral`` (u, v) ->
+    this package's ``state_dict``: the inverse of ``discriminator_hat_from_torch``
+    (conv0 and conv9 plain convs with bias, conv1..conv8 spectral-normalised)."""
+    out: dict[str, torch.Tensor] = {}
+    _conv(out, "conv0", params["conv0"])
+    _conv(out, "conv9", params["conv9"])
+    for i in range(1, 9):
+        name = f"conv{i}"
+        out[name + ".weight_orig"] = _t(params[name]["kernel"]).permute(3, 2, 0, 1).contiguous()
+        out[name + ".weight_u"] = _t(spectral[name]["u"])
+        out[name + ".weight_v"] = _t(spectral[name]["v"])
     return out
 
 

@@ -1,4 +1,4 @@
-from .loggers import SWIN_CSV_COLUMNS, CSVLogger
+from .loggers import HAT_CSV_COLUMNS, SWIN_CSV_COLUMNS, CSVLogger
 from .preview import save_tris_preview, to_u8
 
-__all__ = ["SWIN_CSV_COLUMNS", "CSVLogger", "save_tris_preview", "to_u8"]
+__all__ = ["HAT_CSV_COLUMNS", "SWIN_CSV_COLUMNS", "CSVLogger", "save_tris_preview", "to_u8"]

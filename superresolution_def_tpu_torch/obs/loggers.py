@@ -1,7 +1,8 @@
 """CSV logging with the reference's column schema (the JAX ``obs/loggers.py``).
 
 swin metrics.csv: [Epoch, Loss_G, Loss_D, PSNR, SSIM, Time_Sec]
-(train_swin.py:190-193,308-310).
+(train_swin.py:190-193,308-310); hat train_log.csv: [Epoch, G_Total, L1,
+G_Adv, D_Total, PSNR, SSIM, LR] (train_hat.py:173-176,300-306).
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from pathlib import Path
 from typing import Sequence
 
 SWIN_CSV_COLUMNS = ["Epoch", "Loss_G", "Loss_D", "PSNR", "SSIM", "Time_Sec"]
+HAT_CSV_COLUMNS = ["Epoch", "G_Total", "L1", "G_Adv", "D_Total", "PSNR", "SSIM", "LR"]
 
 
 class CSVLogger:

@@ -10,8 +10,8 @@ from .losses import (
     texture_loss,
 )
 from .schedule import cosine_annealing_lr
-from .state import SwinTrainState, create_swin_train_state
-from .steps import make_eval_step, make_swin_train_step
+from .state import HATTrainState, SwinTrainState, create_hat_train_state, create_swin_train_state
+from .steps import HAT_METRICS, make_eval_step, make_hat_train_step, make_swin_train_step
 from .vgg import VGG19Features
 
 __all__ = [
@@ -26,9 +26,13 @@ __all__ = [
     "relative_gan_loss",
     "texture_loss",
     "cosine_annealing_lr",
+    "HAT_METRICS",
+    "HATTrainState",
     "SwinTrainState",
+    "create_hat_train_state",
     "create_swin_train_state",
     "make_eval_step",
+    "make_hat_train_step",
     "make_swin_train_step",
     "VGG19Features",
 ]

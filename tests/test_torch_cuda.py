@@ -37,11 +37,13 @@ import torch
 
 from superresolution_def_tpu_torch.kernels import (
     fused_hab_block,
+    fused_rdb_cm_bwd,
     fused_ocab_block,
     fused_rdb_cm,
     fused_swin_block,
     hab_block_reference,
     make_fused_hybrid,
+    make_fused_hybrid_train,
     make_fused_swinir,
     swin_block_bwd_attn,
     swin_block_bwd_attn_reference,
@@ -50,9 +52,11 @@ from superresolution_def_tpu_torch.kernels import (
     swin_block_fwd_h,
     swin_block_fwd_h_reference,
     ocab_block_reference,
+    rdb_cm_bwd_reference,
     rdb_cm_reference,
     swin_block_reference,
 )
+from superresolution_def_tpu_torch.kernels.fused_rdb_cm import dense_block_sources
 from superresolution_def_tpu_torch.models import HybridHATRealESRGAN, SwinIR
 from superresolution_def_tpu_torch.ops import shift_window_attn_mask
 
@@ -411,3 +415,133 @@ def test_fused_hybrid_matches_module(device):
     err, err16 = _rel_l2(got, want), _rel_l2(ref16, want)
     print(f"fused bf16 {err:.4e}, nn.Module bf16 {err16:.4e}")
     assert err <= max(2e-2, 2 * err16), (err, err16)
+
+
+def _k8_operands(seed, f, g, h, w, device):
+    x, ks, bs = _rdb_operands(seed, 2, f, g, h, w, device)
+    dy = 1e-2 * torch.randn(2, f, h * w, generator=torch.Generator().manual_seed(seed))
+    return x, dy.to(device, torch.bfloat16), ks, bs
+
+
+def _stashed(x, ks, bs, h, w):
+    g = ks[0].shape[-1]
+    stash = torch.empty(x.shape[0], h * w, x.shape[1] + 4 * g, dtype=torch.bfloat16,
+                        device=x.device)
+    return fused_rdb_cm(x, ks, bs, h=h, w=w, stash=stash), stash
+
+
+@pytest.mark.parametrize("f,g,h,w", [
+    (48, 24, 20, 256),   # the hybrid's widths, a height off the 16-pixel tile
+    (48, 24, 64, 64),
+    (64, 32, 30, 64),    # the reference default widths (8-pixel chain tiles)
+    (16, 8, 20, 256),
+])
+def test_rdb_bwd_kernel_matches_plain_version(device, f, g, h, w):
+    """K7's stash is x, x1..x4 and leaves its output as it was; K8's dx, dW and
+    db each within BWD_REL_L2 of the plain version (relative L2), the bound
+    of K3/K4: bf16 operands, and x1..x4 rounded from fp32 sums in another
+    order than the plain version's convs."""
+    x, dy, ks, bs = _k8_operands(f + h + w, f, g, h, w, device)
+    out, stash = _stashed(x, ks, bs, h, w)
+    assert torch.equal(out, fused_rdb_cm(x, ks, bs, h=h, w=w))
+    srcs, _ = dense_block_sources(x, ks, bs, h=h, w=w)
+    assert torch.equal(stash[..., :f], x.transpose(1, 2))
+    want_stash = torch.cat(srcs[1:], 1).reshape(2, 4 * g, h * w).transpose(1, 2)
+    assert _rel_l2(stash[..., f:], want_stash) <= BWD_REL_L2
+    before = fused_rdb_cm_bwd.launches
+    dx, dks, dbs = fused_rdb_cm_bwd(x, dy, ks, bs, h=h, w=w, stash=stash)
+    torch.cuda.synchronize()
+    assert fused_rdb_cm_bwd.launches == before + 1
+    wdx, wdks, wdbs = rdb_cm_bwd_reference(x, dy, ks, bs, h=h, w=w)
+    names = ["dx"] + [f"dW{i}" for i in range(1, 6)] + [f"db{i}" for i in range(1, 6)]
+    for name, got, want in zip(names, (dx, *dks, *dbs), (wdx, *wdks, *wdbs)):
+        assert got.shape == want.shape and got.dtype == want.dtype, name
+        assert torch.isfinite(got).all(), name
+        print(name, _rel_l2(got, want))
+        assert _rel_l2(got, want) <= BWD_REL_L2, (name, _rel_l2(got, want))
+
+
+def test_rdb_bwd_kernel_is_reproducible(device):
+    """No atomics, the partial sums reduced in a fixed order: two runs give
+    the same bits."""
+    x, dy, ks, bs = _k8_operands(5, 48, 24, 64, 96, device)
+    _, stash = _stashed(x, ks, bs, 64, 96)
+    first = fused_rdb_cm_bwd(x, dy, ks, bs, h=64, w=96, stash=stash)
+    second = fused_rdb_cm_bwd(x, dy, ks, bs, h=64, w=96, stash=stash)
+    assert torch.equal(first[0], second[0])
+    assert all(torch.equal(a, b) for a, b in zip(first[1] + first[2], second[1] + second[2]))
+
+
+def test_rdb_bwd_kernel_raises_on_what_it_does_not_take(device):
+    x, dy, ks, bs = _k8_operands(6, 48, 24, 16, 16, device)
+    _, stash = _stashed(x, ks, bs, 16, 16)
+    before = fused_rdb_cm_bwd.launches
+    with pytest.raises(TypeError, match="bfloat16"):
+        fused_rdb_cm_bwd(x, dy.float(), ks, bs, h=16, w=16, stash=stash)
+    with pytest.raises(ValueError, match="stash"):
+        fused_rdb_cm_bwd(x, dy, ks, bs, h=16, w=16)
+    with pytest.raises(ValueError, match="stash"):
+        fused_rdb_cm_bwd(x, dy, ks, bs, h=16, w=16, stash=stash[:, :, :96].contiguous())
+    with pytest.raises(ValueError, match="not compiled"):
+        fused_rdb_cm_bwd(x[:, :40].contiguous(), dy[:, :40].contiguous(),
+                         [k[:, :, 8:] for k in ks], bs, h=16, w=16, stash=stash)
+    with pytest.raises(ValueError, match="device"):
+        fused_rdb_cm_bwd(x, dy, ks[:4] + [ks[4].cpu()], bs, h=16, w=16, stash=stash)
+    assert fused_rdb_cm_bwd.launches == before
+
+
+def test_fused_hybrid_train_backward_matches_module(device):
+    """Gradients of the differentiable fused hybrid (bf16 HAT module, K7/K8
+    trunk) against autograd of the fp32 module: each checked gradient's
+    relative L2 within max(2e-2, 2x the bf16 module's own distance)."""
+    model = HybridHATRealESRGAN(**HYBRID, generator=torch.Generator().manual_seed(1)).to(device)
+    model16 = copy.deepcopy(model).to(torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(1).random((2, 16, 32, 1), dtype=np.float32))
+    probe = torch.randn(2, 64, 128, 1, generator=torch.Generator().manual_seed(2)).to(device)
+    checked = ["hat.conv_first.weight", "conv_adapt.weight", "rrdb_trunk.0.rdb1.conv1.weight",
+               "rrdb_trunk.1.rdb3.conv5.bias", "conv_last.weight"]
+
+    def grads(forward, net, dtype):
+        xi = x.to(device, dtype).requires_grad_()
+        net.zero_grad(set_to_none=True)
+        (forward(xi).float() * probe).sum().backward()
+        named = dict(net.named_parameters())
+        return [xi.grad.float()] + [named[k].grad.float() for k in checked]
+
+    before = (fused_rdb_cm.launches, fused_rdb_cm_bwd.launches)
+    got = grads(make_fused_hybrid_train(model), model, torch.float32)
+    assert (fused_rdb_cm.launches, fused_rdb_cm_bwd.launches) == (before[0] + 6, before[1] + 6)
+    want = grads(model, model, torch.float32)
+    ref16 = grads(model16, model16, torch.bfloat16)
+    for name, g, w, r in zip(["input", *checked], got, want, ref16):
+        err, err16 = _rel_l2(g, w), _rel_l2(r, w)
+        print(name, err, err16)
+        assert torch.isfinite(g).all() and err <= max(2e-2, 2 * err16), (name, err, err16)
+
+
+def test_fused_hybrid_train_step_runs_the_kernels(device):
+    """A tiny GAN step and a warmup step with the fused trunk: K7 and K8 run
+    3 x num_rrdb times per micro-batch, the losses are finite, G moves, and
+    D moves only in the GAN step."""
+    from superresolution_def_tpu_torch.train import create_hat_train_state, make_hat_train_step
+
+    state = create_hat_train_state(torch.Generator().manual_seed(0), img_size=16, embed_dim=30,
+                                   depths=(2,), num_heads=(6,), num_rrdb=2, num_feat=48,
+                                   num_grow_ch=24, dtype=torch.bfloat16, fused=True,
+                                   device=device)
+    step = make_hat_train_step(state, accum_steps=2)
+    rng = np.random.default_rng(0)
+    batch = {"lr": rng.integers(0, 65535, (2, 2, 16, 16, 1), dtype=np.uint16),
+             "hr": rng.integers(0, 65535, (2, 2, 64, 64, 1), dtype=np.uint16)}
+    key = "rrdb_trunk.0.rdb1.conv1.weight"
+    for warmup in (True, False):
+        g0 = state.g.state_dict()[key].clone()
+        d0 = {k: v.clone() for k, v in state.d.state_dict().items()}
+        before = (fused_rdb_cm.launches, fused_rdb_cm_bwd.launches)
+        m = step(batch, 1e-4, 1e-4, warmup=warmup)
+        assert (fused_rdb_cm.launches, fused_rdb_cm_bwd.launches) == (before[0] + 12,
+                                                                      before[1] + 12)
+        assert all(np.isfinite(v) for v in m.values()), m
+        assert not torch.equal(state.g.state_dict()[key], g0)
+        d_same = all(torch.equal(v, d0[k]) for k, v in state.d.state_dict().items())
+        assert d_same == warmup
