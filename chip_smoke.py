@@ -58,7 +58,28 @@ exit code:
     bf16 ``nn.Module`` generator, at micro 2 x accum 8 and micro 8 x accum 2;
 20. the fused hybrid step's ``torch.profiler`` breakdown (K7, K8, AdamW and
     EMA, the rest) and idle share, with the HAT backbone, D and VGG timed
-    alone at the step's shapes.
+    alone at the step's shapes;
+21. the fused-HAB training kernels' build lines (``ocab_train.cu``, built
+    with phase 2's; K9a, K9b and K9c are entry points of ``hab_block.cu`` and
+    ``swin_block_train.cu``): ptxas registers and spills;
+22. K9a (``hab_fwd_h``), K9b (``hab_bwd_mlp``), K9c (``hab_bwd_attn``),
+    K10a (``ocab_fwd_h``) and K10b (``ocab_bwd_attn``) against their plain
+    versions at the fused-HAB step's shapes (Bw=512: micro 2 of 128x128,
+    C=90, 6 heads, hidden 360, bf16; K9 unshifted and shifted, drop-path
+    scales that drop one of the two samples, K10 on a real overlap gather,
+    dout ~ N(0, 1e-2)), each backward run twice to show the same bits, with
+    times;
+23. the fused-HAB hybrid generator's gradients against fp32 autograd of the
+    ``nn.Module`` on one patch, beside the bf16 ``nn.Module``'s own distance
+    (with phase 17);
+24. the fused-HAB training slice: ``cli.main train --arch hat --bf16
+    --fused-hab`` for 2 epochs (warmup, GAN) of 2 steps of micro 2 x accum
+    8, counting K9a/K9b/K9c/K10a/K10b launches (192, 224, 192, 32, 32 per
+    step) and K7/K8 (288 each), then ``infer --arch hat --impl fused`` of the
+    trained run;
+25. patches/s and peak memory of the fused-HAB GAN step at micro 2 x accum
+    8 and micro 8 x accum 2 (beside phase 19's fused step), and its
+    ``torch.profiler`` idle share and device kernel launches per step.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it fails at once:
@@ -107,7 +128,20 @@ HYBRID_BATCH = 8
 # the hybrid GAN step (BASELINE config #4): the JAX trainer's split
 HAT_MICRO, HAT_ACCUM = 2, 8
 HAT_TRAIN_PAIRS = 32
-SOURCES = ["swin_block", "swin_block_train", "hab_block", "ocab", "rdb_cm", "rdb_cm_bwd"]
+# parameters of the backbone whose gradients phase 23 checks
+HAB_CHECKED = [
+    "hat.conv_first.weight",
+    "hat.layers.0.residual_group.blocks.0.attn.qkv.weight",
+    "hat.layers.0.residual_group.blocks.1.attn.relative_position_bias_table",
+    "hat.layers.1.residual_group.blocks.3.mlp.fc2.weight",
+    "hat.layers.2.residual_group.blocks.5.norm1.weight",
+    "hat.layers.3.residual_group.overlap_attn.qkv.weight",
+    "hat.layers.3.residual_group.overlap_attn.relative_position_bias_table",
+    "hat.layers.3.residual_group.overlap_attn.mlp.fc1.weight",
+    "conv_adapt.weight",
+]
+SOURCES = ["swin_block", "swin_block_train", "hab_block", "ocab", "rdb_cm", "rdb_cm_bwd",
+           "ocab_train"]
 
 
 def log(phase: str, msg: str) -> None:
@@ -201,15 +235,24 @@ def block_work(bw: int, c: int = 180, heads: int = 6, hidden: int = 720) -> dict
 
 def hat_work(bw: int = 2048, c: int = 90, heads: int = 6, hidden: int = 360, nk: int = 144,
              b: int = 8, b_train: int = HAT_MICRO, hw: int = 256 * 256, f: int = 48,
-             g: int = 24, shifted_share: float = 0.5) -> dict:
-    """FLOPs and bytes of K5, K6, K7 and K8 at the hybrid's shapes. K5: x
-    and conv_x in, out (bf16), the weights, and the (256, 64, 64) fp32 mask
-    for its shifted half of the calls; K6: x, q, out and the 144-key k and v
+             g: int = 24, shifted_share: float = 0.5, bw_train: int = HAT_MICRO * 256) -> dict:
+    """FLOPs and bytes of K5-K10 at the hybrid's shapes. K5: x and conv_x
+    in, out (bf16), the weights, and the (256, 64, 64) fp32 mask for its
+    shifted half of the calls; K6: x, q, out and the 144-key k and v
     windows, the weights and the bias; K7 (batch ``b``): x in and out, the
     weights. K8 (the train micro-batch ``b_train``): the least work is dx's
     transposed convs and dW, each one product per forward weight and pixel
     (2 x 269,568 FLOP a pixel at 48/24), with no recompute; x, dy in and dx
-    out (bf16), the weights read (bf16), dW and db written (fp32)."""
+    out (bf16), the weights read (bf16), dW and db written (fp32). K9 and
+    K10 at the train step's ``bw_train`` windows: K9a is K5 with h written;
+    K9b and K9c count as K3 and K4 (the MLP's forward recomputed and its four
+    backward products; qkv recomputed, its two backward products, proj's
+    two, and six attention products), their windows read and written once,
+    the weights read (bf16) and their gradients written (fp32), K9c's
+    (heads, 64, 64) bias gradient and mask share; K10a is K6 with h written;
+    K10b reads q, k, v, dh and writes dq, dk, dv (bf16) and the proj and
+    bias gradients once, and does the scores, the attention output, da,
+    dq, dk and dv products and do and dWproj."""
     n = 64
     hd = c // heads
     rows = bw * n * c * 2
@@ -217,6 +260,11 @@ def hat_work(bw: int = 2048, c: int = 90, heads: int = 6, hidden: int = 360, nk:
     mlp = 2 * 2 * n * c * hidden
     k5 = bw * (2 * n * c * 3 * c + 2 * 2 * n * n * hd * heads + 2 * n * c * c + mlp)
     k6 = bw * (2 * 2 * n * nk * c + 2 * n * c * c + mlp)
+    bt = bw_train
+    rows_t = bt * n * c * 2
+    keys_t = bt * nk * c * 2
+    w_attn, w_mlp = (3 * c * c + c * c) * 2, 2 * c * hidden * 2
+    mask = shifted_share * 256 * n * n * 4
     per_pixel = sum(2 * 9 * (f + i * g) * (g if i < 4 else f) for i in range(5))
     w_rdb = sum(9 * (f + i * g) * (g if i < 4 else f) * 2 for i in range(5))
     return {
@@ -226,6 +274,14 @@ def hat_work(bw: int = 2048, c: int = 90, heads: int = 6, hidden: int = 360, nk:
         "K7": (b * hw * per_pixel, 2 * b * f * hw * 2 + w_rdb),
         "K8": (2 * b_train * hw * per_pixel,
                3 * b_train * f * hw * 2 + w_rdb + w_rdb * 2 + (4 * g + f) * 4),
+        "K9a": (k5 // bw * bt, 4 * rows_t + w_block + mask + 2 * bt * 4),
+        "K9b": (bt * 5 * mlp // 2, 3 * rows_t + w_mlp + w_mlp * 2 + bt * 4),
+        "K9c": (bt * (3 * 2 * n * c * 3 * c + 2 * 2 * n * c * c + 6 * 2 * n * n * hd * heads),
+                3 * rows_t + w_attn + w_attn * 2 + heads * n * n * 4 + mask + bt * 4),
+        "K10a": (k6 // bw * bt, 4 * rows_t + 2 * keys_t + (c * c + 2 * c * hidden) * 2
+                 + heads * n * nk * 4),
+        "K10b": (bt * (6 * 2 * n * nk * c + 2 * 2 * n * c * c),
+                 3 * rows_t + 4 * keys_t + c * c * 2 * 3 + heads * n * nk * 4 * 2),
     }
 
 
@@ -241,8 +297,10 @@ def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def device_profile(fn, steps: int = 2) -> tuple[list, float, float]:
-    """Top device ops (name, ms per step) of ``steps`` calls of ``fn``, the
-    device's busy ms per step and its idle share of the kernels' span."""
+    """Device ops (name, ms per step, calls per step) of ``steps`` calls of
+    ``fn``, longest first, the device's busy ms per step and its idle share
+    of the kernels' span. The host's ops by self time, longest first, are
+    left in ``device_profile.host`` (name, ms per step, calls per step)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -270,6 +328,10 @@ def device_profile(fn, steps: int = 2) -> tuple[list, float, float]:
         if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
             ops.append((e.key, t / 1e3 / steps, e.count // steps))
     ops.sort(key=lambda o: -o[1])
+    device_profile.host = sorted(
+        ((e.key, e.self_cpu_time_total / 1e3 / steps, e.count // steps)
+         for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU),
+        key=lambda o: -o[1])
     return ops, busy / 1e3 / steps, 1.0 - busy / span
 
 
@@ -284,11 +346,22 @@ def main() -> None:
     from superresolution_def_tpu_torch.cli.main import main as cli_main
     from superresolution_def_tpu_torch.data import read_tiff_u16
     from superresolution_def_tpu_torch.kernels import _build, hab_block, ocab, swin_block
+    ocab_train_mod = importlib.import_module("superresolution_def_tpu_torch.kernels.ocab_train")
     # the module, not the function of the same name that the package exports
     rdb_cm = importlib.import_module("superresolution_def_tpu_torch.kernels.fused_rdb_cm")
     rdb_bwd = importlib.import_module("superresolution_def_tpu_torch.kernels.fused_rdb_cm_bwd")
     from superresolution_def_tpu_torch.kernels import (
         fused_hab_block,
+        hab_bwd_attn,
+        hab_bwd_attn_reference,
+        hab_bwd_mlp,
+        hab_bwd_mlp_reference,
+        hab_fwd_h,
+        hab_fwd_h_reference,
+        ocab_bwd_attn,
+        ocab_bwd_attn_reference,
+        ocab_fwd_h,
+        ocab_fwd_h_reference,
         fused_ocab_block,
         fused_rdb_cm,
         fused_rdb_cm_bwd,
@@ -306,7 +379,7 @@ def main() -> None:
         swin_block_fwd_h,
     )
     from superresolution_def_tpu_torch.models import HybridHATRealESRGAN, SwinIR
-    from superresolution_def_tpu_torch.ops import shift_window_attn_mask
+    from superresolution_def_tpu_torch.ops import overlap_windows, shift_window_attn_mask
     from superresolution_def_tpu_torch.train import (
         CombinedGANLoss,
         VGG19Features,
@@ -341,6 +414,7 @@ def main() -> None:
     ocab._library()
     rdb_cm._library()
     rdb_bwd._library()
+    ocab_train_mod._library()
     build_s = time.perf_counter() - t0
     log("build", ", ".join(f"{k}.cu -> {v.name}" for k, v in paths.items())
         + f", all {len(SOURCES)} at once in {build_s:.1f} s")
@@ -826,6 +900,9 @@ def main() -> None:
         ("generator", ["hat.conv_first.weight", "hat.layers.0.residual_group.blocks.0.attn.qkv.weight",
                        "conv_adapt.weight", "rrdb_trunk.0.rdb1.conv1.weight", "conv_last.weight"],
          hyb, hyb16, make_fused_hybrid_train(hyb), x, probe),
+        # 23. the fused-HAB generator (K9, K10 in the backbone)
+        ("fused-HAB generator", HAB_CHECKED, hyb, hyb16,
+         make_fused_hybrid_train(hyb, fused_hab=True), x, probe),
     ):
         want_g = grads(want_fn, hyb, xin, probe_, names)
         ref16 = grads(ref_fn, hyb16, xin.to(torch.bfloat16), probe_, names)
@@ -968,14 +1045,231 @@ def main() -> None:
                 f"fused hybrid GAN step, micro {micro} x accum {accum} on {card}: device busy "
                 f"{busy_ms:.3f} ms per step, idle share {idle:.4f}; by kernel group per step: "
                 + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+                + f"; device ops per step {sum(n for _, _, n in ops)}"
                 + "; timed alone per step: " + ", ".join(f"{k} {v:.3f} ms"
                                                         for k, v in parts.items())
                 + "; top device ops: " + "; ".join(f"{name[:60]} {t:.3f} ms x{n}"
-                                                    for name, t, n in ops[:10]))
+                                                    for name, t, n in ops[:10])
+                + "; top host ops by self time: " + "; ".join(
+                    f"{name[:50]} {t:.3f} ms x{n}" for name, t, n in device_profile.host[:12]))
             del xin, hr, sr
         del st, stp, hb
         torch.cuda.empty_cache()
     log("hat-train-throughput", f"hybrid GAN step, 128->512 on {card}: " + "; ".join(
+        f"{k} {int(k.split()[1].split('x')[0]) * int(k.split('x')[1]) * 1e3 / ms:.3f} patches/s "
+        f"({ms:.2f} ms/step, peak {hat_step_peak[k]:.2f} GB)" for k, ms in hat_step_ms.items()))
+
+    # 21. the fused-HAB training kernels' build (done with phase 2's; K9a is
+    # an entry of hab_block.cu, K9b and K9c of swin_block_train.cu, whose
+    # lines phases 2 and 7 printed)
+    for line in _build.build_log("ocab_train").splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log("build-hab-train", "ocab_train: " + line.strip().replace("ptxas info    : ", ""))
+
+    # 22. K9a-c and K10a-b against their plain versions at the fused-HAB
+    # step's shapes
+    bw_t = HAT_MICRO * (128 // 8) ** 2  # 512 windows: micro 2 of 128x128
+    bf = torch.bfloat16
+    kgen = torch.Generator().manual_seed(seed + 12)
+    targs9 = k1_inputs(kgen, device, bw=bw_t, c=90, heads=6, hidden=360)
+    x9, ln1_w, ln1_b, wqkv, bqkv, bias9, wproj, bproj, ln2_w, ln2_b, w1, b1, w2, b2 = targs9
+    convx9 = (0.1 * torch.randn(bw_t, 64, 90, generator=kgen)).to(device, bf)
+    dout9 = (1e-2 * torch.randn(bw_t, 64, 90, generator=kgen)).to(device, bf)
+    per_image = bw_t // HAT_MICRO
+
+    def per_sample(values):
+        return torch.tensor(values, dtype=torch.float32).repeat_interleave(per_image).to(device)
+
+    dp1 = per_sample([1 / 0.9, 0.0])  # sample 1's attention branch dropped
+    dp2 = per_sample([0.0, 1 / 0.9])  # sample 0's MLP branch dropped
+    mask128 = torch.from_numpy(shift_window_attn_mask(128, 128, 8, 4)).to(device)
+    # the kernels' padded weights, made once as the training path caches them
+    pad9 = hab_block.pad_hab_operands(ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1,
+                                      b1, w2, b2, num_heads=6)
+    pad10 = ocab.pad_ocab_operands(*targs9[6:])
+    hkw9 = dict(num_heads=6, scale=15**-0.5)
+    names9 = ["out", "h", "dh", "dln2_w", "dln2_b", "dw1", "db1", "dw2", "db2", "dx", "dln1_w",
+              "dln1_b", "dwqkv", "dbqkv", "dbias", "dwproj", "dbproj"]
+    errs9, same9, passed9, max9, t9 = {}, {}, {}, {}, {}
+    for tag, m in (("unshifted", None), ("shifted", mask128)):
+        fwd_args = (x9, convx9, m, dp1, dp2, *targs9[1:])
+        mlp_args = lambda h_: (h_, dout9, dp2, ln2_w, ln2_b, w1, b1, w2)  # noqa: E731
+        kw9a = dict(**hkw9, conv_scale=0.01, padded=pad9)
+        kw9c = dict(**hkw9, padded=pad9)
+        out9, h9 = hab_fwd_h(*fwd_args, **kw9a)
+        mlp9 = hab_bwd_mlp(*mlp_args(h9), padded=pad9[6:11])
+        attn_args = (x9, mlp9[0], m, dp1, ln1_w, ln1_b, wqkv, bqkv, bias9, wproj)
+        attn9 = hab_bwd_attn(*attn_args, **kw9c)
+        again = (*hab_bwd_mlp(*mlp_args(h9), padded=pad9[6:11]),
+                 *hab_bwd_attn(*attn_args, **kw9c))
+        torch.cuda.synchronize()
+        same9[tag] = all(torch.equal(a, b_) for a, b_ in zip((*mlp9, *attn9), again))
+        # the dropped branches pass the cotangent through: dh = dout on
+        # sample 0 (MLP dropped), dx = dh on sample 1 (attention dropped)
+        passed9[tag] = (torch.equal(mlp9[0][:per_image], dout9[:per_image])
+                        and torch.equal(attn9[0][per_image:], mlp9[0][per_image:]))
+        wants = (*hab_fwd_h_reference(*fwd_args, **hkw9, conv_scale=0.01),
+                 *hab_bwd_mlp_reference(*mlp_args(h9)),
+                 *hab_bwd_attn_reference(*attn_args, **hkw9))
+        gots = (out9, h9, *mlp9, *attn9)
+        for name, got_t, want_t in zip(names9, gots, wants):
+            if not torch.isfinite(got_t).all():
+                raise SystemExit(f"K9's {name} ({tag}) is not finite")
+            errs9[f"{tag} {name}"] = rel_l2(got_t, want_t)
+        max9[tag] = {k: (gots[i].float() - wants[i].float()).abs().max().item()
+                     for k, i in (("K9a", 0), ("K9b", 2), ("K9c", 9))}
+        del again, wants
+        t9[tag] = {
+            "K9a": (cuda_ms(lambda: hab_fwd_h(*fwd_args, **kw9a)),
+                    cuda_ms(lambda: hab_fwd_h_reference(*fwd_args, **hkw9, conv_scale=0.01),
+                            **timing)),
+            "K9b": (cuda_ms(lambda: hab_bwd_mlp(*mlp_args(h9), padded=pad9[6:11])),
+                    cuda_ms(lambda: hab_bwd_mlp_reference(*mlp_args(h9)), **timing)),
+            "K9c": (cuda_ms(lambda: hab_bwd_attn(*attn_args, **kw9c)),
+                    cuda_ms(lambda: hab_bwd_attn_reference(*attn_args, **hkw9), **timing)),
+        }
+    ogen = torch.Generator().manual_seed(seed + 13)
+    kv9 = overlap_windows(torch.randn(HAT_MICRO, 128, 128, 180, generator=ogen).to(device, bf),
+                          8, 12)  # the out-of-image keys are zero, as in training
+    oargs9 = [x9, torch.randn(bw_t, 64, 90, generator=ogen).to(device, bf),
+              kv9[..., :90].contiguous(), kv9[..., 90:].contiguous(),
+              (0.5 * torch.randn(6, 64, 144, generator=ogen)).to(device), *targs9[6:]]
+    bwd10 = (*oargs9[1:4], dout9, oargs9[4], wproj)
+    kw10b = dict(**hkw9, padded_wproj=pad10[0])
+    out10, h10 = ocab_fwd_h(*oargs9, **hkw9, padded=pad10)
+    g10 = ocab_bwd_attn(*bwd10, **kw10b)
+    same10 = all(torch.equal(a, b_) for a, b_ in zip(g10, ocab_bwd_attn(*bwd10, **kw10b)))
+    torch.cuda.synchronize()
+    names10 = ["out", "h", "dq", "dk", "dv", "dbias", "dwproj", "dbproj"]
+    gots10 = (out10, h10, *g10)
+    wants10 = (*ocab_fwd_h_reference(*oargs9, **hkw9), *ocab_bwd_attn_reference(*bwd10, **hkw9))
+    errs10 = {}
+    for name, got_t, want_t in zip(names10, gots10, wants10):
+        if not torch.isfinite(got_t).all():
+            raise SystemExit(f"K10's {name} is not finite")
+        errs10[name] = rel_l2(got_t, want_t)
+    max10 = {"K10a": (out10.float() - wants10[0].float()).abs().max().item(),
+             "K10b": max((gots10[i].float() - wants10[i].float()).abs().max().item()
+                         for i in (2, 3, 4))}
+    del wants10
+    t10 = {"K10a": (cuda_ms(lambda: ocab_fwd_h(*oargs9, **hkw9, padded=pad10)),
+                    cuda_ms(lambda: ocab_fwd_h_reference(*oargs9, **hkw9), **timing)),
+           "K10b": (cuda_ms(lambda: ocab_bwd_attn(*bwd10, **kw10b)),
+                    cuda_ms(lambda: ocab_bwd_attn_reference(*bwd10, **hkw9), **timing))}
+    work_t = hat_work()
+    log("k9-k10", f"Bw={bw_t} C=90 heads=6 hidden=360 bf16, dout ~ N(0, 1e-2), one sample "
+                  f"dropped per branch: rel L2 vs plain (bound {BWD_REL_L2}): "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in {**errs9, **{
+                      f"K10 {k}": v for k, v in errs10.items()}}.items()))
+    log("k9-k10", f"backwards bit-identical over two runs: K9 {same9}, K10b {same10}; dropped "
+                  f"branches pass the cotangent through: {passed9}")
+    log("k9-k10", f"on {card}: " + "; ".join(
+        f"{k} {tag} {v[0]:.4f} ms (plain {v[1]:.4f} ms, bound {least_ms(work_t[k])[0]:.4f} ms)"
+        for tag, d in t9.items() for k, v in d.items()) + "; " + "; ".join(
+        f"{k} {v[0]:.4f} ms (plain {v[1]:.4f} ms, bound {least_ms(work_t[k])[0]:.4f} ms)"
+        for k, v in t10.items()))
+    bad = {k: v for k, v in {**errs9, **errs10}.items() if not v <= BWD_REL_L2}
+    if bad or not all(same9.values()) or not same10 or not all(passed9.values()):
+        raise SystemExit(f"K9/K10 disagree with their plain versions {bad}, or are not "
+                         f"reproducible ({same9}, {same10}), or a dropped branch leaks "
+                         f"({passed9})")
+    del targs9, x9, convx9, dout9, kv9, oargs9, out9, h9, mlp9, attn9, out10, h10, g10, pad9, pad10
+    torch.cuda.empty_cache()
+
+    # 24. the fused-HAB training slice through the CLI (its main path: counts
+    # from 0)
+    hab_counters = (hab_fwd_h, hab_bwd_mlp, hab_bwd_attn, ocab_fwd_h, ocab_bwd_attn,
+                    fused_rdb_cm, fused_rdb_cm_bwd)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_split(root / "data", np.random.default_rng(seed + 14),
+                    {"train": HAT_TRAIN_PAIRS, "test": N_IMAGES})
+        for fn in hab_counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        last = cli_main(["train", "--arch", "hat", "--target", "T1", "--bf16", "--fused-hab",
+                         "--batch-size", str(HAT_MICRO), "--accum-steps", str(HAT_ACCUM),
+                         "--epochs", "2", "--warmup-epochs", "1", "--max-steps-per-epoch", "2",
+                         "--ckpt-interval", "1", "--img-interval", "1", "--csv-interval", "1",
+                         "--data-root", str(root / "data"), "--outputs-root",
+                         str(root / "outputs"), "--seed", str(seed)])
+        torch.cuda.synchronize()
+        hab_train_s = time.perf_counter() - t0
+        hab_launches = {fn.__name__: fn.launches for fn in hab_counters}
+        run = root / "outputs" / "T1"
+        rows = (run / "train_log.csv").read_text().strip().splitlines()
+        ck = run / "checkpoints"
+        ep1, ep2 = (torch.load(ck / f"hybrid_epoch_{e}.pth", map_location="cpu",
+                               weights_only=False) for e in (1, 2))
+        hab_key = "hat.layers.0.residual_group.blocks.1.attn.qkv.weight"
+        moved_hab = not torch.equal(ep1["net_g"][hab_key], ep2["net_g"][hab_key])
+        del ep1, ep2
+        log("hab-train", f"train --arch hat --bf16 --fused-hab, micro {HAT_MICRO} x accum "
+                         f"{HAT_ACCUM}, 2 epochs (warmup, GAN) x 2 steps: G={last['g_total']:.5f} "
+                         f"L1={last['l1']:.5f} D={last['d_total']:.5f} PSNR={last['psnr']:.4f} "
+                         f"dB SSIM={last['ssim']:.5f}, {hab_train_s:.2f} s wall; launches "
+                         + ", ".join(f"{k} {v}" for k, v in hab_launches.items())
+                         + f"; the backbone moved in the GAN epoch: {moved_hab}; "
+                         f"train_log.csv rows {len(rows) - 1}")
+        result = cli_main(["infer", "--arch", "hat", "--impl", "fused", "--folder", str(run),
+                           "--data-root", str(root / "data")])
+        log("hab-train", f"infer --arch hat --impl fused of the trained run: "
+                         f"{result['num_images']} images, PSNR={result['psnr']:.4f} dB "
+                         f"SSIM={result['ssim']:.6f}")
+        # per micro-batch: 24 HABs (K9a, K9c; K9b also for the 4 OCABs), 4
+        # OCABs (K10a, K10b), 36 dense blocks; each of the two previews runs
+        # the training forward once under no_grad (K9a, K10a, K7)
+        steps = 2 * 2
+        per_micro = {"hab_fwd_h": 24, "hab_bwd_mlp": 28, "hab_bwd_attn": 24, "ocab_fwd_h": 4,
+                     "ocab_bwd_attn": 4, "fused_rdb_cm": 36, "fused_rdb_cm_bwd": 36}
+        preview = {"hab_fwd_h": 24, "ocab_fwd_h": 4, "fused_rdb_cm": 36}
+        want_hab = {k: v * HAT_ACCUM * steps + 2 * preview.get(k, 0)
+                    for k, v in per_micro.items()}
+        if hab_launches != want_hab:
+            raise SystemExit(f"expected launches {want_hab}, counted {hab_launches}")
+        if len(rows) != 3 or not moved_hab:
+            raise SystemExit(f"fused-HAB train_log.csv {rows}, backbone moved {moved_hab}")
+        if not all(np.isfinite(last[k]) for k in ("g_total", "l1", "d_total", "psnr", "ssim")):
+            raise SystemExit(f"non-finite fused-HAB train metrics: {last}")
+        if result["num_images"] != N_IMAGES or not np.isfinite(result["psnr"]):
+            raise SystemExit("infer of the fused-HAB trained hybrid failed")
+
+    # 25. the fused-HAB GAN step: patches/s, peak memory, profile
+    for micro, accum in ((HAT_MICRO, HAT_ACCUM), (8, 2)):
+        st = create_hat_train_state(torch.Generator().manual_seed(seed), dtype=bf, fused=True,
+                                    fused_hab=True, device=device)
+        stp = make_hat_train_step(st, accum_steps=accum, criterion_g=CombinedGANLoss(
+            pixel_weight=1.0, perceptual_weight=1.0, adversarial_weight=0.005, vgg_apply=vgg))
+        hb = hat_batch(micro, accum)
+        torch.cuda.reset_peak_memory_stats()
+        key = f"fused-HAB {micro}x{accum}"
+        hat_step_ms[key] = cuda_ms(lambda: stp(hb, 1e-4, 1e-4), reps=3, warmup=1, calls=1)
+        hat_step_peak[key] = torch.cuda.max_memory_allocated() / 1e9
+        if micro == HAT_MICRO:
+            ops, busy_ms, idle = device_profile(lambda: stp(hb, 1e-4, 1e-4), steps=1)
+            # K8's weight-gradient kernel is the template wgrad_kernel<F, G>;
+            # K9b/K9c/K10b share swin_block_train.cu's wgrad_kernel(...)
+            groups = {"K9a": ("swin_block_kernel<2, true, true>",),
+                      "K9b": ("mlp_bwd_kernel",), "K9c": ("attn_bwd_kernel",),
+                      "K10a": ("ocab_kernel<2, true>",), "K10b": ("ocab_bwd_kernel",),
+                      "K9/K10 wgrad+colsum": ("wgrad_kernel(", "colsum_kernel"),
+                      "K7": ("rdb_kernel",),
+                      "K8": ("chain_kernel", "wgrad_kernel<", "reduce_kernel")}
+            split = {k: sum(t for name, t, _ in ops if any(p_ in name for p_ in pats))
+                     for k, pats in groups.items()}
+            split["rest"] = sum(t for _, t, _ in ops) - sum(split.values())
+            log("hab-train-profile",
+                f"fused-HAB hybrid GAN step, micro {micro} x accum {accum} on {card}: device "
+                f"busy {busy_ms:.3f} ms per step, idle share {idle:.4f}, device ops per step "
+                f"{sum(n for _, _, n in ops)}; by kernel group per step: "
+                + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+                + "; top device ops: " + "; ".join(f"{name[:60]} {t:.3f} ms x{n}"
+                                                    for name, t, n in ops[:10])
+                + "; top host ops by self time: " + "; ".join(
+                    f"{name[:50]} {t:.3f} ms x{n}" for name, t, n in device_profile.host[:12]))
+        del st, stp, hb
+        torch.cuda.empty_cache()
+    log("hab-train-throughput", f"hybrid GAN step, 128->512 on {card}: " + "; ".join(
         f"{k} {int(k.split()[1].split('x')[0]) * int(k.split('x')[1]) * 1e3 / ms:.3f} patches/s "
         f"({ms:.2f} ms/step, peak {hat_step_peak[k]:.2f} GB)" for k, ms in hat_step_ms.items()))
 
@@ -1001,9 +1295,25 @@ def main() -> None:
         ("fused_rdb_cm_bwd", "K8", "rdb_cm_bwd.cu", 338, hat_train_launches["fused_rdb_cm_bwd"],
          k8_err, k8_times),
     ]
+    # K9's times are the means of their unshifted and shifted calls, half
+    # each on the main path
+    for name, key, src, line in (("hab_fwd_h", "K9a", "hab_block.cu", 373),
+                                 ("hab_bwd_mlp", "K9b", "swin_block_train.cu", 400),
+                                 ("hab_bwd_attn", "K9c", "swin_block_train.cu", 433)):
+        rows.append((name, key, src, line, hab_launches[name], max(m[key] for m in max9.values()),
+                     tuple(statistics.mean(t9[tag][key][i] for tag in t9) for i in (0, 1))))
+    for name, key, src, line in (("ocab_fwd_h", "K10a", "ocab.cu", 130),
+                                 ("ocab_bwd_attn", "K10b", "ocab_train.cu", 265)):
+        rows.append((name, key, src, line, hab_launches[name], max10[key], t10[key]))
+    work.update({k: v for k, v in work_t.items() if k.startswith(("K9", "K10"))})
     replaced = {"K5": SWIN, "K6": "superresolution_def_tpu/kernels/ocab.py",
                 "K7": "superresolution_def_tpu/kernels/fused_rdb_cm.py",
-                "K8": "superresolution_def_tpu/kernels/fused_rdb_cm_bwd.py"}
+                "K8": "superresolution_def_tpu/kernels/fused_rdb_cm_bwd.py",
+                "K9a": "superresolution_def_tpu/kernels/hab_train.py",
+                "K9b": "superresolution_def_tpu/kernels/hab_train.py",
+                "K9c": "superresolution_def_tpu/kernels/hab_train.py",
+                "K10a": "superresolution_def_tpu/kernels/ocab_train.py",
+                "K10b": "superresolution_def_tpu/kernels/ocab_train.py"}
     records = []
     for name, key, src, line, n, e, (ms, pms) in rows:
         bms, by = least_ms(work[key])

@@ -8,7 +8,10 @@
 The flags are those of the JAX ``sr train`` / ``sr infer``, plus ``--device``:
 both run on the card (``cuda``) unless ``--device cpu`` is given, and raise
 without a card. ``train --bf16`` on the card runs the kernels: for swin the
-fused Swin blocks (K2-K4), for hat the RRDB trunk's dense blocks (K7/K8).
+fused Swin blocks (K2-K4), for hat the RRDB trunk's dense blocks (K7/K8);
+``train --arch hat --fused-hab`` also runs the backbone's HABs and OCAB tails
+through their training kernels (K9a-c, K10a-b), on the card with ``--bf16``,
+on the CPU through the kernels' plain versions.
 Without ``--folder`` (``infer``) or ``--target`` (``train``) the run
 folders or targets are offered in a numbered menu.
 """
@@ -46,7 +49,7 @@ def cmd_train(args) -> dict:
     fields = ["batch_size", "accum_steps", "img_size", "embed_dim"]
     if args.arch == "hat":
         fields += ["warmup_epochs", "num_rrdb", "num_feat", "num_grow_ch", "ckpt_interval",
-                   "img_interval", "csv_interval", "pretrained_hat"]
+                   "img_interval", "csv_interval", "pretrained_hat", "fused_hab"]
     for field in fields:
         if getattr(args, field) is not None:
             setattr(cfg, field, getattr(args, field))
@@ -120,6 +123,10 @@ def main(argv=None) -> dict:
     hat.add_argument("--csv-interval", type=int, default=None, help="epochs (default 10)")
     hat.add_argument("--pretrained-hat", default=None,
                      help="a HAT-only .pth to seed the hybrid's backbone")
+    hat.add_argument("--fused-hab", action="store_true", default=None,
+                     help="the backbone's HABs and OCAB tails through their training kernels "
+                          "(K9, K10) too; needs --bf16 on the card, runs their plain versions "
+                          "on the CPU")
 
     pi = sub.add_parser("infer", help="evaluate a trained run on its test split")
     pi.add_argument("--arch", choices=["swin", "hat"], default="swin",

@@ -108,6 +108,7 @@ class HATTrainConfig:
     use_bf16: bool = False
     vgg_weights: str | None = None  # npz of the JAX package's VGG params; None -> seeded
     pretrained_hat: str | None = None  # a HAT-only .pth to seed the backbone
+    fused_hab: bool = False  # the backbone's HABs and OCABs through K9/K10 too
     seed: int = 0
     max_steps_per_epoch: int | None = None
     device: str = "cuda"
@@ -251,12 +252,13 @@ def train_hat_run(cfg: HATTrainConfig) -> dict:
 
     dtype = torch.bfloat16 if cfg.use_bf16 else torch.float32
     # the fused trunk takes bf16 on the card; the CPU runs the module path
-    fused = device.type == "cuda" and cfg.use_bf16
+    # unless fused_hab asks for the fused generator (its plain versions there)
+    fused = cfg.fused_hab or (device.type == "cuda" and cfg.use_bf16)
     state = create_hat_train_state(
         torch.Generator().manual_seed(cfg.seed), img_size=cfg.img_size, embed_dim=cfg.embed_dim,
         depths=cfg.depths, num_heads=cfg.num_heads, window_size=cfg.window_size,
         num_rrdb=cfg.num_rrdb, num_feat=cfg.num_feat, num_grow_ch=cfg.num_grow_ch, dtype=dtype,
-        fused=fused, device=device)
+        fused=fused, fused_hab=cfg.fused_hab, device=device)
     if cfg.pretrained_hat:
         _load_pretrained_hat(cfg.pretrained_hat, state.g)
         state.ema.load_state_dict(state.g.state_dict())

@@ -1,6 +1,7 @@
-// K5: HAT's hybrid attention block (HAB, inference) for Hopper, bf16 in and out.
+// K5: HAT's hybrid attention block (HAB, inference) for Hopper, bf16 in and
+// out, and K9a, the same block for training.
 //
-// Replaces the TPU kernel superresolution_def_tpu/kernels/swin_block.py::
+// K5 replaces the TPU kernel superresolution_def_tpu/kernels/swin_block.py::
 // fused_hab_block (kernel body _make_hab_kernel). It is K1's kernel
 // (swin_block_kernel.cuh) compiled with two more operands:
 //
@@ -27,22 +28,26 @@
 // like K1 latency-bound in this simple design (every window streams the
 // weights through shared memory in 64 x 64 tiles; the padding to 96 adds 7%
 // to every product).
+//
+// K9a replaces superresolution_def_tpu/kernels/hab_train.py::_hab_fwd_h
+// (kernel body _make_hab_fwd_h_kernel): K5 with K2's store of h (rounded to
+// bf16) for the backward, and per-sample drop-path on both branches,
+// h = x + dp1 * proj + conv_scale * conv_x and out = h + dp2 * mlp. The JAX
+// kernel takes dp1, dp2 as (Bw, 1, C) windows of one value each; here they
+// are that value, one fp32 per window. Its bound is K5's plus the h store
+// (11.5 KB more per window): still operation-bound at the tensor cores' peak.
 
 #include "swin_block_kernel.cuh"
 
 using namespace swin;
 
-// C entry point, bound with ctypes; returns a cudaError_t. x, conv_x and out
-// are (bw, 64, cio) bf16; the weights (in, out) bf16 at the padded width c;
-// LN parameters, biases, the (heads, 64, 64) bias and the (nw, 64, 64) mask
-// fp32 (mask may be null).
-extern "C" int hab_block_bf16(const void* x, const void* convx, const void* mask, const void* ln1_w,
-                              const void* ln1_b, const void* wqkv, const void* bqkv,
-                              const void* bias, const void* wproj, const void* bproj,
-                              const void* ln2_w, const void* ln2_b, const void* w1, const void* b1,
-                              const void* w2, const void* b2, void* out, int bw, int c, int cio,
-                              int heads, int hidden, int nw, float scale, float conv_scale,
-                              void* stream) {
+namespace {
+
+Params hab_params(const void* x, const void* convx, const void* mask, const void* ln1_w,
+                  const void* ln1_b, const void* wqkv, const void* bqkv, const void* bias,
+                  const void* wproj, const void* bproj, const void* ln2_w, const void* ln2_b,
+                  const void* w1, const void* b1, const void* w2, const void* b2, void* out,
+                  int c, int cio, int heads, int hidden, int nw, float scale, float conv_scale) {
   Params p = {};
   p.x = static_cast<const bf16*>(x);
   p.convx = static_cast<const bf16*>(convx);
@@ -68,10 +73,47 @@ extern "C" int hab_block_bf16(const void* x, const void* convx, const void* mask
   p.nw = nw;
   p.scale = scale;
   p.conv_scale = conv_scale;
+  return p;
+}
+
+}  // namespace
+
+// C entry points, bound with ctypes; each returns a cudaError_t. x, conv_x
+// and out (and K9a's h) are (bw, 64, cio) bf16; the weights (in, out) bf16 at
+// the padded width c; LN parameters, biases, the (heads, 64, 64) bias and the
+// (nw, 64, 64) mask fp32 (mask may be null).
+extern "C" int hab_block_bf16(const void* x, const void* convx, const void* mask, const void* ln1_w,
+                              const void* ln1_b, const void* wqkv, const void* bqkv,
+                              const void* bias, const void* wproj, const void* bproj,
+                              const void* ln2_w, const void* ln2_b, const void* w1, const void* b1,
+                              const void* w2, const void* b2, void* out, int bw, int c, int cio,
+                              int heads, int hidden, int nw, float scale, float conv_scale,
+                              void* stream) {
+  const Params p = hab_params(x, convx, mask, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj,
+                              ln2_w, ln2_b, w1, b1, w2, b2, out, c, cio, heads, hidden, nw,
+                              scale, conv_scale);
   return run_block<false, true>(p, bw, stream);
 }
 
-// Dynamic shared memory one block needs at padded width c.
+// K9a: as hab_block_bf16, plus h (bw, 64, cio) bf16 and the per-window
+// branch scales dp1, dp2 (bw,) fp32 (either may be null: all one).
+extern "C" int hab_block_fwd_h_bf16(const void* x, const void* convx, const void* mask,
+                                    const void* dp1, const void* dp2, const void* ln1_w,
+                                    const void* ln1_b, const void* wqkv, const void* bqkv,
+                                    const void* bias, const void* wproj, const void* bproj,
+                                    const void* ln2_w, const void* ln2_b, const void* w1,
+                                    const void* b1, const void* w2, const void* b2, void* out,
+                                    void* h, int bw, int c, int cio, int heads, int hidden, int nw,
+                                    float scale, float conv_scale, void* stream) {
+  Params p = hab_params(x, convx, mask, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj, ln2_w,
+                        ln2_b, w1, b1, w2, b2, out, c, cio, heads, hidden, nw, scale, conv_scale);
+  p.h_out = static_cast<bf16*>(h);
+  p.dp1 = static_cast<const float*>(dp1);
+  p.dp2 = static_cast<const float*>(dp2);
+  return run_block<true, true>(p, bw, stream);
+}
+
+// Dynamic shared memory one block needs at padded width c (K5 and K9a).
 extern "C" size_t hab_block_smem_bytes(int c, int hidden) {
   return make_layout(c, round16(c), round16(hidden)).total;
 }

@@ -1,9 +1,12 @@
 // K6: HAT's overlapping cross-attention block tail (OCAB, inference) for
-// Hopper, bf16 in and out.
+// Hopper, bf16 in and out, and K10a, the same tail for training.
 //
-// Replaces the TPU kernel superresolution_def_tpu/kernels/ocab.py::
-// fused_ocab_block (kernel body _make_ocab_kernel). One thread block computes
-// one 8x8 query window end to end:
+// K6 replaces the TPU kernel superresolution_def_tpu/kernels/ocab.py::
+// fused_ocab_block (kernel body _make_ocab_kernel); K10a replaces
+// superresolution_def_tpu/kernels/ocab_train.py::_ocab_fwd_h (kernel body
+// _make_ocab_fwd_h_kernel), which is K6 that also writes h = x + proj,
+// rounded to bf16, for the backward (ocab_train.cu). One thread block
+// computes one 8x8 query window end to end:
 //
 //   per head: softmax(bf16(q * scale) . k^T + bias[h]) . v   (64 queries
 //             against the nk = 144 keys of the window's 12x12 overlap, fp32
@@ -30,7 +33,8 @@
 // each, proj and the MLP) against the 2 x 144 x 90 bf16 keys and values, the
 // query, shortcut and output windows it must read and write (86.4 KB per
 // window): about 146 FLOP per byte, under the H100's ~295 FLOP/byte, so
-// byte-bound at its peak; in this simple design latency-bound like K1.
+// byte-bound at its peak; in this simple design latency-bound like K1. K10a
+// writes 11.5 KB more per window (h), and stays byte-bound.
 
 #include "swin_block_kernel.cuh"
 
@@ -70,7 +74,7 @@ __host__ __device__ inline OcabLayout ocab_layout(int c, int cp, int hidden_p) {
   return L;
 }
 
-template <int NCH>
+template <int NCH, bool STORE_H>
 __global__ void __launch_bounds__(THREADS, 2) ocab_kernel(const OcabParams op) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Params& p = op.p;
@@ -127,31 +131,24 @@ __global__ void __launch_bounds__(THREADS, 2) ocab_kernel(const OcabParams op) {
                           attn + head * hd, L.lda);
   }
   // block_tail's first pipeline step synchronises before it reads attn
-  block_tail<NCH, false, false>(p, L.lda, abuf, attn, mid, ring, vec, red, p.x + win,
+  block_tail<NCH, STORE_H, false>(p, L.lda, abuf, attn, mid, ring, vec, red, p.x + win,
                                 p.out + win, win);
 }
 
-template <int NCH>
+template <int NCH, bool STORE_H>
 cudaError_t launch(const OcabParams& op, int bw, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(ocab_kernel<NCH>,
+  cudaError_t err = cudaFuncSetAttribute(ocab_kernel<NCH, STORE_H>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  ocab_kernel<NCH><<<bw, THREADS, smem, stream>>>(op);
+  ocab_kernel<NCH, STORE_H><<<bw, THREADS, smem, stream>>>(op);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// C entry point, bound with ctypes; returns a cudaError_t. x, q and out are
-// (bw, 64, cio) bf16, k and v (bw, nk, cio) bf16, bias (heads, 64, nk) fp32;
-// wproj (c, c), w1 (c, hidden), w2 (hidden, c) bf16 and the vectors fp32,
-// zero-padded from cio to c.
-extern "C" int ocab_block_bf16(const void* x, const void* q, const void* k, const void* v,
-                               const void* bias, const void* wproj, const void* bproj,
-                               const void* ln2_w, const void* ln2_b, const void* w1,
-                               const void* b1, const void* w2, const void* b2, void* out, int bw,
-                               int nk, int c, int cio, int heads, int hidden, float scale,
-                               void* stream) {
+template <bool STORE_H>
+int run_ocab(const void* x, const void* q, const void* k, const void* v, const void* bias,
+             const void* wproj, const void* bproj, const void* ln2_w, const void* ln2_b,
+             const void* w1, const void* b1, const void* w2, const void* b2, void* out, void* h,
+             int bw, int nk, int c, int cio, int heads, int hidden, float scale, void* stream) {
   const int hd = heads > 0 ? cio / heads : 0;
   if (bw <= 0 || nk <= 0 || nk > NKP || nk % 2 != 0 || c <= 0 || c > MAX_C || c % 4 != 0 ||
       cio <= 0 || cio > c || cio % 2 != 0 || heads <= 0 || cio % heads != 0 || hd > DP ||
@@ -160,7 +157,8 @@ extern "C" int ocab_block_bf16(const void* x, const void* q, const void* k, cons
   const void* aligned8[] = {wproj, w1, w2, bias};
   for (const void* ptr : aligned8)
     if (reinterpret_cast<uintptr_t>(ptr) % 8 != 0) return (int)cudaErrorMisalignedAddress;
-  if (reinterpret_cast<uintptr_t>(x) % 4 != 0) return (int)cudaErrorMisalignedAddress;
+  if (reinterpret_cast<uintptr_t>(x) % 4 != 0 || reinterpret_cast<uintptr_t>(h) % 4 != 0)
+    return (int)cudaErrorMisalignedAddress;
   OcabParams op = {};
   Params& p = op.p;
   p.x = static_cast<const bf16*>(x);
@@ -174,6 +172,7 @@ extern "C" int ocab_block_bf16(const void* x, const void* q, const void* k, cons
   p.w2 = static_cast<const bf16*>(w2);
   p.b2 = static_cast<const float*>(b2);
   p.out = static_cast<bf16*>(out);
+  p.h_out = static_cast<bf16*>(h);
   p.c = c;
   p.cp = round16(c);
   p.cio = cio;
@@ -189,11 +188,38 @@ extern "C" int ocab_block_bf16(const void* x, const void* q, const void* k, cons
   const size_t smem = ocab_layout(c, p.cp, p.hidden_p).total;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((c + TILE - 1) / TILE) {
-    case 1: return (int)launch<1>(op, bw, smem, s);
-    case 2: return (int)launch<2>(op, bw, smem, s);
-    case 3: return (int)launch<3>(op, bw, smem, s);
-    default: return (int)launch<4>(op, bw, smem, s);
+    case 1: return (int)launch<1, STORE_H>(op, bw, smem, s);
+    case 2: return (int)launch<2, STORE_H>(op, bw, smem, s);
+    case 3: return (int)launch<3, STORE_H>(op, bw, smem, s);
+    default: return (int)launch<4, STORE_H>(op, bw, smem, s);
   }
+}
+
+}  // namespace
+
+// C entry points, bound with ctypes; each returns a cudaError_t. x, q and out
+// (and K10a's h) are (bw, 64, cio) bf16, k and v (bw, nk, cio) bf16, bias
+// (heads, 64, nk) fp32; wproj (c, c), w1 (c, hidden), w2 (hidden, c) bf16 and
+// the vectors fp32, zero-padded from cio to c.
+extern "C" int ocab_block_bf16(const void* x, const void* q, const void* k, const void* v,
+                               const void* bias, const void* wproj, const void* bproj,
+                               const void* ln2_w, const void* ln2_b, const void* w1,
+                               const void* b1, const void* w2, const void* b2, void* out, int bw,
+                               int nk, int c, int cio, int heads, int hidden, float scale,
+                               void* stream) {
+  return run_ocab<false>(x, q, k, v, bias, wproj, bproj, ln2_w, ln2_b, w1, b1, w2, b2, out,
+                         nullptr, bw, nk, c, cio, heads, hidden, scale, stream);
+}
+
+// K10a: as ocab_block_bf16, plus h = x + proj (bw, 64, cio) bf16.
+extern "C" int ocab_block_fwd_h_bf16(const void* x, const void* q, const void* k, const void* v,
+                                     const void* bias, const void* wproj, const void* bproj,
+                                     const void* ln2_w, const void* ln2_b, const void* w1,
+                                     const void* b1, const void* w2, const void* b2, void* out,
+                                     void* h, int bw, int nk, int c, int cio, int heads,
+                                     int hidden, float scale, void* stream) {
+  return run_ocab<true>(x, q, k, v, bias, wproj, bproj, ln2_w, ln2_b, w1, b1, w2, b2, out, h,
+                        bw, nk, c, cio, heads, hidden, scale, stream);
 }
 
 // Dynamic shared memory one block needs at padded width c.

@@ -4,8 +4,11 @@
 //
 //   LN1 (fp32 stats) -> QKV (+bqkv, rounded to bf16)
 //   -> per head: softmax(q*scale . k^T + bias[h] (+ mask[w])) . v (softmax fp32)
-//   -> proj (+bproj) -> h = x + proj (+ conv_scale * conv_x)  (residual fp32)
-//   -> LN2 of bf16(h) -> fc1 -> tanh GELU -> fc2 -> out = h + mlp
+//   -> proj (+bproj) -> h = x + dp1 * proj (+ conv_scale * conv_x)  (residual fp32)
+//   -> LN2 of bf16(h) -> fc1 -> tanh GELU -> fc2 -> out = h + dp2 * mlp
+//
+// dp1 and dp2 are K9a's per-window drop-path scales of the two branches
+// (one fp32 value per window); K1, K2, K5 and K6 run with both at 1.
 //
 // Every matrix product runs on the tensor cores (mma.sync m16n8k16 bf16 with
 // fp32 accumulators, operands through ldmatrix). The fp32 residual h lives in
@@ -47,6 +50,8 @@ struct Params {
   bf16* h_out;        // K2 only: h rounded to bf16
   const bf16* convx;  // K5 only: the CAB branch in window layout (cio wide)
   const float* mask;  // K5 only: (nw, 64, 64) additive mask, or null (all zero)
+  const float* dp1;   // K9a only: (bw,) branch scales, or null (all one)
+  const float* dp2;
   int c, cp, cio, heads, hd, hidden, hidden_p, nw;
   float scale, conv_scale;
 };
@@ -176,15 +181,20 @@ __device__ __forceinline__ void attention_rows(const bf16* qh, const bf16* kh, c
   }
 }
 
-// The block's second half, shared by K1/K2/K5 and K6 (ocab.cu): from the
-// attention output in `attn` (64 x cp bf16, zero beyond the real columns),
-// proj into the register-resident residual h = x + (attn @ wproj + bproj)
-// (+ conv_scale * conv_x with CONV), LN2 of bf16(h), the MLP, and
-// out = h + mlp rounded to bf16. xw/ow are the window's rows in device memory.
+// The block's second half, shared by K1/K2/K5/K9a and K6/K10a (ocab.cu):
+// from the attention output in `attn` (64 x cp bf16, zero beyond the real
+// columns), proj into the register-resident residual
+// h = x + d1 * (attn @ wproj + bproj) (+ conv_scale * conv_x with CONV), LN2
+// of bf16(h), the MLP, and out = h + d2 * (mlp + b2) rounded to bf16. xw/ow
+// are the window's rows in device memory. The MLP accumulates into h's
+// registers, so a branch scale d2 other than 1 divides h by d2 before it and
+// multiplies the sum after (exact but for one fp32 rounding each way); a
+// window with d2 = 0 skips the MLP and writes h.
 template <int NCH, bool STORE_H, bool CONV>
 __device__ __forceinline__ void block_tail(const Params& p, int lda, bf16* abuf, const bf16* attn,
                                            bf16* mid, bf16* ring, const float* vec, float* red,
-                                           const bf16* xw, bf16* ow, size_t win) {
+                                           const bf16* xw, bf16* ow, size_t win, float d1 = 1.f,
+                                           float d2 = 1.f) {
   const int C = p.c, CP = p.cp, CIO = p.cio, hidden = p.hidden;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = (warp & 3) * 16, c0 = (warp >> 2) * 32, g = lane >> 2, tig = lane & 3;
@@ -222,8 +232,8 @@ __device__ __forceinline__ void block_tail(const Params& p, int lda, bf16* abuf,
         if (col < CIO) {  // col and CIO even: both columns are real
           const unsigned xx = __ldg(reinterpret_cast<const unsigned*>(xw + r * CIO + col));
           const float2 x2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xx));
-          float v0 = x2.x + (h[ch][t][2 * half] + vec[V_BPROJ * C + col]);
-          float v1 = x2.y + (h[ch][t][2 * half + 1] + vec[V_BPROJ * C + col + 1]);
+          float v0 = x2.x + d1 * (h[ch][t][2 * half] + vec[V_BPROJ * C + col]);
+          float v1 = x2.y + d1 * (h[ch][t][2 * half + 1] + vec[V_BPROJ * C + col + 1]);
           if constexpr (CONV) {
             const unsigned cc =
                 __ldg(reinterpret_cast<const unsigned*>(p.convx + win + r * CIO + col));
@@ -291,7 +301,15 @@ __device__ __forceinline__ void block_tail(const Params& p, int lda, bf16* abuf,
 
   // ---- MLP in 64-wide hidden chunks j: fc1 slice (nkc tiles of w1), GELU ->
   // mid, then mid @ w2[j rows] accumulated into h (NCH tiles of w2)
-  {
+  if (d2 != 1.f && d2 != 0.f) {
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) h[ch][t][e] /= d2;
+  }
+  if (d2 != 0.f) {  // uniform over the block: every thread skips the barriers alike
     const int per = nkc + NCH;
     float acc[4][4];
     pipeline(
@@ -333,7 +351,8 @@ __device__ __forceinline__ void block_tail(const Params& p, int lda, bf16* abuf,
         });
   }
 
-  // ---- out = h + mlp (+b2), rounded to bf16, straight from the registers
+  // ---- out = h + d2 * (mlp + b2), rounded to bf16, straight from the registers
+  const float b2s = d2 != 0.f ? 1.f : 0.f;
 #pragma unroll
   for (int ch = 0; ch < NCH; ++ch)
 #pragma unroll
@@ -341,16 +360,19 @@ __device__ __forceinline__ void block_tail(const Params& p, int lda, bf16* abuf,
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int r = r0 + g + 8 * half, col = ch * TILE + c0 + t * 8 + tig * 2;
-        if (col < CIO)
-          *reinterpret_cast<__nv_bfloat162*>(ow + r * CIO + col) = __floats2bfloat162_rn(
-              h[ch][t][2 * half] + vec[V_B2 * C + col],
-              h[ch][t][2 * half + 1] + vec[V_B2 * C + col + 1]);
+        if (col < CIO) {
+          const float o0 = h[ch][t][2 * half] + b2s * vec[V_B2 * C + col];
+          const float o1 = h[ch][t][2 * half + 1] + b2s * vec[V_B2 * C + col + 1];
+          *reinterpret_cast<__nv_bfloat162*>(ow + r * CIO + col) =
+              d2 != 0.f ? __floats2bfloat162_rn(d2 * o0, d2 * o1) : __floats2bfloat162_rn(o0, o1);
+        }
       }
 }
 
 // NCH = ceil(C / 64): the column chunks of the residual h held in registers.
-// STORE_H: K2, which also writes bf16(h) to p.h_out. HAB: K5, which adds the
-// mask to the scores and conv_scale * conv_x to the residual.
+// STORE_H: K2 and K9a, which also write bf16(h) to p.h_out. HAB: K5 and K9a,
+// which add the mask to the scores and conv_scale * conv_x to the residual;
+// both together (K9a) also scale the branches by dp1, dp2.
 template <int NCH, bool STORE_H, bool HAB>
 __global__ void __launch_bounds__(THREADS, 2) swin_block_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -373,8 +395,13 @@ __global__ void __launch_bounds__(THREADS, 2) swin_block_kernel(const Params p) 
   const bf16* xw = p.x + win;
   bf16* ow = p.out + win;
   const float* mask = nullptr;
+  float d1 = 1.f, d2 = 1.f;
   if constexpr (HAB)
     if (p.mask != nullptr) mask = p.mask + (size_t)(blockIdx.x % p.nw) * N * N;
+  if constexpr (HAB && STORE_H) {  // K9a; K5 keeps the constant scales
+    if (p.dp1 != nullptr) d1 = __ldg(p.dp1 + blockIdx.x);
+    if (p.dp2 != nullptr) d2 = __ldg(p.dp2 + blockIdx.x);
+  }
 
   // q/k/v padding must read as zero; the window goes to the idle attention
   // buffer, the small vectors and the pair column map to theirs
@@ -452,7 +479,7 @@ __global__ void __launch_bounds__(THREADS, 2) swin_block_kernel(const Params p) 
                              lda);
   }
 
-  block_tail<NCH, STORE_H, HAB>(p, lda, abuf, attn, mid, ring, vec, red, xw, ow, win);
+  block_tail<NCH, STORE_H, HAB>(p, lda, abuf, attn, mid, ring, vec, red, xw, ow, win, d1, d2);
 }
 
 template <int NCH, bool STORE_H, bool HAB>

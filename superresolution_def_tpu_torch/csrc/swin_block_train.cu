@@ -1,11 +1,27 @@
-// Backward of the fused Swin transformer block for Hopper, bf16 activations
-// and weights, fp32 sums.
+// Backward of the fused Swin transformer block and of HAT's HAB for Hopper,
+// bf16 activations and weights, fp32 sums.
 //
 // K3 replaces superresolution_def_tpu/kernels/swin_block.py::_bwd_mlp (body
 // _bwd_mlp_kernel): the LN2 + MLP backward from the saved h.
 // K4 replaces ::_bwd_attn (body _make_bwd_attn_kernel, its per-head branch):
 // the attention + LN1 backward, recomputing LN1, qkv and each head's softmax
 // from x.
+// K9b and K9c are the same two window kernels run for HAT's HAB
+// (superresolution_def_tpu/kernels/hab_train.py::_hab_bwd_mlp and
+// ::_hab_bwd_attn, bodies _hab_bwd_mlp_kernel and _make_hab_bwd_attn_kernel);
+// K9b also serves the OCAB tail (ocab_train.py, with a unit scale). They add:
+//   - a second width, as K5 has it: the kernels run at the padded width c
+//     (HAT's 90 columns and 15-wide heads padded to 96 and 16 by the
+//     wrapper, with zeros) while the windows keep cio columns in device
+//     memory and the LayerNorm statistics and their backward run over those
+//     cio; the padded columns of every cotangent come out exactly zero;
+//   - a per-window branch scale (the drop-path dp2 of the MLP, dp1 of the
+//     attention): the cotangent entering the branch is bf16(dp * d) and its
+//     bias gradient dp * sum(d), while the residual passes d through
+//     unscaled (dh = LN2^T(...) + dout, dx = LN1^T(...) + dh). The scaled
+//     cotangent is also written at width c for the weight-gradient product;
+//   - K9c: the (nW, 64, 64) shift mask in the softmax recompute, window w
+//     reading mask[w mod nW] as K5/K9a do.
 //
 // On the TPU the grid runs in order and every weight gradient accumulates
 // into one revisited output block. Hopper runs the blocks in parallel, so
@@ -123,12 +139,25 @@ __device__ __forceinline__ void tile_colsum(float* dst, float* slot, int C, int 
   __syncthreads();
 }
 
-// Copies a (64, C) bf16 window from global memory into rows of stride ld,
-// zero-filling columns C .. CP-1.
-__device__ __forceinline__ void stage_padded(bf16* dst, int ld, const bf16* src, int C, int CP) {
+// Copies a (64, C) bf16 window from global memory, times `scale` and
+// rounded to bf16, into rows of stride ld, zero-filling columns C .. CP-1.
+__device__ __forceinline__ void stage_padded(bf16* dst, int ld, const bf16* src, int C, int CP,
+                                             float scale) {
   for (int i = threadIdx.x; i < N * CP; i += THREADS) {
     const int r = i / CP, c = i - r * CP;
-    dst[r * ld + c] = c < C ? src[r * C + c] : __float2bfloat16(0.f);
+    dst[r * ld + c] = __float2bfloat16(c < C ? __bfloat162float(src[r * C + c]) * scale : 0.f);
+  }
+}
+
+// scale * the column sums of a (64, cio) bf16 window, summed in row order,
+// into dst[0 .. c-1] (zeros past cio).
+__device__ __forceinline__ void window_colsum(float* dst, const bf16* src, int cio, int c,
+                                              float scale) {
+  for (int col = threadIdx.x; col < c; col += THREADS) {
+    float s = 0.f;
+    if (col < cio)
+      for (int r = 0; r < N; ++r) s += __bfloat162float(src[r * cio + col]);
+    dst[col] = scale * s;
   }
 }
 
@@ -151,19 +180,21 @@ __device__ __forceinline__ void zero_smem(void* p, size_t bytes) {
 // ===========================================================================
 
 struct MlpParams {
-  const bf16* h;
-  const bf16* dout;
+  const bf16* h;      // (Bw, 64, cio)
+  const bf16* dout;   // (Bw, 64, cio)
+  const float* dp;    // (Bw,) the MLP branch's scale per window, or null (1)
   const float* ln2_w;
   const float* ln2_b;
   const bf16* w1;  // (C, hidden)
   const float* b1;
   const bf16* w2;  // (hidden, C)
-  bf16* dh;        // (Bw, 64, C)
+  bf16* dh;        // (Bw, 64, cio)
   bf16* hn;        // (Bw*64, C)       LN2 output, for dW1
   bf16* g;         // (Bw*64, hidden)  GELU output, for dW2
   bf16* du;        // (Bw*64, hidden)  for dW1
+  bf16* dm;        // (Bw*64, C)       bf16(dp * dout), for dW2; null: K3 reads dout
   float* vec;      // (Bw, hidden + 3C): db1 | db2 | dln2s | dln2b of each window
-  int c, cp, hidden;
+  int c, cp, cio, hidden;
 };
 
 struct MlpLayout {
@@ -175,7 +206,7 @@ __host__ __device__ inline MlpLayout mlp_layout(int c, int cp, int hidden) {
   MlpLayout L;
   L.lda = cp + 8;
   size_t o = 0;
-  L.hs = o;    o += align128(sizeof(bf16) * N * c);          // h window
+  L.hs = o;    o += align128(sizeof(bf16) * N * c);          // h window (cio <= c wide)
   L.a = o;     o += align128(sizeof(bf16) * N * L.lda);      // hn
   L.d = o;     o += align128(sizeof(bf16) * N * L.lda);      // dout
   L.mid = o;   o += align128(sizeof(bf16) * N * LDT);        // du chunk
@@ -198,7 +229,7 @@ __device__ __forceinline__ float gelu_tanh_grad(float u) {
 template <int NCH>
 __global__ void __launch_bounds__(THREADS, 1) mlp_bwd_kernel(const MlpParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int C = p.c, CP = p.cp, hidden = p.hidden;
+  const int C = p.c, CP = p.cp, CIO = p.cio, hidden = p.hidden;
   const MlpLayout L = mlp_layout(C, CP, hidden);
   bf16* hs = reinterpret_cast<bf16*>(smem + L.hs);
   bf16* abuf = reinterpret_cast<bf16*>(smem + L.a);
@@ -216,12 +247,14 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_bwd_kernel(const MlpParams p) 
   const size_t win = blockIdx.x;
   const size_t row0 = win * N;  // first token row of the window
   float* vout = p.vec + win * (hidden + 3 * C);
+  const float dscale = p.dp != nullptr ? __ldg(p.dp + win) : 1.f;
+  const bf16* dout = p.dout + row0 * CIO;
 
   {
-    const uint4* src = reinterpret_cast<const uint4*>(p.h + row0 * C);
+    const uint4* src = reinterpret_cast<const uint4*>(p.h + row0 * CIO);
     uint4* dst = reinterpret_cast<uint4*>(hs);
-    for (int i = tid; i < N * C / 8; i += THREADS) dst[i] = __ldg(src + i);
-    stage_padded(dbuf, lda, p.dout + row0 * C, C, CP);
+    for (int i = tid; i < N * CIO / 8; i += THREADS) dst[i] = __ldg(src + i);
+    stage_padded(dbuf, lda, dout, CIO, CP, dscale);
     for (int i = tid; i < C; i += THREADS) {
       vec[i] = __ldg(p.ln2_w + i);
       vec[C + i] = __ldg(p.ln2_b + i);
@@ -230,16 +263,12 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_bwd_kernel(const MlpParams p) 
   }
   __syncthreads();
   layer_norm_rows(
-      abuf, lda, C, CP, [&](int r, int c) { return __bfloat162float(hs[r * C + c]); }, vec,
+      abuf, lda, CIO, CP, [&](int r, int c) { return __bfloat162float(hs[r * CIO + c]); }, vec,
       vec + C, stats);
   __syncthreads();
   store_window(p.hn + row0 * C, abuf, lda, C);
-  // db2 = column sums of dout
-  for (int c = tid; c < C; c += THREADS) {
-    float s = 0.f;
-    for (int r = 0; r < N; ++r) s += __bfloat162float(dbuf[r * lda + c]);
-    vout[hidden + c] = s;
-  }
+  if (p.dm != nullptr) store_window(p.dm + row0 * C, dbuf, lda, C);
+  window_colsum(vout + hidden, dout, CIO, C, dscale);  // db2
 
   // ---- per 64-wide hidden chunk j: u = hn.w1[:, j] + b1, dg = dout.w2[j, :]^T,
   // du = dg * gelu'(u) -> g, du to global and du to `mid`; then
@@ -327,7 +356,7 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_bwd_kernel(const MlpParams p) 
   auto col_of = [&](int ch, int t, int e) { return ch * TILE + c0 + t * 8 + tig * 2 + (e & 1); };
   auto xhat = [&](int ch, int t, int e) {
     const int col = col_of(ch, t, e), r = r0 + g + 8 * (e >> 1);
-    return col < C ? (__bfloat162float(hs[r * C + col]) - mu[e >> 1]) * rstd[e >> 1] : 0.f;
+    return col < CIO ? (__bfloat162float(hs[r * CIO + col]) - mu[e >> 1]) * rstd[e >> 1] : 0.f;
   };
   tile_colsum<NCH>(vout + hidden + C, slot, C, CP,
                    [&](int ch, int t, int e) { return dhn[ch][t][e] * xhat(ch, t, e); });
@@ -335,12 +364,13 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_bwd_kernel(const MlpParams p) 
                    [&](int ch, int t, int e) { return dhn[ch][t][e]; });
   auto dxh = [&](int ch, int t, int e) {
     const int col = col_of(ch, t, e);
-    return col < C ? dhn[ch][t][e] * vec[col] : 0.f;
+    return col < CIO ? dhn[ch][t][e] * vec[col] : 0.f;
   };
   float s1[2], s2[2];
-  row_sums<NCH>(s1, red, C, dxh);
-  row_sums<NCH>(s2, red, C, [&](int ch, int t, int e) { return dxh(ch, t, e) * xhat(ch, t, e); });
-  bf16* dh = p.dh + row0 * C;
+  row_sums<NCH>(s1, red, CIO, dxh);
+  row_sums<NCH>(s2, red, CIO,
+                [&](int ch, int t, int e) { return dxh(ch, t, e) * xhat(ch, t, e); });
+  bf16* dh = p.dh + row0 * CIO;
 #pragma unroll
   for (int ch = 0; ch < NCH; ++ch)
 #pragma unroll
@@ -348,16 +378,19 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_bwd_kernel(const MlpParams p) 
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int r = r0 + g + 8 * half, col = ch * TILE + c0 + t * 8 + tig * 2;
-        if (col >= C) continue;
+        if (col >= CIO) continue;  // col and CIO even: both columns are real
+        const float2 res = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(dout + r * CIO + col));
         float v[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int ee = 2 * half + e;
-          const float d = rstd[half] * (dxh(ch, t, ee) - s1[half] / C -
-                                        xhat(ch, t, ee) * (s2[half] / C));
-          v[e] = d + __bfloat162float(dbuf[r * lda + col + e]);
+          const float d = rstd[half] * (dxh(ch, t, ee) - s1[half] / CIO -
+                                        xhat(ch, t, ee) * (s2[half] / CIO));
+          v[e] = d + (e == 0 ? res.x : res.y);
         }
-        *reinterpret_cast<__nv_bfloat162*>(dh + r * C + col) = __floats2bfloat162_rn(v[0], v[1]);
+        *reinterpret_cast<__nv_bfloat162*>(dh + r * CIO + col) =
+            __floats2bfloat162_rn(v[0], v[1]);
       }
 }
 
@@ -366,21 +399,24 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_bwd_kernel(const MlpParams p) 
 // ===========================================================================
 
 struct AttnParams {
-  const bf16* x;
-  const bf16* dh;
+  const bf16* x;      // (Bw, 64, cio)
+  const bf16* dh;     // (Bw, 64, cio)
+  const float* dp;    // (Bw,) the attention branch's scale per window, or null (1)
+  const float* mask;  // (nw, 64, 64) additive shift mask, or null
   const float* ln1_w;
   const float* ln1_b;
   const bf16* wqkv;   // (C, 3C)
   const float* bqkv;
   const float* bias;  // (heads, 64, 64)
   const bf16* wproj;  // (C, C)
-  bf16* dx;           // (Bw, 64, C)
+  bf16* dx;           // (Bw, 64, cio)
   bf16* xn;           // (Bw*64, C)   LN1 output, for dWqkv
   bf16* att;          // (Bw*64, C)   attention output, for dWproj
   bf16* dqkv;         // (Bw*64, 3C)  for dWqkv
+  bf16* dhs;          // (Bw*64, C)   bf16(dp * dh), for dWproj; null: K4 reads dh
   float* vec;         // (Bw, 6C): dbqkv | dbproj | dln1s | dln1b of each window
   float* dbias;       // (Bw, heads, 64, 64)
-  int c, cp, heads, hd;
+  int c, cp, cio, heads, hd, nw;
   float scale;
 };
 
@@ -469,7 +505,7 @@ __device__ __forceinline__ void rows_tn(float (&o)[4][4], const bf16* at, int k0
 template <int NCH>
 __global__ void __launch_bounds__(THREADS, 1) attn_bwd_kernel(const AttnParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int C = p.c, CP = p.cp, heads = p.heads, hd = p.hd;
+  const int C = p.c, CP = p.cp, CIO = p.cio, heads = p.heads, hd = p.hd;
   const AttnLayout L = attn_layout(C, CP);
   bf16* abuf = reinterpret_cast<bf16*>(smem + L.a);
   bf16* dbuf = reinterpret_cast<bf16*>(smem + L.d);
@@ -490,13 +526,16 @@ __global__ void __launch_bounds__(THREADS, 1) attn_bwd_kernel(const AttnParams p
   const int nkc = (CP + TILE - 1) / TILE;
   const size_t win = blockIdx.x;
   const size_t row0 = win * N;
-  const bf16* xw = p.x + row0 * C;
+  const bf16* xw = p.x + row0 * CIO;
+  const bf16* dhw = p.dh + row0 * CIO;
   float* vout = p.vec + win * 6 * C;
   const int hl = warp >> 2;  // the warp's head within a pair
+  const float dscale = p.dp != nullptr ? __ldg(p.dp + win) : 1.f;
+  const float* mask = p.mask != nullptr ? p.mask + (win % p.nw) * N * N : nullptr;
 
   zero_smem(qkv, sizeof(bf16) * 4 * 2 * N * LDQ);
   zero_smem(dop, sizeof(bf16) * 2 * N * LDQ);
-  stage_padded(dbuf, lda, p.dh + row0 * C, C, CP);
+  stage_padded(dbuf, lda, dhw, CIO, CP, dscale);
   for (int i = tid; i < C; i += THREADS) {
     vec[i] = __ldg(p.ln1_w + i);
     vec[C + i] = __ldg(p.ln1_b + i);
@@ -505,16 +544,12 @@ __global__ void __launch_bounds__(THREADS, 1) attn_bwd_kernel(const AttnParams p
   for (int j = tid; j < 2 * hd; j += THREADS) qmap[j] = (j / hd) * N * LDQ + j % hd;
   __syncthreads();
   layer_norm_rows(
-      abuf, lda, C, CP, [&](int r, int c) { return __bfloat162float(xw[r * C + c]); }, vec,
+      abuf, lda, CIO, CP, [&](int r, int c) { return __bfloat162float(xw[r * CIO + c]); }, vec,
       vec + C, stats);
-  // dbproj = column sums of dh
-  for (int c = tid; c < C; c += THREADS) {
-    float s = 0.f;
-    for (int r = 0; r < N; ++r) s += __bfloat162float(dbuf[r * lda + c]);
-    vout[3 * C + c] = s;
-  }
+  window_colsum(vout + 3 * C, dhw, CIO, C, dscale);  // dbproj
   __syncthreads();
   store_window(p.xn + row0 * C, abuf, lda, C);
+  if (p.dhs != nullptr) store_window(p.dhs + row0 * C, dbuf, lda, C);
 
   float dxn[NCH][4][4];
 #pragma unroll
@@ -587,10 +622,16 @@ __global__ void __launch_bounds__(THREADS, 1) attn_bwd_kernel(const AttnParams p
       const float* bh = p.bias + (size_t)head * N * N;
       float a[8][4];
 #pragma unroll
-      for (int t = 0; t < 8; ++t) {  // the bias is the accumulator's starting value
-        const float2 b0 = *reinterpret_cast<const float2*>(bh + (r0 + g) * N + t * 8 + tig * 2);
-        const float2 b1 =
-            *reinterpret_cast<const float2*>(bh + (r0 + g + 8) * N + t * 8 + tig * 2);
+      for (int t = 0; t < 8; ++t) {  // the bias (and mask) is the accumulator's starting value
+        float2 b0 = *reinterpret_cast<const float2*>(bh + (r0 + g) * N + t * 8 + tig * 2);
+        float2 b1 = *reinterpret_cast<const float2*>(bh + (r0 + g + 8) * N + t * 8 + tig * 2);
+        if (mask != nullptr) {
+          const float2 m0 =
+              *reinterpret_cast<const float2*>(mask + (r0 + g) * N + t * 8 + tig * 2);
+          const float2 m1 =
+              *reinterpret_cast<const float2*>(mask + (r0 + g + 8) * N + t * 8 + tig * 2);
+          b0.x += m0.x; b0.y += m0.y; b1.x += m1.x; b1.y += m1.y;
+        }
         a[t][0] = b0.x; a[t][1] = b0.y; a[t][2] = b1.x; a[t][3] = b1.y;
       }
       rows_nt(a, qsh, kh, r0);
@@ -747,19 +788,20 @@ __global__ void __launch_bounds__(THREADS, 1) attn_bwd_kernel(const AttnParams p
   auto col_of = [&](int ch, int t, int e) { return ch * TILE + c0 + t * 8 + tig * 2 + (e & 1); };
   auto xhat = [&](int ch, int t, int e) {
     const int col = col_of(ch, t, e), r = r0 + g + 8 * (e >> 1);
-    return col < C ? (__bfloat162float(xw[r * C + col]) - mu[e >> 1]) * rstd[e >> 1] : 0.f;
+    return col < CIO ? (__bfloat162float(xw[r * CIO + col]) - mu[e >> 1]) * rstd[e >> 1] : 0.f;
   };
   tile_colsum<NCH>(vout + 4 * C, slot, C, CP,
                    [&](int ch, int t, int e) { return dxn[ch][t][e] * xhat(ch, t, e); });
   tile_colsum<NCH>(vout + 5 * C, slot, C, CP, [&](int ch, int t, int e) { return dxn[ch][t][e]; });
   auto dxh = [&](int ch, int t, int e) {
     const int col = col_of(ch, t, e);
-    return col < C ? dxn[ch][t][e] * vec[col] : 0.f;
+    return col < CIO ? dxn[ch][t][e] * vec[col] : 0.f;
   };
   float s1[2], s2[2];
-  row_sums<NCH>(s1, red, C, dxh);
-  row_sums<NCH>(s2, red, C, [&](int ch, int t, int e) { return dxh(ch, t, e) * xhat(ch, t, e); });
-  bf16* dx = p.dx + row0 * C;
+  row_sums<NCH>(s1, red, CIO, dxh);
+  row_sums<NCH>(s2, red, CIO,
+                [&](int ch, int t, int e) { return dxh(ch, t, e) * xhat(ch, t, e); });
+  bf16* dx = p.dx + row0 * CIO;
 #pragma unroll
   for (int ch = 0; ch < NCH; ++ch)
 #pragma unroll
@@ -767,16 +809,19 @@ __global__ void __launch_bounds__(THREADS, 1) attn_bwd_kernel(const AttnParams p
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int r = r0 + g + 8 * half, col = ch * TILE + c0 + t * 8 + tig * 2;
-        if (col >= C) continue;
+        if (col >= CIO) continue;  // col and CIO even: both columns are real
+        const float2 res = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(dhw + r * CIO + col));
         float v[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int ee = 2 * half + e;
-          const float d = rstd[half] * (dxh(ch, t, ee) - s1[half] / C -
-                                        xhat(ch, t, ee) * (s2[half] / C));
-          v[e] = d + __bfloat162float(dbuf[r * lda + col + e]);
+          const float d = rstd[half] * (dxh(ch, t, ee) - s1[half] / CIO -
+                                        xhat(ch, t, ee) * (s2[half] / CIO));
+          v[e] = d + (e == 0 ? res.x : res.y);
         }
-        *reinterpret_cast<__nv_bfloat162*>(dx + r * C + col) = __floats2bfloat162_rn(v[0], v[1]);
+        *reinterpret_cast<__nv_bfloat162*>(dx + r * CIO + col) =
+            __floats2bfloat162_rn(v[0], v[1]);
       }
 }
 
@@ -869,23 +914,50 @@ bool aligned(const void* ptr, uintptr_t bytes) {
   return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
 }
 
-}  // namespace
-
-// C entry points, bound with ctypes. Each returns a cudaError_t: the launch
-// is asynchronous on `stream`, so 0 means the kernel was accepted.
-
-// K3's window kernel. h, dout: (bw, 64, c) bf16; ln2 w/b, b1 fp32; w1 (c,
-// hidden), w2 (hidden, c) bf16. Writes dh (bw, 64, c), hn (bw*64, c), g and
-// du (bw*64, hidden) bf16 and vec (bw, hidden + 3c) fp32.
-extern "C" int swin_bwd_mlp_bf16(const void* h, const void* dout, const void* ln2_w,
-                                 const void* ln2_b, const void* w1, const void* b1,
-                                 const void* w2, void* dh, void* hn, void* g, void* du, void* vec,
-                                 int bw, int c, int hidden, void* stream) {
-  if (bw <= 0 || c <= 0 || c > MAX_C || c % 4 != 0 || hidden <= 0 || hidden % 4 != 0)
+// K3 / K9b: checks the widths and alignments and launches bw windows.
+int run_mlp(MlpParams p, int bw, void* stream) {
+  const int c = p.c, cio = p.cio, hidden = p.hidden;
+  if (bw <= 0 || c <= 0 || c > MAX_C || c % 4 != 0 || cio <= 0 || cio > c || cio % 2 != 0 ||
+      hidden <= 0 || hidden % 4 != 0)
     return (int)cudaErrorInvalidValue;
-  if (!aligned(h, 16) || !aligned(w1, 8) || !aligned(w2, 8) || !aligned(dh, 4))
+  if (!aligned(p.h, 16) || !aligned(p.dout, 4) || !aligned(p.w1, 8) || !aligned(p.w2, 8) ||
+      !aligned(p.dh, 4))
     return (int)cudaErrorMisalignedAddress;
-  MlpParams p;
+  p.cp = round16(c);
+  const size_t smem = mlp_layout(c, p.cp, hidden).total;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((c + TILE - 1) / TILE) {
+    case 1: return (int)launch_window(mlp_bwd_kernel<1>, bw, smem, s, p);
+    case 2: return (int)launch_window(mlp_bwd_kernel<2>, bw, smem, s, p);
+    case 3: return (int)launch_window(mlp_bwd_kernel<3>, bw, smem, s, p);
+    default: return (int)launch_window(mlp_bwd_kernel<4>, bw, smem, s, p);
+  }
+}
+
+// K4 / K9c: checks the widths and alignments and launches bw windows.
+int run_attn(AttnParams p, int bw, void* stream) {
+  if (bw <= 0 || !widths_ok(p.c, p.heads) || p.cio <= 0 || p.cio > p.c || p.cio % 2 != 0 ||
+      (p.mask != nullptr && p.nw <= 0))
+    return (int)cudaErrorInvalidValue;
+  if (!aligned(p.x, 2) || !aligned(p.dh, 4) || !aligned(p.wqkv, 8) || !aligned(p.wproj, 8) ||
+      !aligned(p.bias, 8) || !aligned(p.mask, 8) || !aligned(p.dx, 4) || !aligned(p.dbias, 8))
+    return (int)cudaErrorMisalignedAddress;
+  p.cp = round16(p.c);
+  p.hd = p.c / p.heads;
+  const size_t smem = attn_layout(p.c, p.cp).total;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((p.c + TILE - 1) / TILE) {
+    case 1: return (int)launch_window(attn_bwd_kernel<1>, bw, smem, s, p);
+    case 2: return (int)launch_window(attn_bwd_kernel<2>, bw, smem, s, p);
+    case 3: return (int)launch_window(attn_bwd_kernel<3>, bw, smem, s, p);
+    default: return (int)launch_window(attn_bwd_kernel<4>, bw, smem, s, p);
+  }
+}
+
+MlpParams mlp_params(const void* h, const void* dout, const void* ln2_w, const void* ln2_b,
+                     const void* w1, const void* b1, const void* w2, void* dh, void* hn, void* g,
+                     void* du, void* vec, int c, int hidden) {
+  MlpParams p = {};
   p.h = static_cast<const bf16*>(h);
   p.dout = static_cast<const bf16*>(dout);
   p.ln2_w = static_cast<const float*>(ln2_w);
@@ -898,33 +970,16 @@ extern "C" int swin_bwd_mlp_bf16(const void* h, const void* dout, const void* ln
   p.g = static_cast<bf16*>(g);
   p.du = static_cast<bf16*>(du);
   p.vec = static_cast<float*>(vec);
-  p.c = c;
-  p.cp = round16(c);
+  p.c = p.cio = c;
   p.hidden = hidden;
-  const size_t smem = mlp_layout(c, p.cp, hidden).total;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((c + TILE - 1) / TILE) {
-    case 1: return (int)launch_window(mlp_bwd_kernel<1>, bw, smem, s, p);
-    case 2: return (int)launch_window(mlp_bwd_kernel<2>, bw, smem, s, p);
-    case 3: return (int)launch_window(mlp_bwd_kernel<3>, bw, smem, s, p);
-    default: return (int)launch_window(mlp_bwd_kernel<4>, bw, smem, s, p);
-  }
+  return p;
 }
 
-// K4's window kernel. x, dh: (bw, 64, c) bf16; ln1 w/b, bqkv fp32; wqkv (c,
-// 3c), wproj (c, c) bf16; bias (heads, 64, 64) fp32. Writes dx (bw, 64, c),
-// xn and att (bw*64, c), dqkv (bw*64, 3c) bf16, vec (bw, 6c) and dbias (bw,
-// heads, 64, 64) fp32.
-extern "C" int swin_bwd_attn_bf16(const void* x, const void* dh, const void* ln1_w,
-                                  const void* ln1_b, const void* wqkv, const void* bqkv,
-                                  const void* bias, const void* wproj, void* dx, void* xn,
-                                  void* att, void* dqkv, void* vec, void* dbias, int bw, int c,
-                                  int heads, float scale, void* stream) {
-  if (bw <= 0 || !widths_ok(c, heads)) return (int)cudaErrorInvalidValue;
-  if (!aligned(wqkv, 8) || !aligned(wproj, 8) || !aligned(bias, 8) || !aligned(dx, 4) ||
-      !aligned(dbias, 8))
-    return (int)cudaErrorMisalignedAddress;
-  AttnParams p;
+AttnParams attn_params(const void* x, const void* dh, const void* ln1_w, const void* ln1_b,
+                       const void* wqkv, const void* bqkv, const void* bias, const void* wproj,
+                       void* dx, void* xn, void* att, void* dqkv, void* vec, void* dbias, int c,
+                       int heads, float scale) {
+  AttnParams p = {};
   p.x = static_cast<const bf16*>(x);
   p.dh = static_cast<const bf16*>(dh);
   p.ln1_w = static_cast<const float*>(ln1_w);
@@ -939,19 +994,76 @@ extern "C" int swin_bwd_attn_bf16(const void* x, const void* dh, const void* ln1
   p.dqkv = static_cast<bf16*>(dqkv);
   p.vec = static_cast<float*>(vec);
   p.dbias = static_cast<float*>(dbias);
-  p.c = c;
-  p.cp = round16(c);
+  p.c = p.cio = c;
   p.heads = heads;
-  p.hd = c / heads;
+  p.nw = 1;
   p.scale = scale;
-  const size_t smem = attn_layout(c, p.cp).total;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((c + TILE - 1) / TILE) {
-    case 1: return (int)launch_window(attn_bwd_kernel<1>, bw, smem, s, p);
-    case 2: return (int)launch_window(attn_bwd_kernel<2>, bw, smem, s, p);
-    case 3: return (int)launch_window(attn_bwd_kernel<3>, bw, smem, s, p);
-    default: return (int)launch_window(attn_bwd_kernel<4>, bw, smem, s, p);
-  }
+  return p;
+}
+
+}  // namespace
+
+// C entry points, bound with ctypes. Each returns a cudaError_t: the launch
+// is asynchronous on `stream`, so 0 means the kernel was accepted.
+
+// K3's window kernel. h, dout: (bw, 64, c) bf16; ln2 w/b, b1 fp32; w1 (c,
+// hidden), w2 (hidden, c) bf16. Writes dh (bw, 64, c), hn (bw*64, c), g and
+// du (bw*64, hidden) bf16 and vec (bw, hidden + 3c) fp32.
+extern "C" int swin_bwd_mlp_bf16(const void* h, const void* dout, const void* ln2_w,
+                                 const void* ln2_b, const void* w1, const void* b1,
+                                 const void* w2, void* dh, void* hn, void* g, void* du, void* vec,
+                                 int bw, int c, int hidden, void* stream) {
+  return run_mlp(mlp_params(h, dout, ln2_w, ln2_b, w1, b1, w2, dh, hn, g, du, vec, c, hidden),
+                 bw, stream);
+}
+
+// K9b's window kernel: K3 at the padded width c with windows h, dout and dh
+// of cio columns, the MLP branch scaled by dp (bw,) fp32 (null: 1), and
+// dm = bf16(dp * dout) (bw*64, c) written for dW2.
+extern "C" int hab_bwd_mlp_bf16(const void* h, const void* dout, const void* dp,
+                                const void* ln2_w, const void* ln2_b, const void* w1,
+                                const void* b1, const void* w2, void* dh, void* hn, void* g,
+                                void* du, void* dm, void* vec, int bw, int c, int cio, int hidden,
+                                void* stream) {
+  MlpParams p = mlp_params(h, dout, ln2_w, ln2_b, w1, b1, w2, dh, hn, g, du, vec, c, hidden);
+  p.cio = cio;
+  p.dp = static_cast<const float*>(dp);
+  p.dm = static_cast<bf16*>(dm);
+  return run_mlp(p, bw, stream);
+}
+
+// K4's window kernel. x, dh: (bw, 64, c) bf16; ln1 w/b, bqkv fp32; wqkv (c,
+// 3c), wproj (c, c) bf16; bias (heads, 64, 64) fp32. Writes dx (bw, 64, c),
+// xn and att (bw*64, c), dqkv (bw*64, 3c) bf16, vec (bw, 6c) and dbias (bw,
+// heads, 64, 64) fp32.
+extern "C" int swin_bwd_attn_bf16(const void* x, const void* dh, const void* ln1_w,
+                                  const void* ln1_b, const void* wqkv, const void* bqkv,
+                                  const void* bias, const void* wproj, void* dx, void* xn,
+                                  void* att, void* dqkv, void* vec, void* dbias, int bw, int c,
+                                  int heads, float scale, void* stream) {
+  return run_attn(attn_params(x, dh, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, dx, xn, att, dqkv,
+                              vec, dbias, c, heads, scale),
+                  bw, stream);
+}
+
+// K9c's window kernel: K4 at the padded width c (heads of c / heads columns)
+// with windows x, dh and dx of cio columns, the (nw, 64, 64) mask (null:
+// none), the attention branch scaled by dp (bw,) fp32 (null: 1), and
+// dhs = bf16(dp * dh) (bw*64, c) written for dWproj.
+extern "C" int hab_bwd_attn_bf16(const void* x, const void* dh, const void* dp, const void* mask,
+                                 const void* ln1_w, const void* ln1_b, const void* wqkv,
+                                 const void* bqkv, const void* bias, const void* wproj, void* dx,
+                                 void* xn, void* att, void* dqkv, void* dhs, void* vec,
+                                 void* dbias, int bw, int c, int cio, int heads, int nw,
+                                 float scale, void* stream) {
+  AttnParams p = attn_params(x, dh, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, dx, xn, att, dqkv,
+                             vec, dbias, c, heads, scale);
+  p.cio = cio;
+  p.dp = static_cast<const float*>(dp);
+  p.mask = static_cast<const float*>(mask);
+  p.nw = nw;
+  p.dhs = static_cast<bf16*>(dhs);
+  return run_attn(p, bw, stream);
 }
 
 // part (splits, m, n) fp32 = per-slice a^T . b, a (t, m) and b (t, n) bf16;

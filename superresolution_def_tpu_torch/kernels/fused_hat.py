@@ -6,8 +6,12 @@ and every OCAB tail through K6 (:func:`~.ocab.fused_ocab_block`);
 :func:`make_fused_hybrid` adds the RRDB trunk through K7
 (:func:`~.fused_rdb_cm.fused_rrdb_trunk_cm`). :func:`make_fused_hybrid_train`
 is the differentiable hybrid for training: the HAT backbone as its
-``nn.Module`` (with drop-path) and the trunk through K7 forward and K8
-backward (:func:`~.fused_rdb_cm_bwd.fused_rrdb_trunk_cm_ad`). The CAB branch (3x3 convs,
+``nn.Module`` (with drop-path), or with ``fused_hab`` through
+:func:`make_fused_hat_train` (every HAB's window core through K9a forward and
+K9b + K9c backward, :class:`~.hab_train.HabCoreFn`; every OCAB tail through
+K10a forward and K9b + K10b backward, :func:`~.ocab_train.ocab_train`), and
+the trunk through K7 forward and K8 backward
+(:func:`~.fused_rdb_cm_bwd.fused_rrdb_trunk_cm_ad`). The CAB branch (3x3 convs,
 GELU, channel attention), OCAB's LN1 and qkv product, the RHAG convs and the
 heads stay PyTorch ops, as the JAX package leaves them to XLA. The rolls and
 window partition/reverse around each HAB are one row gather each way
@@ -18,8 +22,9 @@ permutations and the MLP and LN2 act per token.
 
 The inference forwards cast, lay out and pad (or pack) the operands for the
 kernels once, when the forward is made, and do not see later changes to the
-model; :func:`make_fused_hybrid_train` reads the parameters at every call
-and repacks a dense block's weights when they have changed. Computes in
+model; the training forwards read the parameters at every call, inside
+autograd, and repad (repack) a block's kernel weights only when they have
+changed. Computes in
 ``dtype`` (bf16 by default) with LayerNorms in fp32; H and W must be window
 multiples.
 """
@@ -43,8 +48,10 @@ from ..models.hat import shift_mask
 from .fused_rdb_cm import fused_rrdb_trunk_cm, pack_rdb_weights
 from .fused_rdb_cm_bwd import fused_rrdb_trunk_cm_ad
 from .hab_block import fused_hab_block, pad_hab_operands
+from .hab_train import HabCoreFn
 from .ocab import fused_ocab_block, pad_ocab_operands
-from .swin_block import _gather_rows, _gelu, _ln_f32, token_order
+from .ocab_train import ocab_operands, ocab_train
+from .swin_block import _gather_rows, _GatherRows, _gelu, _ln_f32, token_order
 
 
 def _conv3(wb, x):
@@ -200,25 +207,147 @@ def make_fused_hybrid(model, *, dtype: torch.dtype = torch.bfloat16):
     return forward
 
 
-def make_fused_hybrid_train(model, *, dtype: torch.dtype = torch.bfloat16):
+class _PadCache:
+    """Per block: the kernels' padded weights and the parameter versions they
+    were made from; remade only when a version has moved (an optimizer step,
+    a load), not on every call."""
+
+    def __init__(self):
+        self._entries = {}
+
+    def get(self, block: torch.nn.Module, make):
+        versions = tuple(t._version for t in block.parameters())
+        hit = self._entries.get(block)
+        if hit is None or hit[0] != versions:
+            with torch.no_grad():
+                hit = (versions, make())
+            self._entries[block] = hit
+        return hit[1]
+
+
+def make_fused_hat_train(model, *, dtype: torch.dtype = torch.bfloat16, fused_ocab: bool = True):
+    """``forward(x, deterministic=True, generator=None)`` of a
+    :class:`~..models.HAT` for training (the JAX ``make_fused_hat_train``):
+    every HAB's window core through :class:`~.hab_train.HabCoreFn` (K9a, then
+    K9b and K9c in the backward; under ``torch.no_grad`` K9a alone), and with
+    ``fused_ocab`` every OCAB through :func:`~.ocab_train.ocab_train` (K10a,
+    then K9b and K10b), else through the module's OCAB. LN1 and the CAB
+    branch, the rolls and window gathers (one row gather each way, x and
+    conv_x alike), the RHAG convs and the heads are autograd ops on the
+    parameters cast to ``dtype`` inside autograd (LayerNorms in fp32), so the
+    gradients reach the fp32 parameters. Drop-path (``deterministic`` False)
+    draws each block's attention mask and then its MLP mask through the
+    block's :class:`~..models.hat.DropPath` from ``generator``, as the
+    module does, and passes them to the kernels as per-window scales. NHWC
+    in and out; H and W must be window multiples. CPU tensors run the plain
+    versions."""
+    ws = model.window_size
+    n = ws * ws
+    pads = _PadCache()
+
+    def wb(m):
+        return m.weight.to(dtype), m.bias.to(dtype)
+
+    def ln(m):
+        return m.weight.float(), m.bias.float()
+
+    def lin(m):  # (in, out) in dtype, bias fp32: the kernels' layout
+        return m.weight.T.to(dtype), m.bias.float()
+
+    def hab(blk, x, deterministic, generator):
+        b, h, w, c = x.shape
+        a, mlp, cab = blk.attn, blk.mlp, blk.conv_block.cab
+        ca = cab[3].attention
+        shift = blk.shift_size if min(h, w) > ws else 0  # the reference's one-window rule
+        conv_x = _cab((wb(cab[0]), wb(cab[2]),
+                       (ca[1].weight[:, :, 0, 0].to(dtype), ca[1].bias.to(dtype)),
+                       (ca[3].weight[:, :, 0, 0].to(dtype), ca[3].bias.to(dtype))),
+                      _ln(ln(blk.norm1), x))
+        weights = (*ln(blk.norm1), *lin(a.qkv), *lin(a.proj), *ln(blk.norm2), *lin(mlp.fc1),
+                   *lin(mlp.fc2))
+        operands = (*weights[:4], relative_position_bias(a.relative_position_bias_table,
+                                                         ws).float(), *weights[4:])
+        padded = None
+        if x.is_cuda:
+            padded = pads.get(blk, lambda: pad_hab_operands(*(t.detach() for t in weights),
+                                                            num_heads=a.num_heads))
+        dp = [None, None]
+        if not deterministic and blk.drop_path.rate > 0:
+            probe = torch.empty(b, 1, 1, dtype=dtype, device=x.device)
+            nw = (h // ws) * (w // ws)
+            for call in (0, 1):
+                keep = blk.drop_path.keep_mask(probe, generator, call).float()
+                dp[call] = (keep / (1.0 - blk.drop_path.rate)).reshape(b).repeat_interleave(nw)
+        fwd, inv = token_order(b, h, w, ws, shift, x.device)
+        out = HabCoreFn.apply(
+            _GatherRows.apply(x.reshape(-1, c), fwd, inv).reshape(-1, n, c),
+            _GatherRows.apply(conv_x.reshape(-1, c), fwd, inv).reshape(-1, n, c),
+            shift_mask(h, w, ws, shift, x.device) if shift else None, *dp, *operands,
+            a.num_heads, (c // a.num_heads) ** -0.5, blk.conv_scale, padded)
+        return _GatherRows.apply(out.reshape(-1, c), inv, fwd).reshape(b, h, w, c)
+
+    def ocab(oc, x):
+        b, h, w, c = x.shape
+        if not fused_ocab:
+            params = {k: v.to(dtype) for k, v in oc.named_parameters()}
+            return functional_call(oc, params, (x.reshape(b, h * w, c), (h, w))).reshape(
+                b, h, w, c)
+        padded = None
+        if x.is_cuda:
+            padded = pads.get(oc, lambda: ocab_operands(oc, dtype))
+        return ocab_train(oc, x, dtype=dtype, padded=padded)
+
+    def forward(x: torch.Tensor, deterministic: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        _, h, w, _ = x.shape
+        if h % ws or w % ws:
+            raise ValueError(f"fused HAT needs H and W multiples of {ws}, got {h}x{w}")
+        x = x.to(dtype)
+        mean = model.mean(x)
+        x = (x - mean) * model.img_range
+        feat = _conv3(wb(model.conv_first), x)
+        res = feat
+        if model.patch_embed is not None:
+            res = _ln(ln(model.patch_embed.norm), res)
+        for layer in model.layers:
+            gin = res
+            for blk in layer.residual_group.blocks:
+                res = hab(blk, res, deterministic, generator)
+            res = _conv3(wb(layer.conv), ocab(layer.residual_group.overlap_attn, res)) + gin
+        feat = _conv3(wb(model.conv_after_body), _ln(ln(model.norm), res)) + feat
+        out = F.leaky_relu(_conv3(wb(model.conv_before_upsample[0]), feat), 0.01)
+        for conv, shuffle in zip(model.upsample[::2], model.upsample[1::2]):
+            out = pixel_shuffle(_conv3(wb(conv), out), shuffle.upscale_factor)
+        return _conv3(wb(model.conv_last), out) / model.img_range + mean
+
+    return forward
+
+
+def make_fused_hybrid_train(model, *, dtype: torch.dtype = torch.bfloat16,
+                            fused_hab: bool = False):
     """``forward(x, deterministic=True, generator=None)`` of a
     :class:`~..models.HybridHATRealESRGAN` for training, as the JAX fused
     ``core_fwd``: HAT through its ``nn.Module`` in ``dtype`` (parameters cast
     inside autograd, drop-path on when ``deterministic`` is False, drawn from
-    ``generator``), ``lrelu(conv_adapt)``, the RRDB trunk through K7/K8 on the
-    fp32 master weights (rounded inside; their gradients come back fp32),
-    ``conv_body`` plus the residual, nearest x2 and ``conv_up``, ``conv_hr``,
-    ``conv_last``. It runs the kernels at every trunk width; on CPU tensors
-    their plain versions run."""
+    ``generator``), or with ``fused_hab`` through :func:`make_fused_hat_train`
+    (the same drop-path draws), ``lrelu(conv_adapt)``, the RRDB trunk through
+    K7/K8 on the fp32 master weights (rounded inside; their gradients come
+    back fp32), ``conv_body`` plus the residual, nearest x2 and ``conv_up``,
+    ``conv_hr``, ``conv_last``. It runs the kernels at every trunk width; on
+    CPU tensors their plain versions run."""
     hat = model.hat
+    hat_fused = make_fused_hat_train(hat, dtype=dtype) if fused_hab else None
 
     def wb(m):
         return m.weight.to(dtype), m.bias.to(dtype)
 
     def forward(x: torch.Tensor, deterministic: bool = True,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        params = {k: v.to(dtype) for k, v in hat.named_parameters()}
-        hat_out = functional_call(hat, params, (x.to(dtype), deterministic, generator))
+        if hat_fused is not None:
+            hat_out = hat_fused(x.to(dtype), deterministic, generator)
+        else:
+            params = {k: v.to(dtype) for k, v in hat.named_parameters()}
+            hat_out = functional_call(hat, params, (x.to(dtype), deterministic, generator))
         feat = F.leaky_relu(_conv3(wb(model.conv_adapt), hat_out), 0.2)
         rrdbs = [[([c.weight for c in rdb.convs()], [c.bias for c in rdb.convs()])
                   for rdb in (rrdb.rdb1, rrdb.rdb2, rrdb.rdb3)] for rrdb in model.rrdb_trunk]

@@ -14,6 +14,10 @@ HAT's C = 90 with six heads of 15 does not fit the kernel's 4-element
 copies, so the wrapper zero-pads each head to an even width (a multiple of 4
 when the head count is odd) and the weights' channel rows to match; the
 windows keep their C columns and LayerNorm its statistics over them.
+
+The same source holds K9a, the training forward with h and drop-path
+(:mod:`.hab_train`): :func:`launch_hab` launches either, and
+:func:`hab_fwd_h_reference` is the plain version of both.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch.nn.functional as F
 from ._build import load_library
 from .swin_block import (
     MAX_SMEM_BYTES,
+    _branch_scale,
     _check,
     _check_windows,
     _gelu,
@@ -39,17 +44,20 @@ from .swin_block import (
 )
 
 
-def hab_block_reference(
-    x_windows, convx_windows, mask, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj,
+def hab_fwd_h_reference(
+    x_windows, convx_windows, mask, dp1, dp2, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj,
     ln2_w, ln2_b, w1, b1, w2, b2, *, num_heads: int, scale: float, conv_scale: float = 0.01,
-) -> torch.Tensor:
-    """Plain PyTorch form of K5, with the TPU kernel's rounding points.
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch form of K9a (and, with no branch scales, of K5):
+    ``(out, h)`` in the io dtype.
 
-    As :func:`~.swin_block.swin_block_reference` (products of operands rounded
-    to the io dtype with fp32 sums, fp32 LayerNorm, softmax and residuals, LN2
-    reading h rounded to the io dtype, tanh GELU for bf16), plus the mask
-    added to every head's scores after the bias and
-    h = x + proj + conv_scale * conv_x.
+    As :func:`~.swin_block.swin_block_fwd_h_reference` (products of operands
+    rounded to the io dtype with fp32 sums, fp32 LayerNorm, softmax and
+    residuals, LN2 reading h rounded to the io dtype, tanh GELU for bf16),
+    plus the mask added to every head's scores after the bias, window w
+    taking ``mask[w mod nW]`` (``None``: unshifted), and
+    h = x + dp1 * proj + conv_scale * conv_x, out = h + dp2 * mlp, with
+    ``dp1``/``dp2`` one fp32 scale per window ``(Bw,)`` or ``None`` (1).
     """
     dt = x_windows.dtype
     bw, n, c = x_windows.shape
@@ -63,10 +71,21 @@ def hab_block_reference(
         s = (s.reshape(bw // nw, nw, num_heads, n, n) + mask.float()[None, :, None]).reshape(
             bw, num_heads, n, n)
     o = torch.matmul(rnd(_softmax_f32(s)), v).permute(0, 2, 1, 3).reshape(bw, n, c)
-    h = x + (torch.matmul(rnd(o), wproj.float()) + bproj.float()) + conv_scale * convx_windows.float()
+    h = (x + _branch_scale(dp1, bw) * (torch.matmul(rnd(o), wproj.float()) + bproj.float())
+         + conv_scale * convx_windows.float())
     m = _gelu(torch.matmul(rnd(_ln_f32(rnd(h), ln2_w, ln2_b)), w1.float()) + b1.float(), dt)
     m = torch.matmul(rnd(m), w2.float()) + b2.float()
-    return (h + m).to(dt)
+    return (h + _branch_scale(dp2, bw) * m).to(dt), h.to(dt)
+
+
+def hab_block_reference(
+    x_windows, convx_windows, mask, *weights, num_heads: int, scale: float,
+    conv_scale: float = 0.01,
+) -> torch.Tensor:
+    """Plain PyTorch form of K5: the ``out`` of :func:`hab_fwd_h_reference`
+    without drop-path."""
+    return hab_fwd_h_reference(x_windows, convx_windows, mask, None, None, *weights,
+                               num_heads=num_heads, scale=scale, conv_scale=conv_scale)[0]
 
 
 @functools.cache
@@ -75,6 +94,9 @@ def _library() -> ctypes.CDLL:
     lib.hab_block_bf16.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     lib.hab_block_bf16.restype = ctypes.c_int
+    lib.hab_block_fwd_h_bf16.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    lib.hab_block_fwd_h_bf16.restype = ctypes.c_int
     lib.hab_block_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.hab_block_smem_bytes.restype = ctypes.c_size_t
     return lib
@@ -97,13 +119,11 @@ def _pad_heads(t: torch.Tensor, heads: int, hd: int, hdp: int) -> torch.Tensor:
     return _pad_last(t.reshape(*t.shape[:-1], heads, hd), hdp).reshape(*t.shape[:-1], heads * hdp)
 
 
-def pad_hab_operands(ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1, b1, w2, b2, *,
-                     num_heads: int) -> tuple:
-    """The twelve weight operands as the kernel takes them: each head's q/k/v
-    columns zero-padded to :func:`padded_head_dim` and the channel rows and
-    columns to heads x that width; vectors fp32, all contiguous. A caller
-    that runs the same block often pads once and passes the result to
-    :func:`fused_hab_block` as ``padded``."""
+def pad_attn_operands(ln1_w, ln1_b, wqkv, bqkv, wproj, *, num_heads: int) -> tuple:
+    """LN1's vectors, wqkv, bqkv and wproj as the kernels take them: each
+    head's q/k/v columns (and wproj's rows) zero-padded to
+    :func:`padded_head_dim`, the channel rows (and wproj's columns) to heads
+    x that width; vectors fp32, all contiguous."""
     c = wqkv.shape[0]
     hd = c // num_heads
     hdp = padded_head_dim(hd, num_heads)
@@ -112,9 +132,24 @@ def pad_hab_operands(ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1, b
     wqkv_p = _pad_heads(wqkv.reshape(c, 3, c), num_heads, hd, hdp).reshape(c, 3 * cp)
     bqkv_p = _pad_heads(bqkv.to(f32).reshape(3, c), num_heads, hd, hdp).reshape(-1)
     wproj_p = _pad_last(_pad_heads(wproj.T, num_heads, hd, hdp).T, cp)  # rows: attention channels
-    vec = [_pad_last(v.to(f32), cp) for v in (ln1_w, ln1_b, bproj, ln2_w, ln2_b, b2)]
-    out = (vec[0], vec[1], F.pad(wqkv_p, (0, 0, 0, cp - c)), bqkv_p, wproj_p, vec[2], vec[3],
-           vec[4], F.pad(w1, (0, 0, 0, cp - c)), b1.to(f32), _pad_last(w2, cp), vec[5])
+    out = (_pad_last(ln1_w.to(f32), cp), _pad_last(ln1_b.to(f32), cp),
+           F.pad(wqkv_p, (0, 0, 0, cp - c)), bqkv_p, wproj_p)
+    return tuple(t.contiguous() for t in out)
+
+
+def pad_hab_operands(ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1, b1, w2, b2, *,
+                     num_heads: int) -> tuple:
+    """The twelve weight operands as the kernel takes them: the attention's
+    through :func:`pad_attn_operands`, the rest with the channels zero-padded
+    to the same width; vectors fp32, all contiguous. A caller that runs the
+    same block often pads once and passes the result to
+    :func:`fused_hab_block` as ``padded``."""
+    c = wqkv.shape[0]
+    cp = num_heads * padded_head_dim(c // num_heads, num_heads)
+    f32 = torch.float32
+    vec = [_pad_last(v.to(f32), cp) for v in (bproj, ln2_w, ln2_b, b2)]
+    out = (*pad_attn_operands(ln1_w, ln1_b, wqkv, bqkv, wproj, num_heads=num_heads), vec[0],
+           vec[1], vec[2], F.pad(w1, (0, 0, 0, cp - c)), b1.to(f32), _pad_last(w2, cp), vec[3])
     return tuple(t.contiguous() for t in out)
 
 
@@ -135,7 +170,20 @@ def fused_hab_block(
     kw = dict(num_heads=num_heads, scale=scale, conv_scale=conv_scale)
     if not _on_cuda("fused_hab_block", x_windows):
         return hab_block_reference(*args, **kw)
-    name = "fused_hab_block"
+    out = launch_hab("fused_hab_block", *args, **kw, padded=padded)
+    fused_hab_block.launches += 1
+    return out
+
+
+fused_hab_block.launches = 0
+
+
+def launch_hab(name: str, x_windows, convx_windows, mask, ln1_w, ln1_b, wqkv, bqkv, bias, wproj,
+               bproj, ln2_w, ln2_b, w1, b1, w2, b2, *, num_heads: int, scale: float,
+               conv_scale: float, padded: tuple | None, dp: tuple | None = None):
+    """Checks the operands and launches K5, or K9a when ``dp`` is the pair
+    of branch scales ``(dp1, dp2)`` (each ``(Bw,)`` fp32 or ``None``):
+    returns ``out``, or ``(out, h)`` for K9a."""
     bw, n, c = _check_windows(name, x_windows, convx_windows)
     hidden = w1.shape[1]
     hd = c // num_heads
@@ -156,11 +204,13 @@ def fused_hab_block(
             raise ValueError(f"{name}: {key} wants ({sizes[key]},), got {tuple(v.shape)}")
     if tuple(bias.shape) != (num_heads, n, n):
         raise ValueError(f"{name}: bias wants {(num_heads, n, n)}, got {tuple(bias.shape)}")
-    if mask is not None and (mask.dim() != 3 or tuple(mask.shape[1:]) != (n, n)
-                             or bw % mask.shape[0]):
-        raise ValueError(f"{name}: mask wants (nW, {n}, {n}) with Bw a multiple of nW, got "
-                         f"{tuple(mask.shape)}")
-    others = [bias, *vectors.values(), wqkv, wproj, w1, w2] + ([mask] if mask is not None else [])
+    _check_mask(name, mask, bw, n)
+    scales = [t for t in (dp or ()) if t is not None]
+    for t in scales:
+        if tuple(t.shape) != (bw,):
+            raise ValueError(f"{name}: a branch scale wants ({bw},), got {tuple(t.shape)}")
+    others = [bias, *vectors.values(), wqkv, wproj, w1, w2, *scales] + (
+        [mask] if mask is not None else [])
     if any(t.device != x_windows.device for t in others):
         raise ValueError(f"{name}: every operand must be on the windows' device")
     lib = _library()
@@ -178,15 +228,27 @@ def fused_hab_block(
         raise ValueError(f"{name}: windows must be 16-byte aligned")
     out = torch.empty_like(x)
     ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1, b1, w2, b2 = padded
-    ptrs = [x.data_ptr(), convx.data_ptr(), mask_t.data_ptr() if mask_t is not None else None,
-            *(t.data_ptr() for t in (ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj, ln2_w, ln2_b,
-                                     w1, b1, w2, b2)), out.data_ptr()]
+    weights = [t.data_ptr() for t in (ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj, ln2_w, ln2_b,
+                                      w1, b1, w2, b2)]
+    mask_ptr = mask_t.data_ptr() if mask_t is not None else None
     nw = mask.shape[0] if mask is not None else 1
+    dims = (bw, cp, c, num_heads, hidden, nw, float(scale), float(conv_scale), _stream(x.device))
     with torch.cuda.device(x.device):
-        _check(lib.hab_block_bf16(*ptrs, bw, cp, c, num_heads, hidden, nw, float(scale),
-                                  float(conv_scale), _stream(x.device)), "hab_block_bf16")
-    fused_hab_block.launches += 1
-    return out
+        if dp is None:
+            _check(lib.hab_block_bf16(x.data_ptr(), convx.data_ptr(), mask_ptr, *weights,
+                                      out.data_ptr(), *dims), "hab_block_bf16")
+            return out
+        h = torch.empty_like(x)
+        dp1, dp2 = (t.float().contiguous() if t is not None else None for t in dp)
+        _check(lib.hab_block_fwd_h_bf16(
+            x.data_ptr(), convx.data_ptr(), mask_ptr,
+            *(t.data_ptr() if t is not None else None for t in (dp1, dp2)), *weights,
+            out.data_ptr(), h.data_ptr(), *dims), "hab_block_fwd_h_bf16")
+    return out, h
 
 
-fused_hab_block.launches = 0
+def _check_mask(name: str, mask, bw: int, n: int) -> None:
+    if mask is not None and (mask.dim() != 3 or tuple(mask.shape[1:]) != (n, n)
+                             or bw % mask.shape[0]):
+        raise ValueError(f"{name}: mask wants (nW, {n}, {n}) with Bw a multiple of nW, got "
+                         f"{tuple(mask.shape)}")

@@ -7,7 +7,10 @@ the JAX kernel does: the shortcut x and q as ``(Bw, 64, C)``, the overlap
 keys and values as ``(Bw, 144, C)``, and the relative-position bias gathered
 with the OCA index into ``(heads, 64, 144)`` fp32. On a CUDA tensor it
 launches ``csrc/ocab.cu`` (bf16) or raises; on a CPU tensor it runs
-:func:`ocab_block_reference`.
+:func:`ocab_block_reference`. The same source holds K10a, the tail that also
+returns h for the backward (:mod:`.ocab_train`): :func:`launch_ocab`
+launches either, and :func:`ocab_fwd_h_reference` is the plain version of
+both.
 """
 
 from __future__ import annotations
@@ -33,13 +36,14 @@ from .swin_block import (
 MAX_KEYS = 144  # the kernel's key tiles: 9 x 16
 
 
-def ocab_block_reference(x_windows, q_windows, k_windows, v_windows, bias, wproj, bproj,
+def ocab_fwd_h_reference(x_windows, q_windows, k_windows, v_windows, bias, wproj, bproj,
                          ln2_w, ln2_b, w1, b1, w2, b2, *, num_heads: int,
-                         scale: float) -> torch.Tensor:
-    """Plain PyTorch form of K6, with the TPU kernel's rounding points: q
-    scaled in the io dtype, fp32 scores + bias and softmax, probabilities,
-    attention output, LN2 output and GELU output rounded to the io dtype,
-    fp32 residuals, LN2 reading h rounded to the io dtype."""
+                         scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch form of K10a: ``(out, h)`` in the io dtype, h = x + proj.
+    The TPU kernel's rounding points: q scaled in the io dtype, fp32 scores +
+    bias and softmax, probabilities, attention output, LN2 output and GELU
+    output rounded to the io dtype, fp32 residuals, LN2 reading h rounded to
+    the io dtype."""
     dt = x_windows.dtype
     bw, nq, c = x_windows.shape
     nk = k_windows.shape[1]
@@ -56,7 +60,12 @@ def ocab_block_reference(x_windows, q_windows, k_windows, v_windows, bias, wproj
     h = x_windows.float() + (torch.matmul(rnd(o), wproj.float()) + bproj.float())
     m = _gelu(torch.matmul(rnd(_ln_f32(rnd(h), ln2_w, ln2_b)), w1.float()) + b1.float(), dt)
     m = torch.matmul(rnd(m), w2.float()) + b2.float()
-    return (h + m).to(dt)
+    return (h + m).to(dt), h.to(dt)
+
+
+def ocab_block_reference(*args, num_heads: int, scale: float) -> torch.Tensor:
+    """Plain PyTorch form of K6: the ``out`` of :func:`ocab_fwd_h_reference`."""
+    return ocab_fwd_h_reference(*args, num_heads=num_heads, scale=scale)[0]
 
 
 @functools.cache
@@ -65,6 +74,9 @@ def _library() -> ctypes.CDLL:
     lib.ocab_block_bf16.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_void_p]
     lib.ocab_block_bf16.restype = ctypes.c_int
+    lib.ocab_block_fwd_h_bf16.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_void_p]
+    lib.ocab_block_fwd_h_bf16.restype = ctypes.c_int
     lib.ocab_block_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.ocab_block_smem_bytes.restype = ctypes.c_size_t
     return lib
@@ -96,10 +108,19 @@ def fused_ocab_block(x_windows, q_windows, k_windows, v_windows, bias, wproj, bp
             w1, b1, w2, b2)
     if not _on_cuda("fused_ocab_block", x_windows):
         return ocab_block_reference(*args, num_heads=num_heads, scale=scale)
-    name = "fused_ocab_block"
+    out = launch_ocab("fused_ocab_block", *args, num_heads=num_heads, scale=scale,
+                      padded=padded, store_h=False)
+    fused_ocab_block.launches += 1
+    return out
+
+
+fused_ocab_block.launches = 0
+
+
+def check_ocab_windows(name: str, x_windows, q_windows, k_windows, v_windows):
+    """``(Bw, nq, nk, C)`` of the windows the OCAB kernels take, or raise."""
     bw, nq, c = x_windows.shape
     nk = k_windows.shape[1]
-    hidden = w1.shape[1]
     for t in (x_windows, q_windows, k_windows, v_windows):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name} on CUDA takes bfloat16 windows, got {t.dtype}")
@@ -111,6 +132,16 @@ def fused_ocab_block(x_windows, q_windows, k_windows, v_windows, bias, wproj, bp
     if nq != 64 or nk > MAX_KEYS or nk % 2:
         raise ValueError(f"{name} on CUDA takes 64 queries (N=64) and an even key count "
                          f"up to {MAX_KEYS}, got {nq} and {nk}")
+    return bw, nq, nk, c
+
+
+def launch_ocab(name: str, x_windows, q_windows, k_windows, v_windows, bias, wproj, bproj,
+                ln2_w, ln2_b, w1, b1, w2, b2, *, num_heads: int, scale: float,
+                padded: tuple | None, store_h: bool):
+    """Checks the operands and launches K6, or K10a with ``store_h``:
+    returns ``out``, or ``(out, h)``."""
+    bw, nq, nk, c = check_ocab_windows(name, x_windows, q_windows, k_windows, v_windows)
+    hidden = w1.shape[1]
     cp = -(-c // 16) * 16
     if c % num_heads or c % 2 or c // num_heads > 32 or cp > 256 or hidden % 4:
         raise ValueError(f"{name}: unsupported widths C={c}, {num_heads} heads, hidden={hidden}")
@@ -138,13 +169,11 @@ def fused_ocab_block(x_windows, q_windows, k_windows, v_windows, bias, wproj, bp
     x, q, k, v = (t.contiguous() for t in (x_windows, q_windows, k_windows, v_windows))
     bias = bias.float().contiguous()
     out = torch.empty_like(x)
+    h = torch.empty_like(x) if store_h else None
+    ptrs = [x.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            *(t.data_ptr() for t in padded), out.data_ptr(), *([h.data_ptr()] if store_h else [])]
+    fn = lib.ocab_block_fwd_h_bf16 if store_h else lib.ocab_block_bf16
     with torch.cuda.device(x.device):
-        _check(lib.ocab_block_bf16(
-            x.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            *(t.data_ptr() for t in padded), out.data_ptr(), bw, nk, cp, c, num_heads, hidden,
-            float(scale), _stream(x.device)), "ocab_block_bf16")
-    fused_ocab_block.launches += 1
-    return out
-
-
-fused_ocab_block.launches = 0
+        _check(fn(*ptrs, bw, nk, cp, c, num_heads, hidden, float(scale), _stream(x.device)),
+               fn.__name__)
+    return (out, h) if store_h else out

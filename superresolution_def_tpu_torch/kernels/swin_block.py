@@ -128,11 +128,19 @@ def swin_block_reference(*args, num_heads: int, scale: float) -> torch.Tensor:
     return swin_block_fwd_h_reference(*args, num_heads=num_heads, scale=scale)[0]
 
 
-def swin_block_bwd_mlp_reference(h, dout, ln2_w, ln2_b, w1, b1, w2):
-    """Plain PyTorch form of K3, with the TPU kernel's rounding points.
+def _branch_scale(dp, bw: int):
+    """A per-window branch scale ``(Bw,)`` as a factor of ``(Bw, N, C)``, or 1."""
+    return 1.0 if dp is None else dp.float().reshape(bw, 1, 1)
+
+
+def swin_block_bwd_mlp_reference(h, dout, ln2_w, ln2_b, w1, b1, w2, *, dp=None):
+    """Plain PyTorch form of K3 (and of K9b with ``dp``), with the TPU
+    kernel's rounding points.
 
     Returns ``(dh, dln2_w, dln2_b, dw1, db1, dw2, db2)``: dh in the io dtype,
-    the rest fp32 sums over all windows.
+    the rest fp32 sums over all windows. ``dp``: the MLP branch's scale per
+    window ``(Bw,)``; the cotangent entering the branch is ``dp * dout`` while
+    dh's residual term is ``dout`` itself.
     """
     dt = h.dtype
     c = h.shape[-1]
@@ -141,7 +149,7 @@ def swin_block_bwd_mlp_reference(h, dout, ln2_w, ln2_b, w1, b1, w2):
     hn = rnd(xhat * ln2_w.float() + ln2_b.float()).reshape(-1, c)
     u = torch.matmul(hn, w1.float()) + b1.float()
     g = rnd(_gelu(u, dt))
-    dm = dout.float().reshape(-1, c)
+    dm = (dout.float() * _branch_scale(dp, h.shape[0])).reshape(-1, c)
     dw2 = torch.matmul(g.T, rnd(dm))
     du = torch.matmul(rnd(dm), w2.float().T) * _gelu_grad(u, dt)
     dw1 = torch.matmul(hn.T, rnd(du))
@@ -152,11 +160,15 @@ def swin_block_bwd_mlp_reference(h, dout, ln2_w, ln2_b, w1, b1, w2):
 
 
 def swin_block_bwd_attn_reference(x, dh, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, *,
-                                  num_heads: int, scale: float):
-    """Plain PyTorch form of K4 (the TPU kernel's per-head branch).
+                                  num_heads: int, scale: float, mask=None, dp=None):
+    """Plain PyTorch form of K4 (the TPU kernel's per-head branch), and of
+    K9c with ``mask`` and ``dp``.
 
     Returns ``(dx, dln1_w, dln1_b, dwqkv, dbqkv, dbias, dwproj, dbproj)``: dx
-    in the io dtype, the rest fp32 sums over all windows.
+    in the io dtype, the rest fp32 sums over all windows. ``mask``: the
+    ``(nW, N, N)`` shift mask, window w adding ``mask[w mod nW]`` to its
+    scores; ``dp``: the attention branch's scale per window ``(Bw,)``, which
+    scales the cotangent entering the branch but not dx's residual term.
     """
     dt = x.dtype
     bw, n, c = x.shape
@@ -166,9 +178,14 @@ def swin_block_bwd_attn_reference(x, dh, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, 
     xn = rnd(xhat * ln1_w.float() + ln1_b.float())
     q, k, v = _qkv_heads(xn, wqkv, bqkv, num_heads, rnd)
     qs = rnd(q * rnd(torch.tensor(scale, dtype=torch.float32)))
-    a = _softmax_f32(torch.matmul(qs, k.transpose(-1, -2)) + bias.float())
+    s = torch.matmul(qs, k.transpose(-1, -2)) + bias.float()
+    if mask is not None:
+        nw = mask.shape[0]
+        s = (s.reshape(bw // nw, nw, num_heads, n, n) + mask.float()[None, :, None]).reshape(
+            bw, num_heads, n, n)
+    a = _softmax_f32(s)
     ad = rnd(a)
-    dhf = dh.float().reshape(-1, c)
+    dhf = (dh.float() * _branch_scale(dp, bw)).reshape(-1, c)
 
     def heads(t):  # (Bw, N, C) -> (Bw, heads, N, hd)
         return t.reshape(bw, n, num_heads, hd).transpose(1, 2)
@@ -216,8 +233,10 @@ def _train_library() -> ctypes.CDLL:
     lib.swin_bwd_attn_bf16.argtypes = [vp] * 14 + [i32] * 3 + [ctypes.c_float, vp]
     lib.swin_wgrad_bf16.argtypes = [vp, vp] + [i32] * 5 + [vp, vp]
     lib.swin_colsum_f32.argtypes = [vp, i32, i32, i32, vp, vp]
+    lib.hab_bwd_mlp_bf16.argtypes = [vp] * 14 + [i32] * 4 + [vp]
+    lib.hab_bwd_attn_bf16.argtypes = [vp] * 17 + [i32] * 5 + [ctypes.c_float, vp]
     for fn in (lib.swin_bwd_mlp_bf16, lib.swin_bwd_attn_bf16, lib.swin_wgrad_bf16,
-               lib.swin_colsum_f32):
+               lib.swin_colsum_f32, lib.hab_bwd_mlp_bf16, lib.hab_bwd_attn_bf16):
         fn.restype = ctypes.c_int
     lib.swin_bwd_mlp_smem_bytes.argtypes = [i32, i32]
     lib.swin_bwd_attn_smem_bytes.argtypes = [i32]

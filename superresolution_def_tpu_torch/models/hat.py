@@ -75,18 +75,23 @@ class DropPath(nn.Module):
         self.rate = rate
         self.index = index
 
+    def keep_mask(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                  call: int = 0) -> torch.Tensor:
+        """The 0/1 keep of each sample of ``x``, shaped ``(B, 1, ...)``: drawn
+        from ``generator`` in x's dtype (one uniform per sample), or taken
+        from :func:`injected_drop_masks`. The fused HAT draws through here
+        too, so one generator gives both paths the same masks."""
+        if _DROP_MASKS is not None:
+            return _DROP_MASKS(self.index, call, x)
+        u = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), generator=generator,
+                       dtype=x.dtype, device=x.device)
+        return torch.floor(1.0 - self.rate + u)
+
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: torch.Generator | None = None, call: int = 0) -> torch.Tensor:
         if self.rate == 0.0 or deterministic:
             return x
-        keep = 1.0 - self.rate
-        if _DROP_MASKS is not None:
-            mask = _DROP_MASKS(self.index, call, x)
-        else:
-            u = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), generator=generator,
-                           dtype=x.dtype, device=x.device)
-            mask = torch.floor(keep + u)
-        return x / keep * mask
+        return x / (1.0 - self.rate) * self.keep_mask(x, generator, call)
 
 
 class ChannelAttention(nn.Module):

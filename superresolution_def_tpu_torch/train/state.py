@@ -111,13 +111,16 @@ class HATTrainState:
     step: int = 0
 
 
-def hybrid_forward(model: HybridHATRealESRGAN, dtype: torch.dtype, fused: bool):
+def hybrid_forward(model: HybridHATRealESRGAN, dtype: torch.dtype, fused: bool,
+                   fused_hab: bool = False):
     """NHWC ``forward(x, deterministic=True, generator=None)`` of ``model``
     computing in ``dtype`` with gradients reaching its fp32 parameters: the
     RRDB trunk through K7/K8 when ``fused`` (:func:`make_fused_hybrid_train`),
-    else the ``nn.Module`` with its parameters cast inside autograd."""
+    with ``fused_hab`` also the HAT backbone's HABs and OCAB tails through
+    K9a-c and K10a-b, else the ``nn.Module`` with its parameters cast inside
+    autograd."""
     if fused:
-        return make_fused_hybrid_train(model, dtype=dtype)
+        return make_fused_hybrid_train(model, dtype=dtype, fused_hab=fused_hab)
     if dtype == torch.float32:
         return model
 
@@ -141,6 +144,7 @@ def create_hat_train_state(
     num_grow_ch: int = 24,
     dtype: torch.dtype = torch.float32,
     fused: bool = False,
+    fused_hab: bool = False,
     drop_path_rate: float = 0.1,
     device: torch.device | str = "cuda",
 ) -> HATTrainState:
@@ -150,10 +154,15 @@ def create_hat_train_state(
     ``fused=True`` routes the RRDB trunk's forward and backward through the
     dense-block kernels (K7/K8) at every trunk width; the HAT backbone, the
     heads and D stay ``nn.Module``s, as the JAX fused state leaves them to
-    XLA. On a CUDA device the kernels take bf16 only, so fp32 with ``fused``
-    there raises.
+    XLA. ``fused_hab`` (with ``fused``) also routes the backbone's HABs and
+    OCAB tails through their training kernels (K9a-c, K10a-b), the JAX
+    package's opt-in ``fused_hab`` path. On a CUDA device the kernels take
+    bf16 only, so fp32 with ``fused`` there raises; on the CPU the same
+    structure runs through the kernels' plain versions.
     """
     device = torch.device(device)
+    if fused_hab and not fused:
+        raise ValueError("fused_hab routes the fused generator's backbone; pass fused=True")
     if fused and device.type == "cuda" and dtype != torch.bfloat16:
         raise ValueError("the fused trunk runs in bfloat16 on CUDA; pass dtype=bfloat16")
     g = HybridHATRealESRGAN(img_size=img_size, in_chans=1, embed_dim=embed_dim,
@@ -166,5 +175,5 @@ def create_hat_train_state(
     return HATTrainState(
         g=g, d=d, g_opt=_adamw(g, 0.01), d_opt=_adamw(d, 0.01),
         ema=copy.deepcopy(g).requires_grad_(False),
-        g_forward=hybrid_forward(g, dtype, fused),
+        g_forward=hybrid_forward(g, dtype, fused, fused_hab),
     )

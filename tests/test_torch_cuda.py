@@ -13,6 +13,10 @@ K5 (HAB, shifted and unshifted) and K6 (OCAB tail) run at C = 90 (head_dim
 15, padded to 16), 30 (head_dim 5) and 180 with six heads; K7 (dense block)
 at F/G = 48/24, 64/32 and 16/8, on images 256 and 64 wide whose height is
 not a multiple of the kernel's tile. K5, K6 and K7 are held to K1's bound.
+The HAB and OCAB training kernels K9a-c and K10a-b run at the same three
+HAT widths, K9 shifted and unshifted, with per-window drop-path scales that
+drop one sample: K9a/K10a held to K1's bound, the backwards (K9b, K9c, K10b)
+to K3/K4's, and each backward twice to the same bits.
 
 Bounds. K1 and K2: bf16 io rounds the output to 8 significant bits, and
 kernel and plain version sum in different orders, so max |kernel - plain|
@@ -37,6 +41,17 @@ import torch
 
 from superresolution_def_tpu_torch.kernels import (
     fused_hab_block,
+    hab_bwd_attn,
+    hab_bwd_attn_reference,
+    hab_bwd_mlp,
+    hab_bwd_mlp_reference,
+    hab_fwd_h,
+    hab_fwd_h_reference,
+    make_fused_hat_train,
+    ocab_bwd_attn,
+    ocab_bwd_attn_reference,
+    ocab_fwd_h,
+    ocab_fwd_h_reference,
     fused_rdb_cm_bwd,
     fused_ocab_block,
     fused_rdb_cm,
@@ -545,3 +560,185 @@ def test_fused_hybrid_train_step_runs_the_kernels(device):
         assert not torch.equal(state.g.state_dict()[key], g0)
         d_same = all(torch.equal(v, d0[k]) for k, v in state.d.state_dict().items())
         assert d_same == warmup
+
+
+def _dp(bw, device, drop=1):
+    """Per-window branch scales of images of 4 windows: image ``drop`` is
+    dropped, the others kept and scaled by 1 / 0.9."""
+    per_image = torch.full((bw // 4,), 1 / 0.9)
+    per_image[drop] = 0.0
+    return per_image.repeat_interleave(4).to(device)
+
+
+def _windows(seed, bw, c, n, device, std=1e-2):
+    g = torch.Generator().manual_seed(seed)
+    return (std * torch.randn(bw, n, c, generator=g)).to(device, torch.bfloat16)
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("bw,c,heads,hidden", HAT_WIDTHS)
+def test_hab_train_kernels_match_plain_versions(device, bw, c, heads, hidden, shifted):
+    """K9a's (out, h) within K1's bound, K9b's and K9c's outputs within
+    BWD_REL_L2 (relative L2) of their plain versions; the dropped image's
+    windows pass the cotangent through unchanged (dh = dout, dx = dh)."""
+    bw = max(bw, 8)  # two images at least: one kept, one dropped
+    x, convx, *params = _hat_operands(c + heads + 7, bw, c, heads, hidden, device)
+    mask = torch.from_numpy(shift_window_attn_mask(16, 16, 8, 4)).to(device) if shifted else None
+    dp1, dp2 = _dp(bw, device, 1), _dp(bw, device, 0)
+    kw = dict(num_heads=heads, scale=(c // heads) ** -0.5)
+    before = (hab_fwd_h.launches, hab_bwd_mlp.launches, hab_bwd_attn.launches)
+    out, h = hab_fwd_h(x, convx, mask, dp1, dp2, *params, **kw, conv_scale=0.01)
+    torch.cuda.synchronize()
+    want_out, want_h = hab_fwd_h_reference(x, convx, mask, dp1, dp2, *params, **kw,
+                                           conv_scale=0.01)
+    for got, want in ((out, want_out), (h, want_h)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= K1_TOL * max(1.0, want.float().abs().max().item()), err
+    ln1_w, ln1_b, wqkv, bqkv, bias, wproj, _, ln2_w, ln2_b, w1, b1, w2, _ = params
+    dout = _windows(bw, bw, c, 64, device)
+    mlp = hab_bwd_mlp(h, dout, dp2, ln2_w, ln2_b, w1, b1, w2)
+    want_mlp = hab_bwd_mlp_reference(h, dout, dp2, ln2_w, ln2_b, w1, b1, w2)
+    attn = hab_bwd_attn(x, mlp[0], mask, dp1, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, **kw)
+    want_attn = hab_bwd_attn_reference(x, mlp[0], mask, dp1, ln1_w, ln1_b, wqkv, bqkv, bias,
+                                       wproj, **kw)
+    torch.cuda.synchronize()
+    assert (hab_fwd_h.launches, hab_bwd_mlp.launches, hab_bwd_attn.launches) == tuple(
+        b + 1 for b in before)
+    names = ["dh", "dln2_w", "dln2_b", "dw1", "db1", "dw2", "db2",
+             "dx", "dln1_w", "dln1_b", "dwqkv", "dbqkv", "dbias", "dwproj", "dbproj"]
+    for name, got, want in zip(names, (*mlp, *attn), (*want_mlp, *want_attn)):
+        assert got.shape == want.shape and got.dtype == want.dtype, name
+        assert torch.isfinite(got).all(), name
+        print(name, _rel_l2(got, want))
+        assert _rel_l2(got, want) <= BWD_REL_L2, (name, _rel_l2(got, want))
+    assert torch.equal(mlp[0][:4], dout[:4])        # image 0's MLP branch dropped
+    assert torch.equal(attn[0][4:8], mlp[0][4:8])   # image 1's attention branch dropped
+
+
+@pytest.mark.parametrize("bw,c,heads,hidden", HAT_WIDTHS)
+def test_ocab_train_kernels_match_plain_versions(device, bw, c, heads, hidden):
+    """K10a's (out, h) within K1's bound and K10b's outputs within BWD_REL_L2
+    of their plain versions, with the first 14 keys zero as the overlap
+    gather's padding leaves them."""
+    args = _hat_operands(c + heads + 8, bw, c, heads, hidden, device, nk=144)
+    args[2][:, :14] = 0
+    args[3][:, :14] = 0
+    kw = dict(num_heads=heads, scale=(c // heads) ** -0.5)
+    before = (ocab_fwd_h.launches, ocab_bwd_attn.launches)
+    out, h = ocab_fwd_h(*args, **kw)
+    torch.cuda.synchronize()
+    for got, want in zip((out, h), ocab_fwd_h_reference(*args, **kw)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= K1_TOL * max(1.0, want.float().abs().max().item()), err
+    dh = _windows(bw + 1, bw, c, 64, device)
+    q, k, v, bias, wproj = args[1], args[2], args[3], args[4], args[5]
+    got = ocab_bwd_attn(q, k, v, dh, bias, wproj, **kw)
+    torch.cuda.synchronize()
+    assert (ocab_fwd_h.launches, ocab_bwd_attn.launches) == tuple(b + 1 for b in before)
+    want = ocab_bwd_attn_reference(q, k, v, dh, bias, wproj, **kw)
+    for name, g, w in zip(["dq", "dk", "dv", "dbias", "dwproj", "dbproj"], got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert torch.isfinite(g).all(), name
+        print(name, _rel_l2(g, w))
+        assert _rel_l2(g, w) <= BWD_REL_L2, (name, _rel_l2(g, w))
+
+
+def test_hab_and_ocab_backwards_are_reproducible(device):
+    """No atomics, the per-window sums reduced in a fixed order: two runs of
+    K9b, K9c and K10b give the same bits."""
+    x, convx, *params = _hat_operands(40, 16, 90, 6, 360, device)
+    mask = torch.from_numpy(shift_window_attn_mask(16, 16, 8, 4)).to(device)
+    dp = _dp(16, device)
+    ln1_w, ln1_b, wqkv, bqkv, bias, wproj, _, ln2_w, ln2_b, w1, b1, w2, _ = params
+    h = _windows(41, 16, 90, 64, device, std=1.0)
+    dout = _windows(42, 16, 90, 64, device)
+    oargs = _hat_operands(43, 16, 90, 6, 360, device, nk=144)
+    runs = [(*hab_bwd_mlp(h, dout, dp, ln2_w, ln2_b, w1, b1, w2),
+             *hab_bwd_attn(x, dout, mask, dp, ln1_w, ln1_b, wqkv, bqkv, bias, wproj,
+                           num_heads=6, scale=15**-0.5),
+             *ocab_bwd_attn(*oargs[1:4], dout, *oargs[4:6], num_heads=6, scale=15**-0.5))
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_hab_train_kernels_raise_on_what_they_do_not_take(device):
+    x, convx, *params = _hat_operands(50, 8, 90, 6, 360, device)
+    ln1_w, ln1_b, wqkv, bqkv, bias, wproj, _, ln2_w, ln2_b, w1, b1, w2, _ = params
+    oargs = _hat_operands(51, 8, 90, 6, 360, device, nk=144)
+    kw = dict(num_heads=6, scale=15**-0.5)
+    dp = _dp(8, device)
+    before = (hab_fwd_h.launches, hab_bwd_mlp.launches, hab_bwd_attn.launches,
+              ocab_fwd_h.launches, ocab_bwd_attn.launches)
+    with pytest.raises(TypeError, match="bfloat16"):
+        hab_fwd_h(x.float(), convx, None, dp, dp, *params, **kw)
+    with pytest.raises(ValueError, match="branch scale"):
+        hab_fwd_h(x, convx, None, dp[:4], dp, *params, **kw)
+    with pytest.raises(TypeError, match="bfloat16"):
+        hab_bwd_mlp(x, x.float(), dp, ln2_w, ln2_b, w1, b1, w2)
+    with pytest.raises(ValueError, match="branch scale"):
+        hab_bwd_mlp(x, x, dp.cpu(), ln2_w, ln2_b, w1, b1, w2)
+    with pytest.raises(ValueError, match="unsupported width"):  # 90 is not 4 heads' multiple
+        hab_bwd_attn(x, x, None, dp, ln1_w, ln1_b, wqkv, bqkv, bias[:4], wproj, num_heads=4,
+                     scale=1.0)
+    with pytest.raises(ValueError, match="mask"):
+        hab_bwd_attn(x, x, torch.zeros(3, 64, 64, device=device), dp, ln1_w, ln1_b, wqkv, bqkv,
+                     bias, wproj, **kw)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ocab_fwd_h(oargs[0].float(), *oargs[1:], **kw)
+    with pytest.raises(ValueError, match="144"):
+        ocab_bwd_attn(oargs[1], torch.cat([oargs[2]] * 2, 1), torch.cat([oargs[3]] * 2, 1),
+                      oargs[0], oargs[4], oargs[5], **kw)
+    with pytest.raises(ValueError, match="device"):
+        ocab_bwd_attn(*oargs[1:4], oargs[0], oargs[4].cpu(), oargs[5], **kw)
+    assert (hab_fwd_h.launches, hab_bwd_mlp.launches, hab_bwd_attn.launches,
+            ocab_fwd_h.launches, ocab_bwd_attn.launches) == before
+
+
+def test_fused_hab_hybrid_train_step_runs_the_kernels(device):
+    """A tiny GAN step with the fused HAB and OCAB training path: per
+    micro-batch K9a, K9c once per HAB, K9b once per HAB and OCAB, K10a and
+    K10b once per OCAB, K7/K8 3 x num_rrdb times; the losses are finite and
+    G's backbone moves. Then the same hybrid's fused-HAB gradients against
+    the module's: each within max(2e-2, 2x the bf16 module's distance)."""
+    from superresolution_def_tpu_torch.train import create_hat_train_state, make_hat_train_step
+
+    state = create_hat_train_state(torch.Generator().manual_seed(0), img_size=16, embed_dim=90,
+                                   depths=(2, 2), num_heads=(6, 6), num_rrdb=1, num_feat=48,
+                                   num_grow_ch=24, dtype=torch.bfloat16, fused=True,
+                                   fused_hab=True, device=device)
+    step = make_hat_train_step(state, accum_steps=2)
+    rng = np.random.default_rng(0)
+    batch = {"lr": rng.integers(0, 65535, (2, 2, 16, 16, 1), dtype=np.uint16),
+             "hr": rng.integers(0, 65535, (2, 2, 64, 64, 1), dtype=np.uint16)}
+    counters = (hab_fwd_h, hab_bwd_mlp, hab_bwd_attn, ocab_fwd_h, ocab_bwd_attn, fused_rdb_cm,
+                fused_rdb_cm_bwd)
+    before = [fn.launches for fn in counters]
+    key = "hat.layers.0.residual_group.blocks.1.attn.qkv.weight"
+    g0 = state.g.state_dict()[key].clone()
+    m = step(batch, 1e-4, 1e-4)
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [8, 12, 8, 4, 4, 6, 6]
+    assert all(np.isfinite(v) for v in m.values()), m
+    assert not torch.equal(state.g.state_dict()[key], g0)
+
+    model = state.g
+    model16 = copy.deepcopy(model).to(torch.bfloat16)
+    x = torch.from_numpy(rng.random((2, 16, 32, 1), dtype=np.float32))
+    probe = torch.randn(2, 64, 128, 1, generator=torch.Generator().manual_seed(2)).to(device)
+    checked = ["hat.conv_first.weight", key, "hat.layers.1.residual_group.overlap_attn.qkv.weight",
+               "hat.layers.0.residual_group.blocks.0.attn.relative_position_bias_table",
+               "conv_adapt.weight"]
+
+    def grads(forward, net, dtype):
+        xi = x.to(device, dtype).requires_grad_()
+        net.zero_grad(set_to_none=True)
+        (forward(xi).float() * probe).sum().backward()
+        named = dict(net.named_parameters())
+        return [xi.grad.float()] + [named[k].grad.float() for k in checked]
+
+    got = grads(make_fused_hybrid_train(model, fused_hab=True), model, torch.float32)
+    want = grads(model, model, torch.float32)
+    ref16 = grads(model16, model16, torch.bfloat16)
+    for name, g, w, r in zip(["input", *checked], got, want, ref16):
+        err, err16 = _rel_l2(g, w), _rel_l2(r, w)
+        print(name, err, err16)
+        assert torch.isfinite(g).all() and err <= max(2e-2, 2 * err16), (name, err, err16)

@@ -3,9 +3,10 @@
 - The port never loads jax nor any module of the JAX package: the conftest
   of this suite imports jax, so the check runs the CPU slices (``train``,
   then ``infer`` of what it trained and of a saved model; ``infer --arch
-  hat`` of a saved hybrid, plain and fused; ``train --arch hat``, plain and
-  with the fused trunk's ``autograd.Function``, then ``infer --arch hat`` of
-  what it trained) in a subprocess and inspects its ``sys.modules``.
+  hat`` of a saved hybrid, plain and fused; ``train --arch hat``, plain,
+  with the fused trunk's ``autograd.Function`` and with the fused HAB and
+  OCAB training nodes (``fused_hab``), then ``infer --arch hat`` of what it
+  trained) in a subprocess and inspects its ``sys.modules``.
 - ``train`` and ``infer`` run on the card unless ``--device cpu`` is given:
   without a card and without it they raise.
 - ``chip_smoke.py`` has no CPU fallback: without a GPU, or without the rest
@@ -113,12 +114,14 @@ HAT_SLICE = textwrap.dedent(
                 "--device", "cpu"])
     assert res["num_images"] == 2, res
     from superresolution_def_tpu_torch.train import create_hat_train_state, make_hat_train_step
-    state = create_hat_train_state(torch.Generator().manual_seed(0), img_size=16, embed_dim=30,
-                                   depths=(6,), num_heads=(6,), num_rrdb=1, num_feat=16,
-                                   num_grow_ch=8, fused=True, device="cpu")
     batch = {"lr": rng.integers(0, 65535, (1, 2, 16, 16, 1), dtype=np.uint16),
              "hr": rng.integers(0, 65535, (1, 2, 64, 64, 1), dtype=np.uint16)}
-    make_hat_train_step(state, accum_steps=1)(batch, 1e-4, 1e-4)
+    for fused_hab in (False, True):
+        state = create_hat_train_state(torch.Generator().manual_seed(0), img_size=16,
+                                       embed_dim=30, depths=(2,), num_heads=(6,), num_rrdb=1,
+                                       num_feat=16, num_grow_ch=8, fused=True,
+                                       fused_hab=fused_hab, device="cpu")
+        make_hat_train_step(state, accum_steps=1)(batch, 1e-4, 1e-4)
     print("JAX_LOADED", sorted(m for m in sys.modules if m.split(".")[0] in
                                ("jax", "jaxlib", "flax", "optax", "orbax",
                                 "superresolution_def_tpu")))
@@ -144,7 +147,8 @@ def test_port_hat_cpu_slice_never_loads_jax(tmp_path):
     assert _run_slice(tmp_path, HAT_SLICE) == "JAX_LOADED []"
 
 
-@pytest.mark.parametrize("cmd", ["train", "infer", "infer-hat", "train-hat"])
+@pytest.mark.parametrize("cmd", ["train", "infer", "infer-hat", "train-hat",
+                                 "train-hat-fused-hab"])
 def test_entry_points_raise_without_a_card_unless_asked_for_the_cpu(tmp_path, cmd):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
@@ -155,7 +159,9 @@ def test_entry_points_raise_without_a_card_unless_asked_for_the_cpu(tmp_path, cm
             "infer-hat": ["infer", "--arch", "hat", "--impl", "fused", "--folder", str(tmp_path),
                           "--data-root", str(tmp_path)],
             "train-hat": ["train", "--arch", "hat", "--bf16", "--target", "T1", "--data-root",
-                          str(tmp_path)]}[cmd]
+                          str(tmp_path)],
+            "train-hat-fused-hab": ["train", "--arch", "hat", "--bf16", "--fused-hab",
+                                    "--target", "T1", "--data-root", str(tmp_path)]}[cmd]
     with pytest.raises(RuntimeError, match="--device cpu"):
         main(args)
 

@@ -11,9 +11,11 @@
   1e-4).
 - One ``make_hat_train_step`` step of micro 2 x accum 2 from bridged weights
   against the JAX step (``create_hat_train_state(fused=False)``), in GAN and
-  in warmup mode, augmentation off, the drop-path masks fed as above, and
-  once with the port's fused trunk, whose ``autograd.Function`` runs the
-  plain versions on the CPU. Tolerances are those of
+  in warmup mode, augmentation off, the drop-path masks fed as above, once
+  with the port's fused trunk, whose ``autograd.Function`` runs the plain
+  versions on the CPU, and once with the fused trunk and the fused HAB and
+  OCAB training nodes (``fused_hab``, their plain versions on the CPU), whose
+  drop-path takes the same masks through ``injected_drop_masks``. Tolerances are those of
   tests/test_torch_train_step.py: losses and metric sums to 1e-5 relative,
   (u, v) to 1e-5; AdamW's first step moves a weight by about lr * sign(g),
   so a weight whose gradient is near 0 may move by up to 2 lr apart in the
@@ -185,7 +187,8 @@ def _assert_weights(got: dict, want: dict, what: str, noise_only=()):
     assert not bad, (what, bad)
 
 
-@pytest.mark.parametrize("mode,fused", [("gan", False), ("warmup", False), ("gan", True)])
+@pytest.mark.parametrize("mode,fused", [("gan", False), ("warmup", False), ("gan", True),
+                                        ("gan", "hab")])
 def test_hat_train_step_matches_jax(start, mode, fused):
     state, bundle, vgg_params = start
     warmup = mode == "warmup"
@@ -199,8 +202,8 @@ def test_hat_train_step_matches_jax(start, mode, fused):
     with _flax_masks(masks, TINY["depths"]):
         new, m = step(state, batch, 1e-4, 1e-4, warmup=warmup)
 
-    port = create_hat_train_state(torch.Generator().manual_seed(0), **TINY, fused=fused,
-                                  device="cpu")
+    port = create_hat_train_state(torch.Generator().manual_seed(0), **TINY, fused=bool(fused),
+                                  fused_hab=fused == "hab", device="cpu")
     port.g.load_state_dict(hybrid_state_dict_from_jax(_np_tree(state.g_params)))
     port.ema.load_state_dict(hybrid_state_dict_from_jax(_np_tree(state.ema)))
     port.d.load_state_dict(discriminator_hat_state_dict_from_jax(_np_tree(state.d_params),

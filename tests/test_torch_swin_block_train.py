@@ -145,8 +145,11 @@ def test_autograd_node_matches_jax_grad():
     def loss(*a):
         return jnp.sum(jsb.fused_swin_block_ad(*a, None, HEADS, SCALE, 4) ** 2)
 
+    # one jitted program, waited for at once: eager JAX ops dispatched while an
+    # interpreted kernel's host callbacks run can deadlock the CPU client
     with pltpu.force_tpu_interpret_mode():
-        jval, jgrads = jax.value_and_grad(loss, argnums=tuple(range(len(args))))(*args)
+        jval, jgrads = jax.block_until_ready(
+            jax.jit(jax.value_and_grad(loss, argnums=tuple(range(len(args)))))(*args))
     targs = [torch.from_numpy(p[k]).requires_grad_() for k in NAMES]
     out = FusedSwinBlockFn.apply(*targs, HEADS, SCALE)
     tval = (out**2).sum()
