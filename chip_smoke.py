@@ -79,7 +79,28 @@ exit code:
     trained run;
 25. patches/s and peak memory of the fused-HAB GAN step at micro 2 x accum
     8 and micro 8 x accum 2 (beside phase 19's fused step), and its
-    ``torch.profiler`` idle share and device kernel launches per step.
+    ``torch.profiler`` idle share and device kernel launches per step;
+26. K11 (``window_attention_nomask`` for K11a and K11c, one instantiation,
+    and ``window_attention_masked`` for K11b) against its plain version in
+    bf16 at the attention modules' shapes: SwinIR's (Bw=768, 6 heads, 64
+    keys, head_dim 30), HAB's unshifted and shifted (Bw=2048, head_dim 15,
+    the 256-window shift mask) and OCAB's (144 keys), on q, k, v that are
+    views of one qkv tensor as the modules pass them (relative L2 <= 1e-3),
+    plus one fp32 case;
+    the raise under autograd; per shape its time, bound, plain time and
+    ``F.scaled_dot_product_attention``'s;
+27. K12 (``fused_rdb``, the NHWC dense block) against its plain version at
+    B=8, F=48, G=24, 256x256 bf16, bit for bit against K7 on the same data,
+    with its time, plain time and K7's time in the same run;
+28. the attention modules with ``attn_impl="pallas"``: the config-#1 SwinIR
+    ``nn.Module`` in bf16 at batch 3 (36 mask-less K11 launches a forward)
+    and the config-#2 hybrid at batch 8 (16 mask-less, 4 of them its OCABs'
+    as counted by forward hooks, and 12 masked), each
+    against the fp32 ``"xla"`` module and with its patches/s beside the bf16
+    ``"xla"`` module's (and the fused K1 forward's for SwinIR);
+29. ``make_fused_hybrid(trunk_impl="kernel")`` at batch 8: 36 K12 launches
+    a forward, agreement with the fp32 module, patches/s beside the default
+    K7 trunk.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it fails at once:
@@ -101,6 +122,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 # flagship SwinIR x4 (BASELINE config #1)
 FLAGSHIP = dict(img_size=128, in_chans=1, embed_dim=180, depths=(6,) * 6, num_heads=(6,) * 6,
@@ -141,7 +163,17 @@ HAB_CHECKED = [
     "conv_adapt.weight",
 ]
 SOURCES = ["swin_block", "swin_block_train", "hab_block", "ocab", "rdb_cm", "rdb_cm_bwd",
-           "ocab_train"]
+           "ocab_train", "window_attention", "fused_rdb"]
+# K11 against its plain version, bf16 relative L2: both keep the Pallas
+# rounding points (fp32 scores, bias and softmax; bf16 probabilities and
+# output), so they differ only by fp32 summation order (about 5e-5 on the
+# H100). A kernel that rounded the scores and bias to bf16, as the XLA path
+# does, lands near SDPA's own distance (about 3e-3) and fails.
+K11_REL_L2 = 1e-3
+# K12 against its plain version, bf16 relative L2: bf16 x1..x4 and output,
+# fp32 sums in another order
+K12_REL_L2 = 2e-2
+K11_FP32_TOL = 1e-5  # max |kernel - plain| in fp32: the same arithmetic reordered
 
 
 def log(phase: str, msg: str) -> None:
@@ -347,6 +379,8 @@ def main() -> None:
     from superresolution_def_tpu_torch.data import read_tiff_u16
     from superresolution_def_tpu_torch.kernels import _build, hab_block, ocab, swin_block
     ocab_train_mod = importlib.import_module("superresolution_def_tpu_torch.kernels.ocab_train")
+    wattn = importlib.import_module("superresolution_def_tpu_torch.kernels.window_attention")
+    rdb_nhwc = importlib.import_module("superresolution_def_tpu_torch.kernels.fused_rdb")
     # the module, not the function of the same name that the package exports
     rdb_cm = importlib.import_module("superresolution_def_tpu_torch.kernels.fused_rdb_cm")
     rdb_bwd = importlib.import_module("superresolution_def_tpu_torch.kernels.fused_rdb_cm_bwd")
@@ -379,6 +413,7 @@ def main() -> None:
         swin_block_fwd_h,
     )
     from superresolution_def_tpu_torch.models import HybridHATRealESRGAN, SwinIR
+    from superresolution_def_tpu_torch.models.hat import OCAB
     from superresolution_def_tpu_torch.ops import overlap_windows, shift_window_attn_mask
     from superresolution_def_tpu_torch.train import (
         CombinedGANLoss,
@@ -415,10 +450,13 @@ def main() -> None:
     rdb_cm._library()
     rdb_bwd._library()
     ocab_train_mod._library()
+    wattn._library()
+    rdb_nhwc._library()
     build_s = time.perf_counter() - t0
     log("build", ", ".join(f"{k}.cu -> {v.name}" for k, v in paths.items())
         + f", all {len(SOURCES)} at once in {build_s:.1f} s")
-    for name in ("swin_block", "hab_block", "ocab", "rdb_cm", "rdb_cm_bwd"):
+    for name in ("swin_block", "hab_block", "ocab", "rdb_cm", "rdb_cm_bwd", "window_attention",
+                 "fused_rdb"):
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log("build", f"{name}: " + line.strip().replace("ptxas info    : ", ""))
@@ -1273,6 +1311,222 @@ def main() -> None:
         f"{k} {int(k.split()[1].split('x')[0]) * int(k.split('x')[1]) * 1e3 / ms:.3f} patches/s "
         f"({ms:.2f} ms/step, peak {hat_step_peak[k]:.2f} GB)" for k, ms in hat_step_ms.items()))
 
+    # 26. K11 against its plain version and the library call at the attention
+    # modules' shapes
+    agen = np.random.default_rng(seed + 26)
+
+    def attention_operands(bw, heads, hd, nk, dtype=bf):
+        """q, k, v as the modules pass them (views of one qkv tensor; OCAB's k
+        and v views of its gathered overlap windows) and a (heads, 64, nk) bias."""
+        def t(*shape, dt=dtype):
+            return torch.from_numpy(agen.standard_normal(shape, dtype=np.float32)).to(device, dt)
+
+        if nk == 64:
+            qkv = t(bw, 64, 3, heads, hd).permute(2, 0, 3, 1, 4)
+            q, k, v = qkv[0], qkv[1], qkv[2]
+        else:
+            q = t(bw, 64, heads, hd).transpose(1, 2)
+            kv = t(bw, nk, 2, heads, hd).permute(2, 0, 3, 1, 4)
+            k, v = kv[0], kv[1]
+        return q, k, v, t(heads, 64, nk, dt=torch.float32) * 0.5
+
+    def attention_work(bw, heads, hd, nk, nw=0, itemsize=2):
+        """QK^T and PV FLOPs; q, k, v read and out written once, the bias and
+        the (nw, 64, nk) fp32 mask read once."""
+        flops = 4 * bw * heads * 64 * nk * hd
+        return flops, itemsize * bw * heads * hd * (2 * 64 + 2 * nk) + 4 * (heads + nw) * 64 * nk
+
+    shift256 = torch.from_numpy(shift_window_attn_mask(128, 128, 8, 4)).to(device)  # (256, 64, 64)
+    k11 = {}
+    for tag, bw, hd, nk, masked in (("swin", 768, 30, 64, False), ("hab", 2048, 15, 64, False),
+                                    ("hab-shifted", 2048, 15, 64, True),
+                                    ("ocab", 2048, 15, 144, False)):
+        q, k, v, b_ = attention_operands(bw, 6, hd, nk)
+        m_ = shift256 if masked else None
+        sc = hd**-0.5
+        fn = wattn.window_attention_masked if masked else wattn.window_attention_nomask
+        kargs = (q, k, v, b_, m_) if masked else (q, k, v, b_)
+        got = fn(*kargs, scale=sc)
+        torch.cuda.synchronize()
+        want = wattn.window_attention_reference(q, k, v, b_, m_, scale=sc)
+        rel = rel_l2(got, want)
+        err_ = (got.float() - want.float()).abs().max().item()
+        # the one PyTorch call for the same function: SDPA on q * scale with
+        # the bias (+ the mask, window b taking mask[b % nW]) as its float
+        # mask, built outside the timing
+        qs = q * torch.tensor(sc, dtype=bf, device=device)
+        if masked:
+            nwin = m_.shape[0]
+            lib_mask = (b_[None] + m_[:, None]).to(bf)  # (nW, heads, 64, 64)
+            lq, lk, lv = (t_.reshape(bw // nwin, nwin, 6, -1, hd) for t_ in (qs, k, v))
+        else:
+            lib_mask, (lq, lk, lv) = b_.to(bf), (qs, k, v)
+        lib = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lib_mask, scale=1.0)
+        lib_rel = rel_l2(lib.reshape(got.shape), want)
+        k11[tag] = {
+            "rel": rel, "err": err_, "lib_rel": lib_rel,
+            "ms": cuda_ms(lambda: fn(*kargs, scale=sc)),
+            "plain_ms": cuda_ms(lambda: wattn.window_attention_reference(q, k, v, b_, m_,
+                                                                         scale=sc), reps=5),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                lq, lk, lv, attn_mask=lib_mask, scale=1.0), reps=10),
+            "bound": least_ms(attention_work(bw, 6, hd, nk, shift256.shape[0] if masked else 0)),
+        }
+        r = k11[tag]
+        log("k11", f"{tag}: Bw={bw} heads=6 64x{nk} d={hd}{' masked nW=256' if masked else ''} "
+                   f"bf16 on {card}: rel L2 vs plain {rel:.3e} (bound {K11_REL_L2}), max abs "
+                   f"{err_:.3e}; kernel {r['ms']:.4f} ms (bound {r['bound'][0]:.4f} ms, "
+                   f"{r['bound'][1]}), plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
+                   f"(its rel L2 vs plain {lib_rel:.3e})")
+        if not (torch.isfinite(got).all() and rel <= K11_REL_L2):
+            raise SystemExit(f"K11 ({tag}) disagrees with its plain version: {rel}")
+        del q, k, v, b_, got, want, qs, lq, lk, lv, lib, lib_mask
+    q, k, v, b_ = attention_operands(256, 6, 30, 64, dtype=torch.float32)
+    got = wattn.window_attention_nomask(q, k, v, b_, scale=30**-0.5)
+    torch.cuda.synchronize()
+    f32_err = (got - wattn.window_attention_reference(q, k, v, b_, scale=30**-0.5)).abs().max()
+    try:
+        wattn.window_attention(q.requires_grad_(), k, v, b_, scale=30**-0.5, impl="pallas")
+        raised = False
+    except RuntimeError:
+        raised = True
+    log("k11", f"fp32 Bw=256 heads=6 64x64 d=30: max|kernel-plain|={f32_err.item():.3e} (bound "
+               f"{K11_FP32_TOL}); the mask-less instantiation is K11a's and K11c's; "
+               f"raises under autograd: {raised}")
+    if not f32_err.item() <= K11_FP32_TOL or not raised:
+        raise SystemExit(f"K11 fp32 disagrees ({f32_err.item()}) or did not raise ({raised})")
+    del q, k, v, b_, got
+
+    # 27. K12 against its plain version and K7 at config #2's trunk shape
+    kgen12 = np.random.default_rng(seed + 27)
+    xr = torch.from_numpy(0.5 * kgen12.standard_normal((HYBRID_BATCH, 256, 256, f)).astype(
+        np.float32)).to(device, bf)
+    ks = [torch.from_numpy((kgen12.standard_normal((3, 3, f + i * g, g if i < 4 else f))
+                            * np.sqrt(2.0 / (9 * (f + i * g)))).astype(np.float32)).to(device)
+          for i in range(5)]
+    bs = [torch.from_numpy((0.05 * kgen12.standard_normal(g if i < 4 else f)).astype(np.float32))
+          .to(device) for i in range(5)]
+    packed12 = rdb_cm.pack_rdb_weights(ks, bs, device)
+    xcm = xr.permute(0, 3, 1, 2).reshape(HYBRID_BATCH, f, 256 * 256).contiguous()
+    got = rdb_nhwc.fused_rdb(xr, ks, bs, packed=packed12)
+    torch.cuda.synchronize()
+    want = rdb_nhwc.rdb_nhwc_reference(xr, ks, bs)
+    k12_err = (got.float() - want.float()).abs().max().item()
+    k12_rel = rel_l2(got, want)
+    same_as_k7 = torch.equal(got, fused_rdb_cm(xcm, ks, bs, **rkw, packed=packed12).reshape(
+        HYBRID_BATCH, f, 256, 256).permute(0, 2, 3, 1))
+    k12_times = (cuda_ms(lambda: rdb_nhwc.fused_rdb(xr, ks, bs, packed=packed12), reps=10),
+                 cuda_ms(lambda: rdb_nhwc.rdb_nhwc_reference(xr, ks, bs), reps=5, warmup=1,
+                         calls=2))
+    k7_same_run = cuda_ms(lambda: fused_rdb_cm(xcm, ks, bs, **rkw, packed=packed12), reps=10)
+    k12_bound = least_ms(hat_work()["K7"])
+    log("k12", f"B={HYBRID_BATCH} 256x256 F={f} G={g} NHWC bf16 on {card}: rel L2 vs plain "
+               f"{k12_rel:.3e} (bound {K12_REL_L2}), max abs {k12_err:.3e}; bit for bit K7's: "
+               f"{same_as_k7}; K12 {k12_times[0]:.4f} ms (bound {k12_bound[0]:.4f} ms, "
+               f"{k12_bound[1]}), plain {k12_times[1]:.4f} ms, K7 in this run {k7_same_run:.4f} ms")
+    if not (torch.isfinite(got).all() and k12_rel <= K12_REL_L2 and same_as_k7):
+        raise SystemExit(f"K12 disagrees: rel L2 {k12_rel}, same as K7 {same_as_k7}")
+    del xr, xcm, ks, bs, got, want, packed12
+    torch.cuda.empty_cache()
+
+    # 28. the attention modules with attn_impl="pallas" (K11's main path:
+    # counts from 0 before each forward, read after it)
+    k11_counters = (wattn.window_attention_nomask, wattn.window_attention_masked)
+    k11_launches = {}
+    x3 = x.repeat(3, 1, 1, 1)
+    swin32 = SwinIR(**FLAGSHIP, generator=torch.Generator().manual_seed(seed)).to(device).eval()
+    swin_p = SwinIR(**FLAGSHIP, attn_impl="pallas").to(device, bf).eval()
+    swin_p.load_state_dict(swin32.state_dict())
+    swin_x = copy.deepcopy(swin32).to(bf)
+    swin_fused = make_fused_swinir(swin32)
+    with torch.no_grad():
+        ref = swin32(x)
+        for fn in k11_counters:
+            fn.launches = 0
+        swin_p(x3.to(bf))
+        torch.cuda.synchronize()
+        k11_launches["swin"] = {fn.__name__: fn.launches for fn in k11_counters}
+        rel_p = rel_l2(swin_p(x.to(bf)), ref)
+        rel_x = rel_l2(swin_x(x.to(bf)), ref)
+        swin_ms = {name: cuda_ms(lambda: fwd(x3), reps=10, warmup=2, calls=2) for name, fwd in (
+            ("pallas", lambda v: swin_p(v.to(bf))), ("xla", lambda v: swin_x(v.to(bf))),
+            ("fused K1", swin_fused))}
+    log("attn-module", f"SwinIR config #1, batch 3, 128->512 on {card}: launches per forward "
+        f"{k11_launches['swin']}; rel L2 to the fp32 module: attn_impl='pallas' bf16 "
+        f"{rel_p:.3e}, 'xla' bf16 {rel_x:.3e} (bound {FORWARD_REL_L2}); patches/s "
+        + ", ".join(f"{k} {3e3 / ms:.3f} ({ms:.3f} ms)" for k, ms in swin_ms.items()))
+    if k11_launches["swin"] != {"window_attention_nomask": 36, "window_attention_masked": 0}:
+        raise SystemExit(f"expected 36 mask-less K11 launches, counted {k11_launches['swin']}")
+    if not rel_p <= FORWARD_REL_L2:
+        raise SystemExit(f"the pallas SwinIR disagrees with the fp32 module: {rel_p}")
+    del swin32, swin_p, swin_x, swin_fused, ref, x3
+
+    hybrid = HybridHATRealESRGAN(**HYBRID, generator=torch.Generator().manual_seed(seed))
+    hybrid = hybrid.to(device).eval()
+    hyb_p = HybridHATRealESRGAN(**HYBRID, attn_impl="pallas").to(device, bf).eval()
+    hyb_p.load_state_dict(hybrid.state_dict())
+    hyb_x = copy.deepcopy(hybrid).to(bf)
+    x8 = x.repeat(HYBRID_BATCH, 1, 1, 1)
+    # the OCABs' share of the mask-less launches (64 x 144, the rest are the
+    # unshifted HABs' 64 x 64), counted as OCAB forwards in the same run
+    ocab_calls = [0]
+
+    def count_ocab(*_):
+        ocab_calls[0] += 1
+
+    hooks = [m.register_forward_hook(count_ocab) for m in hyb_p.modules()
+             if isinstance(m, OCAB)]
+    with torch.no_grad():
+        ref = hybrid(x)
+        for fn in k11_counters:
+            fn.launches = 0
+        hyb_p(x8.to(bf))
+        torch.cuda.synchronize()
+        k11_launches["hybrid"] = {fn.__name__: fn.launches for fn in k11_counters}
+        k11_ocab = ocab_calls[0]
+        for hook in hooks:
+            hook.remove()
+        rel_p = rel_l2(hyb_p(x.to(bf)), ref)
+        rel_x = rel_l2(hyb_x(x.to(bf)), ref)
+        hyb_ms = {name: cuda_ms(lambda: fwd(x8.to(bf)), reps=5, warmup=2, calls=2)
+                  for name, fwd in (("pallas", hyb_p), ("xla", hyb_x))}
+    log("attn-module", f"hybrid config #2, batch {HYBRID_BATCH}, 128->512 on {card}: launches "
+        f"per forward {k11_launches['hybrid']} ({k11_ocab} of the mask-less at OCAB's 64x144); "
+        f"rel L2 to the fp32 module: attn_impl='pallas' "
+        f"bf16 {rel_p:.3e}, 'xla' bf16 {rel_x:.3e} (bound max({FORWARD_REL_L2}, 2x)); patches/s "
+        + ", ".join(f"{k} {HYBRID_BATCH * 1e3 / ms:.3f} ({ms:.3f} ms)" for k, ms in hyb_ms.items()))
+    # per forward: 12 unshifted HABs and 4 OCABs mask-less, 12 shifted HABs masked
+    if k11_launches["hybrid"] != {"window_attention_nomask": 16, "window_attention_masked": 12}:
+        raise SystemExit(f"expected 16 + 12 K11 launches, counted {k11_launches['hybrid']}")
+    if k11_ocab != 4:
+        raise SystemExit(f"expected 4 of the mask-less K11 launches at OCAB's, counted {k11_ocab}")
+    if not rel_p <= max(FORWARD_REL_L2, 2 * rel_x):
+        raise SystemExit(f"the pallas hybrid disagrees with the fp32 module: {rel_p} vs {rel_x}")
+    del hyb_p, hyb_x
+
+    # 29. make_fused_hybrid(trunk_impl="kernel") (K12's main path: counts from 0)
+    fused_k = make_fused_hybrid(hybrid, trunk_impl="kernel")
+    fused_c = make_fused_hybrid(hybrid)
+    with torch.no_grad():
+        rdb_nhwc.fused_rdb.launches = 0
+        fused_k(x8)
+        torch.cuda.synchronize()
+        k12_launches = rdb_nhwc.fused_rdb.launches
+        got = fused_k(x).float()
+    rel_k = rel_l2(got, ref)
+    trunk_ms = {"kernel (K12)": cuda_ms(lambda: fused_k(x8), reps=5, warmup=2, calls=2),
+                "cm (K7)": cuda_ms(lambda: fused_c(x8), reps=5, warmup=2, calls=2)}
+    log("k12-hybrid", f"make_fused_hybrid trunk_impl='kernel', batch {HYBRID_BATCH} on {card}: "
+        f"{k12_launches} K12 launches per forward; rel L2 to the fp32 module {rel_k:.3e} (bound "
+        f"max({FORWARD_REL_L2}, 2x the bf16 module's {rel_x:.3e})); patches/s "
+        + ", ".join(f"{k} {HYBRID_BATCH * 1e3 / ms:.3f} ({ms:.3f} ms)" for k, ms in trunk_ms.items()))
+    if k12_launches != 36:
+        raise SystemExit(f"expected 36 K12 launches per forward, counted {k12_launches}")
+    if not (torch.isfinite(got).all() and rel_k <= max(FORWARD_REL_L2, 2 * rel_x)):
+        raise SystemExit(f"the K12 hybrid disagrees with the fp32 module: {rel_k}")
+    del hybrid, fused_k, fused_c, ref, got, x8
+    torch.cuda.empty_cache()
+
     work = block_work(768)
     work.update({k: v for k, v in block_work(bw_train).items() if k != "K1"})
     work.update(hat_work(bw_hat))
@@ -1305,6 +1559,33 @@ def main() -> None:
     for name, key, src, line in (("ocab_fwd_h", "K10a", "ocab.cu", 130),
                                  ("ocab_bwd_attn", "K10b", "ocab_train.cu", 265)):
         rows.append((name, key, src, line, hab_launches[name], max10[key], t10[key]))
+    # K11's mask-less numbers are the means over [attn-module]'s mask-less
+    # calls, weighted by their counted launches (36 at SwinIR's shape, 12 at
+    # HAB's, 4 at OCAB's): one instantiation serves K11a and K11c
+    nomask = {"swin": k11_launches["swin"]["window_attention_nomask"],
+              "hab": k11_launches["hybrid"]["window_attention_nomask"] - k11_ocab,
+              "ocab": k11_ocab}
+    n_nomask = sum(nomask.values())
+
+    def k11_mean(field):
+        return sum(n * k11[tag][field] for tag, n in nomask.items()) / n_nomask
+
+    k11_nomask = (n_nomask, max(k11[t]["err"] for t in nomask),
+                  (k11_mean("ms"), k11_mean("plain_ms")))
+    n_masked = k11_launches["hybrid"]["window_attention_masked"]
+    rows += [
+        ("window_attention_nomask", "K11a", "window_attention.cu", 139, *k11_nomask),
+        ("window_attention_masked", "K11b", "window_attention.cu", 186, n_masked,
+         k11["hab-shifted"]["err"], (k11["hab-shifted"]["ms"], k11["hab-shifted"]["plain_ms"])),
+        ("window_attention_nomask", "K11c", "window_attention.cu", 178, *k11_nomask),
+        ("fused_rdb", "K12", "fused_rdb.cu", 231, k12_launches, k12_err, k12_times),
+    ]
+    bounds = {"K11a": (sum(n * k11[t]["bound"][0] for t, n in nomask.items()) / n_nomask,
+                       "bytes"),
+              "K11b": k11["hab-shifted"]["bound"], "K12": k12_bound}
+    bounds["K11c"] = bounds["K11a"]
+    library = {"K11a": k11_mean("library_ms"), "K11b": k11["hab-shifted"]["library_ms"]}
+    library["K11c"] = library["K11a"]
     work.update({k: v for k, v in work_t.items() if k.startswith(("K9", "K10"))})
     replaced = {"K5": SWIN, "K6": "superresolution_def_tpu/kernels/ocab.py",
                 "K7": "superresolution_def_tpu/kernels/fused_rdb_cm.py",
@@ -1313,18 +1594,23 @@ def main() -> None:
                 "K9b": "superresolution_def_tpu/kernels/hab_train.py",
                 "K9c": "superresolution_def_tpu/kernels/hab_train.py",
                 "K10a": "superresolution_def_tpu/kernels/ocab_train.py",
-                "K10b": "superresolution_def_tpu/kernels/ocab_train.py"}
+                "K10b": "superresolution_def_tpu/kernels/ocab_train.py",
+                "K11a": "superresolution_def_tpu/kernels/window_attention.py",
+                "K11b": "superresolution_def_tpu/kernels/window_attention.py",
+                "K11c": "superresolution_def_tpu/kernels/window_attention.py",
+                "K12": "superresolution_def_tpu/kernels/fused_rdb.py"}
     records = []
     for name, key, src, line, n, e, (ms, pms) in rows:
-        bms, by = least_ms(work[key])
+        bms, by = bounds[key] if key in bounds else least_ms(work[key])
         records.append({
             "name": name, "route": "cuda",
             "source": f"superresolution_def_tpu_torch/csrc/{src}",
             "replaces": f"{replaced.get(key, SWIN)}:{line}", "launches": n, "max_abs_err": e,
             "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-            # no single PyTorch call computes a whole Swin/HAB block, its
-            # backward, an OCAB tail, a dense block or its backward
-            "library_ms": None,
+            # SDPA computes K11's function; no single PyTorch call computes a
+            # whole Swin/HAB block, its backward, an OCAB tail, a dense block
+            # or its backward
+            "library_ms": library.get(key),
         })
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

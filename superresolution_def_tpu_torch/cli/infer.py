@@ -3,7 +3,8 @@
 - checkpoint discovery in the JAX package's order for ``.pth`` files, in
   ``checkpoints/`` and the run folder: for SwinIR ``best_gan_model.pth`` ->
   ``latest_checkpoint.pth``, for the hybrid ``best_hybrid_model.pth``; then
-  ``hybrid_epoch_*.pth`` newest first, then any ``*.pth``; with
+  ``hybrid_epoch_*.pth`` in reverse name order (as the JAX package sorts
+  them: ``hybrid_epoch_9`` before ``hybrid_epoch_10``), then any ``*.pth``; with
   ``module.``-strip and shape-sniffed hyperparameters. Orbax checkpoints need
   jax and are not read;
 - targets from the run-folder name (strip ``_DDP_SwinIR``, split on '_');

@@ -56,7 +56,8 @@ def cmd_train(args) -> dict:
     if args.depths:
         cfg.depths = tuple(int(x) for x in args.depths.split(","))
         cfg.num_heads = (args.num_heads,) * len(cfg.depths)
-    return train_swin_run(cfg) if args.arch == "swin" else train_hat_run(cfg)
+    run = train_swin_run if args.arch == "swin" else train_hat_run
+    return run(cfg, resume=not args.no_resume)
 
 
 def cmd_infer(args) -> dict:
@@ -106,6 +107,8 @@ def main(argv=None) -> dict:
     pt.add_argument("--bf16", action="store_true",
                     help="bf16 compute; on the card the generator runs the kernels")
     pt.add_argument("--vgg-weights", default=None, help="npz of the JAX package's VGG19 params")
+    pt.add_argument("--no-resume", action="store_true",
+                    help="start over instead of resuming from the run folder's checkpoints")
     pt.add_argument("--seed", type=int, default=0)
     pt.add_argument("--img-size", type=int, default=None)
     pt.add_argument("--embed-dim", type=int, default=None)

@@ -18,13 +18,22 @@ epoch the steps' mean losses and live train PSNR/SSIM, every
 copy's weights, written unconditionally as the reference does), every
 ``img_interval`` a preview of the last batch.
 
-One process on one device. Not ported yet: resume, TensorBoard, host-to-device
+Both resume by default, as the JAX trainers do: swin from
+``checkpoints/latest_checkpoint.pth``, hat from the ``hybrid_epoch_N.pth``
+of the largest N; G, D (with its spectral-norm vectors), both optimizers,
+the EMA copy (and for swin the best PSNR) are restored, the loop starts at
+the epoch after the saved one, and the CSV log is appended to.
+``resume=False`` (``train --no-resume``) starts over and rewrites the log.
+The noise and drop-path generators restart from the seed on resume.
+
+One process on one device. Not ported yet: TensorBoard, host-to-device
 prefetch overlap, multi-GPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 import time
 from pathlib import Path
 from typing import Sequence
@@ -135,7 +144,28 @@ def _load_vgg(cfg, dtype: torch.dtype, device) -> VGG19Features:
     return model.to(device).requires_grad_(False).eval()
 
 
-def train_swin_run(cfg: SwinTrainConfig) -> dict:
+def _restore(state, path: Path, device) -> dict:
+    """Loads G, D, both optimizers and the EMA copy of ``state`` from the
+    checkpoint at ``path``; returns the checkpoint. ``load_state_dict``
+    copies into the parameters in place, which moves their versions, so the
+    kernels' cached packed weights are remade from the loaded values."""
+    ck = torch.load(path, map_location=device, weights_only=False)
+    state.g.load_state_dict(ck["net_g"])
+    state.d.load_state_dict(ck["net_d"])
+    state.g_opt.load_state_dict(ck["optimizer_g"])
+    state.d_opt.load_state_dict(ck["optimizer_d"])
+    state.ema.load_state_dict(ck["ema"])
+    return ck
+
+
+def latest_epoch_checkpoint(ckpt_dir: Path) -> Path | None:
+    """The ``hybrid_epoch_N.pth`` of the largest N (compared as integers), or None."""
+    found = [(int(m.group(1)), p) for p in ckpt_dir.glob("hybrid_epoch_*.pth")
+             if (m := re.fullmatch(r"hybrid_epoch_(\d+)\.pth", p.name))]
+    return max(found)[1] if found else None
+
+
+def train_swin_run(cfg: SwinTrainConfig, resume: bool = True) -> dict:
     """Full SwinIR-GAN training. Returns the last epoch's metrics."""
     device = resolve_device(cfg.device)
     run_dir = Path(cfg.outputs_root) / cfg.run_name
@@ -167,10 +197,16 @@ def train_swin_run(cfg: SwinTrainConfig) -> dict:
                                 ema_decay=cfg.ema_decay,
                                 generator=torch.Generator().manual_seed(cfg.seed + 1))
     eval_step = make_eval_step(state.ema_forward)
-    csv_log = CSVLogger(run_dir / "metrics.csv", SWIN_CSV_COLUMNS)
+    start_epoch, best_psnr = 1, 0.0
+    latest = run_dir / "checkpoints" / "latest_checkpoint.pth"
+    if resume and latest.exists():
+        ck = _restore(state, latest, device)
+        start_epoch, best_psnr = ck["epoch"] + 1, ck["best_psnr"]
+        print(f"Resumed from epoch {start_epoch}")
+    csv_log = CSVLogger(run_dir / "metrics.csv", SWIN_CSV_COLUMNS, resume=start_epoch > 1)
 
-    best_psnr, last = 0.0, {}
-    for epoch in range(1, cfg.epochs + 1):
+    last = {}
+    for epoch in range(start_epoch, cfg.epochs + 1):
         t0 = time.time()
         lr_g = cosine_annealing_lr(epoch, cfg.lr_g, cfg.epochs)
         lr_d = cosine_annealing_lr(epoch, cfg.lr_d, cfg.epochs)
@@ -236,7 +272,7 @@ def _load_pretrained_hat(path: str, model) -> None:
         raise ValueError(f"{path} holds no weight of the HAT backbone")
 
 
-def train_hat_run(cfg: HATTrainConfig) -> dict:
+def train_hat_run(cfg: HATTrainConfig, resume: bool = True) -> dict:
     """Full Hybrid-HAT GAN training. Returns the last epoch's metrics."""
     device = resolve_device(cfg.device)
     run_dir = Path(cfg.outputs_root) / cfg.run_name
@@ -270,11 +306,16 @@ def train_hat_run(cfg: HATTrainConfig) -> dict:
         state, accum_steps=cfg.accum_steps, criterion_g=criterion_g, ema_decay=cfg.ema_decay,
         generator=torch.Generator().manual_seed(cfg.seed + 1),
         drop_generator=torch.Generator(device).manual_seed(cfg.seed + 2))
-    csv_log = CSVLogger(run_dir / "train_log.csv", HAT_CSV_COLUMNS)
     ckpt = run_dir / "checkpoints"
+    start_epoch = 1
+    latest = latest_epoch_checkpoint(ckpt) if resume else None
+    if latest is not None:
+        start_epoch = _restore(state, latest, device)["epoch"] + 1
+        print(f"Resume from epoch {start_epoch}")
+    csv_log = CSVLogger(run_dir / "train_log.csv", HAT_CSV_COLUMNS, resume=start_epoch > 1)
 
     last = {}
-    for epoch in range(1, cfg.epochs + 1):
+    for epoch in range(start_epoch, cfg.epochs + 1):
         warmup = epoch <= cfg.warmup_epochs
         lr_g = cosine_annealing_lr(epoch, cfg.lr_g, cfg.epochs)
         lr_d = cosine_annealing_lr(epoch, cfg.lr_d, cfg.epochs)

@@ -4,6 +4,7 @@ from .fused_hat import (
     make_fused_hybrid,
     make_fused_hybrid_train,
 )
+from .fused_rdb import fused_rdb, fused_rrdb_trunk, rdb_nhwc_reference
 from .fused_rdb_cm import fused_rdb_cm, fused_rrdb_trunk_cm, rdb_cm_reference
 from .fused_rdb_cm_bwd import (
     DenseBlockFn,
@@ -40,6 +41,12 @@ from .swin_block import (
     swin_block_fwd_h_reference,
     swin_block_reference,
 )
+from .window_attention import (
+    window_attention,
+    window_attention_masked,
+    window_attention_nomask,
+    window_attention_reference,
+)
 
 __all__ = [
     "DenseBlockFn",
@@ -48,8 +55,10 @@ __all__ = [
     "OcabTailFn",
     "fused_hab_block",
     "fused_ocab_block",
+    "fused_rdb",
     "fused_rdb_cm",
     "fused_rdb_cm_bwd",
+    "fused_rrdb_trunk",
     "fused_rrdb_trunk_cm",
     "fused_rrdb_trunk_cm_ad",
     "fused_swin_block",
@@ -73,6 +82,7 @@ __all__ = [
     "ocab_train",
     "rdb_cm_bwd_reference",
     "rdb_cm_reference",
+    "rdb_nhwc_reference",
     "swin_block_bwd_attn",
     "swin_block_bwd_attn_reference",
     "swin_block_bwd_mlp",
@@ -80,4 +90,8 @@ __all__ = [
     "swin_block_fwd_h",
     "swin_block_fwd_h_reference",
     "swin_block_reference",
+    "window_attention",
+    "window_attention_masked",
+    "window_attention_nomask",
+    "window_attention_reference",
 ]

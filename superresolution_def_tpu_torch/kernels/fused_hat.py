@@ -4,7 +4,8 @@ and the fused generator of ``train/state.py::create_hat_train_state``).
 :func:`make_fused_hat` runs every HAB through K5 (:func:`~.hab_block.fused_hab_block`)
 and every OCAB tail through K6 (:func:`~.ocab.fused_ocab_block`);
 :func:`make_fused_hybrid` adds the RRDB trunk through K7
-(:func:`~.fused_rdb_cm.fused_rrdb_trunk_cm`). :func:`make_fused_hybrid_train`
+(:func:`~.fused_rdb_cm.fused_rrdb_trunk_cm`), or with ``trunk_impl="kernel"``
+through K12 (:func:`~.fused_rdb.fused_rrdb_trunk`). :func:`make_fused_hybrid_train`
 is the differentiable hybrid for training: the HAT backbone as its
 ``nn.Module`` (with drop-path), or with ``fused_hab`` through
 :func:`make_fused_hat_train` (every HAB's window core through K9a forward and
@@ -41,10 +42,11 @@ from ..ops import (
     relative_position_bias,
     relative_position_bias_oca,
     resize_nearest,
+    shift_mask,
     window_partition,
     window_reverse,
 )
-from ..models.hat import shift_mask
+from .fused_rdb import fused_rrdb_trunk
 from .fused_rdb_cm import fused_rrdb_trunk_cm, pack_rdb_weights
 from .fused_rdb_cm_bwd import fused_rrdb_trunk_cm_ad
 from .hab_block import fused_hab_block, pad_hab_operands
@@ -172,11 +174,31 @@ def make_fused_hat(model, *, dtype: torch.dtype = torch.bfloat16):
     return forward
 
 
-def make_fused_hybrid(model, *, dtype: torch.dtype = torch.bfloat16):
+def _dense_block_plain(x: torch.Tensor, kernels, biases, *, packed=None) -> torch.Tensor:
+    """One dense block on NHWC ``x`` as five convs of the concatenated
+    sources, in x's dtype (the JAX ``trunk_impl="xla"`` trunk's). ``packed``
+    is :func:`~.fused_rdb.fused_rrdb_trunk`'s and goes unused."""
+    xc = x.permute(0, 3, 1, 2)
+    srcs = [xc]
+    for i, (k, b) in enumerate(zip(kernels, biases)):
+        y = F.conv2d(torch.cat(srcs, 1), k.permute(3, 2, 0, 1), b.to(x.dtype), padding=1)
+        if i < 4:
+            srcs.append(F.leaky_relu(y, 0.2))
+    return (y * 0.2 + xc).permute(0, 2, 3, 1)
+
+
+TRUNK_IMPLS = ("cm", "kernel", "xla")
+
+
+def make_fused_hybrid(model, *, dtype: torch.dtype = torch.bfloat16, trunk_impl: str = "cm"):
     """``forward(x)`` for a :class:`~..models.HybridHATRealESRGAN`: the fused
-    HAT (K5, K6) and the RRDB trunk through K7, at every trunk width (the JAX
-    package runs its kernel only when W is a multiple of 128). NHWC in and
+    HAT (K5, K6) and the RRDB trunk by ``trunk_impl`` (the JAX argument):
+    ``"cm"`` channels-major through K7, at every trunk width (the JAX package
+    runs its kernel only when W is a multiple of 128); ``"kernel"`` NHWC
+    through K12; ``"xla"`` the plain dense blocks in ``dtype``. NHWC in and
     out, under ``torch.no_grad``."""
+    if trunk_impl not in TRUNK_IMPLS:
+        raise ValueError(f"trunk_impl must be one of {TRUNK_IMPLS}, got {trunk_impl!r}")
     hat_fwd = make_fused_hat(model.hat, dtype=dtype)
 
     def wb(m):
@@ -186,7 +208,7 @@ def make_fused_hybrid(model, *, dtype: torch.dtype = torch.bfloat16):
         kernels = [c.weight.permute(2, 3, 1, 0).to(dtype).contiguous() for c in rdb.convs()]
         biases = [c.bias.float() for c in rdb.convs()]
         packed = (pack_rdb_weights(kernels, biases, kernels[0].device)
-                  if kernels[0].is_cuda else None)
+                  if kernels[0].is_cuda and trunk_impl != "xla" else None)
         return kernels, biases, packed
 
     with torch.no_grad():
@@ -199,7 +221,12 @@ def make_fused_hybrid(model, *, dtype: torch.dtype = torch.bfloat16):
     @torch.no_grad()
     def forward(x: torch.Tensor) -> torch.Tensor:
         feat = F.leaky_relu(_conv3(adapt, hat_fwd(x.to(dtype))), 0.2)
-        trunk = fused_rrdb_trunk_cm(rrdbs, feat)
+        if trunk_impl == "cm":
+            trunk = fused_rrdb_trunk_cm(rrdbs, feat)
+        elif trunk_impl == "kernel":
+            trunk = fused_rrdb_trunk(rrdbs, feat)
+        else:
+            trunk = fused_rrdb_trunk(rrdbs, feat, dense_block=_dense_block_plain)
         feat = feat + _conv3(body, trunk)
         feat = F.leaky_relu(_conv3(up, resize_nearest(feat, 2)), 0.2)
         return _conv3(last, F.leaky_relu(_conv3(hr, feat), 0.2))

@@ -20,7 +20,6 @@ form, LayerNorm eps 1e-5, as in the flax model.
 from __future__ import annotations
 
 import contextlib
-import functools
 import math
 from typing import Callable, Sequence
 
@@ -33,17 +32,12 @@ from ..ops import (
     pixel_shuffle,
     relative_position_bias,
     relative_position_bias_oca,
-    shift_window_attn_mask,
+    shift_mask,
     window_partition,
     window_reverse,
 )
-from .layers import Mlp, attention, conv_nhwc, reset_torch_default_, trunc_normal_
-
-
-@functools.cache
-def shift_mask(h: int, w: int, ws: int, ss: int, device: torch.device) -> torch.Tensor:
-    """The (nW, ws*ws, ws*ws) fp32 shift mask of an h x w image, on ``device``."""
-    return torch.from_numpy(shift_window_attn_mask(h, w, ws, ss)).to(device)
+from ..kernels.window_attention import window_attention
+from .layers import Mlp, conv_nhwc, reset_torch_default_, trunc_normal_
 
 
 # test hook: (block index, call 0/1, x) -> the keep-mask of that call
@@ -127,10 +121,11 @@ class CAB(nn.Module):
 class WindowAttentionRPI(nn.Module):
     """Window MHSA with a relative-position bias and an optional shift mask."""
 
-    def __init__(self, dim: int, window_size: int, num_heads: int):
+    def __init__(self, dim: int, window_size: int, num_heads: int, attn_impl: str = "xla"):
         super().__init__()
         self.window_size = window_size
         self.num_heads = num_heads
+        self.attn_impl = attn_impl
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         self.relative_position_bias_table = nn.Parameter(
@@ -142,7 +137,8 @@ class WindowAttentionRPI(nn.Module):
         d = c // h
         qkv = self.qkv(x).reshape(bw, n, 3, h, d).permute(2, 0, 3, 1, 4)
         bias = relative_position_bias(self.relative_position_bias_table, self.window_size)
-        out = attention(qkv[0] * d**-0.5, qkv[1], qkv[2], bias, mask)
+        out = window_attention(qkv[0], qkv[1], qkv[2], bias, mask, scale=d**-0.5,
+                               impl=self.attn_impl)
         return self.proj(out.transpose(1, 2).reshape(bw, n, c))
 
 
@@ -151,14 +147,14 @@ class HAB(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, window_size: int, shift_size: int,
                  compress_ratio: int, squeeze_factor: int, conv_scale: float, mlp_ratio: float,
-                 drop_path: float = 0.0, index: int = 0):
+                 drop_path: float = 0.0, index: int = 0, attn_impl: str = "xla"):
         super().__init__()
         self.window_size = window_size
         self.shift_size = shift_size
         self.conv_scale = conv_scale
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.conv_block = CAB(dim, compress_ratio, squeeze_factor)
-        self.attn = WindowAttentionRPI(dim, window_size, num_heads)
+        self.attn = WindowAttentionRPI(dim, window_size, num_heads, attn_impl)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         self.drop_path = DropPath(drop_path, index)
@@ -191,10 +187,11 @@ class OCAB(nn.Module):
     values on the owin x owin overlapping windows around them."""
 
     def __init__(self, dim: int, window_size: int, overlap_ratio: float, num_heads: int,
-                 mlp_ratio: float):
+                 mlp_ratio: float, attn_impl: str = "xla"):
         super().__init__()
         self.window_size = window_size
         self.overlap_ratio = overlap_ratio
+        self.attn_impl = attn_impl
         self.overlap_win_size = int(window_size * overlap_ratio) + window_size
         self.num_heads = num_heads
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
@@ -220,7 +217,8 @@ class OCAB(nn.Module):
         vh = kv[..., c:].reshape(bw, nk, heads, d).transpose(1, 2)
         bias = relative_position_bias_oca(self.relative_position_bias_table, ws,
                                           self.overlap_ratio)
-        out = attention(qh * d**-0.5, kh, vh, bias).transpose(1, 2).reshape(-1, ws, ws, c)
+        out = window_attention(qh, kh, vh, bias, scale=d**-0.5, impl=self.attn_impl)
+        out = out.transpose(1, 2).reshape(-1, ws, ws, c)
         x = self.proj(window_reverse(out, ws, hgt, wdt).reshape(b, L, c)) + x
         return x + self.mlp(self.norm2(x))
 
@@ -232,16 +230,17 @@ class ResidualGroup(nn.Module):
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
                  compress_ratio: int, squeeze_factor: int, conv_scale: float,
                  overlap_ratio: float, mlp_ratio: float, drop_paths: Sequence[float] = (),
-                 first_index: int = 0):
+                 first_index: int = 0, attn_impl: str = "xla"):
         super().__init__()
         drop_paths = tuple(drop_paths) or (0.0,) * depth
         self.blocks = nn.ModuleList(
             HAB(dim, num_heads, window_size, 0 if j % 2 == 0 else window_size // 2,
                 compress_ratio, squeeze_factor, conv_scale, mlp_ratio, drop_paths[j],
-                first_index + j)
+                first_index + j, attn_impl)
             for j in range(depth)
         )
-        self.overlap_attn = OCAB(dim, window_size, overlap_ratio, num_heads, mlp_ratio)
+        self.overlap_attn = OCAB(dim, window_size, overlap_ratio, num_heads, mlp_ratio,
+                                 attn_impl)
 
     def forward(self, x: torch.Tensor, x_size: tuple[int, int], deterministic: bool = True,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -280,7 +279,9 @@ class HAT(nn.Module):
     depths=(6,)*4, num_heads=(6,)*4, window_size=8, upscale=2 (pixelshuffle),
     mlp_ratio 4, drop-path 0.1. Parameters are drawn from ``generator`` (a
     fresh one seeded 0 if None): convs and linears as torch's default init,
-    the bias tables trunc-normal(0.02).
+    the bias tables trunc-normal(0.02). ``attn_impl`` picks every HAB's and
+    OCAB's window-attention implementation (``"xla"``, or ``"pallas"``: K11,
+    forward-only).
     """
 
     def __init__(self, *, img_size: int = 64, in_chans: int = 3, embed_dim: int = 96,
@@ -289,7 +290,7 @@ class HAT(nn.Module):
                  conv_scale: float = 0.01, overlap_ratio: float = 0.5, mlp_ratio: float = 4.0,
                  patch_norm: bool = True, upscale: int = 2, img_range: float = 1.0,
                  num_feat: int = 64, drop_path_rate: float = 0.1,
-                 generator: torch.Generator | None = None):
+                 attn_impl: str = "xla", generator: torch.Generator | None = None):
         super().__init__()
         self.img_size = img_size
         self.in_chans = in_chans
@@ -309,7 +310,8 @@ class HAT(nn.Module):
             RHAG(embed_dim, depth=depth, num_heads=num_heads[i], window_size=window_size,
                  compress_ratio=compress_ratio, squeeze_factor=squeeze_factor,
                  conv_scale=conv_scale, overlap_ratio=overlap_ratio, mlp_ratio=mlp_ratio,
-                 drop_paths=dpr[starts[i]:starts[i] + depth], first_index=starts[i])
+                 drop_paths=dpr[starts[i]:starts[i] + depth], first_index=starts[i],
+                 attn_impl=attn_impl)
             for i, depth in enumerate(depths)
         )
         self.norm = nn.LayerNorm(embed_dim, eps=1e-5)

@@ -32,16 +32,20 @@ from ..ops import (
     window_partition,
     window_reverse,
 )
-from .layers import Mlp, attention, conv_nhwc, reset_torch_default_, trunc_normal_
+from ..kernels.window_attention import window_attention
+from .layers import Mlp, conv_nhwc, reset_torch_default_, trunc_normal_
 
 
 class WindowAttention(nn.Module):
-    """QKV projection, relative-position-bias window attention, proj."""
+    """QKV projection, relative-position-bias window attention, proj.
+    ``attn_impl``: the :func:`~..kernels.window_attention.window_attention`
+    implementation, ``"xla"`` or ``"pallas"``."""
 
-    def __init__(self, dim: int, window_size: int, num_heads: int):
+    def __init__(self, dim: int, window_size: int, num_heads: int, attn_impl: str = "xla"):
         super().__init__()
         self.window_size = window_size
         self.num_heads = num_heads
+        self.attn_impl = attn_impl
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         self.relative_position_bias_table = nn.Parameter(
@@ -54,7 +58,7 @@ class WindowAttention(nn.Module):
         d = c // h
         qkv = self.qkv(x).reshape(bw, n, 3, h, d).permute(2, 0, 3, 1, 4)
         bias = relative_position_bias(self.relative_position_bias_table, self.window_size)
-        out = attention(qkv[0] * d**-0.5, qkv[1], qkv[2], bias)
+        out = window_attention(qkv[0], qkv[1], qkv[2], bias, scale=d**-0.5, impl=self.attn_impl)
         return self.proj(out.transpose(1, 2).reshape(bw, n, c))
 
 
@@ -62,12 +66,12 @@ class SwinTransformerBlock(nn.Module):
     """W-MSA / SW-MSA block without a shift mask (reference deviation)."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int, shift_size: int,
-                 mlp_ratio: float):
+                 mlp_ratio: float, attn_impl: str = "xla"):
         super().__init__()
         self.window_size = window_size
         self.shift_size = shift_size
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn = WindowAttention(dim, window_size, num_heads)
+        self.attn = WindowAttention(dim, window_size, num_heads, attn_impl)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
@@ -98,6 +102,8 @@ class SwinIR(nn.Module):
     The flagship train config is img_size=128, in_chans=1, embed_dim=180,
     depths=(6,)*6, num_heads=(6,)*6, window_size=8, upscale=4 (mlp_ratio 4).
     Parameters are drawn from ``generator`` (a fresh one seeded 0 if None).
+    ``attn_impl`` picks every block's window-attention implementation
+    (``"xla"``, or ``"pallas"``: K11, forward-only).
     """
 
     def __init__(
@@ -111,6 +117,7 @@ class SwinIR(nn.Module):
         window_size: int = 7,
         mlp_ratio: float = 4.0,
         upscale: int = 2,
+        attn_impl: str = "xla",
         generator: torch.Generator | None = None,
     ):
         super().__init__()
@@ -128,7 +135,7 @@ class SwinIR(nn.Module):
             nn.ModuleList(
                 SwinTransformerBlock(
                     embed_dim, num_heads[i], window_size,
-                    0 if j % 2 == 0 else window_size // 2, mlp_ratio,
+                    0 if j % 2 == 0 else window_size // 2, mlp_ratio, attn_impl,
                 )
                 for j in range(depth)
             )

@@ -16,14 +16,17 @@ HAT_CSV_COLUMNS = ["Epoch", "G_Total", "L1", "G_Adv", "D_Total", "PSNR", "SSIM",
 
 
 class CSVLogger:
-    """Writes the header row at construction, then one row per :meth:`log`."""
+    """Writes the header row at construction, then one row per :meth:`log`.
+    With ``resume`` an existing file is kept and appended to (a resumed run
+    continues its log under the one header)."""
 
-    def __init__(self, path: str | Path, columns: Sequence[str]):
+    def __init__(self, path: str | Path, columns: Sequence[str], resume: bool = False):
         self.path = Path(path)
         self.columns = list(columns)
         self.path.parent.mkdir(parents=True, exist_ok=True)
-        with open(self.path, "w", newline="") as f:
-            csv.writer(f).writerow(self.columns)
+        if not resume or not self.path.exists():
+            with open(self.path, "w", newline="") as f:
+                csv.writer(f).writerow(self.columns)
 
     def log(self, row: dict) -> None:
         """Appends ``row``'s values in column order ('' for a missing column)."""

@@ -5,6 +5,7 @@ from .windows import (
     relative_position_bias,
     relative_position_index_oca,
     relative_position_bias_oca,
+    shift_mask,
     shift_window_attn_mask,
     overlap_windows,
 )
@@ -20,6 +21,7 @@ __all__ = [
     "relative_position_bias",
     "relative_position_index_oca",
     "relative_position_bias_oca",
+    "shift_mask",
     "shift_window_attn_mask",
     "overlap_windows",
     "pixel_shuffle",

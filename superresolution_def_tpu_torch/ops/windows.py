@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -80,6 +82,12 @@ def shift_window_attn_mask(h: int, w: int, window_size: int, shift_size: int) ->
         img[hs, wsl] = i
     m = img.reshape(h // ws, ws, w // ws, ws).transpose(0, 2, 1, 3).reshape(-1, ws * ws)
     return np.where(m[:, None, :] != m[:, :, None], -100.0, 0.0).astype(np.float32)
+
+
+@functools.cache
+def shift_mask(h: int, w: int, ws: int, ss: int, device: torch.device) -> torch.Tensor:
+    """The (nW, ws*ws, ws*ws) fp32 shift mask of an h x w image, on ``device``."""
+    return torch.from_numpy(shift_window_attn_mask(h, w, ws, ss)).to(device)
 
 
 def overlap_windows(kv: torch.Tensor, window_size: int, overlap_window: int) -> torch.Tensor:

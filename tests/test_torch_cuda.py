@@ -16,7 +16,16 @@ not a multiple of the kernel's tile. K5, K6 and K7 are held to K1's bound.
 The HAB and OCAB training kernels K9a-c and K10a-b run at the same three
 HAT widths, K9 shifted and unshifted, with per-window drop-path scales that
 drop one sample: K9a/K10a held to K1's bound, the backwards (K9b, K9c, K10b)
-to K3/K4's, and each backward twice to the same bits.
+to K3/K4's, and each backward twice to the same bits. K11 (standalone
+window attention) runs at head_dim 5, 15, 30 and 32, 64 and 144 keys, with
+and without the shift mask, in bf16 (relative L2 <= 1e-3 to its plain
+version: both keep the Pallas rounding points, fp32 scores, bias and
+softmax, and differ by fp32 summation order; scores rounded to bf16 as the
+XLA path does would land near 3e-3) and fp32 (max |kernel - plain| <= 1e-5: the same fp32 arithmetic in
+another summation order), on q, k and v that are strided views of one qkv
+tensor. K12 (the dense block, NHWC) runs at F/G = 48/24, 64/32 and 16/8 and
+on a 40 x 24 image, held to K1's bound and to K7's output bit for bit (the
+two share their convs and rounding points).
 
 Bounds. K1 and K2: bf16 io rounds the output to 8 significant bits, and
 kernel and plain version sum in different orders, so max |kernel - plain|
@@ -54,6 +63,7 @@ from superresolution_def_tpu_torch.kernels import (
     ocab_fwd_h_reference,
     fused_rdb_cm_bwd,
     fused_ocab_block,
+    fused_rdb,
     fused_rdb_cm,
     fused_swin_block,
     hab_block_reference,
@@ -69,7 +79,12 @@ from superresolution_def_tpu_torch.kernels import (
     ocab_block_reference,
     rdb_cm_bwd_reference,
     rdb_cm_reference,
+    rdb_nhwc_reference,
     swin_block_reference,
+    window_attention,
+    window_attention_masked,
+    window_attention_nomask,
+    window_attention_reference,
 )
 from superresolution_def_tpu_torch.kernels.fused_rdb_cm import dense_block_sources
 from superresolution_def_tpu_torch.models import HybridHATRealESRGAN, SwinIR
@@ -742,3 +757,153 @@ def test_fused_hab_hybrid_train_step_runs_the_kernels(device):
         err, err16 = _rel_l2(g, w), _rel_l2(r, w)
         print(name, err, err16)
         assert torch.isfinite(g).all() and err <= max(2e-2, 2 * err16), (name, err, err16)
+
+
+def _attention_operands(seed, bw, heads, hd, nk, dtype, device):
+    """q, k, v as strided views: for nk = 64 the three slices of one (Bw, 64,
+    3, heads, hd) qkv tensor, as the modules pass them; for nk = 144 q of its
+    own and k, v the two halves of one (Bw, 144, 2, heads, hd) tensor."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype)
+
+    if nk == 64:
+        qkv = t(bw, 64, 3, heads, hd).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0], qkv[1], qkv[2]
+    else:
+        q = t(bw, 64, heads, hd).transpose(1, 2)
+        kv = t(bw, nk, 2, heads, hd).permute(2, 0, 3, 1, 4)
+        k, v = kv[0], kv[1]
+    bias = torch.from_numpy(0.5 * rng.standard_normal((heads, 64, nk)).astype(np.float32))
+    return q, k, v, bias.to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("nk", [64, 144])
+@pytest.mark.parametrize("hd", [5, 15, 30, 32])
+def test_window_attention_kernel_matches_plain_version(device, hd, nk, masked, dtype):
+    bw, heads = 8, 3
+    q, k, v, bias = _attention_operands(hd + nk, bw, heads, hd, nk, dtype, device)
+    mask = None
+    if masked:  # two (or, at 144 keys, one) windows' worth of 0 / -100 entries
+        mask = torch.from_numpy(shift_window_attn_mask(16, 16, 8, 4)).to(device)
+        mask = torch.cat([mask] * 3, -1)[..., :nk].contiguous()
+    fn = window_attention_masked if masked else window_attention_nomask
+    before = fn.launches
+    with torch.no_grad():
+        got = window_attention(q, k, v, bias, mask, scale=hd**-0.5, impl="pallas")
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.dtype == dtype and got.shape == (bw, heads, 64, hd) and got.is_contiguous()
+    want = window_attention_reference(q, k, v, bias, mask, scale=hd**-0.5)
+    assert torch.isfinite(got).all()
+    if dtype == torch.bfloat16:
+        assert _rel_l2(got, want) <= 1e-3, _rel_l2(got, want)
+    else:
+        assert (got - want).abs().max().item() <= 1e-5
+
+
+def test_window_attention_kernel_raises_on_what_it_does_not_take(device):
+    q, k, v, bias = _attention_operands(0, 8, 3, 15, 64, torch.bfloat16, device)
+    mask = torch.from_numpy(shift_window_attn_mask(16, 16, 8, 4)).to(device)
+    kw = dict(scale=15**-0.5)
+    before = (window_attention_nomask.launches, window_attention_masked.launches)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        window_attention(q.requires_grad_(), k, v, bias, impl="pallas", **kw)
+    q = q.detach()
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        window_attention_nomask(q.half(), k.half(), v.half(), bias, **kw)
+    with pytest.raises(ValueError, match="Nq=64"):
+        window_attention_nomask(q[:, :, :49], k, v, bias[:, :49], **kw)
+    with pytest.raises(ValueError, match="Nk<=144"):
+        window_attention_nomask(q, torch.cat([k] * 3, 2), torch.cat([v] * 3, 2),
+                                torch.cat([bias] * 3, 2), **kw)
+    with pytest.raises(ValueError, match="mask"):
+        window_attention_masked(q[:6], k[:6], v[:6], bias, mask, **kw)
+    with pytest.raises(ValueError, match="device"):
+        window_attention_nomask(q, k, v, bias.cpu(), **kw)
+    assert (window_attention_nomask.launches, window_attention_masked.launches) == before
+
+
+@pytest.mark.parametrize("f,g,h,w", [
+    (48, 24, 20, 256),   # the hybrid's widths, a height off the 16-pixel tile
+    (48, 24, 40, 24),    # neither side a tile multiple
+    (64, 32, 30, 64),    # the reference default widths (12-pixel tiles)
+    (16, 8, 20, 256),
+])
+def test_rdb_nhwc_kernel_matches_plain_version_and_k7(device, f, g, h, w):
+    xf, ks, bs = _rdb_operands(f + h + w + 1, 2, f, g, h, w, device)
+    x = xf.reshape(2, f, h, w).permute(0, 2, 3, 1).contiguous()
+    before = fused_rdb.launches
+    got = fused_rdb(x, ks, bs)
+    torch.cuda.synchronize()
+    assert fused_rdb.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    want = rdb_nhwc_reference(x, ks, bs).float()
+    err = (got.float() - want).abs().max().item()
+    assert err <= K1_TOL * max(1.0, want.abs().max().item()), err
+    k7 = fused_rdb_cm(xf, ks, bs, h=h, w=w).reshape(2, f, h, w).permute(0, 2, 3, 1)
+    assert torch.equal(got, k7)
+
+
+def test_rdb_nhwc_kernel_raises_on_what_it_does_not_take(device):
+    xf, ks, bs = _rdb_operands(3, 1, 48, 24, 16, 16, device)
+    x = xf.reshape(1, 48, 16, 16).permute(0, 2, 3, 1).contiguous()
+    before = fused_rdb.launches
+    with pytest.raises(TypeError, match="bfloat16"):
+        fused_rdb(x.float(), ks, bs)
+    with pytest.raises(ValueError, match="not compiled"):
+        fused_rdb(x[..., :40].contiguous(), [k[:, :, 8:] for k in ks], bs)
+    with pytest.raises(ValueError, match="device"):
+        fused_rdb(x, ks[:4] + [ks[4].cpu()], bs)
+    assert fused_rdb.launches == before
+
+
+def test_attention_modules_run_the_window_attention_kernel(device):
+    """bf16 SwinIR and hybrid nn.Modules with attn_impl="pallas" against the
+    fp32 "xla" modules: relative L2 within max(2e-2, 2x the bf16 "xla"
+    module's own distance), and the launches a forward makes."""
+    x = torch.from_numpy(np.random.default_rng(1).random((2, 16, 32, 1), dtype=np.float32))
+    x = x.to(device)
+    swin_cfg = dict(img_size=16, embed_dim=60, depths=(2, 2), num_heads=(6, 6), window_size=8,
+                    upscale=4)
+    cases = [(SwinIR, swin_cfg, {"nomask": 4, "masked": 0}),
+             # per stage: the unshifted HAB (no mask), the shifted one, the OCAB
+             (HybridHATRealESRGAN, HYBRID, {"nomask": 4, "masked": 2})]
+    for cls, cfg, launches in cases:
+        ref = cls(**cfg, generator=torch.Generator().manual_seed(0)).to(device).eval()
+        pallas16 = cls(**cfg, attn_impl="pallas").to(device, torch.bfloat16).eval()
+        pallas16.load_state_dict(ref.state_dict())
+        xla16 = copy.deepcopy(ref).to(torch.bfloat16)
+        before = (window_attention_nomask.launches, window_attention_masked.launches)
+        with torch.no_grad():
+            want = ref(x)
+            got = pallas16(x.to(torch.bfloat16)).float()
+            ref16 = xla16(x.to(torch.bfloat16)).float()
+        assert (window_attention_nomask.launches - before[0],
+                window_attention_masked.launches - before[1]) == (
+            launches["nomask"], launches["masked"])
+        assert torch.isfinite(got).all() and got.shape == want.shape
+        err, err16 = _rel_l2(got, want), _rel_l2(ref16, want)
+        print(cls.__name__, f"pallas bf16 {err:.4e}, xla bf16 {err16:.4e}")
+        assert err <= max(2e-2, 2 * err16), (cls.__name__, err, err16)
+
+
+def test_fused_hybrid_kernel_trunk_matches_cm_trunk(device):
+    """make_fused_hybrid(trunk_impl="kernel") (K12) against the K7 trunk:
+    the two dense blocks agree bit for bit, so the forwards differ only by
+    what the rest of the forward does not repeat exactly (relative L2 <= 1e-3,
+    where a layout error moves the output by O(1))."""
+    model = HybridHATRealESRGAN(**HYBRID, generator=torch.Generator().manual_seed(0))
+    model = model.to(device).eval()
+    x = torch.from_numpy(np.random.default_rng(2).random((2, 16, 24, 1), dtype=np.float32))
+    x = x.to(device)
+    before = (fused_rdb.launches, fused_rdb_cm.launches)
+    got = make_fused_hybrid(model, trunk_impl="kernel")(x)
+    mid = (fused_rdb.launches, fused_rdb_cm.launches)
+    want = make_fused_hybrid(model)(x)
+    assert mid == (before[0] + 6, before[1])
+    assert fused_rdb_cm.launches == before[1] + 6
+    assert torch.isfinite(got).all() and _rel_l2(got, want) <= 1e-3

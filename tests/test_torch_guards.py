@@ -2,11 +2,14 @@
 
 - The port never loads jax nor any module of the JAX package: the conftest
   of this suite imports jax, so the check runs the CPU slices (``train``,
-  then ``infer`` of what it trained and of a saved model; ``infer --arch
-  hat`` of a saved hybrid, plain and fused; ``train --arch hat``, plain,
-  with the fused trunk's ``autograd.Function`` and with the fused HAB and
-  OCAB training nodes (``fused_hab``), then ``infer --arch hat`` of what it
-  trained) in a subprocess and inspects its ``sys.modules``.
+  then ``infer`` of what it trained and of a saved model, and a SwinIR
+  forward with ``attn_impl="pallas"``; ``infer --arch hat`` of a saved
+  hybrid, plain and fused; the hybrid's forward with ``attn_impl="pallas"``
+  and through ``make_fused_hybrid(trunk_impl="kernel")``; ``train --arch
+  hat``, plain, with the fused trunk's ``autograd.Function`` and with the
+  fused HAB and OCAB training nodes (``fused_hab``), then ``infer --arch
+  hat`` of what it trained) in a subprocess and inspects its
+  ``sys.modules``.
 - ``train`` and ``infer`` run on the card unless ``--device cpu`` is given:
   without a card and without it they raise.
 - ``chip_smoke.py`` has no CPU fallback: without a GPU, or without the rest
@@ -64,6 +67,9 @@ SLICE = textwrap.dedent(
             res = main(["infer", "--folder", str(folder), "--data-root", str(root / "data"),
                         "--lr-size", "16", "--hr-size", "64", "--device", "cpu", *impl])
             assert res["num_images"] == 2, res
+    with torch.no_grad():
+        SwinIR(img_size=16, embed_dim=16, depths=(2,), num_heads=(2,), window_size=8,
+               mlp_ratio=2.0, upscale=4, attn_impl="pallas")(torch.rand(1, 16, 24, 1))
     print("JAX_LOADED", sorted(m for m in sys.modules if m.split(".")[0] in
                                ("jax", "jaxlib", "flax", "optax", "orbax",
                                 "superresolution_def_tpu")))
@@ -102,6 +108,12 @@ HAT_SLICE = textwrap.dedent(
                     *impl])
         assert res["num_images"] == 2, res
         assert (run / "test_results" / "test_metrics.csv").exists()
+    from superresolution_def_tpu_torch.kernels import make_fused_hybrid
+    xs = torch.rand(1, 16, 24, 1)  # wider than a window: the shifted HABs take the mask
+    with torch.no_grad():
+        HybridHATRealESRGAN(img_size=16, embed_dim=30, depths=(2,), num_heads=(6,), num_rrdb=1,
+                            num_feat=16, num_grow_ch=8, attn_impl="pallas")(xs)
+    make_fused_hybrid(model, dtype=torch.float32, trunk_impl="kernel")(xs)
     write_manifest(root / "data" / "T1" / "8_dataset_split" / "splits_json" / "train.json",
                    entries)
     main(["train", "--arch", "hat", "--target", "T1", "--data-root", str(root / "data"),
