@@ -100,7 +100,26 @@ exit code:
     ``"xla"`` module's (and the fused K1 forward's for SwinIR);
 29. ``make_fused_hybrid(trunk_impl="kernel")`` at batch 8: 36 K12 launches
     a forward, agreement with the fp32 module, patches/s beside the default
-    K7 trunk.
+    K7 trunk;
+30. K4b (``swin_block_bwd``, the block's backward from x and dout with the
+    forward recomputed) at the flagship train shapes (Bw=2048, bf16, dout ~
+    N(0, 1e-2)) against its plain version and against K3 + K4 on K2's h
+    (relative L2 per output), run twice to show the same bits, with its
+    time beside K3 + K4's and the plain version's;
+31. the fused SwinIR GAN step with ``backward="recompute"`` (K1 forward,
+    K4b backward): its bf16 gradients against fp32 autograd on one patch,
+    its launches in one counted step (36 K1 and 36 K4b, no K2, K3 or K4),
+    and patches/s and peak memory at micro 8 x accum 1 alternated with
+    ``backward="split"`` (split, recompute, recompute, split);
+32. K13 (``swin_stage_block``, the stage-ablation block) in each of its nine
+    modes, and ``mlp_polygelu`` with zero coefficients, against its plain
+    version (relative L2) on K1's operands and on the ablation tool's
+    (Bw=2048, C=180, std 0.02 bf16), with ``mlp_tanhgelu`` bit for bit K1's
+    and ``allheads`` bit for bit ``full``'s; on K1's operands the
+    activations (erf, tanh, sigmoid, none, the zeroed polynomial) must lie
+    further apart than the bound, so a swapped one fails; then the tool
+    (``tools/swin_stage_ablation.py``) over all nine modes: 36-block chains
+    timed per mode.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it fails at once:
@@ -112,6 +131,7 @@ from __future__ import annotations
 import argparse
 import copy
 import importlib
+import itertools
 import json
 import statistics
 import subprocess
@@ -162,8 +182,8 @@ HAB_CHECKED = [
     "hat.layers.3.residual_group.overlap_attn.mlp.fc1.weight",
     "conv_adapt.weight",
 ]
-SOURCES = ["swin_block", "swin_block_train", "hab_block", "ocab", "rdb_cm", "rdb_cm_bwd",
-           "ocab_train", "window_attention", "fused_rdb"]
+SOURCES = ["swin_block", "swin_block_train", "swin_block_bwd", "hab_block", "ocab", "rdb_cm",
+           "rdb_cm_bwd", "ocab_train", "window_attention", "fused_rdb", "swin_stage_ablation"]
 # K11 against its plain version, bf16 relative L2: both keep the Pallas
 # rounding points (fp32 scores, bias and softmax; bf16 probabilities and
 # output), so they differ only by fp32 summation order (about 5e-5 on the
@@ -174,6 +194,13 @@ K11_REL_L2 = 1e-3
 # fp32 sums in another order
 K12_REL_L2 = 2e-2
 K11_FP32_TOL = 1e-5  # max |kernel - plain| in fp32: the same arithmetic reordered
+# K13 against its plain version, bf16 relative L2: K1's arithmetic and
+# rounding points, sums in another order. On K1's operands (u = fc1 of LN2
+# about 0.6, where the activations part) the H100 read 1.0e-4..3.4e-4 per
+# mode, while the modes differ from one another by 8.0e-4 (erf against tanh
+# GELU), 3.1e-3 (erf against sigmoid) and more: a mode that ran another
+# activation, or a polygelu that lost its coefficients, fails
+K13_REL_L2 = 5e-4
 
 
 def log(phase: str, msg: str) -> None:
@@ -262,6 +289,11 @@ def block_work(bw: int, c: int = 180, heads: int = 6, hidden: int = 720) -> dict
         "K3": (bw * 5 * mlp, 3 * rows + w_mlp + w_mlp * 2),
         "K4": (bw * (3 * qkv + 2 * proj + 6 * attn),
                3 * rows + w_attn + w_attn * 2 + heads * n * n * 4),
+        # the recompute backward's least work: qkv, the two attention
+        # products, proj and fc1 forward, the 14 backward products; x and
+        # dout in, dx out, the weights read and every gradient written once
+        "K4b": (bw * (3 * qkv + 6 * attn + 3 * proj + 5 * mlp),
+                3 * rows + w_attn + w_mlp + (w_attn + w_mlp) * 2 + 2 * heads * n * n * 4),
     }
 
 
@@ -384,6 +416,8 @@ def main() -> None:
     # the module, not the function of the same name that the package exports
     rdb_cm = importlib.import_module("superresolution_def_tpu_torch.kernels.fused_rdb_cm")
     rdb_bwd = importlib.import_module("superresolution_def_tpu_torch.kernels.fused_rdb_cm_bwd")
+    stage = importlib.import_module("superresolution_def_tpu_torch.kernels.swin_stage_ablation")
+    from superresolution_def_tpu_torch.tools import swin_stage_ablation as ablation_tool
     from superresolution_def_tpu_torch.kernels import (
         fused_hab_block,
         hab_bwd_attn,
@@ -408,9 +442,11 @@ def main() -> None:
         ocab_block_reference,
         rdb_cm_bwd_reference,
         rdb_cm_reference,
+        swin_block_bwd,
         swin_block_bwd_attn,
         swin_block_bwd_mlp,
         swin_block_fwd_h,
+        swin_stage_block,
     )
     from superresolution_def_tpu_torch.models import HybridHATRealESRGAN, SwinIR
     from superresolution_def_tpu_torch.models.hat import OCAB
@@ -445,6 +481,7 @@ def main() -> None:
     lib_path, train_lib_path = paths["swin_block"], paths["swin_block_train"]
     swin_block._kernel_library()
     swin_block._train_library()
+    swin_block._bwd_library()
     hab_block._library()
     ocab._library()
     rdb_cm._library()
@@ -452,11 +489,12 @@ def main() -> None:
     ocab_train_mod._library()
     wattn._library()
     rdb_nhwc._library()
+    stage._library()
     build_s = time.perf_counter() - t0
     log("build", ", ".join(f"{k}.cu -> {v.name}" for k, v in paths.items())
         + f", all {len(SOURCES)} at once in {build_s:.1f} s")
     for name in ("swin_block", "hab_block", "ocab", "rdb_cm", "rdb_cm_bwd", "window_attention",
-                 "fused_rdb"):
+                 "fused_rdb", "swin_stage_ablation", "swin_block_bwd"):
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log("build", f"{name}: " + line.strip().replace("ptxas info    : ", ""))
@@ -1527,6 +1565,187 @@ def main() -> None:
     del hybrid, fused_k, fused_c, ref, got, x8
     torch.cuda.empty_cache()
 
+    # 30. K4b against its plain version and K3 + K4 at the flagship train shapes
+    bargs = k1_inputs(torch.Generator().manual_seed(seed + 30), device, bw=bw_train)
+    xw, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, _, ln2_w, ln2_b, w1, b1, w2, _ = bargs
+    dout = (1e-2 * torch.randn(bw_train, 64, 180, generator=torch.Generator().manual_seed(
+        seed + 31))).to(device, bf)
+    k4b_names = ["dx", "dln1_w", "dln1_b", "dwqkv", "dbqkv", "dbias", "dwproj", "dbproj",
+                 "dln2_w", "dln2_b", "dw1", "db1", "dw2", "db2"]
+    got = swin_block_bwd(xw, dout, *bargs[1:], **kw)
+    again = swin_block_bwd(xw, dout, *bargs[1:], **kw)
+    torch.cuda.synchronize()
+    k4b_same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
+    want = swin_block.swin_block_bwd_reference(xw, dout, *bargs[1:], **kw)
+    _, h = swin_block_fwd_h(*bargs, **kw)
+
+    def split_bwd():
+        mlp_ = swin_block_bwd_mlp(h, dout, ln2_w, ln2_b, w1, b1, w2)
+        attn_ = swin_block_bwd_attn(xw, mlp_[0], ln1_w, ln1_b, wqkv, bqkv, bias, wproj, **kw)
+        return (*attn_, *mlp_[1:])
+
+    split = split_bwd()
+    k4b_rel = {n: rel_l2(g_, w_) for n, g_, w_ in zip(k4b_names, got, want)}
+    k4b_rel_split = {n: rel_l2(g_, s_) for n, g_, s_ in zip(k4b_names, got, split)}
+    k4b_err = (got[0].float() - want[0].float()).abs().max().item()
+    finite = all(torch.isfinite(g_).all() for g_ in got)
+    del again, want, split
+    k4b_times = (cuda_ms(lambda: swin_block_bwd(xw, dout, *bargs[1:], **kw), reps=10),
+                 cuda_ms(lambda: swin_block.swin_block_bwd_reference(xw, dout, *bargs[1:], **kw),
+                         reps=3, warmup=1, calls=1))
+    split_ms = cuda_ms(split_bwd, reps=10)
+    log("k4b", f"Bw={bw_train} C=180 heads=6 hidden=720 bf16, dout ~ N(0, 1e-2): rel L2 vs "
+               f"plain (bound {BWD_REL_L2}): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in k4b_rel.items()))
+    log("k4b", f"rel L2 vs K3 + K4 on K2's h (bound {BWD_REL_L2}): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in k4b_rel_split.items())
+        + f"; two runs bit-identical: {k4b_same_bits}")
+    log("k4b", f"on {card}: K4b {k4b_times[0]:.4f} ms (K3 + K4 in this run {split_ms:.4f} ms), "
+               f"plain {k4b_times[1]:.4f} ms")
+    if not (finite and k4b_same_bits):
+        raise SystemExit(f"K4b non-finite ({not finite}) or not reproducible")
+    bad = {k: v for k, v in {**k4b_rel, **{f"{k} vs split": v for k, v in k4b_rel_split.items()}
+                             }.items() if not v <= BWD_REL_L2}
+    if bad:
+        raise SystemExit(f"K4b disagrees: {bad}")
+    del bargs, xw, dout, got, h, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, ln2_w, ln2_b, w1, b1, w2
+    torch.cuda.empty_cache()
+
+    # 31. the fused SwinIR GAN step with the recompute backward (K4b's main
+    # path: counts from 0 before one step, read after it)
+    model.train()
+    model16 = copy.deepcopy(model).to(torch.bfloat16)
+    probe = torch.randn(1, 512, 512, 1, generator=torch.Generator().manual_seed(seed + 32))
+    probe = probe.to(device)
+    checked = ["conv_first.weight", "layers.0.0.attn.qkv.weight",
+               "layers.0.0.attn.relative_position_bias_table", "layers.5.5.mlp.fc2.weight",
+               "layers.3.2.norm1.weight"]
+
+    def grads31(forward, net, dtype):
+        xi = x.clone().to(dtype).requires_grad_()
+        net.zero_grad()
+        (forward(xi).float() * probe).sum().backward()
+        named = dict(net.named_parameters())
+        return [xi.grad.float()] + [named[k].grad.float() for k in checked]
+
+    want_g = grads31(model, model, torch.float32)
+    ref16 = grads31(model16, model16, torch.bfloat16)
+    got_g = grads31(make_fused_swinir(model, differentiable=True, backward="recompute"), model,
+                    torch.float32)
+    lines = []
+    for name, g_, w_, r_ in zip(["input", *checked], got_g, want_g, ref16):
+        g_err, g_err16 = rel_l2(g_, w_), rel_l2(r_, w_)
+        lines.append(f"{name} {g_err:.3e} (nn.Module bf16 {g_err16:.3e})")
+        if not (torch.isfinite(g_).all() and g_err <= max(GRAD_REL_L2, 2 * g_err16)):
+            raise SystemExit(f"recompute gradient of {name} disagrees: {g_err} vs {g_err16}")
+    log("k4b-train", "fused bf16 recompute vs fp32 autograd, rel L2 (bound max(%g, 2x "
+        "nn.Module bf16)): " % GRAD_REL_L2 + ", ".join(lines))
+    del model16, want_g, ref16, got_g
+    model.zero_grad(set_to_none=True)
+    step_counters = (fused_swin_block, swin_block_fwd_h, swin_block_bwd_mlp, swin_block_bwd_attn,
+                     swin_block_bwd)
+    crit = CombinedGANLoss(pixel_weight=1.0, perceptual_weight=0.5, adversarial_weight=0.005,
+                           vgg_apply=vgg)
+    step31_ms, step31_peak, step31_launches = {}, {}, {}
+    for i, how in enumerate(("split", "recompute", "recompute", "split")):
+        state = create_swin_train_state(torch.Generator().manual_seed(seed), dtype=bf,
+                                        fused=True, device=device, backward=how)
+        step = make_swin_train_step(state, accum_steps=1, criterion_g=crit)
+        if i < 2:
+            for fn in step_counters:
+                fn.launches = 0
+            step(batch, 1e-4, 1e-4)
+            torch.cuda.synchronize()
+            step31_launches[how] = {fn.__name__: fn.launches for fn in step_counters}
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: step(batch, 1e-4, 1e-4), reps=3, warmup=1, calls=2)
+        step31_ms.setdefault(how, []).append(ms)
+        step31_peak.setdefault(how, []).append(torch.cuda.max_memory_allocated() / 1e9)
+        del state, step
+        torch.cuda.empty_cache()
+    k4b_launches = step31_launches["recompute"]["swin_block_bwd"]
+    log("k4b-train", f"launches in one GAN step: " + "; ".join(
+        f"{how}: " + ", ".join(f"{k} {v}" for k, v in c.items())
+        for how, c in step31_launches.items()))
+    log("k4b-train", f"fused GAN step, micro {MICRO} x accum 1, 128->512 on {card}, alternated "
+        "split, recompute, recompute, split: " + "; ".join(
+            f"{how} " + ", ".join(f"{MICRO * 1e3 / ms:.3f} patches/s ({ms:.2f} ms/step, peak "
+                                  f"{gb:.3f} GB)" for ms, gb in zip(step31_ms[how],
+                                                                   step31_peak[how]))
+            for how in step31_ms))
+    want_counts = {"split": {"fused_swin_block": 0, "swin_block_fwd_h": 36,
+                             "swin_block_bwd_mlp": 36, "swin_block_bwd_attn": 36,
+                             "swin_block_bwd": 0},
+                   "recompute": {"fused_swin_block": 36, "swin_block_fwd_h": 0,
+                                 "swin_block_bwd_mlp": 0,
+                                 "swin_block_bwd_attn": 0, "swin_block_bwd": 36}}
+    for how, want_c in want_counts.items():
+        if any(step31_launches[how][k] != v for k, v in want_c.items()):
+            raise SystemExit(f"{how} step launched {step31_launches[how]}, expected {want_c}")
+    del crit
+
+    # 32. K13 in its nine modes against its plain version, on K1's operands
+    # (where the activations differ) and on the ablation tool's, then the
+    # tool (K13's main path: counts from 0)
+    skw = dict(num_heads=6, scale=30**-0.5)
+    zero_coef = np.zeros(26, np.float32)  # a polygelu whose erf is 0: u / 2
+    k13 = {}
+    k1_ops = k1_inputs(torch.Generator().manual_seed(seed + 33), device, bw=bw_train)
+    for tag, (x13, w13) in (("K1's", (k1_ops[0], k1_ops[1:])),
+                            ("the tool's", ablation_tool.operands(bw_train, device))):
+        runs = [(mode, mode, None) for mode in stage.MODES]
+        runs.append(("mlp_polygelu, zero coefficients", "mlp_polygelu", zero_coef))
+        outs13 = {}
+        for name, mode, coef in runs:
+            got = swin_stage_block(x13, *w13, mode=mode, erf_coef=coef, **skw)
+            torch.cuda.synchronize()
+            want = stage.swin_stage_block_reference(x13, *w13, mode=mode, erf_coef=coef, **skw)
+            k13[f"{name} on {tag}"] = {
+                "rel": rel_l2(got, want), "err": (got.float() - want.float()).abs().max().item(),
+                "finite": bool(torch.isfinite(got).all())}
+            outs13[name] = got
+            del want
+        k13_same_k1 = torch.equal(outs13["mlp_tanhgelu"], fused_swin_block(x13, *w13, **skw))
+        k13_allheads = torch.equal(outs13["allheads"], outs13["full"])
+        if tag == "K1's":
+            # the check's power: the activations it must tell apart lie
+            # further apart than its bound
+            apart = {f"{a} vs {b}": rel_l2(outs13[a], outs13[b]) for a, b in
+                     itertools.combinations(["full", "mlp_tanhgelu", "mlp_siggelu", "mlp_nogelu",
+                                             "mlp_polygelu, zero coefficients"], 2)}
+            log("k13", "distances between modes on K1's operands (each must exceed "
+                f"{K13_REL_L2}): " + ", ".join(f"{k} {v:.3e}" for k, v in apart.items()))
+            if min(apart.values()) <= K13_REL_L2:
+                raise SystemExit(f"K13's check cannot tell its modes apart: {apart}")
+        del outs13
+        log("k13", f"Bw={bw_train} C=180 heads=6 hidden=720 bf16 on {tag} operands: rel L2 vs "
+                   f"plain (bound {K13_REL_L2}): " + ", ".join(
+                       f"{m.removesuffix(' on ' + tag)} {r['rel']:.3e}"
+                       for m, r in k13.items() if m.endswith(tag))
+            + f"; mlp_tanhgelu == K1: {k13_same_k1}; allheads == full: {k13_allheads}")
+        bad = {m: r for m, r in k13.items() if not (r["finite"] and r["rel"] <= K13_REL_L2)}
+        if bad or not (k13_same_k1 and k13_allheads):
+            raise SystemExit(f"K13 disagrees: {bad}, same as K1 {k13_same_k1}, allheads "
+                             f"{k13_allheads}")
+    del k1_ops
+    k13_times = (cuda_ms(lambda: swin_stage_block(x13, *w13, mode="full", **skw), reps=10),
+                 cuda_ms(lambda: stage.swin_stage_block_reference(x13, *w13, mode="full", **skw),
+                         reps=5, warmup=1, calls=2))
+    k1_2048 = cuda_ms(lambda: fused_swin_block(x13, *w13, **skw), reps=10)
+    log("k13", f"on {card}, the tool's operands: full {k13_times[0]:.4f} ms, its plain version "
+               f"{k13_times[1]:.4f} ms, K1 {k1_2048:.4f} ms")
+    del x13, w13
+    swin_stage_block.launches = 0
+    k13_per_block = ablation_tool.main(list(stage.MODES))
+    k13_launches = swin_stage_block.launches
+    log("k13", f"tools/swin_stage_ablation.py over the nine modes: {k13_launches} K13 launches; "
+               "ms per block: " + ", ".join(f"{m} {v:.4f}" for m, v in k13_per_block.items()))
+    # per mode one untimed and five timed 36-block chains, and the two
+    # allheads-vs-full parity calls
+    if k13_launches != len(stage.MODES) * 6 * 36 + 2:
+        raise SystemExit(f"expected {len(stage.MODES) * 6 * 36 + 2} K13 launches, counted "
+                         f"{k13_launches}")
+
     work = block_work(768)
     work.update({k: v for k, v in block_work(bw_train).items() if k != "K1"})
     work.update(hat_work(bw_hat))
@@ -1579,6 +1798,10 @@ def main() -> None:
          k11["hab-shifted"]["err"], (k11["hab-shifted"]["ms"], k11["hab-shifted"]["plain_ms"])),
         ("window_attention_nomask", "K11c", "window_attention.cu", 178, *k11_nomask),
         ("fused_rdb", "K12", "fused_rdb.cu", 231, k12_launches, k12_err, k12_times),
+        ("swin_block_bwd", "K4b", "swin_block_bwd.cu", 847, k4b_launches, k4b_err, k4b_times),
+        # K13's time and plain time are its "full" mode's, the whole block
+        ("swin_stage_block", "K13", "swin_stage_ablation.cu", 219, k13_launches,
+         max(r["err"] for r in k13.values()), k13_times),
     ]
     bounds = {"K11a": (sum(n * k11[t]["bound"][0] for t, n in nomask.items()) / n_nomask,
                        "bytes"),
@@ -1587,6 +1810,7 @@ def main() -> None:
     library = {"K11a": k11_mean("library_ms"), "K11b": k11["hab-shifted"]["library_ms"]}
     library["K11c"] = library["K11a"]
     work.update({k: v for k, v in work_t.items() if k.startswith(("K9", "K10"))})
+    work["K13"] = block_work(bw_train)["K1"]  # K1's work at the tool's 2048 windows
     replaced = {"K5": SWIN, "K6": "superresolution_def_tpu/kernels/ocab.py",
                 "K7": "superresolution_def_tpu/kernels/fused_rdb_cm.py",
                 "K8": "superresolution_def_tpu/kernels/fused_rdb_cm_bwd.py",
@@ -1598,7 +1822,8 @@ def main() -> None:
                 "K11a": "superresolution_def_tpu/kernels/window_attention.py",
                 "K11b": "superresolution_def_tpu/kernels/window_attention.py",
                 "K11c": "superresolution_def_tpu/kernels/window_attention.py",
-                "K12": "superresolution_def_tpu/kernels/fused_rdb.py"}
+                "K12": "superresolution_def_tpu/kernels/fused_rdb.py",
+                "K13": "scripts/swin_stage_ablation.py"}
     records = []
     for name, key, src, line, n, e, (ms, pms) in rows:
         bms, by = bounds[key] if key in bounds else least_ms(work[key])
@@ -1608,8 +1833,8 @@ def main() -> None:
             "replaces": f"{replaced.get(key, SWIN)}:{line}", "launches": n, "max_abs_err": e,
             "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
             # SDPA computes K11's function; no single PyTorch call computes a
-            # whole Swin/HAB block, its backward, an OCAB tail, a dense block
-            # or its backward
+            # whole Swin/HAB block (K13's modes included), its backward, an
+            # OCAB tail, a dense block or its backward
             "library_ms": library.get(key),
         })
     print(json.dumps({"kernels": records}), flush=True)

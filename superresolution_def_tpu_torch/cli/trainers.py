@@ -22,9 +22,13 @@ Both resume by default, as the JAX trainers do: swin from
 ``checkpoints/latest_checkpoint.pth``, hat from the ``hybrid_epoch_N.pth``
 of the largest N; G, D (with its spectral-norm vectors), both optimizers,
 the EMA copy (and for swin the best PSNR) are restored, the loop starts at
-the epoch after the saved one, and the CSV log is appended to.
-``resume=False`` (``train --no-resume``) starts over and rewrites the log.
-The noise and drop-path generators restart from the seed on resume.
+the epoch after the saved one, and the CSV log is appended to. The
+augmentation generator (and the hybrid's drop-path generator) is saved
+with each checkpoint (keys ``rng_augment``, ``rng_drop_path``, which the
+JAX package's ``.pth`` readers do not read) and restored with it, as the
+JAX trainers restore their PRNG key, so a resumed run draws what an
+uninterrupted one would. ``resume=False`` (``train --no-resume``) starts
+over and rewrites the log.
 
 One process on one device. Not ported yet: TensorBoard, host-to-device
 prefetch overlap, multi-GPU.
@@ -144,18 +148,27 @@ def _load_vgg(cfg, dtype: torch.dtype, device) -> VGG19Features:
     return model.to(device).requires_grad_(False).eval()
 
 
-def _restore(state, path: Path, device) -> dict:
+def _restore(state, path: Path, device, generators: dict | None = None) -> dict:
     """Loads G, D, both optimizers and the EMA copy of ``state`` from the
-    checkpoint at ``path``; returns the checkpoint. ``load_state_dict``
-    copies into the parameters in place, which moves their versions, so the
-    kernels' cached packed weights are remade from the loaded values."""
+    checkpoint at ``path``, and each of ``generators`` (checkpoint key ->
+    ``torch.Generator``) whose state the checkpoint holds; returns the
+    checkpoint. ``load_state_dict`` copies into the parameters in place,
+    which moves their versions, so the kernels' cached packed weights are
+    remade from the loaded values."""
     ck = torch.load(path, map_location=device, weights_only=False)
     state.g.load_state_dict(ck["net_g"])
     state.d.load_state_dict(ck["net_d"])
     state.g_opt.load_state_dict(ck["optimizer_g"])
     state.d_opt.load_state_dict(ck["optimizer_d"])
     state.ema.load_state_dict(ck["ema"])
+    for key, gen in (generators or {}).items():
+        if key in ck:  # checkpoints written before the key existed restart the stream
+            gen.set_state(ck[key].cpu())  # map_location may have moved it to the card
     return ck
+
+
+def _generator_states(generators: dict) -> dict:
+    return {key: gen.get_state() for key, gen in generators.items()}
 
 
 def latest_epoch_checkpoint(ckpt_dir: Path) -> Path | None:
@@ -193,14 +206,14 @@ def train_swin_run(cfg: SwinTrainConfig, resume: bool = True) -> dict:
     criterion_g = CombinedGANLoss(pixel_weight=1.0, perceptual_weight=0.5,
                                   adversarial_weight=0.005,
                                   vgg_apply=_load_vgg(cfg, dtype, device))
+    generators = {"rng_augment": torch.Generator().manual_seed(cfg.seed + 1)}
     step = make_swin_train_step(state, accum_steps=cfg.accum_steps, criterion_g=criterion_g,
-                                ema_decay=cfg.ema_decay,
-                                generator=torch.Generator().manual_seed(cfg.seed + 1))
+                                ema_decay=cfg.ema_decay, generator=generators["rng_augment"])
     eval_step = make_eval_step(state.ema_forward)
     start_epoch, best_psnr = 1, 0.0
     latest = run_dir / "checkpoints" / "latest_checkpoint.pth"
     if resume and latest.exists():
-        ck = _restore(state, latest, device)
+        ck = _restore(state, latest, device, generators)
         start_epoch, best_psnr = ck["epoch"] + 1, ck["best_psnr"]
         print(f"Resumed from epoch {start_epoch}")
     csv_log = CSVLogger(run_dir / "metrics.csv", SWIN_CSV_COLUMNS, resume=start_epoch > 1)
@@ -250,6 +263,7 @@ def train_swin_run(cfg: SwinTrainConfig, resume: bool = True) -> dict:
             "net_g": state.g.state_dict(), "net_d": state.d.state_dict(),
             "optimizer_g": state.g_opt.state_dict(), "optimizer_d": state.d_opt.state_dict(),
             "ema": state.ema.state_dict(), "epoch": epoch, "best_psnr": best_psnr,
+            **_generator_states(generators),
         }, run_dir / "checkpoints" / "latest_checkpoint.pth")
         if preview is not None:
             vb, sr = preview
@@ -302,15 +316,16 @@ def train_hat_run(cfg: HATTrainConfig, resume: bool = True) -> dict:
     criterion_g = CombinedGANLoss(pixel_weight=1.0, perceptual_weight=1.0,
                                   adversarial_weight=0.005,
                                   vgg_apply=_load_vgg(cfg, dtype, device))
+    generators = {"rng_augment": torch.Generator().manual_seed(cfg.seed + 1),
+                  "rng_drop_path": torch.Generator(device).manual_seed(cfg.seed + 2)}
     step = make_hat_train_step(
         state, accum_steps=cfg.accum_steps, criterion_g=criterion_g, ema_decay=cfg.ema_decay,
-        generator=torch.Generator().manual_seed(cfg.seed + 1),
-        drop_generator=torch.Generator(device).manual_seed(cfg.seed + 2))
+        generator=generators["rng_augment"], drop_generator=generators["rng_drop_path"])
     ckpt = run_dir / "checkpoints"
     start_epoch = 1
     latest = latest_epoch_checkpoint(ckpt) if resume else None
     if latest is not None:
-        start_epoch = _restore(state, latest, device)["epoch"] + 1
+        start_epoch = _restore(state, latest, device, generators)["epoch"] + 1
         print(f"Resume from epoch {start_epoch}")
     csv_log = CSVLogger(run_dir / "train_log.csv", HAT_CSV_COLUMNS, resume=start_epoch > 1)
 
@@ -344,7 +359,8 @@ def train_hat_run(cfg: HATTrainConfig, resume: bool = True) -> dict:
             torch.save({"net_g": state.g.state_dict(), "net_d": state.d.state_dict(),
                         "optimizer_g": state.g_opt.state_dict(),
                         "optimizer_d": state.d_opt.state_dict(), "ema": state.ema.state_dict(),
-                        "epoch": epoch}, ckpt / f"hybrid_epoch_{epoch}.pth")
+                        "epoch": epoch, **_generator_states(generators)},
+                       ckpt / f"hybrid_epoch_{epoch}.pth")
             # the reference overwrites 'best' unconditionally (train_hat.py:314-322)
             torch.save({"model_state_dict": state.g.state_dict()},
                        ckpt / "best_hybrid_model.pth")

@@ -24,6 +24,12 @@
 // head's q/k/v columns 15 -> 16 and the channel rows 90 -> 96 with zeros, so
 // padded q/k/v columns, proj/fc2 outputs and LN outputs are exactly zero and
 // the real 90 columns see the unpadded arithmetic.
+//
+// K13 (swin_stage_ablation.cu) is this kernel with two compile-time
+// switches, STAGE (which stages run) and ACT (the MLP's activation); their
+// defaults are K1's, so every other kernel here compiles as before. K4b
+// (swin_block_bwd.cu) reuses the first half, qkv_attention and
+// proj_residual, to recompute the forward inside the backward.
 
 #pragma once
 
@@ -55,6 +61,46 @@ struct Params {
   int c, cp, cio, heads, hd, hidden, hidden_p, nw;
   float scale, conv_scale;
 };
+
+// K13's switches. STAGE_FULL runs the whole block; NOATTN feeds proj the
+// unscaled q columns instead of the attention output; ATTNONLY stops at
+// h = x + proj (out = h); MLPONLY starts at h = x. ACT picks the MLP's
+// activation: K1's tanh GELU, the A&S erf GELU, none, x * sigmoid(1.702 x),
+// or erf as a Horner polynomial in x / sqrt(2) clipped to [-4, 4].
+enum Stage { STAGE_FULL, STAGE_NOATTN, STAGE_ATTNONLY, STAGE_MLPONLY };
+enum Act { ACT_TANH, ACT_ERF, ACT_NONE, ACT_SIGMOID, ACT_POLY };
+
+// Abramowitz-Stegun 7.1.26 rational erf (max abs error 1.5e-7), the JAX
+// kernels' exact GELU: sign(x) (1 - t P(t) exp(-x^2)), t = 1 / (1 + p|x|)
+__device__ __forceinline__ float erf_as(float x) {
+  const float ax = fabsf(x);
+  const float t = 1.0f / (1.0f + 0.3275911f * ax);
+  const float poly =
+      t * (0.254829592f +
+           t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+  const float sgn = x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
+  return sgn * (1.0f - poly * expf(-ax * ax));
+}
+
+// K13's ACT_POLY erf polynomial, defined in swin_stage_ablation.cu (its
+// coefficients live there, in constant memory): only that source
+// instantiates ACT_POLY.
+__device__ float erf_poly(float u);
+
+template <int ACT>
+__device__ __forceinline__ float activation(float x) {
+  if constexpr (ACT == ACT_TANH) {
+    return gelu_tanh(x);
+  } else if constexpr (ACT == ACT_ERF) {
+    return x * 0.5f * (1.0f + erf_as(x * 0.70710678118654752f));
+  } else if constexpr (ACT == ACT_NONE) {
+    return x;
+  } else if constexpr (ACT == ACT_SIGMOID) {
+    return x / (1.0f + expf(-1.702f * x));
+  } else {
+    return x * 0.5f * (1.0f + erf_poly(fminf(fmaxf(x * 0.70710678118654752f, -4.0f), 4.0f)));
+  }
+}
 
 // fp32 vectors staged in shared memory once per window, at these offsets (in
 // units of C, b1 last): the epilogues and LayerNorms read them there
@@ -181,47 +227,40 @@ __device__ __forceinline__ void attention_rows(const bf16* qh, const bf16* kh, c
   }
 }
 
-// The block's second half, shared by K1/K2/K5/K9a and K6/K10a (ocab.cu):
-// from the attention output in `attn` (64 x cp bf16, zero beyond the real
-// columns), proj into the register-resident residual
-// h = x + d1 * (attn @ wproj + bproj) (+ conv_scale * conv_x with CONV), LN2
-// of bf16(h), the MLP, and out = h + d2 * (mlp + b2) rounded to bf16. xw/ow
-// are the window's rows in device memory. The MLP accumulates into h's
-// registers, so a branch scale d2 other than 1 divides h by d2 before it and
-// multiplies the sum after (exact but for one fp32 rounding each way); a
-// window with d2 = 0 skips the MLP and writes h.
-template <int NCH, bool STORE_H, bool CONV>
-__device__ __forceinline__ void block_tail(const Params& p, int lda, bf16* abuf, const bf16* attn,
-                                           bf16* mid, bf16* ring, const float* vec, float* red,
-                                           const bf16* xw, bf16* ow, size_t win, float d1 = 1.f,
-                                           float d2 = 1.f) {
-  const int C = p.c, CP = p.cp, CIO = p.cio, hidden = p.hidden;
+// proj into the register-resident residual h = x + d1 * (attn @ wproj +
+// bproj) (+ conv_scale * conv_x with CONV), from the attention output in
+// `attn` (64 x cp bf16, zero beyond the real columns); with STORE_H also
+// bf16(h) to p.h_out. MLPONLY (K13) skips proj: h = x. xw is the window's
+// rows in device memory. Shared by block_tail and K4b's recompute.
+template <int NCH, bool STORE_H, bool CONV, int STAGE = STAGE_FULL>
+__device__ __forceinline__ void proj_residual(float (&h)[NCH][4][4], const Params& p, int lda,
+                                              const bf16* attn, bf16* ring, const float* vec,
+                                              const bf16* xw, size_t win, float d1) {
+  const int C = p.c, CP = p.cp, CIO = p.cio;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = (warp & 3) * 16, c0 = (warp >> 2) * 32, g = lane >> 2, tig = lane & 3;
   const int nkc = (CP + TILE - 1) / TILE;
-  // ---- proj into the register-resident residual:
-  // h = x + (attn @ wproj + bproj) (+ conv_scale * conv_x)
-  float h[NCH][4][4];
 #pragma unroll
   for (int ch = 0; ch < NCH; ++ch)
 #pragma unroll
     for (int i = 0; i < 4; ++i) h[ch][i][0] = h[ch][i][1] = h[ch][i][2] = h[ch][i][3] = 0.f;
-  pipeline(
-      NCH * nkc, ring,
-      [&](int s) {
-        const int ch = s / nkc, kc = s - ch * nkc;
-        return Tile{p.wproj, C, kc * TILE, min(TILE, C - kc * TILE), ch * TILE,
-                    min(TILE, C - ch * TILE)};
-      },
-      [&](int s, const bf16* t) {
-        const int chunk = s / nkc, kc = s - chunk * nkc, nn = C - chunk * TILE;
-        if (c0 >= nn) return;
+  if constexpr (STAGE != STAGE_MLPONLY)
+    pipeline(
+        NCH * nkc, ring,
+        [&](int s) {
+          const int ch = s / nkc, kc = s - ch * nkc;
+          return Tile{p.wproj, C, kc * TILE, min(TILE, C - kc * TILE), ch * TILE,
+                      min(TILE, C - ch * TILE)};
+        },
+        [&](int s, const bf16* t) {
+          const int chunk = s / nkc, kc = s - chunk * nkc, nn = C - chunk * TILE;
+          if (c0 >= nn) return;
 #pragma unroll
-        for (int ch = 0; ch < NCH; ++ch)
-          if (ch == chunk)
-            mma_tile(h[ch], attn + kc * TILE, lda, min(TILE, CP - kc * TILE) / 16, t,
-                     c0 + 16 < nn);
-      });
+          for (int ch = 0; ch < NCH; ++ch)
+            if (ch == chunk)
+              mma_tile(h[ch], attn + kc * TILE, lda, min(TILE, CP - kc * TILE) / 16, t,
+                       c0 + 16 < nn);
+        });
 #pragma unroll
   for (int ch = 0; ch < NCH; ++ch)
 #pragma unroll
@@ -232,6 +271,11 @@ __device__ __forceinline__ void block_tail(const Params& p, int lda, bf16* abuf,
         if (col < CIO) {  // col and CIO even: both columns are real
           const unsigned xx = __ldg(reinterpret_cast<const unsigned*>(xw + r * CIO + col));
           const float2 x2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xx));
+          if constexpr (STAGE == STAGE_MLPONLY) {
+            h[ch][t][2 * half] = x2.x;
+            h[ch][t][2 * half + 1] = x2.y;
+            continue;
+          }
           float v0 = x2.x + d1 * (h[ch][t][2 * half] + vec[V_BPROJ * C + col]);
           float v1 = x2.y + d1 * (h[ch][t][2 * half + 1] + vec[V_BPROJ * C + col + 1]);
           if constexpr (CONV) {
@@ -248,6 +292,43 @@ __device__ __forceinline__ void block_tail(const Params& p, int lda, bf16* abuf,
                 __floats2bfloat162_rn(v0, v1);
         }
       }
+}
+
+// The block's second half, shared by K1/K2/K5/K9a/K13 and K6/K10a (ocab.cu):
+// from the attention output in `attn` (64 x cp bf16, zero beyond the real
+// columns), proj into the register-resident residual
+// h = x + d1 * (attn @ wproj + bproj) (+ conv_scale * conv_x with CONV), LN2
+// of bf16(h), the MLP, and out = h + d2 * (mlp + b2) rounded to bf16. xw/ow
+// are the window's rows in device memory. The MLP accumulates into h's
+// registers, so a branch scale d2 other than 1 divides h by d2 before it and
+// multiplies the sum after (exact but for one fp32 rounding each way); a
+// window with d2 = 0 skips the MLP and writes h. STAGE and ACT: K13's
+// switches (ATTNONLY writes h and stops).
+template <int NCH, bool STORE_H, bool CONV, int STAGE = STAGE_FULL, int ACT = ACT_TANH>
+__device__ __forceinline__ void block_tail(const Params& p, int lda, bf16* abuf, const bf16* attn,
+                                           bf16* mid, bf16* ring, const float* vec, float* red,
+                                           const bf16* xw, bf16* ow, size_t win, float d1 = 1.f,
+                                           float d2 = 1.f) {
+  const int C = p.c, CP = p.cp, CIO = p.cio, hidden = p.hidden;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = (warp & 3) * 16, c0 = (warp >> 2) * 32, g = lane >> 2, tig = lane & 3;
+  const int nkc = (CP + TILE - 1) / TILE;
+  float h[NCH][4][4];
+  proj_residual<NCH, STORE_H, CONV, STAGE>(h, p, lda, attn, ring, vec, xw, win, d1);
+  if constexpr (STAGE == STAGE_ATTNONLY) {
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = r0 + g + 8 * half, col = ch * TILE + c0 + t * 8 + tig * 2;
+          if (col < CIO)
+            *reinterpret_cast<__nv_bfloat162*>(ow + r * CIO + col) =
+                __floats2bfloat162_rn(h[ch][t][2 * half], h[ch][t][2 * half + 1]);
+        }
+    return;
+  }
 
   // ---- LN2 of h rounded to bf16 -> abuf; a row's values live in one quad
   // of each of two warps (w and w+4), partial sums meet in `red`
@@ -338,7 +419,8 @@ __device__ __forceinline__ void block_tail(const Params& p, int lda, bf16* abuf,
 #pragma unroll
               for (int e = 0; e < 2; ++e)
                 mid[r * LDT + c + e] = __float2bfloat16(
-                    c + e < nn ? gelu_tanh(v[e] + vec[V_B1 * C + j * TILE + c + e]) : 0.f);
+                    c + e < nn ? activation<ACT>(v[e] + vec[V_B1 * C + j * TILE + c + e])
+                               : 0.f);
             });
           } else {
             const int chunk = u - nkc, nn = C - chunk * TILE;
@@ -369,11 +451,76 @@ __device__ __forceinline__ void block_tail(const Params& p, int lda, bf16* abuf,
       }
 }
 
+// The block's first half after LN1: QKV two heads at a time, each pair's
+// attention right after it. Warps 0-3 take the first head, warps 4-7 the
+// second; each warp owns 16 query rows -> attn columns head*hd ..
+// head*hd+hd-1. abuf holds LN1's output (64 x cp bf16), qkv the zeroed
+// q/k/v slots of a head pair. NOATTN (K13) writes the unscaled q columns to
+// attn instead of the attention output. Shared by swin_block_kernel and
+// K4b's recompute.
+template <int STAGE = STAGE_FULL>
+__device__ __forceinline__ void qkv_attention(const Params& p, int lda, const bf16* abuf,
+                                              bf16* attn, bf16* qkv, bf16* ring,
+                                              const float* vec, const int* qmap,
+                                              const float* mask) {
+  const int C = p.c, CP = p.cp, heads = p.heads, hd = p.hd;
+  const int warp = threadIdx.x >> 5;
+  const int r0 = (warp & 3) * 16, c0 = (warp >> 2) * 32;
+  const int nkc = (CP + TILE - 1) / TILE;  // 64-row slices of a C-deep product
+  const float qscale = round_bf16(p.scale);
+  for (int h0 = 0; h0 < heads; h0 += 2) {
+    const int seg = min(2, heads - h0) * hd;  // columns of q (or k, or v) of the pair
+    const bool lo = c0 < seg, hi = c0 + 16 < seg;
+    float acc[4][4];
+    pipeline(
+        3 * nkc, ring,
+        [&](int s) {
+          const int which = s / nkc, kc = s - which * nkc;
+          return Tile{p.wqkv, 3 * C, kc * TILE, min(TILE, C - kc * TILE), which * C + h0 * hd,
+                      seg};
+        },
+        [&](int s, const bf16* t) {
+          const int which = s / nkc, kc = s - which * nkc;
+          if (kc == 0) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+          }
+          if (!lo) return;
+          mma_tile(acc, abuf + kc * TILE, lda, min(TILE, CP - kc * TILE) / 16, t, hi);
+          if (kc != nkc - 1) return;
+          const int base = which * C + h0 * hd;
+          bf16* dst = qkv + which * 2 * N * LDQ;
+          for_pairs(acc, 0, hi, [&](int r, int c, float v0, float v1) {
+            const float v[2] = {v0, v1};
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              if (c + e >= seg) continue;
+              float y = round_bf16(v[e] + vec[V_BQKV * C + base + c + e]);
+              if constexpr (STAGE == STAGE_NOATTN) {
+                if (which == 0) attn[r * lda + h0 * hd + c + e] = __float2bfloat16(y);
+                continue;
+              }
+              if (which == 0) y *= qscale;
+              dst[qmap[c + e] + r * LDQ] = __float2bfloat16(y);
+            }
+          });
+        });
+    if constexpr (STAGE == STAGE_NOATTN) continue;
+    const int head = h0 + (warp >> 2);
+    if (head < heads)
+      attention_rows<N / 16>(qkv + (size_t)(0 * 2 + (warp >> 2)) * N * LDQ,
+                             qkv + (size_t)(1 * 2 + (warp >> 2)) * N * LDQ,
+                             qkv + (size_t)(2 * 2 + (warp >> 2)) * N * LDQ,
+                             p.bias + (size_t)head * N * N, mask, N, r0, hd, attn + head * hd,
+                             lda);
+  }
+}
+
 // NCH = ceil(C / 64): the column chunks of the residual h held in registers.
 // STORE_H: K2 and K9a, which also write bf16(h) to p.h_out. HAB: K5 and K9a,
 // which add the mask to the scores and conv_scale * conv_x to the residual;
-// both together (K9a) also scale the branches by dp1, dp2.
-template <int NCH, bool STORE_H, bool HAB>
+// both together (K9a) also scale the branches by dp1, dp2. STAGE, ACT: K13's.
+template <int NCH, bool STORE_H, bool HAB, int STAGE = STAGE_FULL, int ACT = ACT_TANH>
 __global__ void __launch_bounds__(THREADS, 2) swin_block_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L = make_layout(p.c, p.cp, p.hidden_p);
@@ -386,11 +533,9 @@ __global__ void __launch_bounds__(THREADS, 2) swin_block_kernel(const Params p) 
   float* red = reinterpret_cast<float*>(smem + L.red);
   int* qmap = reinterpret_cast<int*>(smem + L.qmap);
 
-  const int C = p.c, CP = p.cp, CIO = p.cio, heads = p.heads, hd = p.hd, hidden = p.hidden;
+  const int C = p.c, CP = p.cp, CIO = p.cio, hd = p.hd, hidden = p.hidden;
   const int lda = L.lda;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int r0 = (warp & 3) * 16, c0 = (warp >> 2) * 32;
-  const int nkc = (CP + TILE - 1) / TILE;  // 64-row slices of a C-deep product
+  const int tid = threadIdx.x;
   const size_t win = (size_t)blockIdx.x * N * CIO;
   const bf16* xw = p.x + win;
   bf16* ow = p.out + win;
@@ -423,77 +568,39 @@ __global__ void __launch_bounds__(THREADS, 2) swin_block_kernel(const Params p) 
   __syncthreads();
 
   // ---- LN1 over the CIO real columns -> abuf (zeros up to CP)
-  const bf16* xs = attn;
-  layer_norm_rows(
-      abuf, lda, CIO, CP, [&](int r, int c) { return __bfloat162float(xs[r * CIO + c]); },
-      vec + V_LN1W * C, vec + V_LN1B * C);
-  __syncthreads();
-  // the attention output's padding columns are proj's zero k-rows: they must
-  // read as zero, not as leftovers of the window staged here
-  for (int i = tid; i < N * (CP - C); i += THREADS)
-    attn[(i / (CP - C)) * lda + C + i % (CP - C)] = __float2bfloat16(0.f);
-
-  // ---- QKV two heads at a time, each pair's attention right after it:
-  // warps 0-3 take the first head, warps 4-7 the second; each warp owns 16
-  // query rows -> attn columns head*hd .. head*hd+hd-1
-  const float qscale = round_bf16(p.scale);
-  for (int h0 = 0; h0 < heads; h0 += 2) {
-    const int seg = min(2, heads - h0) * hd;  // columns of q (or k, or v) of the pair
-    const bool lo = c0 < seg, hi = c0 + 16 < seg;
-    float acc[4][4];
-    pipeline(
-        3 * nkc, ring,
-        [&](int s) {
-          const int which = s / nkc, kc = s - which * nkc;
-          return Tile{p.wqkv, 3 * C, kc * TILE, min(TILE, C - kc * TILE), which * C + h0 * hd,
-                      seg};
-        },
-        [&](int s, const bf16* t) {
-          const int which = s / nkc, kc = s - which * nkc;
-          if (kc == 0) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-          }
-          if (!lo) return;
-          mma_tile(acc, abuf + kc * TILE, lda, min(TILE, CP - kc * TILE) / 16, t, hi);
-          if (kc != nkc - 1) return;
-          const int base = which * C + h0 * hd;
-          bf16* dst = qkv + which * 2 * N * LDQ;
-          for_pairs(acc, 0, hi, [&](int r, int c, float v0, float v1) {
-            const float v[2] = {v0, v1};
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              if (c + e >= seg) continue;
-              float y = round_bf16(v[e] + vec[V_BQKV * C + base + c + e]);
-              if (which == 0) y *= qscale;
-              dst[qmap[c + e] + r * LDQ] = __float2bfloat16(y);
-            }
-          });
-        });
-    const int head = h0 + (warp >> 2);
-    if (head < heads)
-      attention_rows<N / 16>(qkv + (size_t)(0 * 2 + (warp >> 2)) * N * LDQ,
-                             qkv + (size_t)(1 * 2 + (warp >> 2)) * N * LDQ,
-                             qkv + (size_t)(2 * 2 + (warp >> 2)) * N * LDQ,
-                             p.bias + (size_t)head * N * N, mask, N, r0, hd, attn + head * hd,
-                             lda);
+  if constexpr (STAGE != STAGE_MLPONLY) {
+    const bf16* xs = attn;
+    layer_norm_rows(
+        abuf, lda, CIO, CP, [&](int r, int c) { return __bfloat162float(xs[r * CIO + c]); },
+        vec + V_LN1W * C, vec + V_LN1B * C);
+    __syncthreads();
+    // the attention output's padding columns are proj's zero k-rows: they
+    // must read as zero, not as leftovers of the window staged here
+    for (int i = tid; i < N * (CP - C); i += THREADS)
+      attn[(i / (CP - C)) * lda + C + i % (CP - C)] = __float2bfloat16(0.f);
   }
 
-  block_tail<NCH, STORE_H, HAB>(p, lda, abuf, attn, mid, ring, vec, red, xw, ow, win, d1, d2);
+  if constexpr (STAGE != STAGE_MLPONLY)
+    qkv_attention<STAGE>(p, lda, abuf, attn, qkv, ring, vec, qmap, mask);
+
+  block_tail<NCH, STORE_H, HAB, STAGE, ACT>(p, lda, abuf, attn, mid, ring, vec, red, xw, ow, win,
+                                            d1, d2);
 }
 
-template <int NCH, bool STORE_H, bool HAB>
+template <int NCH, bool STORE_H, bool HAB, int STAGE, int ACT>
 cudaError_t launch_block(const Params& p, int bw, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(swin_block_kernel<NCH, STORE_H, HAB>,
+  cudaError_t err = cudaFuncSetAttribute(swin_block_kernel<NCH, STORE_H, HAB, STAGE, ACT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  swin_block_kernel<NCH, STORE_H, HAB><<<bw, THREADS, smem, stream>>>(p);
+  swin_block_kernel<NCH, STORE_H, HAB, STAGE, ACT><<<bw, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 // Checks the widths and alignments, fills the derived fields of p and
-// launches bw blocks. Returns a cudaError_t as an int.
-template <bool STORE_H, bool HAB>
+// launches bw blocks. Returns a cudaError_t as an int. ONLY_NCH other than
+// 0 compiles the kernel for that one width class (C in 64*(ONLY_NCH-1) + 1
+// .. 64*ONLY_NCH) and refuses the others.
+template <bool STORE_H, bool HAB, int STAGE = STAGE_FULL, int ACT = ACT_TANH, int ONLY_NCH = 0>
 int run_block(Params p, int bw, void* stream) {
   const int c = p.c, heads = p.heads, hidden = p.hidden, cio = p.cio;
   // a head pair's columns are copied in 4-element (8-byte) vectors; window
@@ -501,7 +608,8 @@ int run_block(Params p, int bw, void* stream) {
   const int hd = heads > 0 ? c / heads : 0;
   if (bw <= 0 || c <= 0 || c > MAX_C || c % 4 != 0 || heads <= 0 || c % heads != 0 ||
       hd > DP || hd % 2 != 0 || (heads % 2 != 0 && hd % 4 != 0) || hidden <= 0 ||
-      hidden % 4 != 0 || cio <= 0 || cio > c || cio % 2 != 0 || (HAB && p.nw <= 0))
+      hidden % 4 != 0 || cio <= 0 || cio > c || cio % 2 != 0 || (HAB && p.nw <= 0) ||
+      (ONLY_NCH != 0 && (c + TILE - 1) / TILE != ONLY_NCH))
     return (int)cudaErrorInvalidValue;
   const void* aligned8[] = {p.wqkv, p.wproj, p.w1, p.w2, p.bias};
   for (const void* ptr : aligned8)
@@ -517,11 +625,15 @@ int run_block(Params p, int bw, void* stream) {
   p.hidden_p = round16(hidden);
   const size_t smem = make_layout(c, p.cp, p.hidden_p).total;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((c + TILE - 1) / TILE) {
-    case 1: return (int)launch_block<1, STORE_H, HAB>(p, bw, smem, s);
-    case 2: return (int)launch_block<2, STORE_H, HAB>(p, bw, smem, s);
-    case 3: return (int)launch_block<3, STORE_H, HAB>(p, bw, smem, s);
-    default: return (int)launch_block<4, STORE_H, HAB>(p, bw, smem, s);
+  if constexpr (ONLY_NCH != 0) {
+    return (int)launch_block<ONLY_NCH, STORE_H, HAB, STAGE, ACT>(p, bw, smem, s);
+  } else {
+    switch ((c + TILE - 1) / TILE) {
+      case 1: return (int)launch_block<1, STORE_H, HAB, STAGE, ACT>(p, bw, smem, s);
+      case 2: return (int)launch_block<2, STORE_H, HAB, STAGE, ACT>(p, bw, smem, s);
+      case 3: return (int)launch_block<3, STORE_H, HAB, STAGE, ACT>(p, bw, smem, s);
+      default: return (int)launch_block<4, STORE_H, HAB, STAGE, ACT>(p, bw, smem, s);
+    }
   }
 }
 

@@ -6,22 +6,26 @@ Port of ``superresolution_def_tpu/kernels/swin_block.py``:
 - K2 :func:`swin_block_fwd_h` (``fused_swin_block_fwd_h``), the same block that
   also returns h = x + proj(attn) for the backward;
 - K3 :func:`swin_block_bwd_mlp` (``_bwd_mlp``), the LN2 + MLP backward from h;
-- K4 :func:`swin_block_bwd_attn` (``_bwd_attn``), the attention + LN1 backward.
+- K4 :func:`swin_block_bwd_attn` (``_bwd_attn``), the attention + LN1 backward;
+- K4b :func:`swin_block_bwd` (``fused_swin_block_bwd``), the whole block's
+  backward from x and dout alone, the forward recomputed.
 
 They keep the JAX argument layout: pre-rolled, pre-partitioned windows
 ``(Bw, N, C)``, weights ``(in, out)``, and the relative-position bias gathered
 into ``(heads, N, N)`` fp32. On a CUDA tensor each launches its kernel
-(``csrc/swin_block.cu`` for K1/K2, ``csrc/swin_block_train.cu`` for K3/K4;
-bf16 only, N = 64) or raises; on a CPU tensor it runs its plain version
-(``swin_block_*_reference``), the same math in plain PyTorch with the same
-rounding points. Weight, bias and LayerNorm gradients come back as fp32 sums
+(``csrc/swin_block.cu`` for K1/K2, ``csrc/swin_block_train.cu`` for K3/K4,
+``csrc/swin_block_bwd.cu`` for K4b; bf16 only, N = 64) or raises; on a CPU tensor it runs its plain
+version (``swin_block_*_reference``), the same math in plain PyTorch with the
+same rounding points. Weight, bias and LayerNorm gradients come back as fp32 sums
 over all windows.
 
 :class:`FusedSwinBlockFn` ties K2, K3 and K4 into one autograd node (the JAX
-``fused_swin_block_ad``), and :func:`make_fused_swinir` is the twin of the JAX
-``make_fused_swinir``: the SwinIR forward with every transformer block through
-the fused block, the rolls and window partition/reverse as one row gather
-each way around it, and the conv head and tail left to PyTorch.
+``fused_swin_block_ad``); :class:`FusedSwinBlockRecomputeFn` ties K1 and K4b
+into another, which keeps only x for the backward. :func:`make_fused_swinir`
+is the twin of the JAX ``make_fused_swinir``: the SwinIR forward with every
+transformer block through the fused block, the rolls and window
+partition/reverse as one row gather each way around it, and the conv head
+and tail left to PyTorch.
 """
 
 from __future__ import annotations
@@ -209,6 +213,65 @@ def swin_block_bwd_attn_reference(x, dh, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, 
             torch.matmul(rnd(attn).T, rnd(dhf)), dhf.sum(0))
 
 
+def swin_block_bwd_reference(x, dout, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj, ln2_w,
+                             ln2_b, w1, b1, w2, b2, *, num_heads: int, scale: float):
+    """Plain PyTorch form of K4b, with the TPU kernel's rounding points.
+
+    Returns ``(dx, dln1_w, dln1_b, dwqkv, dbqkv, dbias, dwproj, dbproj, dln2_w,
+    dln2_b, dw1, db1, dw2, db2)``: dx in the io dtype, the rest fp32 sums over
+    all windows. It recomputes the forward from x and differs from K2 + K3 +
+    K4 where ``_make_bwd_kernel`` does: LN2's statistics come from the fp32 h
+    (K3 reads K2's bf16 h), and dh stays fp32 into dbproj and dx's residual
+    (K3 rounds it for K4); only do's and dWproj's operands are bf16(dh). b2
+    does not enter the gradients; it is taken for the JAX argument list.
+    """
+    dt = x.dtype
+    bw, n, c = x.shape
+    hd = c // num_heads
+    rnd = _rounder(dt)
+
+    def heads(t):  # (Bw * N, C) -> (Bw, heads, N, hd)
+        return t.reshape(bw, n, num_heads, hd).transpose(1, 2)
+
+    def tokens(t):  # (Bw, heads, N, hd) -> (Bw * N, C)
+        return t.transpose(1, 2).reshape(-1, c)
+
+    # the forward, recomputed: h and its LayerNorm in fp32
+    xhat1, rstd1 = _ln_parts(x)
+    xn = rnd(xhat1 * ln1_w.float() + ln1_b.float())
+    q, k, v = _qkv_heads(xn, wqkv, bqkv, num_heads, rnd)
+    qs = rnd(q * rnd(torch.tensor(scale, dtype=torch.float32)))
+    a = _softmax_f32(torch.matmul(qs, k.transpose(-1, -2)) + bias.float())
+    ad = rnd(a)
+    attn = rnd(tokens(torch.matmul(ad, v)))
+    h = x.float().reshape(-1, c) + torch.matmul(attn, wproj.float()) + bproj.float()
+    xhat2, rstd2 = _ln_parts(h)
+    hn = rnd(xhat2 * ln2_w.float() + ln2_b.float())
+    u = torch.matmul(hn, w1.float()) + b1.float()
+    g = rnd(_gelu(u, dt))
+
+    # the MLP and LN2 backward; dh stays fp32
+    dm = dout.float().reshape(-1, c)
+    du = torch.matmul(rnd(dm), w2.float().T) * _gelu_grad(u, dt)
+    dhn = torch.matmul(rnd(du), w1.float().T)
+    dh = _ln_backward(dhn, xhat2, rstd2, ln2_w) + dm
+
+    # proj, attention and LN1 backward
+    do = rnd(heads(torch.matmul(rnd(dh), wproj.float().T)))
+    dv = torch.matmul(ad.transpose(-1, -2), do)
+    da = torch.matmul(do, v.transpose(-1, -2))
+    ds = a * (da - (da * a).sum(-1, keepdim=True))
+    dq = torch.matmul(rnd(ds), k) * scale
+    dk = torch.matmul(rnd(ds).transpose(-1, -2), q) * scale
+    dqkv = torch.cat([tokens(dq), tokens(dk), tokens(dv)], dim=-1)
+    dxn = torch.matmul(rnd(dqkv), wqkv.float().T).reshape(bw, n, c)
+    dx = _ln_backward(dxn, xhat1, rstd1, ln1_w) + dh.reshape(bw, n, c)
+    return (dx.to(dt), (dxn * xhat1).sum((0, 1)), dxn.sum((0, 1)),
+            torch.matmul(xn.reshape(-1, c).T, rnd(dqkv)), dqkv.sum(0), ds.sum(0),
+            torch.matmul(attn.T, rnd(dh)), dh.sum(0), (dhn * xhat2).sum(0), dhn.sum(0),
+            torch.matmul(hn.T, rnd(du)), du.sum(0), torch.matmul(g.T, rnd(dm)), dm.sum(0))
+
+
 # --------------------------------------------------------------------------- #
 # Kernel wrappers
 # --------------------------------------------------------------------------- #
@@ -242,6 +305,17 @@ def _train_library() -> ctypes.CDLL:
     lib.swin_bwd_attn_smem_bytes.argtypes = [i32]
     lib.swin_bwd_mlp_smem_bytes.restype = ctypes.c_size_t
     lib.swin_bwd_attn_smem_bytes.restype = ctypes.c_size_t
+    return lib
+
+
+@functools.cache
+def _bwd_library() -> ctypes.CDLL:
+    lib = load_library("swin_block_bwd")
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.swin_bwd_block_bf16.argtypes = [vp] * 25 + [i32] * 4 + [ctypes.c_float, vp]
+    lib.swin_bwd_block_bf16.restype = ctypes.c_int
+    lib.swin_bwd_block_smem_bytes.argtypes = [i32, i32]
+    lib.swin_bwd_block_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -291,8 +365,10 @@ def _ptrs(*tensors) -> list[int]:
     return [t.data_ptr() for t in tensors]
 
 
-def _launch_forward(x, vectors, weights, bias, num_heads, scale, store_h):
-    name = "swin_block_fwd_h" if store_h else "fused_swin_block"
+def _checked_block_operands(name, x, vectors, weights, bias, num_heads, smem_bytes, others=()):
+    """Checks one block's operands for a window kernel and returns them ready
+    to launch: x and the weights contiguous, the vectors and the bias table
+    fp32. ``smem_bytes(c, hidden)`` is the kernel's shared-memory need."""
     bw, n, c = _check_windows(name, x)
     hidden = weights["w1"].shape[1]
     _check_heads(name, c, num_heads)
@@ -301,20 +377,26 @@ def _launch_forward(x, vectors, weights, bias, num_heads, scale, store_h):
     want = {"wqkv": (c, 3 * c), "wproj": (c, c), "w1": (c, hidden), "w2": (hidden, c)}
     sizes = {"ln1_w": c, "ln1_b": c, "bqkv": 3 * c, "bproj": c, "ln2_w": c, "ln2_b": c,
              "b1": hidden, "b2": c}
-    _check_operands(name, x.device, weights, want, vectors, sizes, (bias,))
+    _check_operands(name, x.device, weights, want, vectors, sizes, (bias, *others))
     if tuple(bias.shape) != (num_heads, n, n):
         raise ValueError(f"{name}: bias wants {(num_heads, n, n)}, got {tuple(bias.shape)}")
-
-    lib = _kernel_library()
-    if lib.swin_block_smem_bytes(c, num_heads, hidden) > MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: C={c} with {num_heads} heads needs more than 227 KB "
-                         "shared memory")
+    if smem_bytes(c, hidden) > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: C={c}, hidden={hidden} need more than 227 KB shared memory")
     x = x.contiguous()
-    f32 = {k: v.float().contiguous() for k, v in vectors.items()}
     w = {k: v.contiguous() for k, v in weights.items()}
     if any(t.data_ptr() % 8 for t in w.values()) or x.data_ptr() % 16:
         raise ValueError(f"{name}: windows must be 16-byte, weights 8-byte aligned")
-    bias = bias.float().contiguous()
+    f32 = {k: v.float().contiguous() for k, v in vectors.items()}
+    return x, w, f32, bias.float().contiguous()
+
+
+def _launch_forward(x, vectors, weights, bias, num_heads, scale, store_h):
+    name = "swin_block_fwd_h" if store_h else "fused_swin_block"
+    lib = _kernel_library()
+    x, w, f32, bias = _checked_block_operands(
+        name, x, vectors, weights, bias, num_heads,
+        lambda c, hidden: lib.swin_block_smem_bytes(c, num_heads, hidden))
+    bw, _, c = x.shape
     out = torch.empty_like(x)
     h = torch.empty_like(x) if store_h else None
     args = [
@@ -324,7 +406,7 @@ def _launch_forward(x, vectors, weights, bias, num_heads, scale, store_h):
         f32["ln2_w"].data_ptr(), f32["ln2_b"].data_ptr(),
         w["w1"].data_ptr(), f32["b1"].data_ptr(), w["w2"].data_ptr(), f32["b2"].data_ptr(),
         out.data_ptr(), *([h.data_ptr()] if store_h else []),
-        bw, c, num_heads, hidden, float(scale),
+        bw, c, num_heads, w["w1"].shape[1], float(scale),
     ]
     with torch.cuda.device(x.device):
         fn = lib.swin_block_fwd_h_bf16 if store_h else lib.swin_block_bf16
@@ -519,6 +601,57 @@ def swin_block_bwd_attn(x, dh, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, *, num_hea
 swin_block_bwd_attn.launches = 0
 
 
+def swin_block_bwd(x, dout, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj, ln2_w, ln2_b, w1, b1,
+                   w2, b2, *, num_heads: int, scale: float):
+    """K4b: the block's 14 gradients from x and dout (the order of
+    :func:`swin_block_bwd_reference`), the forward recomputed.
+
+    CUDA tensors launch the kernels (counted in ``swin_block_bwd.launches``)
+    or raise; CPU tensors take :func:`swin_block_bwd_reference`.
+    """
+    args = (x, dout, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj, ln2_w, ln2_b, w1, b1, w2, b2)
+    if not _on_cuda("swin_block_bwd", x):
+        return swin_block_bwd_reference(*args, num_heads=num_heads, scale=scale)
+    name = "swin_block_bwd"
+    _check_windows(name, x, dout)
+    vectors, weights = _block_dicts(ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b,
+                                    w1, b1, w2, b2)
+    lib, train = _bwd_library(), _train_library()
+    x, w, f32, bias = _checked_block_operands(name, x, vectors, weights, bias, num_heads,
+                                              lib.swin_bwd_block_smem_bytes, (dout,))
+    dout = dout.contiguous()
+    bw, n, c = x.shape
+    hidden = w["w1"].shape[1]
+    t = bw * n
+    dx = torch.empty_like(x)
+    xn, att, hn, dhb = (torch.empty(t, c, dtype=torch.bfloat16, device=x.device)
+                        for _ in range(4))
+    dqkv = torch.empty(t, 3 * c, dtype=torch.bfloat16, device=x.device)
+    g, du = (torch.empty(t, hidden, dtype=torch.bfloat16, device=x.device) for _ in range(2))
+    dh = torch.empty(t, c, dtype=torch.float32, device=x.device)
+    vec = torch.empty(bw, 9 * c + hidden, dtype=torch.float32, device=x.device)
+    dbias = torch.empty(bw, num_heads * n * n, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _check(lib.swin_bwd_block_bf16(
+            *_ptrs(x, dout, f32["ln1_w"], f32["ln1_b"], w["wqkv"], f32["bqkv"], bias, w["wproj"],
+                   f32["bproj"], f32["ln2_w"], f32["ln2_b"], w["w1"], f32["b1"], w["w2"], dx, xn,
+                   att, dqkv, hn, g, du, dhb, dh, vec, dbias),
+            bw, c, num_heads, hidden, float(scale), _stream(x.device)), "swin_bwd_block_bf16")
+        dwqkv = _wgrad(train, xn, dqkv)
+        dwproj = _wgrad(train, att, dhb)
+        dw1 = _wgrad(train, hn, du)
+        dw2 = _wgrad(train, g, dout.reshape(t, c))
+        dbqkv, dbproj, dln1_w, dln1_b, db1, db2, dln2_w, dln2_b = _colsum(train, vec).split(
+            [3 * c, c, c, c, hidden, c, c, c])
+        dbias = _colsum(train, dbias).reshape(num_heads, n, n)
+    swin_block_bwd.launches += 1
+    return (dx, dln1_w, dln1_b, dwqkv, dbqkv, dbias, dwproj, dbproj, dln2_w, dln2_b, dw1, db1,
+            dw2, db2)
+
+
+swin_block_bwd.launches = 0
+
+
 class FusedSwinBlockFn(torch.autograd.Function):
     """One Swin block with K2 forward and K3 + K4 backward (the JAX
     ``fused_swin_block_ad``). Each gradient comes back in its input's dtype,
@@ -545,6 +678,30 @@ class FusedSwinBlockFn(torch.autograd.Function):
             num_heads=ctx.num_heads, scale=ctx.scale)
         grads = (dln1_w, dln1_b, dwqkv, dbqkv, dbias, dwproj, dbproj, dln2_w, dln2_b,
                  dw1, db1, dw2, db2)
+        return (dx, *(g.to(dt) for g, dt in zip(grads, ctx.dtypes)), None, None)
+
+
+class FusedSwinBlockRecomputeFn(torch.autograd.Function):
+    """One Swin block with K1 forward and K4b backward (the JAX
+    ``fused_swin_block_bwd`` as the block's VJP): the forward keeps x and
+    the operands, not h, and the backward recomputes the forward. Each
+    gradient comes back in its input's dtype, as in :class:`FusedSwinBlockFn`."""
+
+    @staticmethod
+    def forward(ctx, x, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj, ln2_w, ln2_b, w1, b1,
+                w2, b2, num_heads, scale):
+        params = (ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj, ln2_w, ln2_b, w1, b1, w2, b2)
+        out = fused_swin_block(x, *params, num_heads=num_heads, scale=scale)
+        ctx.save_for_backward(x, *params)
+        ctx.dtypes = [p.dtype for p in params]
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, *params = ctx.saved_tensors
+        dx, *grads = swin_block_bwd(x, dout.contiguous(), *params, num_heads=ctx.num_heads,
+                                    scale=ctx.scale)
         return (dx, *(g.to(dt) for g, dt in zip(grads, ctx.dtypes)), None, None)
 
 
@@ -597,7 +754,7 @@ def _block_operands(blk, ws: int, dtype: torch.dtype) -> tuple:
 
 
 def make_fused_swinir(model, *, dtype: torch.dtype = torch.bfloat16,
-                      differentiable: bool = False):
+                      differentiable: bool = False, backward: str = "split"):
     """SwinIR forward with every block through the fused block kernels.
 
     Twin of the JAX ``make_fused_swinir``: takes and returns NHWC, requires H
@@ -612,7 +769,13 @@ def make_fused_swinir(model, *, dtype: torch.dtype = torch.bfloat16,
     bias gather into ``model``'s fp32 parameters; with grad enabled each
     block runs :class:`FusedSwinBlockFn` (K2, then K3 and K4 in the
     backward), under ``torch.no_grad`` K1, as the JAX custom VJP's primal does.
+    ``backward="recompute"`` runs :class:`FusedSwinBlockRecomputeFn` instead
+    (K1, then K4b): h is not kept between the forward and the backward.
     """
+    fns = {"split": FusedSwinBlockFn, "recompute": FusedSwinBlockRecomputeFn}
+    if backward not in fns:
+        raise ValueError(f"backward is 'split' or 'recompute', got {backward!r}")
+    block_fn = fns[backward]
     ws = model.window_size
     n = ws * ws
     blocks = [blk for layer in model.layers for blk in layer]
@@ -643,7 +806,7 @@ def make_fused_swinir(model, *, dtype: torch.dtype = torch.bfloat16,
         scale = (c // heads) ** -0.5
         if torch.is_grad_enabled():
             xw = _GatherRows.apply(x.reshape(-1, c), fwd, inv).reshape(-1, n, c)
-            out = FusedSwinBlockFn.apply(xw, *args, heads, scale)
+            out = block_fn.apply(xw, *args, heads, scale)
             return _GatherRows.apply(out.reshape(-1, c), inv, fwd).reshape(b, h, w, c)
         xw = _gather_rows(x.reshape(-1, c), fwd).reshape(-1, n, c)
         out = fused_swin_block(xw, *args, num_heads=heads, scale=scale)

@@ -39,12 +39,13 @@ class SwinTrainState:
     step: int = 0
 
 
-def generator_forward(model: SwinIR, dtype: torch.dtype, fused: bool):
+def generator_forward(model: SwinIR, dtype: torch.dtype, fused: bool, backward: str = "split"):
     """NHWC forward of ``model`` computing in ``dtype`` with gradients reaching
-    its fp32 parameters: the fused blocks (K2/K3/K4, K1 under no_grad) when
-    ``fused``, else the ``nn.Module`` with its parameters cast inside autograd."""
+    its fp32 parameters: the fused blocks (K2/K3/K4, K1 under no_grad; with
+    ``backward="recompute"`` K1 and K4b) when ``fused``, else the
+    ``nn.Module`` with its parameters cast inside autograd."""
     if fused:
-        return make_fused_swinir(model, dtype=dtype, differentiable=True)
+        return make_fused_swinir(model, dtype=dtype, differentiable=True, backward=backward)
     if dtype == torch.float32:
         return model
 
@@ -75,13 +76,16 @@ def create_swin_train_state(
     dtype: torch.dtype = torch.float32,
     fused: bool = False,
     device: torch.device | str = "cuda",
+    backward: str = "split",
 ) -> SwinTrainState:
     """Reference swin train config (train_swin.py:147-156), parameters drawn
     from ``generator`` (G first, then D).
 
     ``fused=True`` routes the generator's forward and backward through the
     fused-block kernels; on a CUDA device they take bf16 only, so fp32 with
-    ``fused`` there raises.
+    ``fused`` there raises. ``backward`` picks the generator's fused
+    backward: ``"split"`` (K2 forward keeping h, K3 + K4) or ``"recompute"``
+    (K1 forward keeping x only, K4b recomputing the forward).
     """
     device = torch.device(device)
     if fused and device.type == "cuda" and dtype != torch.bfloat16:
@@ -94,8 +98,8 @@ def create_swin_train_state(
     ema = copy.deepcopy(g).requires_grad_(False)
     return SwinTrainState(
         g=g, d=d, g_opt=_adamw(g), d_opt=_adamw(d), ema=ema,
-        g_forward=generator_forward(g, dtype, fused),
-        ema_forward=generator_forward(ema, dtype, fused),
+        g_forward=generator_forward(g, dtype, fused, backward),
+        ema_forward=generator_forward(ema, dtype, fused),  # no_grad: K1 either way
     )
 
 

@@ -25,7 +25,17 @@ XLA path does would land near 3e-3) and fp32 (max |kernel - plain| <= 1e-5: the 
 another summation order), on q, k and v that are strided views of one qkv
 tensor. K12 (the dense block, NHWC) runs at F/G = 48/24, 64/32 and 16/8 and
 on a 40 x 24 image, held to K1's bound and to K7's output bit for bit (the
-two share their convs and rounding points).
+two share their convs and rounding points). K4b (the block's backward from
+x and dout, the forward recomputed) runs at K1-K4's five width sets, held
+to K3/K4's bound against its plain version and against K3 + K4 on K2's h
+(the two differ by where they round: LN2 on the fp32 h and an fp32 dh
+against K2's bf16 h and K3's bf16 dh), twice to the same bits; the
+recompute SwinIR's gradients are held as the split one's. K13 (the
+stage-ablation block, C in 129..192) runs each of its nine modes at the
+flagship widths, held to K1's bound and to 5e-4 relative L2, with
+``mlp_tanhgelu`` equal to K1 and ``allheads`` to ``full`` bit for bit (each
+is the other's instantiation); its activations, and a polygelu with zeroed
+coefficients, lie further apart than that.
 
 Bounds. K1 and K2: bf16 io rounds the output to 8 significant bits, and
 kernel and plain version sum in different orders, so max |kernel - plain|
@@ -50,6 +60,10 @@ import torch
 
 from superresolution_def_tpu_torch.kernels import (
     fused_hab_block,
+    swin_block_bwd,
+    swin_block_bwd_reference,
+    swin_stage_block,
+    swin_stage_block_reference,
     hab_bwd_attn,
     hab_bwd_attn_reference,
     hab_bwd_mlp,
@@ -87,6 +101,7 @@ from superresolution_def_tpu_torch.kernels import (
     window_attention_reference,
 )
 from superresolution_def_tpu_torch.kernels.fused_rdb_cm import dense_block_sources
+from superresolution_def_tpu_torch.kernels.swin_stage_ablation import MODES
 from superresolution_def_tpu_torch.models import HybridHATRealESRGAN, SwinIR
 from superresolution_def_tpu_torch.ops import shift_window_attn_mask
 
@@ -95,6 +110,11 @@ pytestmark = pytest.mark.cuda
 K1_TOL = 3e-2
 BWD_REL_L2 = 2e-2
 FUSED_GRAD_REL_L2 = 2e-2
+# K13 against its plain version, relative L2: sums in another order only
+# (the H100 reads 1e-4..3.4e-4 at the flagship widths), under the 8e-4
+# between the erf and tanh GELUs' blocks, the closest activations it must
+# tell apart
+K13_REL_L2 = 5e-4
 
 WIDTHS = [
     (8, 16, 2, 32),      # one residual chunk, head_dim 8
@@ -907,3 +927,164 @@ def test_fused_hybrid_kernel_trunk_matches_cm_trunk(device):
     assert mid == (before[0] + 6, before[1])
     assert fused_rdb_cm.launches == before[1] + 6
     assert torch.isfinite(got).all() and _rel_l2(got, want) <= 1e-3
+
+
+BWD_NAMES = ["dx", "dln1_w", "dln1_b", "dwqkv", "dbqkv", "dbias", "dwproj", "dbproj", "dln2_w",
+             "dln2_b", "dw1", "db1", "dw2", "db2"]
+
+
+@pytest.mark.parametrize("bw,c,heads,hidden", WIDTHS)
+def test_block_bwd_kernel_matches_plain_version_and_split(device, bw, c, heads, hidden):
+    args = _operands(c + heads + 3, bw, c, heads, hidden, device)
+    kw = dict(num_heads=heads, scale=(c // heads) ** -0.5)
+    x, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, _, ln2_w, ln2_b, w1, b1, w2, _ = args
+    gen = torch.Generator().manual_seed(c + 1)
+    dout = (1e-2 * torch.randn(bw, 64, c, generator=gen)).to(device, torch.bfloat16)
+    before = swin_block_bwd.launches
+    got = swin_block_bwd(x, dout, *args[1:], **kw)
+    torch.cuda.synchronize()
+    assert swin_block_bwd.launches == before + 1
+    want = swin_block_bwd_reference(x, dout, *args[1:], **kw)
+    _, h = swin_block_fwd_h(*args, **kw)
+    dh, dln2_w, dln2_b, dw1, db1, dw2, db2 = swin_block_bwd_mlp(h, dout, ln2_w, ln2_b, w1, b1,
+                                                                w2)
+    dx, dln1_w, dln1_b, dwqkv, dbqkv, dbias, dwproj, dbproj = swin_block_bwd_attn(
+        x, dh, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, **kw)
+    split = (dx, dln1_w, dln1_b, dwqkv, dbqkv, dbias, dwproj, dbproj, dln2_w, dln2_b, dw1, db1,
+             dw2, db2)
+    for name, g, w, sp in zip(BWD_NAMES, got, want, split):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert torch.isfinite(g).all(), name
+        assert _rel_l2(g, w) <= BWD_REL_L2, (name, _rel_l2(g, w))
+        assert _rel_l2(g, sp) <= BWD_REL_L2, (name, "vs K3 + K4", _rel_l2(g, sp))
+
+
+def test_block_bwd_kernel_is_reproducible(device):
+    """Fixed summation order, no atomics: two runs give the same bits."""
+    args = _operands(8, 16, 180, 6, 720, device)
+    dout = (1e-2 * torch.randn(16, 64, 180, generator=torch.Generator().manual_seed(1))).to(
+        device, torch.bfloat16)
+    kw = dict(num_heads=6, scale=30**-0.5)
+    first = swin_block_bwd(args[0], dout, *args[1:], **kw)
+    second = swin_block_bwd(args[0], dout, *args[1:], **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_block_bwd_kernel_raises_on_what_it_does_not_take(device):
+    args = _operands(0, 2, 16, 2, 32, device)
+    kw = dict(num_heads=2, scale=8**-0.5)
+    x = args[0]
+    before = swin_block_bwd.launches
+    with pytest.raises(TypeError, match="bfloat16"):
+        swin_block_bwd(x.float(), x.float(), *args[1:], **kw)
+    with pytest.raises(TypeError, match="bfloat16"):
+        swin_block_bwd(x, x.float(), *args[1:], **kw)
+    with pytest.raises(ValueError, match="device"):
+        swin_block_bwd(x, x, *args[1:5], args[5].cpu(), *args[6:], **kw)
+    with pytest.raises(ValueError, match="device"):
+        swin_block_bwd(x, x.cpu(), *args[1:], **kw)
+    with pytest.raises(ValueError, match="N=64"):
+        short = x[:, :49].contiguous()
+        swin_block_bwd(short, short, *args[1:], **kw)
+    with pytest.raises(ValueError, match="wqkv"):
+        swin_block_bwd(x, x, *args[1:3], args[3][:, :40].contiguous(), *args[4:], **kw)
+    with pytest.raises(ValueError, match="unsupported width"):
+        swin_block_bwd(x, x, *args[1:], num_heads=3, scale=1.0)
+    assert swin_block_bwd.launches == before
+
+
+def test_recompute_fused_swinir_backward_matches_module(device):
+    """Gradients of the bf16 fused forward with backward="recompute" (K1
+    forward, K4b backward) against autograd of the fp32 module, held as the
+    split backward is; no K2, K3 or K4 launch."""
+    model = SwinIR(**CFG, generator=torch.Generator().manual_seed(2)).to(device)
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.random((2, 32, 32, 1), dtype=np.float32)).to(device)
+    probe = torch.from_numpy(rng.standard_normal((2, 128, 128, 1)).astype(np.float32))
+    probe = probe.to(device)
+    fused = make_fused_swinir(model, differentiable=True, backward="recompute")
+    checked = ["conv_first.weight", "layers.0.0.attn.qkv.weight",
+               "layers.1.1.attn.relative_position_bias_table", "layers.1.0.mlp.fc1.weight",
+               "layers.0.1.norm2.weight"]
+    model16 = copy.deepcopy(model).to(torch.bfloat16)
+
+    def grads(forward, net, dtype=torch.float32):
+        xi = x.clone().to(dtype).requires_grad_()
+        net.zero_grad()
+        (forward(xi).float() * probe).sum().backward()
+        named = dict(net.named_parameters())
+        return [xi.grad.float()] + [named[k].grad.float() for k in checked]
+
+    want = grads(model, model)
+    ref16 = grads(model16, model16, torch.bfloat16)
+    counters = (fused_swin_block, swin_block_bwd, swin_block_fwd_h, swin_block_bwd_mlp,
+                swin_block_bwd_attn)
+    counts = [fn.launches for fn in counters]
+    got = grads(fused, model)
+    assert [fn.launches - n for fn, n in zip(counters, counts)] == [4, 4, 0, 0, 0]
+    for name, g, w, r in zip(["input", *checked], got, want, ref16):
+        assert torch.isfinite(g).all(), name
+        err, err16 = _rel_l2(g, w), _rel_l2(r, w)
+        print(f"{name}: fused bf16 recompute {err:.4e}, nn.Module bf16 {err16:.4e}")
+        assert err <= max(FUSED_GRAD_REL_L2, 2 * err16), (name, err, err16)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_stage_kernel_matches_plain_version(device, mode):
+    args = _operands(MODES.index(mode), 16, 180, 6, 720, device)
+    kw = dict(mode=mode, num_heads=6, scale=30**-0.5)
+    before = swin_stage_block.launches
+    got = swin_stage_block(*args, **kw)
+    torch.cuda.synchronize()
+    assert swin_stage_block.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (16, 64, 180)
+    want = swin_stage_block_reference(*args, **kw).float()
+    err = (got.float() - want).abs().max().item()
+    assert torch.isfinite(got).all()
+    assert err <= K1_TOL * max(1.0, want.abs().max().item()), (mode, err)
+    assert _rel_l2(got, want) <= K13_REL_L2, (mode, _rel_l2(got, want))
+
+
+def test_stage_kernel_tells_its_activations_apart(device):
+    """The activation modes, and mlp_polygelu with zero coefficients (erf
+    read as 0: u / 2), each meet their plain version, and lie further apart
+    from one another than that bound: a swapped activation, or
+    coefficients that never reach the kernel, fail."""
+    args = _operands(12, 64, 180, 6, 720, device)
+    kw = dict(num_heads=6, scale=30**-0.5)
+    runs = {m: dict(mode=m) for m in ("full", "mlp_tanhgelu", "mlp_siggelu", "mlp_nogelu")}
+    runs["zeroed polygelu"] = dict(mode="mlp_polygelu", erf_coef=np.zeros(26, np.float32))
+    outs = {}
+    for name, how in runs.items():
+        outs[name] = swin_stage_block(*args, **how, **kw)
+        want = swin_stage_block_reference(*args, **how, **kw)
+        assert _rel_l2(outs[name], want) <= K13_REL_L2, (name, _rel_l2(outs[name], want))
+    names = list(outs)
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            assert _rel_l2(outs[a], outs[b]) > K13_REL_L2, (a, b, _rel_l2(outs[a], outs[b]))
+
+
+def test_stage_kernel_tanhgelu_is_k1_and_allheads_is_full(device):
+    args = _operands(11, 32, 180, 6, 720, device)
+    kw = dict(num_heads=6, scale=30**-0.5)
+    assert torch.equal(swin_stage_block(*args, mode="mlp_tanhgelu", **kw),
+                       fused_swin_block(*args, **kw))
+    assert torch.equal(swin_stage_block(*args, mode="allheads", **kw),
+                       swin_stage_block(*args, mode="full", **kw))
+
+
+def test_stage_kernel_raises_on_what_it_does_not_take(device):
+    args = _operands(0, 2, 180, 6, 720, device)
+    kw = dict(num_heads=6, scale=30**-0.5)
+    before = swin_stage_block.launches
+    with pytest.raises(TypeError, match="bfloat16"):
+        swin_stage_block(args[0].float(), *args[1:], mode="full", **kw)
+    with pytest.raises(ValueError, match="mode is one of"):
+        swin_stage_block(*args, mode="packed", **kw)
+    with pytest.raises(ValueError, match="device"):
+        swin_stage_block(*args[:5], args[5].cpu(), *args[6:], mode="full", **kw)
+    small = _operands(0, 2, 16, 2, 32, device)
+    with pytest.raises(ValueError, match="129..192"):
+        swin_stage_block(*small, mode="full", num_heads=2, scale=8**-0.5)
+    assert swin_stage_block.launches == before

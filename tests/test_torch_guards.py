@@ -2,16 +2,19 @@
 
 - The port never loads jax nor any module of the JAX package: the conftest
   of this suite imports jax, so the check runs the CPU slices (``train``,
-  then ``infer`` of what it trained and of a saved model, and a SwinIR
-  forward with ``attn_impl="pallas"``; ``infer --arch hat`` of a saved
+  then ``infer`` of what it trained and of a saved model, a SwinIR
+  forward with ``attn_impl="pallas"``, a step through the recompute
+  backward (``make_fused_swinir(backward="recompute")``, K1 and K4b's plain
+  versions) and the stage-ablation tool (``tools/swin_stage_ablation.py``,
+  K13's plain versions); ``infer --arch hat`` of a saved
   hybrid, plain and fused; the hybrid's forward with ``attn_impl="pallas"``
   and through ``make_fused_hybrid(trunk_impl="kernel")``; ``train --arch
   hat``, plain, with the fused trunk's ``autograd.Function`` and with the
   fused HAB and OCAB training nodes (``fused_hab``), then ``infer --arch
   hat`` of what it trained) in a subprocess and inspects its
   ``sys.modules``.
-- ``train`` and ``infer`` run on the card unless ``--device cpu`` is given:
-  without a card and without it they raise.
+- ``train``, ``infer`` and the stage-ablation tool run on the card unless
+  ``--device cpu`` is given: without a card and without it they raise.
 - ``chip_smoke.py`` has no CPU fallback: without a GPU, or without the rest
   of the repository beside it, it fails and prints no result line.
 """
@@ -70,6 +73,12 @@ SLICE = textwrap.dedent(
     with torch.no_grad():
         SwinIR(img_size=16, embed_dim=16, depths=(2,), num_heads=(2,), window_size=8,
                mlp_ratio=2.0, upscale=4, attn_impl="pallas")(torch.rand(1, 16, 24, 1))
+    from superresolution_def_tpu_torch.kernels import make_fused_swinir
+    from superresolution_def_tpu_torch.tools import swin_stage_ablation as ablation
+    make_fused_swinir(model, dtype=torch.float32, differentiable=True,
+                      backward="recompute")(torch.rand(1, 16, 16, 1)).sum().backward()
+    ablation.WINDOWS, ablation.BLOCKS = 2, 1
+    ablation.main(["full", "allheads", "mlp_polygelu", "--device", "cpu"])
     print("JAX_LOADED", sorted(m for m in sys.modules if m.split(".")[0] in
                                ("jax", "jaxlib", "flax", "optax", "orbax",
                                 "superresolution_def_tpu")))
@@ -160,11 +169,18 @@ def test_port_hat_cpu_slice_never_loads_jax(tmp_path):
 
 
 @pytest.mark.parametrize("cmd", ["train", "infer", "infer-hat", "train-hat",
-                                 "train-hat-fused-hab"])
+                                 "train-hat-fused-hab", "stage-ablation"])
 def test_entry_points_raise_without_a_card_unless_asked_for_the_cpu(tmp_path, cmd):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
     from superresolution_def_tpu_torch.cli.main import main
+
+    if cmd == "stage-ablation":
+        from superresolution_def_tpu_torch.tools.swin_stage_ablation import main as ablation
+
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            ablation(["full"])
+        return
 
     args = {"train": ["train", "--target", "T1", "--data-root", str(tmp_path)],
             "infer": ["infer", "--folder", str(tmp_path), "--data-root", str(tmp_path)],

@@ -10,12 +10,18 @@ it). ``_restore`` of a checkpoint into a fresh state gives exactly the saved
 parameters, buffers (D's spectral-norm vectors) and optimizer state, and
 moves every parameter's version, which is what the kernels' caches of
 packed weights key on. The hat run resumes from the ``hybrid_epoch_N.pth``
-of the largest N, compared as integers.
+of the largest N, compared as integers. The random streams are part of
+the state: per architecture, one epoch resumed for a second gives the
+generator weights of an uninterrupted two-epoch run bit for bit (the
+augmentation draws, and the hybrid's drop-path draws, continue where they
+stopped instead of repeating epoch 1's).
 """
 
 import csv
+import shutil
 
 import numpy as np
+import pytest
 import torch
 
 from superresolution_def_tpu_torch.cli.main import main
@@ -119,3 +125,31 @@ def test_hat_train_resumes_from_the_newest_epoch_and_no_resume_starts_over(tmp_p
 
     assert _train(tmp_path, HAT_ARGS, "--epochs", "1", "--no-resume")["epoch"] == 1
     assert _epochs(run / "train_log.csv") == ["1"]
+
+
+@pytest.mark.parametrize("arch_args,run_name,last", [
+    (SWIN_ARGS, "T1_DDP_SwinIR", "latest_checkpoint.pth"),
+    (HAT_ARGS, "T1", "hybrid_epoch_2.pth"),
+], ids=["swin", "hat"])
+def test_resumed_run_continues_the_random_streams(tmp_path, arch_args, run_name, last):
+    straight, resumed = tmp_path / "straight", tmp_path / "resumed"
+    for out in (straight, resumed):
+        _data(out / "data")
+    assert _train(straight, arch_args, "--epochs", "2")["epoch"] == 2
+    hat = last.startswith("hybrid")
+    ckpt = resumed / "outputs" / run_name / "checkpoints"
+    if hat:  # the straight run keeps its epoch-1 checkpoint: resume from a copy
+        ckpt.mkdir(parents=True)
+        shutil.copy(straight / "outputs" / run_name / "checkpoints" / "hybrid_epoch_1.pth", ckpt)
+    else:  # latest_checkpoint.pth is overwritten each epoch: train epoch 1 again
+        assert _train(resumed, arch_args, "--epochs", "1")["epoch"] == 1
+    ck1 = torch.load(ckpt / ("hybrid_epoch_1.pth" if hat else last), weights_only=False)
+    assert ck1["epoch"] == 1
+    assert "rng_augment" in ck1 and ("rng_drop_path" in ck1) == hat
+    assert _train(resumed, arch_args, "--epochs", "2")["epoch"] == 2
+    want, got = (torch.load(out / "outputs" / run_name / "checkpoints" / last,
+                            weights_only=False) for out in (straight, resumed))
+    assert want["epoch"] == got["epoch"] == 2
+    for key in ("net_g", "ema"):
+        assert all(torch.equal(got[key][k], want[key][k]) for k in want[key]), key
+    assert torch.equal(got["rng_augment"], want["rng_augment"])
