@@ -16,10 +16,13 @@ exit code:
 5. the fused bf16 forward against the fp32 ``nn.Module`` forward on one patch;
 6. patches/s of the fused forward and of the bf16 ``nn.Module`` forward;
 7. the training kernels' build (``swin_block_train.cu``): ptxas registers
-   and spills;
+   and spills, and the dynamic shared memory of K3's window kernel, K9b's
+   and the shared weight-gradient product;
 8. K2/K3/K4 against their plain versions at the flagship train shapes
    (Bw=2048: micro 8 of 128x128, bf16), K2's ``out`` bit-identical to K1's,
-   with times;
+   K3 run twice to the same bits, with times, and K3's and K4's device time
+   per kernel (window kernel, weight-gradient products, column sums, K3's
+   weight packing);
 9. the differentiable fused SwinIR (K2 forward, K3 + K4 backward) against
    autograd of the fp32 ``nn.Module`` on one patch;
 10. the training slice: ``cli.main train --arch swin --bf16`` for 2 epochs of
@@ -45,7 +48,9 @@ exit code:
 16. K8 (``fused_rdb_cm_bwd``, the dense-block backward) against its plain
     version at the hybrid train step's shapes (B=2, F=48, G=24, 256x256,
     bf16, dy ~ N(0, 1e-2)), run twice to show the same bits, with K7's
-    stashing forward at B=2, with times;
+    stashing forward at B=2, with times, K8's device time per kernel
+    (``stack_kernel``, ``wgrad_kernel``, ``dx_kernel``) and their dynamic
+    shared memory (phase 2 prints their ptxas lines);
 17. gradients of the fused bf16 RRDB trunk (K7 forward, K8 backward) and of
     the whole fused hybrid generator against fp32 autograd of the
     ``nn.Module``, beside the bf16 ``nn.Module``'s own distance;
@@ -56,9 +61,9 @@ exit code:
     --impl fused`` of the trained run;
 19. patches/s and peak memory of the hybrid GAN step, fused against the
     bf16 ``nn.Module`` generator, at micro 2 x accum 8 and micro 8 x accum 2;
-20. the fused hybrid step's ``torch.profiler`` breakdown (K7, K8, AdamW and
-    EMA, the rest) and idle share, with the HAT backbone, D and VGG timed
-    alone at the step's shapes;
+20. the fused hybrid step's ``torch.profiler`` breakdown (K7, K8's three
+    kernels, AdamW and EMA, the rest) and idle share, with the HAT
+    backbone, D and VGG timed alone at the step's shapes;
 21. the fused-HAB training kernels' build lines (``ocab_train.cu``, built
     with phase 2's; K9a, K9b and K9c are entry points of ``hab_block.cu`` and
     ``swin_block_train.cu``): ptxas registers and spills;
@@ -130,6 +135,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import ctypes
 import importlib
 import itertools
 import json
@@ -360,6 +366,32 @@ def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got.float() - want).norm() / want.norm().clamp_min(1e-30)).item()
 
 
+def short_name(kernel: str) -> str:
+    """A device kernel's name without its namespace, return type and arguments."""
+    return kernel.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+
+
+def kernel_split(fn, calls: int = 10) -> dict:
+    """Device milliseconds per call of ``fn`` by kernel name, from
+    ``torch.profiler`` over ``calls`` calls after one untimed call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = e.cuda_time_total
+        if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            split[e.key] = split.get(e.key, 0.0) + t / 1e3 / calls
+    return dict(sorted(split.items(), key=lambda kv: -kv[1]))
+
+
 def device_profile(fn, steps: int = 2) -> tuple[list, float, float]:
     """Device ops (name, ms per step, calls per step) of ``steps`` calls of
     ``fn``, longest first, the device's busy ms per step and its idle share
@@ -580,6 +612,11 @@ def main() -> None:
     for line in _build.build_log("swin_block_train").splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("build-train", line.strip().replace("ptxas info    : ", ""))
+    tlib = swin_block._train_library()
+    log("build-train", "dynamic shared memory: K3's window kernel (mlp_bwd_kernel) at C=180, "
+        f"hidden 720 {tlib.swin_bwd_mlp_smem_bytes(180, 720)} B, K9b's at C=92, hidden 360 "
+        f"{tlib.swin_bwd_mlp_smem_bytes(92, 360)} B, the weight-gradient product (wgrad_kernel) "
+        f"{tlib.swin_wgrad_smem_bytes()} B")
 
     # 8. K2/K3/K4 against their plain versions at the flagship train shapes
     bw_train = MICRO * (128 // 8) ** 2  # 2048 windows: micro 8 of 128x128
@@ -596,6 +633,7 @@ def main() -> None:
     mlp_args = (h, dout, ln2_w, ln2_b, w1, b1, w2)
     attn_args = (xw, dout, ln1_w, ln1_b, wqkv, bqkv, bias, wproj)
     mlp = swin_block_bwd_mlp(*mlp_args)
+    k3_same = all(torch.equal(a, b) for a, b in zip(mlp, swin_block_bwd_mlp(*mlp_args)))
     attn = swin_block_bwd_attn(*attn_args, **kw)
     torch.cuda.synchronize()
     want_mlp = swin_block.swin_block_bwd_mlp_reference(*mlp_args)
@@ -627,9 +665,17 @@ def main() -> None:
     log("k2-k4", "rel L2 vs plain (bound %g): " % BWD_REL_L2
                  + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     log("k2-k4", f"on {card}: " + ", ".join(
-        f"{k} {t[0]:.4f} ms (plain {t[1]:.4f} ms)" for k, t in times.items()))
+        f"{k} {t[0]:.4f} ms (plain {t[1]:.4f} ms)" for k, t in times.items())
+        + f"; K3 twice bit-identical: {k3_same}")
+    for key, fn in (("K3", lambda: swin_block_bwd_mlp(*mlp_args)),
+                    ("K4", lambda: swin_block_bwd_attn(*attn_args, **kw))):
+        log("k2-k4", f"{key} device ms per call by kernel: " + ", ".join(
+            f"{short_name(name)} {t:.4f}"
+            for name, t in kernel_split(fn).items()))
     if not same_as_k1:
         raise SystemExit("K2's out differs from K1's on the same inputs")
+    if not k3_same:
+        raise SystemExit("K3 gave other bits on a second run of the same inputs")
     if not k2_err <= k2_bound or not k2_h_err <= k2_bound:
         raise SystemExit(f"K2 disagrees with its plain version: {k2_err}, {k2_h_err}")
     bad = {k: v for k, v in errs.items() if not v <= BWD_REL_L2}
@@ -934,6 +980,14 @@ def main() -> None:
               f"{k8_times[1]:.4f} ms; K7 with stash at B={b2} {k7b2_times[0]:.4f} ms (bound "
               f"{least_ms(hat_work(b=b2)['K7'])[0]:.4f} ms), plain {k7b2_times[1]:.4f} ms; "
               f"K7's output with and without the stash identical: {same_k7}")
+    k8_split = kernel_split(lambda: fused_rdb_cm_bwd(xb, dyb, ks, bs, **rkw, stash=stash,
+                                                     packed=packed8))
+    smem8 = (ctypes.c_longlong * 3)()
+    ts8 = rdb_bwd._library().rdb_cm_bwd_smem_bytes(f, g, ctypes.addressof(smem8))
+    log("k8", "device ms per call by kernel: " + ", ".join(
+        f"{short_name(name)} {t:.4f}" for name, t in k8_split.items())
+        + f"; dynamic shared memory: stack_kernel {smem8[0]} B ({ts8}x{ts8} tiles), "
+          f"wgrad_kernel {smem8[1]} B, dx_kernel {smem8[2]} B")
     bad = {k: v for k, v in errs8.items() if not v <= BWD_REL_L2}
     if bad or not same_bits or not same_k7:
         raise SystemExit(f"K8 disagrees with its plain version {bad}, or is not reproducible "
@@ -1082,8 +1136,8 @@ def main() -> None:
         hat_step_peak[key] = torch.cuda.max_memory_allocated() / 1e9
         if key == f"fused {HAT_MICRO}x{HAT_ACCUM}":
             ops, busy_ms, idle = device_profile(lambda: stp(hb, 1e-4, 1e-4), steps=1)
-            groups = {"K7": ("rdb_kernel",), "K8": ("chain_kernel", "wgrad_kernel",
-                                                    "reduce_kernel"),
+            groups = {"K7": ("rdb_kernel",), "K8": ("stack_kernel", "wgrad_kernel<",
+                                                    "dx_kernel"),
                       "AdamW+EMA": ("multi_tensor_apply",)}
             split = {k: sum(t for name, t, _ in ops if any(p in name for p in pats))
                      for k, pats in groups.items()}
@@ -1326,11 +1380,11 @@ def main() -> None:
             # K8's weight-gradient kernel is the template wgrad_kernel<F, G>;
             # K9b/K9c/K10b share swin_block_train.cu's wgrad_kernel(...)
             groups = {"K9a": ("swin_block_kernel<2, true, true>",),
-                      "K9b": ("mlp_bwd_kernel",), "K9c": ("attn_bwd_kernel",),
+                      "K9b": ("mlp_bwd_kernel", "mlp_pack_kernel"), "K9c": ("attn_bwd_kernel",),
                       "K10a": ("ocab_kernel<2, true>",), "K10b": ("ocab_bwd_kernel",),
                       "K9/K10 wgrad+colsum": ("wgrad_kernel(", "colsum_kernel"),
                       "K7": ("rdb_kernel",),
-                      "K8": ("chain_kernel", "wgrad_kernel<", "reduce_kernel")}
+                      "K8": ("stack_kernel", "wgrad_kernel<", "dx_kernel")}
             split = {k: sum(t for name, t, _ in ops if any(p_ in name for p_ in pats))
                      for k, pats in groups.items()}
             split["rest"] = sum(t for _, t, _ in ops) - sum(split.values())

@@ -1,9 +1,14 @@
 // The window-kernel phases of the Swin-block backward, shared by K3/K4 and
 // K9b/K9c (swin_block_train.cu) and K4b (swin_block_bwd.cu): the ordered
-// fragment sums, K3's parameters, layout and hidden-dimension loop
-// (mlp_chunks), K4's parameters, layout and head-pair loop (attn_pairs),
-// and the launch helpers. swin_block_train.cu says what each kernel
-// computes and how its sums are ordered.
+// fragment sums, the MLP backward's parameters, K4's parameters, layout and
+// head-pair loop (attn_pairs), and the launch helpers. swin_block_train.cu
+// says what each kernel computes and how its sums are ordered.
+//
+// mlp_chunks is the first design's hidden loop: one
+// window per block on mma.sync behind a 2-deep cp.async ring of 64 x 64
+// weight tiles. K3 and K9b moved to swin_block_train.cu's wgmma window
+// kernel; the loop stays here for K4b alone, whose kernel holds 255
+// registers and 195 KB of shared memory already.
 
 #pragma once
 
@@ -145,36 +150,17 @@ struct MlpParams {
   bf16* du;        // (Bw*64, hidden)  for dW1
   bf16* dm;        // (Bw*64, C)       bf16(dp * dout), for dW2; null: K3 reads dout
   float* vec;      // (Bw, hidden + 3C): db1 | db2 | dln2s | dln2b of each window
+  const bf16* wpack;  // K3/K9b: w1 and w2 packed for the window kernel's ring (scratch)
   int c, cp, cio, hidden;
 };
 
-struct MlpLayout {
-  int lda;
-  size_t hs, a, d, mid, ring, vec, stats, red, slot, total;
-};
-
-__host__ __device__ inline MlpLayout mlp_layout(int c, int cp, int hidden) {
-  MlpLayout L;
-  L.lda = cp + 8;
-  size_t o = 0;
-  L.hs = o;    o += align128(sizeof(bf16) * N * c);          // h window (cio <= c wide)
-  L.a = o;     o += align128(sizeof(bf16) * N * L.lda);      // hn
-  L.d = o;     o += align128(sizeof(bf16) * N * L.lda);      // dout
-  L.mid = o;   o += align128(sizeof(bf16) * N * LDT);        // du chunk
-  L.ring = o;  o += align128(sizeof(bf16) * STAGES * TILE * LDT);
-  L.vec = o;   o += align128(sizeof(float) * (2 * c + hidden));  // ln2 w, b; b1
-  L.stats = o; o += align128(sizeof(float) * 2 * N);         // LN2 mean, 1/std
-  L.red = o;   o += align128(sizeof(float) * 2 * N);
-  L.slot = o;  o += align128(sizeof(float) * 4 * (cp > TILE ? cp : TILE));  // column sums
-  L.total = o;
-  return L;
-}
-
-__device__ __forceinline__ float gelu_tanh_grad(float u) {
+// The tanh GELU of u (swin_common.cuh's gelu_tanh) and its derivative,
+// sharing one tanh.
+__device__ __forceinline__ float2 gelu_and_grad(float u) {
   const float s = 0.7978845608028654f * (u + 0.044715f * u * u * u);
   const float t = tanhf(s);
   const float ds = 0.7978845608028654f * (1.0f + 3.0f * 0.044715f * u * u);
-  return 0.5f * (1.0f + t) + 0.5f * u * (1.0f - t * t) * ds;
+  return make_float2(0.5f * u * (1.0f + t), 0.5f * (1.0f + t) + 0.5f * u * (1.0f - t * t) * ds);
 }
 
 // The MLP backward's hidden loop, shared by K3/K9b and K4b. Per 64-wide
@@ -237,10 +223,10 @@ __device__ __forceinline__ void mlp_chunks(float (&dhn)[NCH][4][4], const MlpPar
                   const int r = r0 + g + 8 * (e >> 1);
                   const int col = c0 + tt * 8 + tig * 2 + (e & 1);
                   if ((tt < 2 || hi) && col < nn) {
-                    const float uu = accu[tt][e] + b1s[j * TILE + col];
-                    const float d = accg[tt][e] * gelu_tanh_grad(uu);
+                    const float2 gg = gelu_and_grad(accu[tt][e] + b1s[j * TILE + col]);
+                    const float d = accg[tt][e] * gg.y;
                     const size_t gi = (row0 + r) * hidden + j * TILE + col;
-                    p.g[gi] = __float2bfloat16(gelu_tanh(uu));
+                    p.g[gi] = __float2bfloat16(gg.x);
                     p.du[gi] = __float2bfloat16(d);
                     du[tt][e] = d;
                   }

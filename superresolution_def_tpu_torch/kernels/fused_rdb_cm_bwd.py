@@ -63,14 +63,21 @@ def rdb_cm_bwd_reference(xf: torch.Tensor, dy: torch.Tensor, kernels, biases, *,
 @functools.cache
 def bwd_fragment_index(f: int, g: int) -> tuple[np.ndarray, tuple[int, ...]]:
     """Index into the five HWIO weights, flattened and concatenated conv1..
-    conv5, of each bf16 of K8's B fragments in the kernel's order, and each
-    transposed conv's word (2 x bf16) offset.
+    conv5, of each bf16 of K8's packed weights, and the word (2 x bf16)
+    offset of each part: ``offsets[0]`` the dx kernel's k steps,
+    ``offsets[1..4]`` the stack kernel's fragments of m1..m4.
 
-    The transposed conv into level K (0: dx, 1..4: m1..m4) reads levels
-    K+1..5 (m_{K+1}.., d5: the gradients of convs K+1..5). Order: groups of G
-    output channels (dx has F / G of them), then taps t, then levels, then
-    16-channel chunks of the level (an 8-channel chunk last), then the
-    group's n8-tiles, then the 32 lanes as :func:`~.fused_rdb_cm.fragment_index`.
+    dx's part (the transposed conv of the whole stack [m1 m2 m3 m4 d5] into
+    x): per 16 stack channels (a wgmma k step), per tap t, the F x 16 matrix
+    in the interleaved K-major layout, ``[F/8][2][8][8]`` = (8 output
+    channels, 8 stack channels) core matrices; entry (output n, stack
+    channel c) is ``W_j[8 - t][n][o]`` for the conv j whose gradient stack
+    channel c is (output o of it).
+
+    m_K's part (K = 1..4: the transposed conv into level K reads levels
+    K+1..5, the gradients of convs K+1..5): taps t, then levels, then
+    16-channel chunks of the level (an 8-channel chunk last), then the G/8
+    n8-tiles, then the 32 lanes as :func:`~.fused_rdb_cm.fragment_index`.
     Entry (row n, column c) at tap t of level l is conv l's weight
     ``W_l[8 - t][c_K + c][n]``: the taps flipped, in and out swapped.
     """
@@ -81,24 +88,32 @@ def bwd_fragment_index(f: int, g: int) -> tuple[np.ndarray, tuple[int, ...]]:
     cin = [f + i * g for i in range(5)]
     cout = [g] * 4 + [f]
     base = np.cumsum([0] + [9 * cin[i] * cout[i] for i in range(5)])
-    index, offsets, total = [], [], 0
-    for k in range(5):
-        nout = f if k == 0 else g
-        c0 = 0 if k == 0 else f + (k - 1) * g  # source k's first input channel
+    # dx: (k step, tap, n8, c8, n % 8, c % 8)
+    n = (np.arange(f // 8).reshape(1, 1, -1, 1, 1, 1) * 8
+         + np.arange(8).reshape(1, 1, 1, 1, 8, 1))
+    c = (np.arange((f + 4 * g) // 16).reshape(-1, 1, 1, 1, 1, 1) * 16
+         + np.arange(2).reshape(1, 1, 1, 2, 1, 1) * 8 + np.arange(8).reshape(1, 1, 1, 1, 1, 8))
+    tap = np.arange(9).reshape(1, -1, 1, 1, 1, 1)
+    conv = np.where(c < 4 * g, c // g, 4)
+    o = np.where(c < 4 * g, c % g, c - 4 * g)
+    cin_a, cout_a = np.asarray(cin)[conv], np.asarray(cout)[conv]
+    dx_idx = base[conv] + ((8 - tap) * cin_a + n) * cout_a + o
+    index, offsets, total = [dx_idx.reshape(-1)], [0], dx_idx.size
+    for k in range(1, 5):
+        c0 = f + (k - 1) * g  # source k's first input channel
+        col = c0 + np.arange(g // 8)[:, None, None] * 8 + gq[None, :, None]
         parts = []
-        for grp in range(nout // g):
-            col = c0 + grp * g + np.arange(g // 8)[:, None, None] * 8 + gq[None, :, None]
-            for tap in range(9):
-                for i in range(k, 5):  # conv i+1, level i+1
-                    k0 = 0
-                    while k0 < cout[i]:
-                        kk = k16 if k0 + 16 <= cout[i] else k8
-                        n = k0 + kk[None]
-                        parts.append((base[i] + ((8 - tap) * cin[i] + col) * cout[i] + n)
-                                     .reshape(-1))
-                        k0 += 16 if kk is k16 else 8
+        for tap in range(9):
+            for i in range(k, 5):  # conv i+1, level i+1
+                k0 = 0
+                while k0 < cout[i]:
+                    kk = k16 if k0 + 16 <= cout[i] else k8
+                    nn = k0 + kk[None]
+                    parts.append((base[i] + ((8 - tap) * cin[i] + col) * cout[i] + nn)
+                                 .reshape(-1))
+                    k0 += 16 if kk is k16 else 8
         idx = np.concatenate(parts)
-        assert idx.size == 9 * (f + (4 - k) * g) * nout
+        assert idx.size == 9 * (f + (4 - k) * g) * g
         index.append(idx)
         offsets.append(total // 2)
         total += idx.size
@@ -111,8 +126,8 @@ def _device_index(f: int, g: int, device: torch.device) -> torch.Tensor:
 
 
 def pack_rdb_bwd_weights(kernels, device) -> tuple[torch.Tensor, tuple[int, ...]]:
-    """The five HWIO weights in K8's B-fragment order (bf16) and each
-    transposed conv's word offset."""
+    """The five HWIO weights in K8's packed order (bf16,
+    :func:`bwd_fragment_index`) and each part's word offset."""
     f, g = kernels[0].shape[2], kernels[0].shape[3]
     device = torch.device(device)
     flat = torch.cat([k.to(device, torch.bfloat16).reshape(-1) for k in kernels])
@@ -126,6 +141,8 @@ def _library() -> ctypes.CDLL:
     lib.rdb_cm_bwd_scratch.restype = ctypes.c_int
     lib.rdb_cm_bwd_bf16.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.rdb_cm_bwd_bf16.restype = ctypes.c_int
+    lib.rdb_cm_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.rdb_cm_bwd_smem_bytes.restype = ctypes.c_int
     return lib
 
 

@@ -161,10 +161,13 @@ def hab_bwd_mlp(h, dout, dp2, ln2_w, ln2_b, w1, b1, w2, *, padded: tuple | None 
     hn, dm = (torch.empty(t, cp, dtype=torch.bfloat16, device=h.device) for _ in range(2))
     g, du = (torch.empty(t, hidden, dtype=torch.bfloat16, device=h.device) for _ in range(2))
     vec = torch.empty(bw, hidden + 3 * cp, dtype=torch.float32, device=h.device)
+    wpack = torch.empty(lib.swin_bwd_mlp_pack_bytes(cp, hidden) // 2, dtype=torch.bfloat16,
+                        device=h.device)
     dp2 = _f32_or_none(dp2)
     with torch.cuda.device(h.device):
         _check(lib.hab_bwd_mlp_bf16(h.data_ptr(), dout.data_ptr(), _ptr(dp2),
-                                    *_ptrs(ln2_wp, ln2_bp, w1p, b1p, w2p, dh, hn, g, du, dm, vec),
+                                    *_ptrs(ln2_wp, ln2_bp, w1p, b1p, w2p, dh, hn, g, du, dm, vec,
+                                           wpack),
                                     bw, cp, c, hidden, _stream(h.device)), "hab_bwd_mlp_bf16")
         dw1 = _wgrad(lib, hn, du)[:c]
         dw2 = _wgrad(lib, g, dm)[:, :c]

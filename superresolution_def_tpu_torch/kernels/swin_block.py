@@ -292,11 +292,11 @@ def _kernel_library() -> ctypes.CDLL:
 def _train_library() -> ctypes.CDLL:
     lib = load_library("swin_block_train")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.swin_bwd_mlp_bf16.argtypes = [vp] * 12 + [i32] * 3 + [vp]
+    lib.swin_bwd_mlp_bf16.argtypes = [vp] * 13 + [i32] * 3 + [vp]
     lib.swin_bwd_attn_bf16.argtypes = [vp] * 14 + [i32] * 3 + [ctypes.c_float, vp]
     lib.swin_wgrad_bf16.argtypes = [vp, vp] + [i32] * 5 + [vp, vp]
-    lib.swin_colsum_f32.argtypes = [vp, i32, i32, i32, vp, vp]
-    lib.hab_bwd_mlp_bf16.argtypes = [vp] * 14 + [i32] * 4 + [vp]
+    lib.swin_colsum_f32.argtypes = [vp, i32, i32, vp, vp]
+    lib.hab_bwd_mlp_bf16.argtypes = [vp] * 15 + [i32] * 4 + [vp]
     lib.hab_bwd_attn_bf16.argtypes = [vp] * 17 + [i32] * 5 + [ctypes.c_float, vp]
     for fn in (lib.swin_bwd_mlp_bf16, lib.swin_bwd_attn_bf16, lib.swin_wgrad_bf16,
                lib.swin_colsum_f32, lib.hab_bwd_mlp_bf16, lib.hab_bwd_attn_bf16):
@@ -304,6 +304,10 @@ def _train_library() -> ctypes.CDLL:
     lib.swin_bwd_mlp_smem_bytes.argtypes = [i32, i32]
     lib.swin_bwd_attn_smem_bytes.argtypes = [i32]
     lib.swin_bwd_mlp_smem_bytes.restype = ctypes.c_size_t
+    lib.swin_bwd_mlp_pack_bytes.argtypes = [i32, i32]
+    lib.swin_bwd_mlp_pack_bytes.restype = ctypes.c_size_t
+    lib.swin_wgrad_smem_bytes.argtypes = []
+    lib.swin_wgrad_smem_bytes.restype = ctypes.c_size_t
     lib.swin_bwd_attn_smem_bytes.restype = ctypes.c_size_t
     return lib
 
@@ -476,33 +480,25 @@ def swin_block_fwd_h(
 swin_block_fwd_h.launches = 0
 
 
-# the weight-gradient products split their tokens so that about this many
-# thread blocks run per SM
-_WGRAD_BLOCKS_PER_SM = 4
-
-
 def _colsum(lib, x: torch.Tensor) -> torch.Tensor:
-    """Column sums of a (R, n) fp32 tensor in a fixed order: slices of 64
-    rows first, then the slice sums."""
-    stream = _stream(x.device)
-    while True:
-        r, n = x.shape
-        rps = 64 if r > 64 else r
-        out = torch.empty((r + rps - 1) // rps, n, dtype=torch.float32, device=x.device)
-        _check(lib.swin_colsum_f32(x.data_ptr(), r, n, rps, out.data_ptr(), stream),
-               "swin_colsum_f32")
-        x = out
-        if x.shape[0] == 1:
-            return x[0]
+    """Column sums of a (R, n) fp32 tensor in a fixed order (one launch)."""
+    r, n = x.shape
+    out = torch.empty(n, dtype=torch.float32, device=x.device)
+    _check(lib.swin_colsum_f32(x.data_ptr(), r, n, out.data_ptr(), _stream(x.device)),
+           "swin_colsum_f32")
+    return out
 
 
 def _wgrad(lib, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a^T . b (fp32) for a (T, M) and b (T, N) bf16 token-major operands."""
+    """a^T . b (fp32) for a (T, M) and b (T, N) bf16 token-major operands:
+    the tokens split into slices of whole 64-token slabs so that the card
+    runs about one thread block (a 192 x 192 output tile) per SM, the
+    slices' partial products summed in slice order."""
     t, m = a.shape
     n = b.shape[1]
-    tiles = -(-m // 64) * -(-n // 64)
+    tiles = -(-m // 192) * -(-n // 192)
     sms = torch.cuda.get_device_properties(a.device).multi_processor_count
-    splits = max(1, min(t // 64, -(-_WGRAD_BLOCKS_PER_SM * sms // tiles)))
+    splits = max(1, min(-(-t // 64), -(-sms // tiles)))
     rps = -(-t // (splits * 64)) * 64
     splits = -(-t // rps)
     part = torch.empty(splits, m, n, dtype=torch.float32, device=a.device)
@@ -539,9 +535,11 @@ def swin_block_bwd_mlp(h, dout, ln2_w, ln2_b, w1, b1, w2):
     hn = torch.empty(t, c, dtype=torch.bfloat16, device=h.device)
     g, du = (torch.empty(t, hidden, dtype=torch.bfloat16, device=h.device) for _ in range(2))
     vec = torch.empty(bw, hidden + 3 * c, dtype=torch.float32, device=h.device)
+    wpack = torch.empty(lib.swin_bwd_mlp_pack_bytes(c, hidden) // 2, dtype=torch.bfloat16,
+                        device=h.device)
     with torch.cuda.device(h.device):
         _check(lib.swin_bwd_mlp_bf16(*_ptrs(h, dout, ln2_w, ln2_b, w1, b1, w2, dh, hn, g, du,
-                                            vec), bw, c, hidden, _stream(h.device)),
+                                            vec, wpack), bw, c, hidden, _stream(h.device)),
                "swin_bwd_mlp_bf16")
         dw1 = _wgrad(lib, hn, du)
         dw2 = _wgrad(lib, g, dout.reshape(t, c))

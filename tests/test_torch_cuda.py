@@ -1088,3 +1088,83 @@ def test_stage_kernel_raises_on_what_it_does_not_take(device):
     with pytest.raises(ValueError, match="129..192"):
         swin_stage_block(*small, mode="full", num_heads=2, scale=8**-0.5)
     assert swin_stage_block.launches == before
+
+
+# ---- the edges of the Hopper redesigns: K8's stack, weight-gradient and dx
+# kernels (8 x 16 and 16 x 8 pixel tiles, 16 x 16 chain tiles), K3's and
+# K9b's window kernel (two windows a block) and the weight-gradient product
+# K3, K4, K9b, K9c, K10b and K4b share (192 x 192 tiles, 64-token slabs)
+
+
+@pytest.mark.parametrize("b,h,w", [(1, 20, 36), (3, 12, 40)])
+def test_rdb_bwd_kernel_at_odd_batches_and_sizes(device, b, h, w):
+    """K8 at B = 1 and 3 on images whose sides are multiples of neither the
+    stack kernel's 16-pixel tile nor the 8 x 16 and 16 x 8 tiles of its
+    weight-gradient and dx kernels: every output within BWD_REL_L2 of the
+    plain version, and two runs to the same bits."""
+    f, g = 48, 24
+    x, ks, bs = _rdb_operands(b + h + w, b, f, g, h, w, device)
+    dy = (1e-2 * torch.randn(b, f, h * w, generator=torch.Generator().manual_seed(b))).to(
+        device, torch.bfloat16)
+    _, stash = _stashed(x, ks, bs, h, w)
+    first = fused_rdb_cm_bwd(x, dy, ks, bs, h=h, w=w, stash=stash)
+    second = fused_rdb_cm_bwd(x, dy, ks, bs, h=h, w=w, stash=stash)
+    torch.cuda.synchronize()
+    got, again = [first[0], *first[1], *first[2]], [second[0], *second[1], *second[2]]
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    want = rdb_cm_bwd_reference(x, dy, ks, bs, h=h, w=w)
+    names = ["dx"] + [f"dW{i}" for i in range(1, 6)] + [f"db{i}" for i in range(1, 6)]
+    for name, a, c in zip(names, got, [want[0], *want[1], *want[2]]):
+        assert a.shape == c.shape and torch.isfinite(a).all(), name
+        assert _rel_l2(a, c) <= BWD_REL_L2, (name, _rel_l2(a, c))
+
+
+@pytest.mark.parametrize("bw", [1, 7])
+def test_mlp_bwd_kernels_at_odd_window_counts(device, bw):
+    """K3 (C = 180, hidden 720) and K9b (C = 90 padded, hidden 360, a
+    drop-path scale per window) at window counts the kernel's two windows a
+    block do not divide: within BWD_REL_L2 of their plain versions, twice to
+    the same bits."""
+    args = _operands(bw, bw, 180, 6, 720, device)
+    ln2_w, ln2_b, w1, b1, w2 = args[8], args[9], args[10], args[11], args[12]
+    gen = torch.Generator().manual_seed(bw)
+    h = torch.randn(bw, 64, 180, generator=gen).to(device, torch.bfloat16)
+    dout = (1e-2 * torch.randn(bw, 64, 180, generator=gen)).to(device, torch.bfloat16)
+    first = swin_block_bwd_mlp(h, dout, ln2_w, ln2_b, w1, b1, w2)
+    second = swin_block_bwd_mlp(h, dout, ln2_w, ln2_b, w1, b1, w2)
+    want = swin_block_bwd_mlp_reference(h, dout, ln2_w, ln2_b, w1, b1, w2)
+    _, _, *params = _hat_operands(bw + 60, bw, 90, 6, 360, device)
+    hab = params[7:12]
+    dp = torch.full((bw,), 1 / 0.9, device=device)
+    dp[0] = 0.0
+    h9 = _windows(bw + 61, bw, 90, 64, device, std=1.0)
+    d9 = _windows(bw + 62, bw, 90, 64, device)
+    first9 = hab_bwd_mlp(h9, d9, dp, *hab)
+    second9 = hab_bwd_mlp(h9, d9, dp, *hab)
+    want9 = hab_bwd_mlp_reference(h9, d9, dp, *hab)
+    torch.cuda.synchronize()
+    names = ["dh", "dln2_w", "dln2_b", "dw1", "db1", "dw2", "db2"]
+    for got, again, ref in ((first, second, want), (first9, second9, want9)):
+        assert all(torch.equal(a, c) for a, c in zip(got, again))
+        for name, a, c in zip(names, got, ref):
+            assert a.shape == c.shape and torch.isfinite(a).all(), name
+            assert _rel_l2(a, c) <= BWD_REL_L2, (name, _rel_l2(a, c))
+    assert torch.equal(first9[0][:1], d9[:1])  # window 0's MLP branch dropped
+
+
+@pytest.mark.parametrize("t,m,n", [(337, 60, 100), (4160, 196, 36), (64, 8, 392)])
+def test_weight_gradient_product_at_ragged_shapes(device, t, m, n):
+    """The shared weight-gradient product a^T . b at M, N and T that its 192
+    x 192 tiles and 64-token slabs do not divide (and M = 196 8-byte rows):
+    within 1e-5 relative L2 of the fp32 product of the same bf16 operands
+    (only the fp32 summation order differs), twice to the same bits."""
+    from superresolution_def_tpu_torch.kernels.swin_block import _train_library, _wgrad
+
+    gen = torch.Generator().manual_seed(t + m + n)
+    a = torch.randn(t, m, generator=gen).to(device, torch.bfloat16)
+    b = torch.randn(t, n, generator=gen).to(device, torch.bfloat16)
+    lib = _train_library()
+    got, again = _wgrad(lib, a, b), _wgrad(lib, a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _rel_l2(got, a.float().T @ b.float()) <= 1e-5

@@ -153,11 +153,14 @@ def test_differentiable_trunk_on_cpu_matches_the_module_trunk():
 
 @pytest.mark.parametrize("f,g", [(48, 24), (16, 8)])
 def test_bwd_fragments_compute_the_transposed_convs(f, g):
-    """Walk K8's packed fragments in the kernel's order (groups, taps,
-    levels, 16- then 8-channel chunks, n8-tiles, lanes, each lane's rows
-    2t, 2t+1 (, 2t+8, 2t+9) of column lane/4) into per-tap matrices, apply
-    them as the kernel does (output pixel q reads each level at q + the
-    tap's offset), and hold the result against conv_transpose2d."""
+    """Walk K8's packed weights in the kernels' order into per-tap matrices,
+    apply them as the kernels do (output pixel q reads each level at q +
+    the tap's offset), and hold the result against conv_transpose2d. dx
+    (the dx kernel's part): per 16-channel k step of the stack [m1 m2 m3 m4
+    d5], per tap, (8 outputs, 8 stack channels) core matrices, outputs
+    outer. m1..m4 (the stack kernel's B fragments): taps, levels, 16- then
+    8-channel chunks, n8-tiles, lanes, each lane's rows 2t, 2t+1 (, 2t+8,
+    2t+9) of column lane/4."""
     rng = np.random.default_rng(45)
     h = w = 5
     ks = [rng.standard_normal((3, 3, f + i * g, g if i < 4 else f)).astype(np.float32)
@@ -169,30 +172,41 @@ def test_bwd_fragments_compute_the_transposed_convs(f, g):
     tig = np.arange(32) % 4
     rows16 = np.stack([2 * tig, 2 * tig + 1, 2 * tig + 8, 2 * tig + 9], -1)
     cout = [g] * 4 + [f]
+
+    def shifted(member, tap):
+        oy, ox = tap // 3 - 1, tap % 3 - 1
+        pad = np.pad(member[0], ((0, 0), (1, 1), (1, 1)))
+        return pad[:, 1 + oy: 1 + oy + h, 1 + ox: 1 + ox + w]
+
     for k in range(5):
         nout = f if k == 0 else g
         c0 = 0 if k == 0 else f + (k - 1) * g
         pos = 2 * offsets[k]
         got = np.zeros((nout, h, w), np.float32)
-        for grp in range(nout // g):
-            for tap in range(9):
-                oy, ox = tap // 3 - 1, tap % 3 - 1
-                for i in range(k, 5):
-                    pad = np.pad(members[i][0], ((0, 0), (1, 1), (1, 1)))
-                    shifted = pad[:, 1 + oy: 1 + oy + h, 1 + ox: 1 + ox + w]
-                    k0 = 0
-                    while k0 < cout[i]:
-                        kw = 4 if k0 + 16 <= cout[i] else 2
-                        b = np.zeros((16, g), np.float32)  # rows k0.., the group's columns
-                        vals = flat[index[pos: pos + (g // 8) * 32 * kw]].reshape(g // 8, 32, kw)
-                        for j in range(g // 8):
-                            for lane in range(32):
-                                b[rows16[lane, :kw], j * 8 + lane // 4] = vals[j, lane]
-                        pos += (g // 8) * 32 * kw
-                        n = 16 if kw == 4 else 8
-                        got[grp * g:(grp + 1) * g] += np.einsum(
-                            "nyx,nc->cyx", shifted[k0:k0 + n], b[:n])
-                        k0 += n
+        if k == 0:
+            stack = np.concatenate(members, 1)
+            for k16 in range((f + 4 * g) // 16):
+                for tap in range(9):
+                    vals = flat[index[pos: pos + 16 * f]].reshape(f // 8, 2, 8, 8)
+                    b = vals.transpose(0, 2, 1, 3).reshape(f, 16)  # (output, stack channel)
+                    pos += 16 * f
+                    got += np.einsum("cyx,nc->nyx",
+                                     shifted(stack, tap)[16 * k16: 16 * k16 + 16], b)
+        for tap in range(9 if k else 0):
+            for i in range(k, 5):
+                sh = shifted(members[i], tap)
+                k0 = 0
+                while k0 < cout[i]:
+                    kw = 4 if k0 + 16 <= cout[i] else 2
+                    b = np.zeros((16, g), np.float32)  # rows k0.., the level's columns
+                    vals = flat[index[pos: pos + (g // 8) * 32 * kw]].reshape(g // 8, 32, kw)
+                    for j in range(g // 8):
+                        for lane in range(32):
+                            b[rows16[lane, :kw], j * 8 + lane // 4] = vals[j, lane]
+                    pos += (g // 8) * 32 * kw
+                    n = 16 if kw == 4 else 8
+                    got += np.einsum("nyx,nc->cyx", sh[k0:k0 + n], b[:n])
+                    k0 += n
         want = sum(F.conv_transpose2d(torch.from_numpy(members[i]),
                                       torch.from_numpy(ks[i]).permute(3, 2, 0, 1), padding=1)
                    [0, c0:c0 + nout].numpy() for i in range(k, 5))
