@@ -16,13 +16,16 @@ exit code:
 5. the fused bf16 forward against the fp32 ``nn.Module`` forward on one patch;
 6. patches/s of the fused forward and of the bf16 ``nn.Module`` forward;
 7. the training kernels' build (``swin_block_train.cu``): ptxas registers
-   and spills, and the dynamic shared memory of K3's window kernel, K9b's
-   and the shared weight-gradient product;
+   and spills of every kernel (K3/K9b's ``mlp_bwd_kernel``, K4/K9c's
+   ``attn_wg_kernel`` and their packings), and the dynamic shared memory of
+   K3's window kernel, K9b's, K4's (C=180) and K9c's (C=96) with their
+   windows a block, and the shared weight-gradient product;
 8. K2/K3/K4 against their plain versions at the flagship train shapes
    (Bw=2048: micro 8 of 128x128, bf16), K2's ``out`` bit-identical to K1's,
-   K3 run twice to the same bits, with times, and K3's and K4's device time
-   per kernel (window kernel, weight-gradient products, column sums, K3's
-   weight packing);
+   K3 and K4 each run twice to the same bits, K4's weight packing
+   (``attn_pack_kernel``) bit for bit its plain version at C=180 and C=96,
+   with times, and K3's and K4's device time per kernel (window kernel,
+   weight-gradient products, column sums, weight packing);
 9. the differentiable fused SwinIR (K2 forward, K3 + K4 backward) against
    autograd of the fp32 ``nn.Module`` on one patch;
 10. the training slice: ``cli.main train --arch swin --bf16`` for 2 epochs of
@@ -31,7 +34,8 @@ exit code:
     checkpoint;
 11. train patches/s of the fused bf16 step and of the same step with the
     bf16 ``nn.Module`` generator, their peak memory, and the fused step's
-    ``torch.profiler`` top device ops and idle share;
+    ``torch.profiler`` top device ops, idle share and device time by kernel
+    group (K2, K3, K4, their weight-gradient products and column sums);
 12. the HAT-hybrid kernels against their plain versions at the served
     config's shapes (BASELINE config #2, batch 8 of 128x128): K5
     (``fused_hab_block``, Bw=2048, C=90, 6 heads, hidden 360) unshifted and
@@ -73,7 +77,8 @@ exit code:
     C=90, 6 heads, hidden 360, bf16; K9 unshifted and shifted, drop-path
     scales that drop one of the two samples, K10 on a real overlap gather,
     dout ~ N(0, 1e-2)), each backward run twice to show the same bits, with
-    times;
+    times, and K9c's device time per kernel (window kernel, weight-gradient
+    products, column sums, weight packing) unshifted and shifted;
 23. the fused-HAB hybrid generator's gradients against fp32 autograd of the
     ``nn.Module`` on one patch, beside the bf16 ``nn.Module``'s own distance
     (with phase 17);
@@ -84,7 +89,9 @@ exit code:
     trained run;
 25. patches/s and peak memory of the fused-HAB GAN step at micro 2 x accum
     8 and micro 8 x accum 2 (beside phase 19's fused step), and its
-    ``torch.profiler`` idle share and device kernel launches per step;
+    ``torch.profiler`` idle share, device kernel launches per step and device
+    time by kernel group (K9a, K9b, K9c, K10a, K10b, their products and
+    column sums, K7, K8);
 26. K11 (``window_attention_nomask`` for K11a and K11c, one instantiation,
     and ``window_attention_masked`` for K11b) against its plain version in
     bf16 at the attention modules' shapes: SwinIR's (Bw=768, 6 heads, 64
@@ -615,8 +622,11 @@ def main() -> None:
     tlib = swin_block._train_library()
     log("build-train", "dynamic shared memory: K3's window kernel (mlp_bwd_kernel) at C=180, "
         f"hidden 720 {tlib.swin_bwd_mlp_smem_bytes(180, 720)} B, K9b's at C=92, hidden 360 "
-        f"{tlib.swin_bwd_mlp_smem_bytes(92, 360)} B, the weight-gradient product (wgrad_kernel) "
-        f"{tlib.swin_wgrad_smem_bytes()} B")
+        f"{tlib.swin_bwd_mlp_smem_bytes(92, 360)} B; K4's window kernel (attn_wg_kernel) at "
+        f"C=180, 6 heads {tlib.swin_bwd_attn_smem_bytes(180, 6)} B "
+        f"({tlib.swin_bwd_attn_windows(180, 6)} windows a block), K9c's at C=96, 6 heads "
+        f"{tlib.swin_bwd_attn_smem_bytes(96, 6)} B ({tlib.swin_bwd_attn_windows(96, 6)} windows "
+        f"a block); the weight-gradient product (wgrad_kernel) {tlib.swin_wgrad_smem_bytes()} B")
 
     # 8. K2/K3/K4 against their plain versions at the flagship train shapes
     bw_train = MICRO * (128 // 8) ** 2  # 2048 windows: micro 8 of 128x128
@@ -635,6 +645,19 @@ def main() -> None:
     mlp = swin_block_bwd_mlp(*mlp_args)
     k3_same = all(torch.equal(a, b) for a, b in zip(mlp, swin_block_bwd_mlp(*mlp_args)))
     attn = swin_block_bwd_attn(*attn_args, **kw)
+    k4_same = all(torch.equal(a, b) for a, b in zip(attn, swin_block_bwd_attn(*attn_args, **kw)))
+    # K4/K9c's weight packing against its plain version, bit for bit, at
+    # K4's and K9c's kernel widths
+    pack_same = {}
+    for pc in (180, 96):
+        pw_qkv, pw_proj = wqkv[:pc, :3 * pc].contiguous(), wproj[:pc, :pc].contiguous()
+        packed = torch.empty(tlib.swin_bwd_attn_pack_bytes(pc, 6) // 2, dtype=torch.bfloat16,
+                             device=device)
+        swin_block._check(tlib.swin_bwd_attn_pack_bf16(
+            pw_qkv.data_ptr(), pw_proj.data_ptr(), pc, 6, packed.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "swin_bwd_attn_pack_bf16")
+        torch.cuda.synchronize()
+        pack_same[pc] = torch.equal(packed, swin_block.attn_pack_reference(pw_qkv, pw_proj, 6))
     torch.cuda.synchronize()
     want_mlp = swin_block.swin_block_bwd_mlp_reference(*mlp_args)
     want_attn = swin_block.swin_block_bwd_attn_reference(*attn_args, **kw)
@@ -666,7 +689,8 @@ def main() -> None:
                  + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     log("k2-k4", f"on {card}: " + ", ".join(
         f"{k} {t[0]:.4f} ms (plain {t[1]:.4f} ms)" for k, t in times.items())
-        + f"; K3 twice bit-identical: {k3_same}")
+        + f"; K3 twice bit-identical: {k3_same}; K4 twice bit-identical: {k4_same}; K4/K9c's "
+          f"weight packing bit for bit its plain version at C=180, 96: {pack_same}")
     for key, fn in (("K3", lambda: swin_block_bwd_mlp(*mlp_args)),
                     ("K4", lambda: swin_block_bwd_attn(*attn_args, **kw))):
         log("k2-k4", f"{key} device ms per call by kernel: " + ", ".join(
@@ -674,8 +698,11 @@ def main() -> None:
             for name, t in kernel_split(fn).items()))
     if not same_as_k1:
         raise SystemExit("K2's out differs from K1's on the same inputs")
-    if not k3_same:
-        raise SystemExit("K3 gave other bits on a second run of the same inputs")
+    if not k3_same or not k4_same:
+        raise SystemExit(f"K3 or K4 gave other bits on a second run of the same inputs "
+                         f"({k3_same}, {k4_same})")
+    if not all(pack_same.values()):
+        raise SystemExit(f"K4/K9c's weight packing differs from its plain version: {pack_same}")
     if not k2_err <= k2_bound or not k2_h_err <= k2_bound:
         raise SystemExit(f"K2 disagrees with its plain version: {k2_err}, {k2_h_err}")
     bad = {k: v for k, v in errs.items() if not v <= BWD_REL_L2}
@@ -780,8 +807,15 @@ def main() -> None:
         peak_gb[impl] = torch.cuda.max_memory_allocated() / 1e9
         if impl == "fused":
             ops, busy_ms, idle = device_profile(lambda: step(batch, 1e-4, 1e-4))
+            groups = {"K2": ("swin_block_kernel",), "K3": ("mlp_bwd_kernel", "mlp_pack_kernel"),
+                      "K4": ("attn_wg_kernel", "attn_pack_kernel"),
+                      "K3/K4 wgrad+colsum": ("wgrad_kernel", "colsum_kernel")}
+            split = {k: sum(t for name, t, _ in ops if any(p_ in name for p_ in pats))
+                     for k, pats in groups.items()}
             log("profile", f"fused train step on {card}: device busy {busy_ms:.3f} ms per "
-                           f"step, idle share {idle:.4f}; top device ops per step: " + "; ".join(
+                           f"step, idle share {idle:.4f}; by kernel group per step: "
+                           + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+                           + "; top device ops per step: " + "; ".join(
                                f"{name[:60]} {t:.3f} ms x{n}" for name, t, n in ops[:10]))
         del state, step
         torch.cuda.empty_cache()
@@ -1220,7 +1254,7 @@ def main() -> None:
     hkw9 = dict(num_heads=6, scale=15**-0.5)
     names9 = ["out", "h", "dh", "dln2_w", "dln2_b", "dw1", "db1", "dw2", "db2", "dx", "dln1_w",
               "dln1_b", "dwqkv", "dbqkv", "dbias", "dwproj", "dbproj"]
-    errs9, same9, passed9, max9, t9 = {}, {}, {}, {}, {}
+    errs9, same9, passed9, max9, t9, split9 = {}, {}, {}, {}, {}, {}
     for tag, m in (("unshifted", None), ("shifted", mask128)):
         fwd_args = (x9, convx9, m, dp1, dp2, *targs9[1:])
         mlp_args = lambda h_: (h_, dout9, dp2, ln2_w, ln2_b, w1, b1, w2)  # noqa: E731
@@ -1258,6 +1292,7 @@ def main() -> None:
             "K9c": (cuda_ms(lambda: hab_bwd_attn(*attn_args, **kw9c)),
                     cuda_ms(lambda: hab_bwd_attn_reference(*attn_args, **hkw9), **timing)),
         }
+        split9[tag] = kernel_split(lambda: hab_bwd_attn(*attn_args, **kw9c))
     ogen = torch.Generator().manual_seed(seed + 13)
     kv9 = overlap_windows(torch.randn(HAT_MICRO, 128, 128, 180, generator=ogen).to(device, bf),
                           8, 12)  # the out-of-image keys are zero, as in training
@@ -1298,6 +1333,9 @@ def main() -> None:
         for tag, d in t9.items() for k, v in d.items()) + "; " + "; ".join(
         f"{k} {v[0]:.4f} ms (plain {v[1]:.4f} ms, bound {least_ms(work_t[k])[0]:.4f} ms)"
         for k, v in t10.items()))
+    for tag, split in split9.items():
+        log("k9-k10", f"K9c {tag} device ms per call by kernel: " + ", ".join(
+            f"{short_name(name)} {t:.4f}" for name, t in split.items()))
     bad = {k: v for k, v in {**errs9, **errs10}.items() if not v <= BWD_REL_L2}
     if bad or not all(same9.values()) or not same10 or not all(passed9.values()):
         raise SystemExit(f"K9/K10 disagree with their plain versions {bad}, or are not "
@@ -1380,7 +1418,8 @@ def main() -> None:
             # K8's weight-gradient kernel is the template wgrad_kernel<F, G>;
             # K9b/K9c/K10b share swin_block_train.cu's wgrad_kernel(...)
             groups = {"K9a": ("swin_block_kernel<2, true, true>",),
-                      "K9b": ("mlp_bwd_kernel", "mlp_pack_kernel"), "K9c": ("attn_bwd_kernel",),
+                      "K9b": ("mlp_bwd_kernel", "mlp_pack_kernel"),
+                      "K9c": ("attn_wg_kernel", "attn_pack_kernel"),
                       "K10a": ("ocab_kernel<2, true>",), "K10b": ("ocab_bwd_kernel",),
                       "K9/K10 wgrad+colsum": ("wgrad_kernel(", "colsum_kernel"),
                       "K7": ("rdb_kernel",),

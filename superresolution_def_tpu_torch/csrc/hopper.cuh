@@ -1,6 +1,6 @@
 // Hopper-only device helpers shared by the kernels redesigned for sm_90a
-// (rdb_cm_bwd.cu: K8; swin_block_train.cu: K3/K9b and the weight-gradient
-// product): mbarriers, TMA copies (bulk and tensor), and warpgroup matrix
+// (rdb_cm_bwd.cu: K8; swin_block_train.cu: K3/K9b, K4/K9c and the
+// weight-gradient product): mbarriers, TMA copies (bulk and tensor), and warpgroup matrix
 // products (wgmma) with operands in shared memory or, for A, in registers.
 //
 // Every shared-memory operand here is in the no-swizzle ("interleaved")
@@ -133,6 +133,16 @@ __device__ __forceinline__ void wgmma_n16(float (&d)[8], uint64_t da, uint64_t d
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 

@@ -1,14 +1,15 @@
-// The window-kernel phases of the Swin-block backward, shared by K3/K4 and
-// K9b/K9c (swin_block_train.cu) and K4b (swin_block_bwd.cu): the ordered
-// fragment sums, the MLP backward's parameters, K4's parameters, layout and
-// head-pair loop (attn_pairs), and the launch helpers. swin_block_train.cu
-// says what each kernel computes and how its sums are ordered.
+// The window-kernel phases of the Swin-block backward's first design, shared
+// by K4b (swin_block_bwd.cu) and, for their parameters, by K3/K9b
+// (swin_block_train.cu): the ordered fragment sums, the MLP backward's
+// parameters, the first K4's parameters and head-pair loop (attn_pairs), and
+// the launch helpers. swin_block_train.cu says what each kernel computes and
+// how its sums are ordered.
 //
-// mlp_chunks is the first design's hidden loop: one
-// window per block on mma.sync behind a 2-deep cp.async ring of 64 x 64
-// weight tiles. K3 and K9b moved to swin_block_train.cu's wgmma window
-// kernel; the loop stays here for K4b alone, whose kernel holds 255
-// registers and 195 KB of shared memory already.
+// mlp_chunks and attn_pairs are the first design's hidden loop and head-pair
+// loop: one window per block on mma.sync behind a 2-deep cp.async ring of
+// 64 x 64 weight tiles. K3/K9b and K4/K9c moved to swin_block_train.cu's
+// wgmma window kernels; both loops stay here for K4b alone, whose kernel
+// holds 255 registers and 195 KB of shared memory already.
 
 #pragma once
 
@@ -276,33 +277,8 @@ struct AttnParams {
   float scale;
 };
 
-struct AttnLayout {
-  int lda;
-  size_t a, d, qkv, dop, pr, dpair, ring, vec, stats, red, qmap, slot, total;
-};
-
 // q, q*scale, k, v of a head pair: slots 0..3, each [head][token][LDQ]
 enum { S_Q, S_QS, S_K, S_V };
-
-__host__ __device__ inline AttnLayout attn_layout(int c, int cp) {
-  AttnLayout L;
-  L.lda = cp + 8;
-  size_t o = 0;
-  L.a = o;     o += align128(sizeof(bf16) * N * L.lda);       // xn
-  L.d = o;     o += align128(sizeof(bf16) * N * L.lda);       // dh
-  L.qkv = o;   o += align128(sizeof(bf16) * 4 * 2 * N * LDQ);  // q, q*scale, k, v
-  L.dop = o;   o += align128(sizeof(bf16) * 2 * N * LDQ);      // do of the pair
-  L.pr = o;    o += align128(sizeof(bf16) * 2 * 2 * N * LDP);  // a, ds of the pair
-  L.dpair = o; o += align128(sizeof(bf16) * 3 * N * LDT);      // dq | dk | dv of the pair
-  L.ring = o;  o += align128(sizeof(bf16) * STAGES * TILE * LDT);
-  L.vec = o;   o += align128(sizeof(float) * 5 * c);           // ln1 w, b; bqkv
-  L.stats = o; o += align128(sizeof(float) * 2 * N);
-  L.red = o;   o += align128(sizeof(float) * 2 * N);
-  L.qmap = o;  o += align128(sizeof(int) * 2 * DP);
-  L.slot = o;  o += align128(sizeof(float) * 4 * (3 * TILE > cp ? 3 * TILE : cp));
-  L.total = o;
-  return L;
-}
 
 // s (16 x 64, accumulator layout) += a[q0..q0+15, 0:32] . b^T with a and b
 // stored [token][LDQ]: scores q.k^T, or da = do.v^T.
@@ -359,7 +335,7 @@ __device__ __forceinline__ void rows_tn(float (&o)[4][4], const bf16* at, int k0
 }
 
 // Shared-memory regions the attention backward's head-pair loop works in
-// (attn_layout's, or K4b's).
+// (K4b's).
 struct AttnSmem {
   const bf16* abuf;  // LN1 output xn (64 x cp)
   const bf16* dbuf;  // the cotangent at h, bf16 (64 x cp)

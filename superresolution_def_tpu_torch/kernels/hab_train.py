@@ -44,9 +44,12 @@ from .hab_block import (
 )
 from .swin_block import (
     MAX_SMEM_BYTES,
+    _attn_sizes,
+    _attn_window_grads,
     _check,
     _check_windows,
     _colsum,
+    _f32,
     _on_cuda,
     _ptrs,
     _stream,
@@ -179,11 +182,6 @@ def hab_bwd_mlp(h, dout, dp2, ln2_w, ln2_b, w1, b1, w2, *, padded: tuple | None 
 hab_bwd_mlp.launches = 0
 
 
-def _unpad_heads(t: torch.Tensor, heads: int, hd: int, hdp: int) -> torch.Tensor:
-    """The inverse of ``_pad_heads``: keep each head's first hd of hdp columns."""
-    return t.reshape(*t.shape[:-1], heads, hdp)[..., :hd].reshape(*t.shape[:-1], heads * hd)
-
-
 def hab_bwd_attn(x, dh, mask, dp1, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, *, num_heads: int,
                  scale: float, padded: tuple | None = None):
     """K9c: ``(dx, dln1_w, dln1_b, dwqkv, dbqkv, dbias, dwproj, dbproj)``.
@@ -218,39 +216,27 @@ def hab_bwd_attn(x, dh, mask, dp1, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, *, num
         raise ValueError(f"{name}: every operand must be on the windows' device")
     _check_scale(name, dp1, bw, x.device)
     lib = _train_library()
-    if lib.swin_bwd_attn_smem_bytes(cp) > MAX_SMEM_BYTES:
+    if _attn_sizes(cp, num_heads)[2] > MAX_SMEM_BYTES:
         raise ValueError(f"{name}: C={c} needs more than 227 KB shared memory")
     if padded is None:
         padded = pad_attn_operands(ln1_w, ln1_b, wqkv, bqkv, wproj, num_heads=num_heads)
     ln1_wp, ln1_bp, wqkvp, bqkvp, wprojp = padded[:5]
     x, dh = x.contiguous(), dh.contiguous()
-    if dh.data_ptr() % 4:
-        raise ValueError(f"{name}: windows must be 4-byte aligned")
-    bias = bias.float().contiguous()
-    mask_t = _f32_or_none(mask)
-    dp1 = _f32_or_none(dp1)
-    t = bw * n
-    dx = torch.empty_like(x)
-    xn, att, dhs = (torch.empty(t, cp, dtype=torch.bfloat16, device=x.device) for _ in range(3))
-    dqkv = torch.empty(t, 3 * cp, dtype=torch.bfloat16, device=x.device)
-    vec = torch.empty(bw, 6 * cp, dtype=torch.float32, device=x.device)
-    dbias = torch.empty(bw, num_heads * n * n, dtype=torch.float32, device=x.device)
+    bias = _f32(bias)
+    mask_t = None if mask is None else _f32(mask)
+    dp1 = None if dp1 is None else _f32(dp1)
     nw = mask.shape[0] if mask is not None else 1
-    with torch.cuda.device(x.device):
+
+    def launch(dx, xn, att, dqkv, dhs, part, wpack, wpw, stream):
         _check(lib.hab_bwd_attn_bf16(
             x.data_ptr(), dh.data_ptr(), _ptr(dp1), _ptr(mask_t),
-            *_ptrs(ln1_wp, ln1_bp, wqkvp, bqkvp, bias, wprojp, dx, xn, att, dqkv, dhs, vec,
-                   dbias), bw, cp, c, num_heads, nw, float(scale), _stream(x.device)),
-            "hab_bwd_attn_bf16")
-        dwqkv = _wgrad(lib, xn, dqkv)
-        dwproj = _wgrad(lib, att, dhs)
-        dbqkv, dbproj, dln1_w, dln1_b = _colsum(lib, vec).split([3 * cp, cp, cp, cp])
-        dbias = _colsum(lib, dbias).reshape(num_heads, n, n)
+            *_ptrs(ln1_wp, ln1_bp, wqkvp, bqkvp, bias, wprojp), dx, xn, att, dqkv, dhs, part,
+            wpack, bw, cp, c, num_heads, nw, wpw, float(scale), stream), "hab_bwd_attn_bf16")
+
+    with torch.cuda.device(x.device):
+        out = _attn_window_grads(lib, launch, x, dh, num_heads, cp, hd, dhs=True)
     hab_bwd_attn.launches += 1
-    dwqkv = _unpad_heads(dwqkv[:c].reshape(c, 3, cp), num_heads, hd, hdp).reshape(c, 3 * c)
-    dbqkv = _unpad_heads(dbqkv.reshape(3, cp), num_heads, hd, hdp).reshape(3 * c)
-    dwproj = _unpad_heads(dwproj.T, num_heads, hd, hdp).T[:, :c]
-    return dx, dln1_w[:c], dln1_b[:c], dwqkv, dbqkv, dbias, dwproj, dbproj[:c]
+    return out
 
 
 hab_bwd_attn.launches = 0

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 import math
 
 import torch
@@ -293,16 +294,22 @@ def _train_library() -> ctypes.CDLL:
     lib = load_library("swin_block_train")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.swin_bwd_mlp_bf16.argtypes = [vp] * 13 + [i32] * 3 + [vp]
-    lib.swin_bwd_attn_bf16.argtypes = [vp] * 14 + [i32] * 3 + [ctypes.c_float, vp]
+    lib.swin_bwd_attn_bf16.argtypes = [vp] * 14 + [i32] * 4 + [ctypes.c_float, vp]
+    lib.swin_bwd_attn_pack_bf16.argtypes = [vp, vp, i32, i32, vp, vp]
     lib.swin_wgrad_bf16.argtypes = [vp, vp] + [i32] * 5 + [vp, vp]
     lib.swin_colsum_f32.argtypes = [vp, i32, i32, vp, vp]
+    lib.swin_colsum_gather_f32.argtypes = [vp, i32, i32, vp, i32, vp, vp]
     lib.hab_bwd_mlp_bf16.argtypes = [vp] * 15 + [i32] * 4 + [vp]
-    lib.hab_bwd_attn_bf16.argtypes = [vp] * 17 + [i32] * 5 + [ctypes.c_float, vp]
-    for fn in (lib.swin_bwd_mlp_bf16, lib.swin_bwd_attn_bf16, lib.swin_wgrad_bf16,
-               lib.swin_colsum_f32, lib.hab_bwd_mlp_bf16, lib.hab_bwd_attn_bf16):
+    lib.hab_bwd_attn_bf16.argtypes = [vp] * 17 + [i32] * 6 + [ctypes.c_float, vp]
+    for fn in (lib.swin_bwd_mlp_bf16, lib.swin_bwd_attn_bf16, lib.swin_bwd_attn_pack_bf16,
+               lib.swin_wgrad_bf16, lib.swin_colsum_f32, lib.swin_colsum_gather_f32,
+               lib.hab_bwd_mlp_bf16, lib.hab_bwd_attn_bf16, lib.swin_bwd_attn_windows):
         fn.restype = ctypes.c_int
     lib.swin_bwd_mlp_smem_bytes.argtypes = [i32, i32]
-    lib.swin_bwd_attn_smem_bytes.argtypes = [i32]
+    lib.swin_bwd_attn_windows.argtypes = [i32, i32]
+    lib.swin_bwd_attn_smem_bytes.argtypes = [i32, i32]
+    lib.swin_bwd_attn_pack_bytes.argtypes = [i32, i32]
+    lib.swin_bwd_attn_pack_bytes.restype = ctypes.c_size_t
     lib.swin_bwd_mlp_smem_bytes.restype = ctypes.c_size_t
     lib.swin_bwd_mlp_pack_bytes.argtypes = [i32, i32]
     lib.swin_bwd_mlp_pack_bytes.restype = ctypes.c_size_t
@@ -363,6 +370,11 @@ def _stream(device) -> int:
 def _check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} launch failed with CUDA error {err}")
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """t as contiguous fp32, itself when it is already."""
+    return t if t.dtype == torch.float32 and t.is_contiguous() else t.float().contiguous()
 
 
 def _ptrs(*tensors) -> list[int]:
@@ -480,31 +492,65 @@ def swin_block_fwd_h(
 swin_block_fwd_h.launches = 0
 
 
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _colsum_into(lib, x: int, r: int, n: int, out: int, keep: torch.Tensor | None,
+                 stream: int) -> None:
+    """Launches the ordered column sums of the (r, n) fp32 rows at pointer x
+    into out; ``keep`` (int32 column indices): only those columns, in its
+    order."""
+    if keep is None:
+        _check(lib.swin_colsum_f32(x, r, n, out, stream), "swin_colsum_f32")
+    else:
+        _check(lib.swin_colsum_gather_f32(x, r, n, keep.data_ptr(), keep.numel(), out, stream),
+               "swin_colsum_gather_f32")
+
+
 def _colsum(lib, x: torch.Tensor) -> torch.Tensor:
     """Column sums of a (R, n) fp32 tensor in a fixed order (one launch)."""
     r, n = x.shape
     out = torch.empty(n, dtype=torch.float32, device=x.device)
-    _check(lib.swin_colsum_f32(x.data_ptr(), r, n, out.data_ptr(), _stream(x.device)),
-           "swin_colsum_f32")
+    _colsum_into(lib, x.data_ptr(), r, n, out.data_ptr(), None, _stream(x.device))
     return out
 
 
-def _wgrad(lib, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a^T . b (fp32) for a (T, M) and b (T, N) bf16 token-major operands:
-    the tokens split into slices of whole 64-token slabs so that the card
-    runs about one thread block (a 192 x 192 output tile) per SM, the
-    slices' partial products summed in slice order."""
-    t, m = a.shape
-    n = b.shape[1]
+def _wgrad_slices(t: int, m: int, n: int, sms: int) -> tuple[int, int]:
+    """(tokens a slice, slices) of the weight-gradient product over t tokens:
+    whole 64-token slabs, about one thread block (a 192 x 192 output tile)
+    per SM."""
     tiles = -(-m // 192) * -(-n // 192)
-    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
     splits = max(1, min(-(-t // 64), -(-sms // tiles)))
     rps = -(-t // (splits * 64)) * 64
-    splits = -(-t // rps)
-    part = torch.empty(splits, m, n, dtype=torch.float32, device=a.device)
-    _check(lib.swin_wgrad_bf16(a.data_ptr(), b.data_ptr(), t, m, n, rps, splits,
-                               part.data_ptr(), _stream(a.device)), "swin_wgrad_bf16")
-    return _colsum(lib, part.reshape(splits, m * n)).reshape(m, n)
+    return rps, -(-t // rps)
+
+
+def _wgrad_into(lib, a: int, b: int, t: int, m: int, n: int, part: int, out: int,
+                keep: torch.Tensor | None, sms: int, stream: int) -> None:
+    """Launches a^T . b (fp32) for bf16 token-major operands at pointers a (t,
+    m) and b (t, n): the slices' partial products into ``part``
+    (:func:`_wgrad_slices` rows of m * n fp32), then their sums in slice
+    order into ``out`` (m * n, or ``keep``'s entries of the flattened
+    product)."""
+    rps, splits = _wgrad_slices(t, m, n, sms)
+    _check(lib.swin_wgrad_bf16(a, b, t, m, n, rps, splits, part, stream), "swin_wgrad_bf16")
+    _colsum_into(lib, part, splits, m * n, out, keep, stream)
+
+
+def _wgrad(lib, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a^T . b (fp32, (M, N)) for a (T, M) and b (T, N) bf16 token-major
+    operands, the tokens split as :func:`_wgrad_slices` says."""
+    t, m = a.shape
+    n = b.shape[1]
+    sms = _sm_count(a.device.index)
+    part = torch.empty(_wgrad_slices(t, m, n, sms)[1], m * n, dtype=torch.float32,
+                       device=a.device)
+    out = torch.empty(m, n, dtype=torch.float32, device=a.device)
+    _wgrad_into(lib, a.data_ptr(), b.data_ptr(), t, m, n, part.data_ptr(), out.data_ptr(), None,
+                sms, _stream(a.device))
+    return out
 
 
 def swin_block_bwd_mlp(h, dout, ln2_w, ln2_b, w1, b1, w2):
@@ -551,6 +597,111 @@ def swin_block_bwd_mlp(h, dout, ln2_w, ln2_b, w1, b1, w2):
 swin_block_bwd_mlp.launches = 0
 
 
+def attn_head_width(c: int, num_heads: int) -> int:
+    """The columns each head takes in K4/K9c's window kernel: 16 for a head
+    of at most 16, else 32 (the per-head products' k16 steps)."""
+    return 16 if c // num_heads <= 16 else 32
+
+
+def attn_pack_reference(wqkv: torch.Tensor, wproj: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Plain form of the attention window kernel's weight packing (bf16, flat).
+
+    Per head h four tiles of ck x hp (ck: C rounded up to 64, hp:
+    :func:`attn_head_width`): wproj[h, :]^T, then the head's columns of wq,
+    wk and wv, element (c, j) at position (c // 8) hp*8 + (j // 8) 64 +
+    (c % 8) 8 + j % 8, zero past C and past the head's columns."""
+    c = wqkv.shape[0]
+    hd = c // num_heads
+    hp = attn_head_width(c, num_heads)
+    ck = -(-c // 64) * 64
+    heads = torch.zeros(num_heads, 4, ck, hp, dtype=wqkv.dtype, device=wqkv.device)
+    w = wqkv.reshape(c, 3, num_heads, hd).permute(2, 1, 0, 3)   # (heads, 3, c, hd)
+    heads[:, 0, :c, :hd] = wproj.reshape(num_heads, hd, c).transpose(1, 2)
+    heads[:, 1:, :c, :hd] = w
+    # (c // 8, c % 8, j // 8, j % 8) -> (c // 8, j // 8, c % 8, j % 8)
+    tiles = heads.reshape(num_heads, 4, ck // 8, 8, hp // 8, 8).transpose(3, 4)
+    return tiles.reshape(-1).contiguous()
+
+
+@functools.cache
+def _attn_sizes(c: int, num_heads: int) -> tuple[int, int, int]:
+    """The attention window kernel at width c: (windows a block, packed
+    weight elements, dynamic shared memory bytes)."""
+    lib = _train_library()
+    return (lib.swin_bwd_attn_windows(c, num_heads),
+            lib.swin_bwd_attn_pack_bytes(c, num_heads) // 2,
+            lib.swin_bwd_attn_smem_bytes(c, num_heads))
+
+
+@functools.cache
+def _attn_keep(c: int, num_heads: int, c_real: int, hd_real: int, n_proj: int,
+               device: torch.device) -> tuple:
+    """int32 column maps from the attention window kernel's layouts (each
+    head at hp columns of dw = heads * hp; for K9c also the channels padded
+    from c_real to c) to the real widths, for the gathered column sums:
+    dWqkv's (c_real x 3 c_real of the (c, 3 dw) product), dWproj's (c_real x
+    c_real of the (dw, n_proj) product) and the partial sums' (dbqkv | dbproj
+    | dln1 w | b | dbias of a row of 3 dw + 3c + heads*64*64)."""
+    hp = attn_head_width(c, num_heads)
+    dw = num_heads * hp
+    att_cols = (torch.arange(num_heads)[:, None] * hp + torch.arange(hd_real)).reshape(-1)
+    qkv_cols = (torch.arange(3)[:, None] * dw + att_cols).reshape(-1)
+    chans = torch.arange(c_real)
+    qkv = (chans[:, None] * 3 * dw + qkv_cols).reshape(-1)
+    proj = (att_cols[:, None] * n_proj + chans).reshape(-1)
+    part = torch.cat([qkv_cols, 3 * dw + chans, 3 * dw + c + chans, 3 * dw + 2 * c + chans,
+                      3 * dw + 3 * c + torch.arange(num_heads * 64 * 64)])
+    return tuple(t.to(device=device, dtype=torch.int32) for t in (qkv, proj, part))
+
+
+def _pointers(buf: torch.Tensor, sizes: list[int]) -> list[int]:
+    """Addresses of consecutive pieces of ``sizes`` elements in ``buf``."""
+    return [buf.data_ptr() + buf.element_size() * o
+            for o in itertools.accumulate([0] + sizes[:-1])]
+
+
+def _attn_window_grads(lib, launch, x, dh, num_heads: int, c: int, hd_real: int, dhs: bool):
+    """Runs the attention window kernel at its width ``c`` (windows of
+    ``x.shape[-1]`` real channels, heads of ``hd_real``) and what follows it:
+    ``launch(dx, xn, att, dqkv, dhs, part, wpack, wpw, stream)`` (pointers;
+    the packing and the window kernel), the two weight-gradient products and
+    one ordered column sum over the warpgroups' partial sums, each sum
+    gathering the real columns. The intermediates share two scratch
+    allocations and the fp32 results one. Returns ``(dx, dln1_w, dln1_b,
+    dwqkv, dbqkv, dbias, dwproj, dbproj)`` at the real widths."""
+    bw, n, cio = x.shape
+    dw = num_heads * attn_head_width(c, num_heads)
+    t, dev = bw * n, x.device
+    stream, sms = _stream(dev), _sm_count(dev.index)
+    nw, packed, _ = _attn_sizes(c, num_heads)
+    wpw = -(-bw // (nw * sms))
+    rows, width = -(-bw // wpw), 3 * dw + 3 * c + num_heads * n * n
+    n_proj = c if dhs else cio
+    keep = _attn_keep(c, num_heads, cio, hd_real, n_proj, dev)
+    # bf16 scratch: xn | att | dqkv | dhs | wpack; fp32 scratch: part | the
+    # two products' slices; fp32 results: dwqkv | dwproj | the row sums
+    bf_sizes = [t * c, t * dw, 3 * t * dw, t * c if dhs else 0, packed]
+    f_sizes = [rows * width, _wgrad_slices(t, c, 3 * dw, sms)[1] * c * 3 * dw,
+               _wgrad_slices(t, dw, n_proj, sms)[1] * dw * n_proj]
+    out_sizes = [k.numel() for k in keep]
+    dx = torch.empty_like(x)
+    scratch16 = torch.empty(sum(bf_sizes), dtype=torch.bfloat16, device=dev)
+    scratch32 = torch.empty(sum(f_sizes), dtype=torch.float32, device=dev)
+    out = torch.empty(sum(out_sizes), dtype=torch.float32, device=dev)
+    xn, att, dqkv, dhs_p, wpack = _pointers(scratch16, bf_sizes)
+    part, pq, pp = _pointers(scratch32, f_sizes)
+    oq, op, opart = _pointers(out, out_sizes)
+    launch(dx.data_ptr(), xn, att, dqkv, dhs_p if dhs else None, part, wpack, wpw, stream)
+    _wgrad_into(lib, xn, dqkv, t, c, 3 * dw, pq, oq, keep[0], sms, stream)
+    _wgrad_into(lib, att, dhs_p if dhs else dh.data_ptr(), t, dw, n_proj, pp, op, keep[1], sms,
+                stream)
+    _colsum_into(lib, part, rows, width, opart, keep[2], stream)
+    dwqkv, dwproj, dbqkv, dbproj, dln1_w, dln1_b, dbias = out.split(
+        [cio * 3 * cio, cio * cio, 3 * cio, cio, cio, cio, num_heads * n * n])
+    return (dx, dln1_w, dln1_b, dwqkv.view(cio, 3 * cio), dbqkv, dbias.view(num_heads, n, n),
+            dwproj.view(cio, cio), dbproj)
+
+
 def swin_block_bwd_attn(x, dh, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, *, num_heads: int,
                         scale: float):
     """K4: ``(dx, dln1_w, dln1_b, dwqkv, dbqkv, dbias, dwproj, dbproj)``.
@@ -571,29 +722,21 @@ def swin_block_bwd_attn(x, dh, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, *, num_hea
     if tuple(bias.shape) != (num_heads, n, n):
         raise ValueError(f"{name}: bias wants {(num_heads, n, n)}, got {tuple(bias.shape)}")
     lib = _train_library()
-    if lib.swin_bwd_attn_smem_bytes(c) > MAX_SMEM_BYTES:
+    if _attn_sizes(c, num_heads)[2] > MAX_SMEM_BYTES:
         raise ValueError(f"{name}: C={c} needs more than 227 KB shared memory")
     x, dh, wqkv, wproj = (t.contiguous() for t in (x, dh, wqkv, wproj))
-    ln1_w, ln1_b, bqkv, bias = (t.float().contiguous() for t in (ln1_w, ln1_b, bqkv, bias))
-    if wqkv.data_ptr() % 8 or wproj.data_ptr() % 8:
-        raise ValueError(f"{name}: weights must be 8-byte aligned")
-    t = bw * n
-    dx = torch.empty_like(x)
-    xn, att = (torch.empty(t, c, dtype=torch.bfloat16, device=x.device) for _ in range(2))
-    dqkv = torch.empty(t, 3 * c, dtype=torch.bfloat16, device=x.device)
-    vec = torch.empty(bw, 6 * c, dtype=torch.float32, device=x.device)
-    dbias = torch.empty(bw, num_heads * n * n, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        _check(lib.swin_bwd_attn_bf16(*_ptrs(x, dh, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, dx,
-                                             xn, att, dqkv, vec, dbias),
-                                      bw, c, num_heads, float(scale), _stream(x.device)),
+    ln1_w, ln1_b, bqkv, bias = (_f32(t) for t in (ln1_w, ln1_b, bqkv, bias))
+
+    def launch(dx, xn, att, dqkv, _dhs, part, wpack, wpw, stream):
+        _check(lib.swin_bwd_attn_bf16(*_ptrs(x, dh, ln1_w, ln1_b, wqkv, bqkv, bias, wproj), dx,
+                                      xn, att, dqkv, part, wpack, bw, c, num_heads, wpw,
+                                      float(scale), stream),
                "swin_bwd_attn_bf16")
-        dwqkv = _wgrad(lib, xn, dqkv)
-        dwproj = _wgrad(lib, att, dh.reshape(t, c))
-        dbqkv, dbproj, dln1_w, dln1_b = _colsum(lib, vec).split([3 * c, c, c, c])
-        dbias = _colsum(lib, dbias).reshape(num_heads, n, n)
+
+    with torch.cuda.device(x.device):
+        out = _attn_window_grads(lib, launch, x, dh, num_heads, c, c // num_heads, dhs=False)
     swin_block_bwd_attn.launches += 1
-    return dx, dln1_w, dln1_b, dwqkv, dbqkv, dbias, dwproj, dbproj
+    return out
 
 
 swin_block_bwd_attn.launches = 0

@@ -1152,6 +1152,40 @@ def test_mlp_bwd_kernels_at_odd_window_counts(device, bw):
     assert torch.equal(first9[0][:1], d9[:1])  # window 0's MLP branch dropped
 
 
+@pytest.mark.parametrize("bw", [1, 3, 7])
+def test_attn_bwd_kernels_at_odd_window_counts(device, bw):
+    """K4 (C = 180, 6 heads) and K9c (C = 90 padded, the shift mask of one
+    8 x 8*bw image, so that nW = bw windows, which neither the two windows a
+    block nor a warpgroup's slice of windows divides, and window 0's branch
+    dropped) at window counts the persistent kernel's blocks do not divide:
+    within BWD_REL_L2 of their plain versions, twice to the same bits."""
+    args = _operands(bw + 90, bw, 180, 6, 720, device)
+    x, ln1_w, ln1_b, wqkv, bqkv, bias, wproj = args[:7]
+    dh = (1e-2 * torch.randn(bw, 64, 180, generator=torch.Generator().manual_seed(bw))).to(
+        device, torch.bfloat16)
+    kw = dict(num_heads=6, scale=30**-0.5)
+    first = swin_block_bwd_attn(x, dh, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, **kw)
+    second = swin_block_bwd_attn(x, dh, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, **kw)
+    want = swin_block_bwd_attn_reference(x, dh, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, **kw)
+    x9, _, *params = _hat_operands(bw + 91, bw, 90, 6, 360, device)
+    mask = torch.from_numpy(shift_window_attn_mask(8, 8 * bw, 8, 4)).to(device)
+    dp = torch.full((bw,), 1 / 0.9, device=device)
+    dp[0] = 0.0
+    d9 = _windows(bw + 92, bw, 90, 64, device)
+    args9 = (x9, d9, mask, dp, *params[:6])
+    kw9 = dict(num_heads=6, scale=15**-0.5)
+    first9, second9 = hab_bwd_attn(*args9, **kw9), hab_bwd_attn(*args9, **kw9)
+    want9 = hab_bwd_attn_reference(*args9, **kw9)
+    torch.cuda.synchronize()
+    names = ["dx", "dln1_w", "dln1_b", "dwqkv", "dbqkv", "dbias", "dwproj", "dbproj"]
+    for got, again, ref in ((first, second, want), (first9, second9, want9)):
+        assert all(torch.equal(a, c) for a, c in zip(got, again))
+        for name, a, c in zip(names, got, ref):
+            assert a.shape == c.shape and torch.isfinite(a).all(), name
+            assert _rel_l2(a, c) <= BWD_REL_L2, (name, _rel_l2(a, c))
+    assert torch.equal(first9[0][:1], d9[:1])  # window 0's attention branch dropped
+
+
 @pytest.mark.parametrize("t,m,n", [(337, 60, 100), (4160, 196, 36), (64, 8, 392)])
 def test_weight_gradient_product_at_ragged_shapes(device, t, m, n):
     """The shared weight-gradient product a^T . b at M, N and T that its 192
