@@ -7,7 +7,9 @@ Phases, each printing a line, any failure ending the run with a non-zero
 exit code:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. the build of every CUDA source (both at once, one nvcc each), with time;
+2. the build of every CUDA source (both at once, one nvcc each), with time,
+   the ptxas lines of each kernel, and the dynamic shared memory of K2's
+   kernel and of K7's five conv kernels;
 3. K1 (``fused_swin_block``) against its plain PyTorch version at the
    flagship shapes (Bw=768, C=180, 6 heads, hidden 720, bf16), with times;
 4. the inference slice: a synthetic 128->512 test split and a seeded flagship
@@ -21,11 +23,12 @@ exit code:
    K3's window kernel, K9b's, K4's (C=180) and K9c's (C=96) with their
    windows a block, and the shared weight-gradient product;
 8. K2/K3/K4 against their plain versions at the flagship train shapes
-   (Bw=2048: micro 8 of 128x128, bf16), K2's ``out`` bit-identical to K1's,
-   K3 and K4 each run twice to the same bits, K4's weight packing
-   (``attn_pack_kernel``) bit for bit its plain version at C=180 and C=96,
-   with times, and K3's and K4's device time per kernel (window kernel,
-   weight-gradient products, column sums, weight packing);
+   (Bw=2048: micro 8 of 128x128, bf16), K2's ``out`` within K1's bound of
+   K1's (K2 is a wgmma design of its own), K2, K3 and K4 each
+   run twice to the same bits, K4's weight packing (``attn_pack_kernel``)
+   bit for bit its plain version at C=180 and C=96, with times, and K2's,
+   K3's and K4's device time per kernel (window kernels, weight-gradient
+   products, column sums, weight packings);
 9. the differentiable fused SwinIR (K2 forward, K3 + K4 backward) against
    autograd of the fp32 ``nn.Module`` on one patch;
 10. the training slice: ``cli.main train --arch swin --bf16`` for 2 epochs of
@@ -40,7 +43,9 @@ exit code:
     config's shapes (BASELINE config #2, batch 8 of 128x128): K5
     (``fused_hab_block``, Bw=2048, C=90, 6 heads, hidden 360) unshifted and
     shifted, K6 (``fused_ocab_block``, 64 queries against 144 overlap keys)
-    and K7 (``fused_rdb_cm``, B=8, F=48 at 256x256, G=24), with times;
+    and K7 (``fused_rdb_cm``, B=8, F=48 at 256x256, G=24, run twice to the
+    same bits), with times and K7's device time per kernel (the x
+    transpose and its five convs);
 13. the hybrid slice: a seeded config-#2 ``best_hybrid_model.pth`` through
     ``cli.main infer --arch hat --impl fused`` on the synthetic test split,
     counting K5/K6/K7 launches (24, 4 and 36 per image) and checking every
@@ -52,9 +57,11 @@ exit code:
 16. K8 (``fused_rdb_cm_bwd``, the dense-block backward) against its plain
     version at the hybrid train step's shapes (B=2, F=48, G=24, 256x256,
     bf16, dy ~ N(0, 1e-2)), run twice to show the same bits, with K7's
-    stashing forward at B=2, with times, K8's device time per kernel
-    (``stack_kernel``, ``wgrad_kernel``, ``dx_kernel``) and their dynamic
-    shared memory (phase 2 prints their ptxas lines);
+    stashing forward at B=2 (against its plain version, and its output the
+    same without the stash), with times, K8's and the stashing K7's device
+    time per kernel (``stack_kernel``, ``wgrad_kernel``, ``dx_kernel``; K7's
+    transpose and convs) and K8's dynamic shared memory (phase 2 prints
+    their ptxas lines);
 17. gradients of the fused bf16 RRDB trunk (K7 forward, K8 backward) and of
     the whole fused hybrid generator against fp32 autograd of the
     ``nn.Module``, beside the bf16 ``nn.Module``'s own distance;
@@ -102,8 +109,10 @@ exit code:
     the raise under autograd; per shape its time, bound, plain time and
     ``F.scaled_dot_product_attention``'s;
 27. K12 (``fused_rdb``, the NHWC dense block) against its plain version at
-    B=8, F=48, G=24, 256x256 bf16, bit for bit against K7 on the same data,
-    with its time, plain time and K7's time in the same run;
+    B=8, F=48, G=24, 256x256 bf16, and against K7 on the same data within
+    K1's bound (K12 fuses the five convs in one tile, K7 runs each conv as
+    a wgmma implicit GEMM), with its time, plain time and K7's time in the
+    same run;
 28. the attention modules with ``attn_impl="pallas"``: the config-#1 SwinIR
     ``nn.Module`` in bf16 at batch 3 (36 mask-less K11 launches a forward)
     and the config-#2 hybrid at batch 8 (16 mask-less, 4 of them its OCABs'
@@ -538,6 +547,13 @@ def main() -> None:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log("build", f"{name}: " + line.strip().replace("ptxas info    : ", ""))
 
+    klib = swin_block._kernel_library()
+    log("build", "dynamic shared memory: K2's kernel (swin_fwd_wg_kernel) at C=180, 6 heads, "
+        f"hidden 720 {klib.swin_block_fwd_h_smem_bytes(180, 6, 720)} B "
+        f"({klib.swin_block_fwd_h_windows(180, 6, 720)} windows a block); K7's five convs "
+        "(conv_kernel) at F/G = 48/24: " + ", ".join(
+            f"conv{i + 1} {b} B" for i, b in enumerate(rdb_cm.smem_bytes(48, 24))))
+
     # 3. K1 against its plain version at the flagship shapes
     gen = torch.Generator().manual_seed(seed)
     args = k1_inputs(gen, device)
@@ -635,11 +651,19 @@ def main() -> None:
     dgen = torch.Generator().manual_seed(seed + 2)
     dout = (1e-2 * torch.randn(bw_train, 64, 180, generator=dgen)).to(device, torch.bfloat16)
     out, h = swin_block_fwd_h(*targs, **kw)
-    same_as_k1 = torch.equal(out, fused_swin_block(*targs, **kw))
+    again2 = swin_block_fwd_h(*targs, **kw)
+    k2_same = torch.equal(out, again2[0]) and torch.equal(h, again2[1])
+    # K2 is a wgmma design of its own: against K1, which shares K2's
+    # rounding points, within K1's bound (their products sum in other orders)
+    k1_out = fused_swin_block(*targs, **kw)
+    k2_k1_err = (out.float() - k1_out.float()).abs().max().item()
+    k2_k1_bound = K1_TOL * max(1.0, k1_out.float().abs().max().item())
+    del again2, k1_out
     want_out, want_h = swin_block.swin_block_fwd_h_reference(*targs, **kw)
     k2_err = (out.float() - want_out.float()).abs().max().item()
     k2_bound = K1_TOL * max(1.0, want_out.float().abs().max().item())
     k2_h_err = (h.float() - want_h.float()).abs().max().item()
+    k2_h_bound = K1_TOL * max(1.0, want_h.float().abs().max().item())
     mlp_args = (h, dout, ln2_w, ln2_b, w1, b1, w2)
     attn_args = (xw, dout, ln1_w, ln1_b, wqkv, bqkv, bias, wproj)
     mlp = swin_block_bwd_mlp(*mlp_args)
@@ -683,27 +707,30 @@ def main() -> None:
                        **timing)),
     }
     log("k2-k4", f"Bw={bw_train} C=180 heads=6 hidden=720 bf16, dout ~ N(0, 1e-2): "
-                 f"K2 out == K1 out: {same_as_k1}; K2 max|out-plain|={k2_err:.3e} "
-                 f"(bound {k2_bound:.3e}), max|h-plain|={k2_h_err:.3e}")
+                 f"K2 max|out-plain|={k2_err:.3e} (bound {k2_bound:.3e}), max|h-plain|="
+                 f"{k2_h_err:.3e} (bound {k2_h_bound:.3e}), max|out-K1 out|={k2_k1_err:.3e} "
+                 f"(bound {k2_k1_bound:.3e}); K2 twice bit-identical: {k2_same}")
     log("k2-k4", "rel L2 vs plain (bound %g): " % BWD_REL_L2
                  + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     log("k2-k4", f"on {card}: " + ", ".join(
         f"{k} {t[0]:.4f} ms (plain {t[1]:.4f} ms)" for k, t in times.items())
         + f"; K3 twice bit-identical: {k3_same}; K4 twice bit-identical: {k4_same}; K4/K9c's "
           f"weight packing bit for bit its plain version at C=180, 96: {pack_same}")
-    for key, fn in (("K3", lambda: swin_block_bwd_mlp(*mlp_args)),
+    for key, fn in (("K2", lambda: swin_block_fwd_h(*targs, **kw)),
+                    ("K3", lambda: swin_block_bwd_mlp(*mlp_args)),
                     ("K4", lambda: swin_block_bwd_attn(*attn_args, **kw))):
         log("k2-k4", f"{key} device ms per call by kernel: " + ", ".join(
             f"{short_name(name)} {t:.4f}"
             for name, t in kernel_split(fn).items()))
-    if not same_as_k1:
-        raise SystemExit("K2's out differs from K1's on the same inputs")
+    if not k2_k1_err <= k2_k1_bound or not k2_same:
+        raise SystemExit(f"K2's out differs from K1's beyond K1's bound ({k2_k1_err}), or K2 "
+                         f"gave other bits on a second run ({k2_same})")
     if not k3_same or not k4_same:
         raise SystemExit(f"K3 or K4 gave other bits on a second run of the same inputs "
                          f"({k3_same}, {k4_same})")
     if not all(pack_same.values()):
         raise SystemExit(f"K4/K9c's weight packing differs from its plain version: {pack_same}")
-    if not k2_err <= k2_bound or not k2_h_err <= k2_bound:
+    if not k2_err <= k2_bound or not k2_h_err <= k2_h_bound:
         raise SystemExit(f"K2 disagrees with its plain version: {k2_err}, {k2_h_err}")
     bad = {k: v for k, v in errs.items() if not v <= BWD_REL_L2}
     if bad:
@@ -807,7 +834,9 @@ def main() -> None:
         peak_gb[impl] = torch.cuda.max_memory_allocated() / 1e9
         if impl == "fused":
             ops, busy_ms, idle = device_profile(lambda: step(batch, 1e-4, 1e-4))
-            groups = {"K2": ("swin_block_kernel",), "K3": ("mlp_bwd_kernel", "mlp_pack_kernel"),
+            # K2 packs with K3's and K4's packing kernels (the same names):
+            # their time counts under K3 and K4
+            groups = {"K2": ("swin_fwd_wg_kernel",), "K3": ("mlp_bwd_kernel", "mlp_pack_kernel"),
                       "K4": ("attn_wg_kernel", "attn_pack_kernel"),
                       "K3/K4 wgrad+colsum": ("wgrad_kernel", "colsum_kernel")}
             split = {k: sum(t for name, t, _ in ops if any(p_ in name for p_ in pats))
@@ -875,18 +904,26 @@ def main() -> None:
           .to(device) for i in range(5)]
     rkw = dict(h=256, w=256)
     got = fused_rdb_cm(xr, ks, bs, **rkw)
+    k7_same = torch.equal(got, fused_rdb_cm(xr, ks, bs, **rkw))
     torch.cuda.synchronize()
     want = rdb_cm_reference(xr, ks, bs, **rkw)
     k7_err = (got.float() - want.float()).abs().max().item()
     k7_bound = K1_TOL * max(1.0, want.float().abs().max().item())
-    k7_times = (cuda_ms(lambda: fused_rdb_cm(xr, ks, bs, **rkw), reps=10),
+    # timed on weights packed once, as the forwards pass them
+    packed7 = rdb_cm.pack_rdb_cm_weights(ks, bs, device)
+    k7_times = (cuda_ms(lambda: fused_rdb_cm(xr, ks, bs, **rkw, packed=packed7), reps=10),
                 cuda_ms(lambda: rdb_cm_reference(xr, ks, bs, **rkw), reps=5, warmup=1, calls=2))
     log("k7", f"B={HYBRID_BATCH} F={f} G={g} 256x256 bf16 on {card}: max|kernel-plain|="
-              f"{k7_err:.3e} (bound {k7_bound:.3e}), kernel {k7_times[0]:.4f} ms, plain "
-              f"{k7_times[1]:.4f} ms (fp32 convs, no TF32)")
-    if not torch.isfinite(got).all() or not k7_err <= k7_bound:
-        raise SystemExit(f"K7 disagrees with its plain version: {k7_err} > {k7_bound}")
-    del xr, ks, bs, got, want
+              f"{k7_err:.3e} (bound {k7_bound:.3e}), rel L2 {rel_l2(got, want):.3e}, kernel "
+              f"{k7_times[0]:.4f} ms, plain "
+              f"{k7_times[1]:.4f} ms (fp32 convs, no TF32); twice bit-identical: {k7_same}")
+    log("k7", f"B={HYBRID_BATCH} device ms per call by kernel: " + ", ".join(
+        f"{short_name(name)} {t:.4f}" for name, t in
+        kernel_split(lambda: fused_rdb_cm(xr, ks, bs, **rkw, packed=packed7)).items()))
+    if not torch.isfinite(got).all() or not k7_err <= k7_bound or not k7_same:
+        raise SystemExit(f"K7 disagrees with its plain version: {k7_err} > {k7_bound}, or gave "
+                         f"other bits on a second run ({k7_same})")
+    del xr, ks, bs, got, want, packed7
     torch.cuda.empty_cache()
 
     # 13. the hybrid slice through the CLI (its main path: counts from 0)
@@ -979,8 +1016,12 @@ def main() -> None:
     bs = [torch.from_numpy((0.05 * kgen.standard_normal(g if i < 4 else f)).astype(np.float32))
           .to(device) for i in range(5)]
     stash = torch.empty(b2, 256 * 256, f + 4 * g, dtype=torch.bfloat16, device=device)
-    same_k7 = torch.equal(fused_rdb_cm(xb, ks, bs, **rkw, stash=stash),
-                          fused_rdb_cm(xb, ks, bs, **rkw))
+    got7 = fused_rdb_cm(xb, ks, bs, **rkw, stash=stash)
+    same_k7 = torch.equal(got7, fused_rdb_cm(xb, ks, bs, **rkw))
+    want7 = rdb_cm_reference(xb, ks, bs, **rkw).float()
+    k7b2_err = (got7.float() - want7).abs().max().item()
+    k7b2_bound = K1_TOL * max(1.0, want7.abs().max().item())
+    del got7, want7
     got8 = fused_rdb_cm_bwd(xb, dyb, ks, bs, **rkw, stash=stash)
     again = fused_rdb_cm_bwd(xb, dyb, ks, bs, **rkw, stash=stash)
     torch.cuda.synchronize()
@@ -996,7 +1037,7 @@ def main() -> None:
         errs8[name] = rel_l2(a, b)
     k8_err = (got8[0].float() - want8[0].float()).abs().max().item()
     del again, want8
-    packed7 = rdb_cm.pack_rdb_weights(ks, bs, device)
+    packed7 = rdb_cm.pack_rdb_cm_weights(ks, bs, device)
     packed8 = rdb_bwd.pack_rdb_bwd_weights(ks, device)
     k8_times = (cuda_ms(lambda: fused_rdb_cm_bwd(xb, dyb, ks, bs, **rkw, stash=stash,
                                                  packed=packed8), reps=10),
@@ -1013,9 +1054,13 @@ def main() -> None:
     log("k8", f"K8 {k8_times[0]:.4f} ms (bound {k8_bound[0]:.4f} ms, {k8_bound[1]}), plain "
               f"{k8_times[1]:.4f} ms; K7 with stash at B={b2} {k7b2_times[0]:.4f} ms (bound "
               f"{least_ms(hat_work(b=b2)['K7'])[0]:.4f} ms), plain {k7b2_times[1]:.4f} ms; "
-              f"K7's output with and without the stash identical: {same_k7}")
+              f"K7's output with and without the stash identical: {same_k7}, max|K7-plain|="
+              f"{k7b2_err:.3e} (bound {k7b2_bound:.3e})")
     k8_split = kernel_split(lambda: fused_rdb_cm_bwd(xb, dyb, ks, bs, **rkw, stash=stash,
                                                      packed=packed8))
+    log("k8", f"K7 with stash at B={b2} device ms per call by kernel: " + ", ".join(
+        f"{short_name(name)} {t:.4f}" for name, t in kernel_split(
+            lambda: fused_rdb_cm(xb, ks, bs, **rkw, packed=packed7, stash=stash)).items()))
     smem8 = (ctypes.c_longlong * 3)()
     ts8 = rdb_bwd._library().rdb_cm_bwd_smem_bytes(f, g, ctypes.addressof(smem8))
     log("k8", "device ms per call by kernel: " + ", ".join(
@@ -1023,9 +1068,10 @@ def main() -> None:
         + f"; dynamic shared memory: stack_kernel {smem8[0]} B ({ts8}x{ts8} tiles), "
           f"wgrad_kernel {smem8[1]} B, dx_kernel {smem8[2]} B")
     bad = {k: v for k, v in errs8.items() if not v <= BWD_REL_L2}
-    if bad or not same_bits or not same_k7:
+    if bad or not same_bits or not same_k7 or not k7b2_err <= k7b2_bound:
         raise SystemExit(f"K8 disagrees with its plain version {bad}, or is not reproducible "
-                         f"({same_bits}), or the stash changed K7's output ({same_k7})")
+                         f"({same_bits}), or the stash changed K7's output ({same_k7}), or K7 "
+                         f"with the stash disagrees with its plain version ({k7b2_err})")
     del xb, dyb, ks, bs, stash, got8, packed7, packed8
     torch.cuda.empty_cache()
 
@@ -1170,7 +1216,8 @@ def main() -> None:
         hat_step_peak[key] = torch.cuda.max_memory_allocated() / 1e9
         if key == f"fused {HAT_MICRO}x{HAT_ACCUM}":
             ops, busy_ms, idle = device_profile(lambda: stp(hb, 1e-4, 1e-4), steps=1)
-            groups = {"K7": ("rdb_kernel",), "K8": ("stack_kernel", "wgrad_kernel<",
+            groups = {"K7": ("conv_kernel<", "stash_x_kernel"),
+                      "K8": ("stack_kernel", "wgrad_kernel<",
                                                     "dx_kernel"),
                       "AdamW+EMA": ("multi_tensor_apply",)}
             split = {k: sum(t for name, t, _ in ops if any(p in name for p in pats))
@@ -1422,7 +1469,7 @@ def main() -> None:
                       "K9c": ("attn_wg_kernel", "attn_pack_kernel"),
                       "K10a": ("ocab_kernel<2, true>",), "K10b": ("ocab_bwd_kernel",),
                       "K9/K10 wgrad+colsum": ("wgrad_kernel(", "colsum_kernel"),
-                      "K7": ("rdb_kernel",),
+                      "K7": ("conv_kernel<", "stash_x_kernel"),
                       "K8": ("stack_kernel", "wgrad_kernel<", "dx_kernel")}
             split = {k: sum(t for name, t, _ in ops if any(p_ in name for p_ in pats))
                      for k, pats in groups.items()}
@@ -1538,26 +1585,33 @@ def main() -> None:
     bs = [torch.from_numpy((0.05 * kgen12.standard_normal(g if i < 4 else f)).astype(np.float32))
           .to(device) for i in range(5)]
     packed12 = rdb_cm.pack_rdb_weights(ks, bs, device)
+    packed7 = rdb_cm.pack_rdb_cm_weights(ks, bs, device)
     xcm = xr.permute(0, 3, 1, 2).reshape(HYBRID_BATCH, f, 256 * 256).contiguous()
     got = rdb_nhwc.fused_rdb(xr, ks, bs, packed=packed12)
     torch.cuda.synchronize()
     want = rdb_nhwc.rdb_nhwc_reference(xr, ks, bs)
     k12_err = (got.float() - want.float()).abs().max().item()
     k12_rel = rel_l2(got, want)
-    same_as_k7 = torch.equal(got, fused_rdb_cm(xcm, ks, bs, **rkw, packed=packed12).reshape(
-        HYBRID_BATCH, f, 256, 256).permute(0, 2, 3, 1))
+    # K12 fuses the five convs, K7 runs each as a wgmma GEMM: the same
+    # rounding points, other summation orders, so within K1's bound
+    k7cm = fused_rdb_cm(xcm, ks, bs, **rkw, packed=packed7).reshape(
+        HYBRID_BATCH, f, 256, 256).permute(0, 2, 3, 1)
+    k12_k7_err = (got.float() - k7cm.float()).abs().max().item()
+    k12_k7_bound = K1_TOL * max(1.0, k7cm.float().abs().max().item())
+    del k7cm
     k12_times = (cuda_ms(lambda: rdb_nhwc.fused_rdb(xr, ks, bs, packed=packed12), reps=10),
                  cuda_ms(lambda: rdb_nhwc.rdb_nhwc_reference(xr, ks, bs), reps=5, warmup=1,
                          calls=2))
-    k7_same_run = cuda_ms(lambda: fused_rdb_cm(xcm, ks, bs, **rkw, packed=packed12), reps=10)
+    k7_same_run = cuda_ms(lambda: fused_rdb_cm(xcm, ks, bs, **rkw, packed=packed7), reps=10)
     k12_bound = least_ms(hat_work()["K7"])
     log("k12", f"B={HYBRID_BATCH} 256x256 F={f} G={g} NHWC bf16 on {card}: rel L2 vs plain "
-               f"{k12_rel:.3e} (bound {K12_REL_L2}), max abs {k12_err:.3e}; bit for bit K7's: "
-               f"{same_as_k7}; K12 {k12_times[0]:.4f} ms (bound {k12_bound[0]:.4f} ms, "
+               f"{k12_rel:.3e} (bound {K12_REL_L2}), max abs {k12_err:.3e}; max|K12-K7|="
+               f"{k12_k7_err:.3e} (bound {k12_k7_bound:.3e}); K12 {k12_times[0]:.4f} ms (bound "
+               f"{k12_bound[0]:.4f} ms, "
                f"{k12_bound[1]}), plain {k12_times[1]:.4f} ms, K7 in this run {k7_same_run:.4f} ms")
-    if not (torch.isfinite(got).all() and k12_rel <= K12_REL_L2 and same_as_k7):
-        raise SystemExit(f"K12 disagrees: rel L2 {k12_rel}, same as K7 {same_as_k7}")
-    del xr, xcm, ks, bs, got, want, packed12
+    if not (torch.isfinite(got).all() and k12_rel <= K12_REL_L2 and k12_k7_err <= k12_k7_bound):
+        raise SystemExit(f"K12 disagrees: rel L2 {k12_rel}, against K7 {k12_k7_err}")
+    del xr, xcm, ks, bs, got, want, packed12, packed7
     torch.cuda.empty_cache()
 
     # 28. the attention modules with attn_impl="pallas" (K11's main path:

@@ -40,17 +40,21 @@
 //   - C = 180 is padded to 192 and head_dim 30 to 32 with zeros (6% and 7%
 //     wasted tensor-core work).
 //
-// K2, the training forward, is the same kernel compiled with STORE_H: it also
-// stores h = x + proj(attn), rounded to bf16, for the backward (K3 and K4 in
-// swin_block_train.cu). It replaces superresolution_def_tpu/kernels/
-// swin_block.py::fused_swin_block_fwd_h (body _make_kernel_fwd_h). The one
-// store changes no arithmetic, so K2's `out` is bit-identical to K1's. The
-// TPU kernel feeds LN2 the fp32 h and stores h in bf16; here LN2 reads the
-// bf16 h, as K1 does, so the stored h is exactly what LN2 saw and K3's
-// recomputation of LN2 from it matches the forward. Its bound is K1's plus
-// one more (Bw, 64, C) bf16 store: compute-bound at the flagship widths.
+// K2, the training forward, replaces superresolution_def_tpu/kernels/
+// swin_block.py::fused_swin_block_fwd_h (body _make_kernel_fwd_h): K1's
+// function that also stores h = x + proj(attn), rounded to bf16, for the
+// backward (K3 and K4 in swin_block_train.cu). It is its own kernel on
+// Hopper's wgmma and TMA (swin_fwd_wg.cuh says how): persistent blocks of
+// two windows sharing one mbarrier ring of weight tiles that K3's and K4's
+// packings lay out. Its `out` equals K1's up to the summation order of the
+// products. The TPU kernel feeds LN2 the fp32 h and stores h in bf16; here
+// LN2 reads the bf16 h, as K1 does, so the stored h is exactly what LN2
+// saw and K3's recomputation of LN2 from it matches the forward. Its bound
+// is K1's plus one more (Bw, 64, C) bf16 store: compute-bound at the
+// flagship widths.
 
 #include "swin_block_kernel.cuh"
+#include "swin_fwd_wg.cuh"
 
 namespace {
 
@@ -105,18 +109,51 @@ extern "C" int swin_block_bf16(const void* x, const void* ln1_w, const void* ln1
 }
 
 // K2: as swin_block_bf16, and also h = x + proj(attn) in bf16 to h_out
-// (same shape as out).
+// (same shape as out). wpack is scratch of swin_block_fwd_h_pack_elems
+// bf16, 16-byte aligned: the weights packed for the kernel on every call.
 extern "C" int swin_block_fwd_h_bf16(const void* x, const void* ln1_w, const void* ln1_b,
                                      const void* wqkv, const void* bqkv, const void* bias,
                                      const void* wproj, const void* bproj, const void* ln2_w,
                                      const void* ln2_b, const void* w1, const void* b1,
                                      const void* w2, const void* b2, void* out, void* h_out,
-                                     int bw, int c, int heads, int hidden, float scale,
-                                     void* stream) {
-  return run_block<true, false>(block_params(x, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj,
-                                             ln2_w, ln2_b, w1, b1, w2, b2, out, h_out, c, heads,
-                                             hidden, scale),
-                                bw, stream);
+                                     void* wpack, int bw, int c, int heads, int hidden,
+                                     float scale, void* stream) {
+  FwdWgParams p = {};
+  p.x = static_cast<const bf16*>(x);
+  p.ln1_w = static_cast<const float*>(ln1_w);
+  p.ln1_b = static_cast<const float*>(ln1_b);
+  p.bqkv = static_cast<const float*>(bqkv);
+  p.bias = static_cast<const float*>(bias);
+  p.bproj = static_cast<const float*>(bproj);
+  p.ln2_w = static_cast<const float*>(ln2_w);
+  p.ln2_b = static_cast<const float*>(ln2_b);
+  p.b1 = static_cast<const float*>(b1);
+  p.b2 = static_cast<const float*>(b2);
+  p.out = static_cast<bf16*>(out);
+  p.h_out = static_cast<bf16*>(h_out);
+  p.c = c;
+  p.heads = heads;
+  p.hidden = hidden;
+  p.bw = bw;
+  p.scale = scale;
+  return run_fwd_wg<true>(p, static_cast<bf16*>(wpack), static_cast<const bf16*>(wqkv),
+                          static_cast<const bf16*>(wproj), static_cast<const bf16*>(w1),
+                          static_cast<const bf16*>(w2), stream);
+}
+
+// K2's packed weights (bf16 elements) and its dynamic shared memory with
+// its windows a block, for the wrapper's scratch and shape check.
+extern "C" size_t swin_block_fwd_h_pack_elems(int c, int heads, int hidden) {
+  size_t attn = 0;
+  return fwd_pack_elems(c, heads, hidden, &attn);
+}
+
+extern "C" size_t swin_block_fwd_h_smem_bytes(int c, int heads, int hidden) {
+  return fwd_wg_layout(c, heads, hidden, fwd_windows(c, heads, hidden)).total;
+}
+
+extern "C" int swin_block_fwd_h_windows(int c, int heads, int hidden) {
+  return fwd_windows(c, heads, hidden);
 }
 
 // Dynamic shared memory one block needs, for the wrapper's shape check.

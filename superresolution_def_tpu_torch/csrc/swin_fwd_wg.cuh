@@ -1,0 +1,641 @@
+// K2, the Swin block's training forward, on wgmma (swin_block.cu's entry
+// point swin_block_fwd_h_bf16 launches it). It computes what K1 computes at
+// K1's rounding points and also stores h = x + proj(attn) rounded to bf16:
+//
+//   LN1 (fp32 stats) -> QKV (+bqkv, rounded to bf16; q then * scale, rounded)
+//   -> per head: softmax(q . k^T + bias[h]) . v   (softmax in fp32, P bf16)
+//   -> proj (+bproj) -> h = x + proj               (residual in fp32)
+//   -> LN2 of bf16(h) -> fc1 -> tanh GELU -> fc2 -> out = h + mlp + b2
+//
+// The stored h is the bf16(h) that LN2 reads, so K3's recompute of LN2 from
+// it matches the forward.
+//
+// Design (the shape of K3's and K4's window kernels, swin_block_train.cu):
+// persistent blocks of two consumer warpgroups and one producer warp-
+// group, each consumer warpgroup one 8x8 window (M = 64 tokens) at a time.
+// One ring of four weight tiles serves the block's windows: the producer
+// thread streams, per window pass, per head the head's wq, wk, wv and wproj
+// tiles (attn_pack_kernel's, ck x hp bf16), then per 64-wide hidden chunk
+// w1 and w2 (mlp_pack_kernel's, ck x 64), each by one TMA bulk copy into
+// the next slot, under mbarriers; a slot is refilled once every consumer
+// warp has released it. Every product runs on wgmma: qkv (A = LN1's output
+// in shared memory, one m64 x hp product per tile), the scores (A = q, B =
+// k, both in shared memory, the bias as the accumulator's starting value),
+// P . v (P from registers, packed from the softmax's fp32 values), proj
+// (the attention output from registers, accumulated over the heads into
+// the fp32 residual), fc1 (A = LN2's output in shared memory) and fc2 (the
+// GELU output from registers). The residual h stays in the accumulator
+// registers from proj to out, as K1's does; its rows lie in one quad of one
+// warp, so LN2 reduces by shuffles alone. x arrives by 16-byte cp.async;
+// h_out and out leave through the window's x buffer as 16-byte runs.
+//
+// STORE_H = false would be K1 on the same design (no h store); only K2's
+// instantiation is compiled here.
+//
+// Padding: C is rounded up to whole 64-column chunks (ck) and each head to
+// hp = 16 or 32 columns; the packed tiles, q, k, v and the LN outputs hold
+// zeros there, so the padded columns add nothing.
+
+#pragma once
+
+#include "hopper.cuh"
+#include "swin_common.cuh"
+#include "swin_pack.cuh"
+
+namespace {
+
+using namespace swin;
+
+struct FwdWgParams {
+  const bf16* x;       // (Bw, 64, c)
+  const float* ln1_w;  // (c)
+  const float* ln1_b;
+  const float* bqkv;   // (3c)
+  const float* bias;   // (heads, 64, 64)
+  const float* bproj;  // (c)
+  const float* ln2_w;
+  const float* ln2_b;
+  const float* b1;     // (hidden)
+  const float* b2;     // (c)
+  const bf16* wattn;   // attn_pack_kernel's tiles: per head wproj^T, wq, wk, wv
+  const bf16* wmlp;    // mlp_pack_kernel's tiles: per hidden chunk w1, w2^T
+  bf16* out;           // (Bw, 64, c)
+  bf16* h_out;         // (Bw, 64, c), K2 only
+  int c, heads, hd, hidden, bw;
+  float scale;
+};
+
+constexpr int FWD_STAGES = 4;
+constexpr int FWD_THREADS = 3 * 128;  // two consumer warpgroups and a producer
+constexpr int FWD_MIN_REGS = 168;     // 384 x 168: the producer gives 128 x 128 to the consumers
+
+// vectors staged in shared memory per block, at these offsets in units of C
+// (b1 last)
+enum { F_LN1W, F_LN1B, F_BQKV, F_BPROJ = 5, F_LN2W, F_LN2B, F_B2, F_B1 };
+
+// Shared memory at nw windows a block (bytes): the ring (4 slots of the
+// larger tile, ck x 64 bf16), per window its LN output (64 x ck, K-major
+// interleaved: LN1's, then LN2's), its x (dense 64 x c; then the staging of
+// h_out and out) and one head's q, k, v (64 x hp each, K-major
+// interleaved), the vectors, the ring's mbarriers.
+struct FwdWgLayout {
+  int ck, hp;
+  size_t slot, ring, win, a, x, q, k, v, vec, bars, total;
+};
+
+__host__ __device__ inline FwdWgLayout fwd_wg_layout(int c, int heads, int hidden, int nw) {
+  FwdWgLayout L;
+  L.ck = (c + TILE - 1) / TILE * TILE;
+  L.hp = c / heads <= 16 ? 16 : 32;
+  L.slot = (size_t)L.ck * 128;
+  const size_t op = (size_t)N * L.hp * 2;
+  size_t o = 0;
+  L.a = o; o += (size_t)N * L.ck * 2;
+  L.x = o; o += align128((size_t)N * c * 2);
+  L.q = o; o += op;
+  L.k = o; o += op;
+  L.v = o; o += op;
+  L.win = align128(o);
+  o = 0;
+  L.ring = o; o += FWD_STAGES * L.slot;
+  o += (size_t)nw * L.win;
+  L.vec = o; o += align128(sizeof(float) * (F_B1 * (size_t)c + hidden));
+  L.bars = o; o += 2 * FWD_STAGES * sizeof(uint64_t);
+  L.total = o;
+  return L;
+}
+
+// d (m64 x hp) += A . B, B MN-major: one k16 step of qkv
+template <int HP>
+__device__ __forceinline__ void fwd_mma_mn(float (&d)[HP / 2], uint64_t da, uint64_t db) {
+  if constexpr (HP == 16) hopper::wgmma_n16<hopper::KMAJ, hopper::MNMAJ>(d, da, db, 1);
+  else hopper::wgmma_n32<hopper::KMAJ, hopper::MNMAJ>(d, da, db, 1);
+}
+
+// o (m64 x hp) += P . v, P from registers, v MN-major
+template <int HP>
+__device__ __forceinline__ void fwd_mma_pv(float (&d)[HP / 2], const uint32_t (&a)[4],
+                                           uint64_t db) {
+  if constexpr (HP == 16) hopper::wgmma_n16_rs<hopper::MNMAJ>(d, a, db, 1);
+  else hopper::wgmma_n32_rs<hopper::MNMAJ>(d, a, db, 1);
+}
+
+// The A fragment of k16 step ks from an m64 accumulator's registers: the
+// m16n8 layout of each 8-column block is the m16k16 A layout of two.
+template <int R>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[R], int ks) {
+  a[0] = pack_bf16(d[8 * ks + 0], d[8 * ks + 1]);
+  a[1] = pack_bf16(d[8 * ks + 2], d[8 * ks + 3]);
+  a[2] = pack_bf16(d[8 * ks + 4], d[8 * ks + 5]);
+  a[3] = pack_bf16(d[8 * ks + 6], d[8 * ks + 7]);
+}
+
+// 16-byte asynchronous global -> shared copy
+__device__ __forceinline__ void fwd_cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+template <int NCH, int HP, bool STORE_H>
+__global__ void __launch_bounds__(FWD_THREADS, 1) swin_fwd_wg_kernel(const FwdWgParams p, int nw) {
+  using namespace hopper;
+  extern __shared__ __align__(1024) unsigned char fsm[];
+  constexpr int CK = NCH * TILE, CGS = HP * 16, NB = HP / 8;
+  const int C = p.c, heads = p.heads, hd = p.hd, hidden = p.hidden;
+  const FwdWgLayout L = fwd_wg_layout(C, heads, hidden, nw);
+  const int nj = (hidden + TILE - 1) / TILE;
+  float* vec = reinterpret_cast<float*>(fsm + L.vec);
+  uint64_t* full = reinterpret_cast<uint64_t*>(fsm + L.bars);
+  uint64_t* empty = full + FWD_STAGES;
+  const int tid = threadIdx.x, wgi = tid >> 7;
+  {
+    const float* vsrc[] = {p.ln1_w, p.ln1_b, p.bqkv, p.bproj, p.ln2_w, p.ln2_b, p.b2};
+    const int voff[] = {F_LN1W, F_LN1B, F_BQKV, F_BPROJ, F_LN2W, F_LN2B, F_B2};
+    const int vlen[] = {C, C, 3 * C, C, C, C, C};
+#pragma unroll
+    for (int v = 0; v < 7; ++v)
+      for (int i = tid; i < vlen[v]; i += blockDim.x) vec[voff[v] * C + i] = __ldg(vsrc[v] + i);
+    for (int i = tid; i < hidden; i += blockDim.x) vec[F_B1 * C + i] = __ldg(p.b1 + i);
+  }
+  if (tid == 0) {
+    for (int s = 0; s < FWD_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * nw);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int npairs = (p.bw + nw - 1) / nw;
+  const int per_pass = 4 * heads + 2 * nj;
+
+  if (wgi == nw) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == nw * 128) {
+      const unsigned char* wa = reinterpret_cast<const unsigned char*>(p.wattn);
+      const unsigned char* wm = reinterpret_cast<const unsigned char*>(p.wmlp);
+      const uint32_t ta = (uint32_t)CK * HP * 2, tm = (uint32_t)CK * 128;
+      uint32_t i = 0;
+      for (int pr = blockIdx.x; pr < npairs; pr += gridDim.x)
+        for (int t = 0; t < per_pass; ++t, ++i) {
+          // per head: wq, wk, wv (packed 4h + 1 .. 3), then wproj (4h)
+          const int u = t & 3;
+          const unsigned char* src =
+              t < 4 * heads ? wa + (size_t)(4 * (t >> 2) + (u < 3 ? u + 1 : 0)) * ta
+                            : wm + (size_t)(t - 4 * heads) * tm;
+          const uint32_t bytes = t < 4 * heads ? ta : tm;
+          const uint32_t st = i % FWD_STAGES, use = i / FWD_STAGES;
+          if (use > 0) mbar_wait(&empty[st], (use - 1) & 1);
+          mbar_arrive_expect_tx(&full[st], bytes);
+          bulk_load(fsm + L.ring + st * L.slot, src, bytes, &full[st]);
+        }
+    }
+    return;
+  }
+
+  // consumer warpgroup wgi
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wt = tid & 127, wi = wt >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int r0 = 16 * wi;  // the warp's 16 rows of the window
+  unsigned char* wb = fsm + L.ring + FWD_STAGES * L.slot + (size_t)wgi * L.win;
+  unsigned char *a_s = wb + L.a, *x_s = wb + L.x, *q_s = wb + L.q, *k_s = wb + L.k,
+                *v_s = wb + L.v;
+  bf16* xd = reinterpret_cast<bf16*>(x_s);
+  const float qscale = round_bf16(p.scale);
+  auto wg_sync = [&] { asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wgi) : "memory"); };
+  auto proxy_fence = [] { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); };
+  uint32_t tc = 0;  // ring tiles consumed so far
+  auto tile = [&](int j) { return fsm + L.ring + ((tc + j) % FWD_STAGES) * L.slot; };
+  auto wait_tiles = [&](int n) {
+    for (int j = 0; j < n; ++j)
+      mbar_wait(&full[(tc + j) % FWD_STAGES], ((tc + j) / FWD_STAGES) & 1);
+  };
+  auto release_tiles = [&](int n) {
+    if (lane == 0)
+      for (int j = 0; j < n; ++j) mbar_arrive(&empty[(tc + j) % FWD_STAGES]);
+    tc += n;
+  };
+  // the dense (64, C) window in x_s to global memory in 16-byte runs
+  auto store_window = [&](bf16* dst) {
+    const uint4* s4 = reinterpret_cast<const uint4*>(x_s);
+    uint4* d4 = reinterpret_cast<uint4*>(dst);
+    for (int i = wt; i < N * C / 8; i += 128) d4[i] = s4[i];
+  };
+
+  for (int pr = blockIdx.x; pr < npairs; pr += gridDim.x) {
+    const int win = pr * nw + wgi;
+    const bool live = win < p.bw;
+    const size_t row0 = (size_t)win * N;
+
+    // ---- x by 16-byte asynchronous copies; LN1 (two-pass fp32 statistics,
+    // warp wi: rows 16 wi .., four at a time) into a_s, zero past C
+    if (live) {
+      const bf16* xg = p.x + row0 * C;
+      for (int i = wt; i < N * C / 8; i += 128) fwd_cp_async16(x_s + 16 * i, xg + 8 * i);
+      cp_async_commit();
+      cp_async_wait<0>();
+      wg_sync();
+      constexpr int RW = 4, NV = MAX_C / 32;
+#pragma unroll 1
+      for (int rr = r0; rr < r0 + 16; rr += RW) {
+        float v[RW][NV], mu[RW], rstd[RW];
+#pragma unroll
+        for (int q = 0; q < RW; ++q) {
+          float sum = 0.f;
+#pragma unroll
+          for (int i = 0; i < NV; ++i) {
+            const int c = lane + 32 * i;
+            v[q][i] = c < C ? __bfloat162float(xd[(rr + q) * C + c]) : 0.f;
+            sum += v[q][i];
+          }
+          mu[q] = warp_sum(sum) / C;
+        }
+#pragma unroll
+        for (int q = 0; q < RW; ++q) {
+          float sq = 0.f;
+#pragma unroll
+          for (int i = 0; i < NV; ++i) {
+            const int c = lane + 32 * i;
+            const float d = c < C ? v[q][i] - mu[q] : 0.f;
+            sq += d * d;
+          }
+          rstd[q] = rsqrtf(warp_sum(sq) / C + 1e-5f);
+        }
+#pragma unroll
+        for (int q = 0; q < RW; ++q)
+#pragma unroll
+          for (int i = 0; i < NV; ++i) {
+            const int c = lane + 32 * i;
+            if (c < CK)
+              *reinterpret_cast<bf16*>(a_s + kmaj(rr + q, c, CK)) = __float2bfloat16(
+                  c < C ? (v[q][i] - mu[q]) * rstd[q] * vec[F_LN1W * C + c] + vec[F_LN1B * C + c]
+                        : 0.f);
+          }
+      }
+      proxy_fence();  // LN1's output, written here, is read by wgmma
+      wg_sync();
+    }
+
+    // ---- per head: q, k, v; the attention; proj into the residual h
+    float h[NCH][32];
+#pragma unroll
+    for (int k = 0; k < NCH; ++k)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) h[k][i] = 0.f;
+    for (int hh = 0; hh < heads; ++hh) {
+      wait_tiles(3);
+      float aq[HP / 2], ak[HP / 2], av[HP / 2];
+      if (live) {
+#pragma unroll
+        for (int i = 0; i < HP / 2; ++i) aq[i] = ak[i] = av[i] = 0.f;
+        fence_regs(aq);
+        fence_regs(ak);
+        fence_regs(av);
+        const unsigned char *tq = tile(0), *tk = tile(1), *tv = tile(2);
+        wg_fence();
+#pragma unroll
+        for (int ks = 0; ks < CK / 16; ++ks) {
+          const uint64_t da = desc(a_s + ks * 256, 128, CK * 16);
+          fwd_mma_mn<HP>(aq, da, desc(tq + ks * 2 * CGS, CGS, 128));
+          fwd_mma_mn<HP>(ak, da, desc(tk + ks * 2 * CGS, CGS, 128));
+          fwd_mma_mn<HP>(av, da, desc(tv + ks * 2 * CGS, CGS, 128));
+        }
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(aq);
+        fence_regs(ak);
+        fence_regs(av);
+      }
+      release_tiles(3);
+      uint32_t af[HP / 16][4];  // the head's attention output as proj's A
+      if (live) {
+        // q = bf16(bf16(acc + b) * scale), k, v = bf16(acc + b); zero past hd
+        const float* bq = vec + F_BQKV * C + hh * hd;
+#pragma unroll
+        for (int jb = 0; jb < NB; ++jb)
+#pragma unroll
+          for (int s2 = 0; s2 < 2; ++s2) {
+            const int r = r0 + g + 8 * s2, d = 8 * jb + 2 * t4, e = 4 * jb + 2 * s2;
+            const bool real = d < hd;  // d and hd even: both columns or neither
+            const int off = kmaj(r, d, HP);
+            *reinterpret_cast<uint32_t*>(q_s + off) =
+                real ? pack_bf16(round_bf16(aq[e] + bq[d]) * qscale,
+                                 round_bf16(aq[e + 1] + bq[d + 1]) * qscale)
+                     : 0u;
+            *reinterpret_cast<uint32_t*>(k_s + off) =
+                real ? pack_bf16(ak[e] + bq[C + d], ak[e + 1] + bq[C + d + 1]) : 0u;
+            *reinterpret_cast<uint32_t*>(v_s + off) =
+                real ? pack_bf16(av[e] + bq[2 * C + d], av[e + 1] + bq[2 * C + d + 1]) : 0u;
+          }
+        proxy_fence();
+        wg_sync();  // q, k, v of every row in place
+
+        // scores: the bias as the accumulator's start, + q . k^T
+        const float* bh = p.bias + (size_t)hh * N * N;
+        float s[32];
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const float2 b0 = __ldg(reinterpret_cast<const float2*>(bh + (r0 + g) * N + t * 8 + t4 * 2));
+          const float2 b1 =
+              __ldg(reinterpret_cast<const float2*>(bh + (r0 + g + 8) * N + t * 8 + t4 * 2));
+          s[4 * t] = b0.x;
+          s[4 * t + 1] = b0.y;
+          s[4 * t + 2] = b1.x;
+          s[4 * t + 3] = b1.y;
+        }
+        fence_regs(s);
+        wg_fence();
+#pragma unroll
+        for (int ks = 0; ks < HP / 16; ++ks)
+          wgmma_n64<KMAJ, KMAJ>(s, desc(q_s + ks * 256, 128, CGS), desc(k_s + ks * 256, 128, CGS),
+                                1);
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(s);
+        // softmax over the 64 keys of each row (rows g and g + 8 of the warp;
+        // a row's values lie in the 4 lanes of its quad), fp32
+        float m0 = s[0], m1 = s[2];
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          m0 = fmaxf(m0, fmaxf(s[4 * t], s[4 * t + 1]));
+          m1 = fmaxf(m1, fmaxf(s[4 * t + 2], s[4 * t + 3]));
+        }
+#pragma unroll
+        for (int o = 1; o <= 2; o <<= 1) {
+          m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+          m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+        }
+        float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          s[4 * t] = expf(s[4 * t] - m0);
+          s[4 * t + 1] = expf(s[4 * t + 1] - m0);
+          s[4 * t + 2] = expf(s[4 * t + 2] - m1);
+          s[4 * t + 3] = expf(s[4 * t + 3] - m1);
+          l0 += s[4 * t] + s[4 * t + 1];
+          l1 += s[4 * t + 2] + s[4 * t + 3];
+        }
+#pragma unroll
+        for (int o = 1; o <= 2; o <<= 1) {
+          l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+          l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+        }
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int kb = 0; kb < 4; ++kb) {
+          pa[kb][0] = pack_bf16(s[8 * kb] / l0, s[8 * kb + 1] / l0);
+          pa[kb][1] = pack_bf16(s[8 * kb + 2] / l1, s[8 * kb + 3] / l1);
+          pa[kb][2] = pack_bf16(s[8 * kb + 4] / l0, s[8 * kb + 5] / l0);
+          pa[kb][3] = pack_bf16(s[8 * kb + 6] / l1, s[8 * kb + 7] / l1);
+        }
+        float o[HP / 2];
+#pragma unroll
+        for (int i = 0; i < HP / 2; ++i) o[i] = 0.f;
+        fence_regs(o);
+        wg_fence();
+#pragma unroll
+        for (int kb = 0; kb < 4; ++kb) fwd_mma_pv<HP>(o, pa[kb], desc(v_s + kb * 2 * CGS, CGS, 128));
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(o);
+#pragma unroll
+        for (int ks = 0; ks < HP / 16; ++ks) acc_to_a(af[ks], o, ks);
+      }
+      wait_tiles(1);
+      if (live) {
+        const unsigned char* tp = tile(0);
+#pragma unroll
+        for (int k = 0; k < NCH; ++k) fence_regs(h[k]);
+        wg_fence();
+#pragma unroll
+        for (int k = 0; k < NCH; ++k)
+#pragma unroll
+          for (int ks = 0; ks < HP / 16; ++ks)
+            wgmma_n64_rs<KMAJ>(h[k], af[ks], desc(tp + k * 8 * CGS + ks * 256, 128, CGS), 1);
+        wg_commit();
+        wg_wait<0>();
+#pragma unroll
+        for (int k = 0; k < NCH; ++k) fence_regs(h[k]);
+      }
+      release_tiles(1);
+      if (live) wg_sync();  // q, k, v are read before the next head writes them
+    }
+
+    // ---- the residual h = x + (proj + bproj) in fp32; bf16(h) over x in
+    // x_s and out as h_out; LN2 of bf16(h) into a_s
+    if (live) {
+#pragma unroll
+      for (int k = 0; k < NCH; ++k)
+#pragma unroll
+        for (int j8 = 0; j8 < 8; ++j8)
+#pragma unroll
+          for (int s2 = 0; s2 < 2; ++s2) {
+            const int r = r0 + g + 8 * s2, col = k * TILE + 8 * j8 + 2 * t4;
+            if (col < C) {  // col and C even: both columns are real
+              __nv_bfloat162* px = reinterpret_cast<__nv_bfloat162*>(xd + r * C + col);
+              const float2 x2 = __bfloat1622float2(*px);
+              float& v0 = h[k][4 * j8 + 2 * s2];
+              float& v1 = h[k][4 * j8 + 2 * s2 + 1];
+              v0 = x2.x + (v0 + vec[F_BPROJ * C + col]);
+              v1 = x2.y + (v1 + vec[F_BPROJ * C + col + 1]);
+              if constexpr (STORE_H) *px = __floats2bfloat162_rn(v0, v1);
+            }
+          }
+      if constexpr (STORE_H) {
+        wg_sync();
+        store_window(p.h_out + row0 * C);
+      }
+      // a row's columns lie in the 4 lanes of one quad: two-pass statistics
+      // of bf16(h) over the C real columns by quad shuffles
+      float mu[2], rstd[2];
+#pragma unroll
+      for (int pass = 0; pass < 2; ++pass) {
+        float acc2[2] = {0.f, 0.f};
+#pragma unroll
+        for (int k = 0; k < NCH; ++k)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int col = k * TILE + 8 * (i >> 2) + 2 * t4 + (i & 1);
+            if (col < C) {
+              const float v = round_bf16(h[k][i]);
+              const int s2 = (i >> 1) & 1;
+              acc2[s2] += pass == 0 ? v : (v - mu[s2]) * (v - mu[s2]);
+            }
+          }
+#pragma unroll
+        for (int s2 = 0; s2 < 2; ++s2) {
+          acc2[s2] += __shfl_xor_sync(0xffffffffu, acc2[s2], 1);
+          acc2[s2] += __shfl_xor_sync(0xffffffffu, acc2[s2], 2);
+          if (pass == 0) mu[s2] = acc2[s2] / C;
+          else rstd[s2] = rsqrtf(acc2[s2] / C + 1e-5f);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < NCH; ++k)
+#pragma unroll
+        for (int j8 = 0; j8 < 8; ++j8)
+#pragma unroll
+          for (int s2 = 0; s2 < 2; ++s2) {
+            const int r = r0 + g + 8 * s2, col = k * TILE + 8 * j8 + 2 * t4;
+            float y[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float v = (round_bf16(h[k][4 * j8 + 2 * s2 + e]) - mu[s2]) * rstd[s2];
+              y[e] = col + e < C ? v * vec[F_LN2W * C + col + e] + vec[F_LN2B * C + col + e] : 0.f;
+            }
+            *reinterpret_cast<uint32_t*>(a_s + kmaj(r, col, CK)) = pack_bf16(y[0], y[1]);
+          }
+      proxy_fence();
+      wg_sync();  // LN2's output in place; h_out's reads of x_s done
+    }
+
+    // ---- the MLP, 64 hidden columns at a time: u = LN2 . w1 (+ b1), GELU,
+    // rounded, h += g . w2 with g from registers
+    const float* b1s = vec + F_B1 * C;
+    for (int j = 0; j < nj; ++j) {
+      wait_tiles(2);
+      if (live) {
+        const unsigned char *w1t = tile(0), *w2t = tile(1);
+        float u[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) u[i] = 0.f;
+        fence_regs(u);
+        wg_fence();
+#pragma unroll
+        for (int ks = 0; ks < CK / 16; ++ks)
+          wgmma_n64<KMAJ, MNMAJ>(u, desc(a_s + ks * 256, 128, CK * 16),
+                                 desc(w1t + ks * 2048, 1024, 128), 1);
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(u);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int hcol = j * TILE + 8 * (i >> 2) + 2 * t4 + (i & 1);
+          u[i] = hcol < hidden ? gelu_tanh(u[i] + b1s[hcol]) : 0.f;
+        }
+        uint32_t ga[4][4];
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) acc_to_a(ga[ks], u, ks);
+#pragma unroll
+        for (int k = 0; k < NCH; ++k) fence_regs(h[k]);
+        wg_fence();
+#pragma unroll
+        for (int k = 0; k < NCH; ++k)
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            wgmma_n64_rs<KMAJ>(h[k], ga[ks], desc(w2t + k * 8 * 1024 + ks * 256, 128, 1024), 1);
+        wg_commit();
+        wg_wait<0>();
+#pragma unroll
+        for (int k = 0; k < NCH; ++k) fence_regs(h[k]);
+      }
+      release_tiles(2);
+    }
+
+    // ---- out = h + mlp + b2, rounded, through x_s in 16-byte runs
+    if (live) {
+#pragma unroll
+      for (int k = 0; k < NCH; ++k)
+#pragma unroll
+        for (int j8 = 0; j8 < 8; ++j8)
+#pragma unroll
+          for (int s2 = 0; s2 < 2; ++s2) {
+            const int r = r0 + g + 8 * s2, col = k * TILE + 8 * j8 + 2 * t4;
+            if (col < C)
+              *reinterpret_cast<__nv_bfloat162*>(xd + r * C + col) = __floats2bfloat162_rn(
+                  h[k][4 * j8 + 2 * s2] + vec[F_B2 * C + col],
+                  h[k][4 * j8 + 2 * s2 + 1] + vec[F_B2 * C + col + 1]);
+          }
+      wg_sync();
+      store_window(p.out + row0 * C);
+      wg_sync();  // x_s is read before the next window's x lands there
+    }
+  }
+}
+
+inline bool fwd_aligned(const void* ptr, uintptr_t bytes) {
+  return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
+}
+
+// windows a block: two where they fit in 227 KB
+inline int fwd_windows(int c, int heads, int hidden) {
+  return fwd_wg_layout(c, heads, hidden, 2).total <= 232448 ? 2 : 1;
+}
+
+inline size_t fwd_pack_elems(int c, int heads, int hidden, size_t* attn) {
+  const FwdWgLayout L = fwd_wg_layout(c, heads, hidden, 1);
+  *attn = (size_t)L.ck * L.hp * 4 * heads;
+  return *attn + (size_t)L.ck * 64 * 2 * ((hidden + TILE - 1) / TILE);
+}
+
+template <int NCH, int HP, bool STORE_H>
+cudaError_t launch_fwd_wg(const FwdWgParams& p, bf16* wpack, const bf16* wqkv,
+                          const bf16* wproj, const bf16* w1, const bf16* w2, cudaStream_t s) {
+  const int nw = fwd_windows(p.c, p.heads, p.hidden);
+  const FwdWgLayout L = fwd_wg_layout(p.c, p.heads, p.hidden, nw);
+  if (L.total > 232448) return cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, swin_fwd_wg_kernel<NCH, HP, STORE_H>);
+  if (err != cudaSuccess) return err;
+  // setmaxnreg moves registers between the warpgroups of a block: the
+  // consumers' 232 need the 168 the compiler gives each thread at launch
+  if (attr.numRegs < FWD_MIN_REGS) return cudaErrorInvalidConfiguration;
+  err = cudaFuncSetAttribute(swin_fwd_wg_kernel<NCH, HP, STORE_H>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  if (err != cudaSuccess) return err;
+  size_t na = 0;
+  const size_t total = fwd_pack_elems(p.c, p.heads, p.hidden, &na);
+  attn_pack_kernel<<<(int)(na / 256 < 1024 ? na / 256 + 1 : 1024), 256, 0, s>>>(
+      wqkv, wproj, p.c, p.heads, L.ck, L.hp, wpack);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t nm = total - na;
+  mlp_pack_kernel<<<(int)(nm / 256 < 1024 ? nm / 256 + 1 : 1024), 256, 0, s>>>(
+      w1, w2, p.c, p.hidden, L.ck, wpack + na);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  FwdWgParams q = p;
+  q.wattn = wpack;
+  q.wmlp = wpack + na;
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int npairs = (p.bw + nw - 1) / nw;
+  swin_fwd_wg_kernel<NCH, HP, STORE_H>
+      <<<npairs < sms ? npairs : sms, (nw + 1) * 128, L.total, s>>>(q, nw);
+  return cudaGetLastError();
+}
+
+// Checks the widths and alignments, packs the weights into wpack
+// (fwd_pack_elems bf16) and launches the persistent kernel.
+template <bool STORE_H>
+int run_fwd_wg(FwdWgParams p, bf16* wpack, const bf16* wqkv, const bf16* wproj, const bf16* w1,
+               const bf16* w2, void* stream) {
+  const int c = p.c, heads = p.heads, hidden = p.hidden;
+  const int hd = heads > 0 ? c / heads : 0;
+  if (p.bw <= 0 || c <= 0 || c > MAX_C || c % 4 != 0 || heads <= 0 || c % heads != 0 ||
+      hd > DP || hd % 2 != 0 || hidden <= 0 || hidden % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (!fwd_aligned(p.x, 16) || !fwd_aligned(p.out, 16) || (STORE_H && !fwd_aligned(p.h_out, 16)) ||
+      !fwd_aligned(p.bias, 8) || !fwd_aligned(wpack, 16) || !fwd_aligned(wqkv, 2) ||
+      !fwd_aligned(wproj, 2) || !fwd_aligned(w1, 2) || !fwd_aligned(w2, 2))
+    return (int)cudaErrorMisalignedAddress;
+  p.hd = hd;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nch = (c + TILE - 1) / TILE;
+  if (hd <= 16) {
+    switch (nch) {
+      case 1: return (int)launch_fwd_wg<1, 16, STORE_H>(p, wpack, wqkv, wproj, w1, w2, s);
+      case 2: return (int)launch_fwd_wg<2, 16, STORE_H>(p, wpack, wqkv, wproj, w1, w2, s);
+      case 3: return (int)launch_fwd_wg<3, 16, STORE_H>(p, wpack, wqkv, wproj, w1, w2, s);
+      default: return (int)launch_fwd_wg<4, 16, STORE_H>(p, wpack, wqkv, wproj, w1, w2, s);
+    }
+  }
+  switch (nch) {
+    case 1: return (int)launch_fwd_wg<1, 32, STORE_H>(p, wpack, wqkv, wproj, w1, w2, s);
+    case 2: return (int)launch_fwd_wg<2, 32, STORE_H>(p, wpack, wqkv, wproj, w1, w2, s);
+    case 3: return (int)launch_fwd_wg<3, 32, STORE_H>(p, wpack, wqkv, wproj, w1, w2, s);
+    default: return (int)launch_fwd_wg<4, 32, STORE_H>(p, wpack, wqkv, wproj, w1, w2, s);
+  }
+}
+
+}  // namespace

@@ -9,9 +9,12 @@ tensor :func:`fused_rdb` launches ``csrc/fused_rdb.cu`` (bf16; F/G = 48/24,
 :func:`rdb_nhwc_reference`. The JAX function's ``tile_h``, ``tile_w`` and
 ``tap_matmul`` switch among TPU formulations of the same function (VMEM
 tile sizes, im2col or per-tap products); the Hopper kernel picks its own
-tile (16 x 16 at 48/24) and takes no such switch. The weights go in K7's
-B-fragment order (:func:`~.fused_rdb_cm.pack_rdb_weights`): the two kernels
-share their convs.
+tile (16 x 16 at 48/24) and takes no such switch. The weights go in the
+B-fragment order of :func:`~.fused_rdb_cm.pack_rdb_weights`, K12's own
+packing: K12 fuses the five convs in one tile, while K7
+(``csrc/rdb_cm.cu``) runs each conv as a wgmma implicit GEMM with its own
+packing, so the two compute the same function at the same rounding points
+and differ by summation order.
 """
 
 from __future__ import annotations

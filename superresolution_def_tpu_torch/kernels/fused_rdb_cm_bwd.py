@@ -28,7 +28,8 @@ import torch.nn.functional as F
 from torch.utils.weak import WeakIdKeyDictionary
 
 from ._build import load_library
-from .fused_rdb_cm import KERNEL_WIDTHS, dense_block_sources, fused_rdb_cm, pack_rdb_weights
+from .fused_rdb_cm import (KERNEL_WIDTHS, dense_block_sources, fused_rdb_cm,
+                           pack_rdb_cm_weights)
 from .swin_block import _check, _on_cuda, _rounder, _stream
 
 
@@ -228,7 +229,7 @@ def dense_block_packs(weights, biases) -> tuple:
     with torch.no_grad():
         kernels = [wt.detach().permute(2, 3, 1, 0) for wt in weights]
         device = kernels[0].device
-        packs = (pack_rdb_weights(kernels, [b.detach() for b in biases], device),
+        packs = (pack_rdb_cm_weights(kernels, [b.detach() for b in biases], device),
                  pack_rdb_bwd_weights(kernels, device))
     _PACKS[weights[0]] = (versions, packs)
     return packs

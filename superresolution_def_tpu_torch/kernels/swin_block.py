@@ -3,8 +3,9 @@
 Port of ``superresolution_def_tpu/kernels/swin_block.py``:
 
 - K1 :func:`fused_swin_block` (``fused_swin_block``), the inference block;
-- K2 :func:`swin_block_fwd_h` (``fused_swin_block_fwd_h``), the same block that
-  also returns h = x + proj(attn) for the backward;
+- K2 :func:`swin_block_fwd_h` (``fused_swin_block_fwd_h``), the same block's
+  function that also returns h = x + proj(attn) for the backward, as its own
+  wgmma kernel (``csrc/swin_fwd_wg.cuh``);
 - K3 :func:`swin_block_bwd_mlp` (``_bwd_mlp``), the LN2 + MLP backward from h;
 - K4 :func:`swin_block_bwd_attn` (``_bwd_attn``), the attention + LN1 backward;
 - K4b :func:`swin_block_bwd` (``fused_swin_block_bwd``), the whole block's
@@ -279,13 +280,18 @@ def swin_block_bwd_reference(x, dout, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bpr
 @functools.cache
 def _kernel_library() -> ctypes.CDLL:
     lib = load_library("swin_block")
-    for fn, nout in ((lib.swin_block_bf16, 1), (lib.swin_block_fwd_h_bf16, 2)):
-        fn.argtypes = [ctypes.c_void_p] * (14 + nout) + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_void_p,
-        ]
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.swin_block_bf16.argtypes = [vp] * 15 + [i32] * 4 + [ctypes.c_float, vp]
+    lib.swin_block_fwd_h_bf16.argtypes = [vp] * 17 + [i32] * 4 + [ctypes.c_float, vp]
+    for fn in (lib.swin_block_bf16, lib.swin_block_fwd_h_bf16, lib.swin_block_fwd_h_windows):
         fn.restype = ctypes.c_int
-    lib.swin_block_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.swin_block_smem_bytes.argtypes = [i32] * 3
     lib.swin_block_smem_bytes.restype = ctypes.c_size_t
+    for fn in (lib.swin_block_fwd_h_pack_elems, lib.swin_block_fwd_h_smem_bytes,
+               lib.swin_block_fwd_h_windows):
+        fn.argtypes = [i32] * 3
+    lib.swin_block_fwd_h_pack_elems.restype = ctypes.c_size_t
+    lib.swin_block_fwd_h_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -409,20 +415,26 @@ def _checked_block_operands(name, x, vectors, weights, bias, num_heads, smem_byt
 def _launch_forward(x, vectors, weights, bias, num_heads, scale, store_h):
     name = "swin_block_fwd_h" if store_h else "fused_swin_block"
     lib = _kernel_library()
+    smem = lib.swin_block_fwd_h_smem_bytes if store_h else lib.swin_block_smem_bytes
     x, w, f32, bias = _checked_block_operands(
         name, x, vectors, weights, bias, num_heads,
-        lambda c, hidden: lib.swin_block_smem_bytes(c, num_heads, hidden))
+        lambda c, hidden: smem(c, num_heads, hidden))
     bw, _, c = x.shape
+    hidden = w["w1"].shape[1]
     out = torch.empty_like(x)
-    h = torch.empty_like(x) if store_h else None
+    extra = []
+    if store_h:  # h, and the scratch K2 packs its weights into
+        h = torch.empty_like(x)
+        wpack = torch.empty(lib.swin_block_fwd_h_pack_elems(c, num_heads, hidden),
+                            dtype=torch.bfloat16, device=x.device)
+        extra = [h.data_ptr(), wpack.data_ptr()]
     args = [
         x.data_ptr(), f32["ln1_w"].data_ptr(), f32["ln1_b"].data_ptr(),
         w["wqkv"].data_ptr(), f32["bqkv"].data_ptr(), bias.data_ptr(),
         w["wproj"].data_ptr(), f32["bproj"].data_ptr(),
         f32["ln2_w"].data_ptr(), f32["ln2_b"].data_ptr(),
         w["w1"].data_ptr(), f32["b1"].data_ptr(), w["w2"].data_ptr(), f32["b2"].data_ptr(),
-        out.data_ptr(), *([h.data_ptr()] if store_h else []),
-        bw, c, num_heads, w["w1"].shape[1], float(scale),
+        out.data_ptr(), *extra, bw, c, num_heads, hidden, float(scale),
     ]
     with torch.cuda.device(x.device):
         fn = lib.swin_block_fwd_h_bf16 if store_h else lib.swin_block_bf16
@@ -473,10 +485,13 @@ def swin_block_fwd_h(
     x_windows, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj, ln2_w, ln2_b, w1, b1, w2, b2,
     *, num_heads: int, scale: float,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K2: ``(out, h)``; ``out`` is K1's, h = x + proj(attn) in the io dtype.
+    """K2: ``(out, h)``; ``out`` is K1's function, h = x + proj(attn) in the
+    io dtype.
 
     CUDA tensors launch the kernel (counted in ``swin_block_fwd_h.launches``)
-    or raise; CPU tensors take :func:`swin_block_fwd_h_reference`.
+    or raise; CPU tensors take :func:`swin_block_fwd_h_reference`. The
+    kernel (``csrc/swin_fwd_wg.cuh``) is a wgmma design of its own: its
+    ``out`` matches K1's up to the products' summation order.
     """
     args = (x_windows, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj, ln2_w, ln2_b,
             w1, b1, w2, b2)

@@ -1,0 +1,200 @@
+"""Compare this tree's CUDA kernels with another checkout's on one card.
+
+    python -m superresolution_def_tpu_torch.tools.kernel_ab --other DIR [--rounds 2]
+
+``DIR`` is the root of another checkout of the repository (for example the
+parent commit, unpacked with ``git archive``). The tool
+
+1. builds every CUDA source of both trees (one nvcc each, all at once) and
+   compares, per source, the SASS of each kernel (``cuobjdump -sass``, the
+   anonymous-namespace tokens of the mangled names and the padding of each
+   line, which follows the widest instruction of the file, removed): the kernels
+   that are identical, changed, or found in one tree only;
+   for a kernel whose SASS differs, the number of differing lines and the
+   first few of them;
+2. times K7 (``fused_rdb_cm``) at B=8 and at B=2 with the stash (F/G = 48/24,
+   256x256; its weights packed once, as the forwards pass them), K12
+   (``fused_rdb``) at B=8 and K2 (``swin_block_fwd_h``) at the flagship
+   train shape (Bw=2048, C=180, 6 heads, hidden 720), and end to end the
+   fused hybrid's batch-8 forward (config #2, ``make_fused_hybrid``) and the
+   swin GAN step with the split backward at micro 8 (config #3), each tree
+   in its own process, alternated other, this, this, other (``--rounds``
+   such sets of turns), by CUDA events on the same seeded inputs; each turn
+   also hashes K1's output (Bw=768, flagship widths) to show whether the
+   two trees' K1 give the same bits;
+3. prints one JSON line per turn and a summary line.
+
+Needs a CUDA card and nvcc; it imports nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+SOURCES = ["swin_block", "swin_block_train", "swin_block_bwd", "hab_block", "ocab", "rdb_cm",
+           "rdb_cm_bwd", "ocab_train", "window_attention", "fused_rdb", "swin_stage_ablation"]
+
+# one tree's timings, run in a process of its own with the tree first on the path
+TIMER = r'''
+import json, statistics, sys
+import numpy as np, torch
+import importlib
+from superresolution_def_tpu_torch.kernels import fused_rdb, fused_rdb_cm, swin_block_fwd_h
+cm = importlib.import_module("superresolution_def_tpu_torch.kernels.fused_rdb_cm")
+
+def cuda_ms(fn, reps=20, warmup=3, calls=5):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        fn()
+        s.record()
+        for _ in range(calls):
+            fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / calls)
+    return statistics.median(times)
+
+dev = torch.device("cuda", 0)
+rng = np.random.default_rng(0)
+f, g = 48, 24
+ks = [torch.from_numpy((rng.standard_normal((3, 3, f + i * g, g if i < 4 else f))
+                        * np.sqrt(2.0 / (9 * (f + i * g)))).astype(np.float32)).to(dev)
+      for i in range(5)]
+bs = [torch.from_numpy((0.05 * rng.standard_normal(g if i < 4 else f)).astype(np.float32)).to(dev)
+      for i in range(5)]
+pack7 = getattr(cm, "pack_rdb_cm_weights", None) or cm.pack_rdb_weights
+p7 = pack7(ks, bs, dev)
+p12 = cm.pack_rdb_weights(ks, bs, dev)
+x8 = torch.from_numpy(0.5 * rng.standard_normal((8, f, 256 * 256)).astype(np.float32)).to(dev, torch.bfloat16)
+x2 = x8[:2].contiguous()
+x8n = x8.reshape(8, f, 256, 256).permute(0, 2, 3, 1).contiguous()
+stash = torch.empty(2, 256 * 256, f + 4 * g, dtype=torch.bfloat16, device=dev)
+gen = torch.Generator().manual_seed(1)
+def u(*shape, fan_in):
+    return (torch.rand(*shape, generator=gen) * 2 - 1) / fan_in ** 0.5
+c, hidden, bw = 180, 720, 2048
+bf = torch.bfloat16
+args = [a.to(dev) for a in (
+    torch.randn(bw, 64, c, generator=gen).to(bf), 1 + 0.1 * torch.randn(c, generator=gen),
+    0.1 * torch.randn(c, generator=gen), u(c, 3 * c, fan_in=c).to(bf), u(3 * c, fan_in=c),
+    0.5 * torch.randn(6, 64, 64, generator=gen), u(c, c, fan_in=c).to(bf), u(c, fan_in=c),
+    1 + 0.1 * torch.randn(c, generator=gen), 0.1 * torch.randn(c, generator=gen),
+    u(c, hidden, fan_in=c).to(bf), u(hidden, fan_in=c), u(hidden, c, fan_in=hidden).to(bf),
+    u(c, fan_in=hidden))]
+kw = dict(num_heads=6, scale=30 ** -0.5)
+import hashlib
+from superresolution_def_tpu_torch.kernels import fused_swin_block, make_fused_hybrid
+from superresolution_def_tpu_torch.models import HybridHATRealESRGAN
+from superresolution_def_tpu_torch.train import (CombinedGANLoss, VGG19Features,
+                                                 create_swin_train_state, make_swin_train_step)
+k1 = fused_swin_block(*[a[:768] if a.shape[0] == bw else a for a in args], **kw)
+torch.cuda.synchronize()
+k1_sha = hashlib.sha256(k1.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+hyb = HybridHATRealESRGAN(img_size=128, in_chans=1, embed_dim=90, depths=(6,) * 4,
+                          num_heads=(6,) * 4, window_size=8, num_rrdb=12, num_feat=48,
+                          num_grow_ch=24, generator=torch.Generator().manual_seed(0)).to(dev).eval()
+fwd = make_fused_hybrid(hyb)
+xh = torch.from_numpy(rng.random((8, 128, 128, 1), dtype=np.float32)).to(dev)
+brng = np.random.default_rng(5)
+batch = {"lr": brng.integers(0, 65535, (1, 8, 128, 128, 1), dtype=np.uint16),
+         "hr": brng.integers(0, 65535, (1, 8, 512, 512, 1), dtype=np.uint16)}
+vgg = VGG19Features(35, dtype=torch.bfloat16).to(dev).requires_grad_(False)
+state = create_swin_train_state(torch.Generator().manual_seed(0), dtype=torch.bfloat16,
+                                fused=True, device=dev)
+step = make_swin_train_step(state, accum_steps=1, criterion_g=CombinedGANLoss(
+    pixel_weight=1.0, perceptual_weight=0.5, adversarial_weight=0.005, vgg_apply=vgg))
+out = {"K1 sha256": k1_sha,
+    "K7 B=8": cuda_ms(lambda: fused_rdb_cm(x8, ks, bs, h=256, w=256, packed=p7), reps=10),
+    "K7 B=2 stash": cuda_ms(lambda: fused_rdb_cm(x2, ks, bs, h=256, w=256, packed=p7,
+                                                 stash=stash), reps=10),
+    "K12 B=8": cuda_ms(lambda: fused_rdb(x8n, ks, bs, packed=p12), reps=10),
+    "K2 Bw=2048": cuda_ms(lambda: swin_block_fwd_h(*args, **kw), reps=10),
+    "hybrid forward B=8": cuda_ms(lambda: fwd(xh), reps=5, warmup=2, calls=2),
+    "swin split step micro 8": cuda_ms(lambda: step(batch, 1e-4, 1e-4), reps=3, warmup=2,
+                                       calls=2),
+}
+print(json.dumps(out))
+'''
+
+
+def build(tree: Path) -> dict[str, Path]:
+    """Every source of ``tree`` built by its own build module, at once."""
+    code = ("import json; from superresolution_def_tpu_torch.kernels import _build; "
+            f"print(json.dumps([str(p) for p in _build.build_all({SOURCES!r})]))")
+    done = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True, text=True,
+                          check=True)
+    return dict(zip(SOURCES, map(Path, json.loads(done.stdout.strip().splitlines()[-1]))))
+
+
+ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_[0-9a-f]{8}(?=\d)")
+
+
+def sass(lib: Path) -> dict[str, str]:
+    """Kernel name (anonymous-namespace token removed) -> its SASS."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    kernels, name, body = {}, None, []
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            if name:
+                kernels[name] = "\n".join(body)
+            name, body = ANON.sub("", m.group(1)), []
+        elif name and line.strip():
+            # cuobjdump pads every line to the widest instruction of the file
+            body.append(" ".join(line.split()))
+    if name:
+        kernels[name] = "\n".join(body)
+    return kernels
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", type=Path, required=True, help="root of the other checkout")
+    ap.add_argument("--rounds", type=int, default=1)
+    args = ap.parse_args()
+    here = Path(__file__).resolve().parents[2]
+    other = args.other.resolve()
+    libs = {"other": build(other), "this": build(here)}
+    for src in SOURCES:
+        old, new = sass(libs["other"][src]), sass(libs["this"][src])
+        same = sorted(k for k in old if k in new and old[k] == new[k])
+        changed = sorted(k for k in old if k in new and old[k] != new[k])
+        print(json.dumps({"source": src, "identical": len(same), "changed": changed,
+                          "only_other": sorted(set(old) - set(new)),
+                          "only_this": sorted(set(new) - set(old))}), flush=True)
+        for k in changed:
+            was, now = old[k].splitlines(), new[k].splitlines()
+            diff = [(x, y) for x, y in zip(was, now) if x != y]
+            print(json.dumps({"kernel": k, "lines": [len(was), len(now)],
+                              "differing": len(diff) + abs(len(was) - len(now)),
+                              "first": diff[:4]}), flush=True)
+    turns = {"other": [], "this": []}
+    for _ in range(args.rounds):
+        for tag in ("other", "this", "this", "other"):
+            tree = other if tag == "other" else here
+            done = subprocess.run([sys.executable, "-c", TIMER], cwd=tree, capture_output=True,
+                                  text=True, check=True)
+            t = json.loads(done.stdout.strip().splitlines()[-1])
+            turns[tag].append(t)
+            print(json.dumps({"tree": tag, **t}), flush=True)
+    print(json.dumps({"summary": {tag: {k: [t[k] for t in ts] for k in ts[0]}
+                                  for tag, ts in turns.items()}}), flush=True)
+    shas = {t["K1 sha256"] for ts in turns.values() for t in ts}
+    print(json.dumps({"K1 bits the same in both trees": len(shas) == 1}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

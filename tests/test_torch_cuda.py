@@ -24,8 +24,13 @@ softmax, and differ by fp32 summation order; scores rounded to bf16 as the
 XLA path does would land near 3e-3) and fp32 (max |kernel - plain| <= 1e-5: the same fp32 arithmetic in
 another summation order), on q, k and v that are strided views of one qkv
 tensor. K12 (the dense block, NHWC) runs at F/G = 48/24, 64/32 and 16/8 and
-on a 40 x 24 image, held to K1's bound and to K7's output bit for bit (the
-two share their convs and rounding points). K4b (the block's backward from
+on a 40 x 24 image, held to K1's bound against its plain version and
+against K7 (the two keep the same rounding points and sum in different
+orders: K7 runs each conv as a wgmma GEMM). K2 (the training forward, a wgmma
+design of its own) is held to K1's bound against its plain version and
+against K1's out, and runs at 1, 3 and 7 windows twice to the same bits;
+K7 runs at B = 1 and 3 on odd sizes with and without the stash, twice to
+the same bits. K4b (the block's backward from
 x and dout, the forward recomputed) runs at K1-K4's five width sets, held
 to K3/K4's bound against its plain version and against K3 + K4 on K2's h
 (the two differ by where they round: LN2 on the fp32 h and an fp32 dh
@@ -185,9 +190,27 @@ def test_fwd_h_matches_plain_version_and_k1(device, bw, c, heads, hidden):
     out, h = swin_block_fwd_h(*args, **kw)
     torch.cuda.synchronize()
     assert swin_block_fwd_h.launches == before + 1
-    assert torch.equal(out, fused_swin_block(*args, **kw))  # K1 plus one store
     want_out, want_h = swin_block_fwd_h_reference(*args, **kw)
-    for got, want in ((out, want_out), (h, want_h)):
+    # K1 computes K2's out in another kernel: the same rounding points, the
+    # products summed in another order
+    k1 = fused_swin_block(*args, **kw)
+    for got, want in ((out, want_out), (h, want_h), (out, k1)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= K1_TOL * max(1.0, want.float().abs().max().item()), err
+
+
+@pytest.mark.parametrize("bw", [1, 3, 7])
+def test_fwd_h_at_odd_window_counts(device, bw):
+    """K2 at window counts that leave its two-window blocks a dead
+    warpgroup (1, 3, 7): out and h within K1's bound of the plain version,
+    and two runs to the same bits."""
+    args = _operands(bw + 11, bw, 180, 6, 720, device)
+    kw = dict(num_heads=6, scale=30**-0.5)
+    out, h = swin_block_fwd_h(*args, **kw)
+    out2, h2 = swin_block_fwd_h(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(h, h2)
+    for got, want in zip((out, h), swin_block_fwd_h_reference(*args, **kw)):
         err = (got.float() - want.float()).abs().max().item()
         assert err <= K1_TOL * max(1.0, want.float().abs().max().item()), err
 
@@ -864,8 +887,11 @@ def test_rdb_nhwc_kernel_matches_plain_version_and_k7(device, f, g, h, w):
     want = rdb_nhwc_reference(x, ks, bs).float()
     err = (got.float() - want).abs().max().item()
     assert err <= K1_TOL * max(1.0, want.abs().max().item()), err
+    # K7 computes the same function at the same rounding points, its convs
+    # summed in another order
     k7 = fused_rdb_cm(xf, ks, bs, h=h, w=w).reshape(2, f, h, w).permute(0, 2, 3, 1)
-    assert torch.equal(got, k7)
+    err = (got.float() - k7.float()).abs().max().item()
+    assert err <= K1_TOL * max(1.0, k7.float().abs().max().item()), err
 
 
 def test_rdb_nhwc_kernel_raises_on_what_it_does_not_take(device):
@@ -913,9 +939,11 @@ def test_attention_modules_run_the_window_attention_kernel(device):
 
 def test_fused_hybrid_kernel_trunk_matches_cm_trunk(device):
     """make_fused_hybrid(trunk_impl="kernel") (K12) against the K7 trunk:
-    the two dense blocks agree bit for bit, so the forwards differ only by
-    what the rest of the forward does not repeat exactly (relative L2 <= 1e-3,
-    where a layout error moves the output by O(1))."""
+    the two dense blocks keep the same rounding points and sum their convs
+    in different orders, so a bf16 rounding of x1..x4 or of a block's output
+    may land one step apart, and six blocks and the tail carry it on (the
+    H100 read 4.5e-3 relative L2); bounded at 1e-2, where a layout error
+    moves the output by O(1)."""
     model = HybridHATRealESRGAN(**HYBRID, generator=torch.Generator().manual_seed(0))
     model = model.to(device).eval()
     x = torch.from_numpy(np.random.default_rng(2).random((2, 16, 24, 1), dtype=np.float32))
@@ -926,7 +954,8 @@ def test_fused_hybrid_kernel_trunk_matches_cm_trunk(device):
     want = make_fused_hybrid(model)(x)
     assert mid == (before[0] + 6, before[1])
     assert fused_rdb_cm.launches == before[1] + 6
-    assert torch.isfinite(got).all() and _rel_l2(got, want) <= 1e-3
+    print(f"K12 trunk against K7 trunk: rel L2 {_rel_l2(got, want):.3e}")
+    assert torch.isfinite(got).all() and _rel_l2(got, want) <= 1e-2
 
 
 BWD_NAMES = ["dx", "dln1_w", "dln1_b", "dwqkv", "dbqkv", "dbias", "dwproj", "dbproj", "dln2_w",
@@ -1094,6 +1123,35 @@ def test_stage_kernel_raises_on_what_it_does_not_take(device):
 # kernels (8 x 16 and 16 x 8 pixel tiles, 16 x 16 chain tiles), K3's and
 # K9b's window kernel (two windows a block) and the weight-gradient product
 # K3, K4, K9b, K9c, K10b and K4b share (192 x 192 tiles, 64-token slabs)
+
+
+@pytest.mark.parametrize("stashed", [False, True])
+@pytest.mark.parametrize("b,h,w", [(1, 20, 36), (3, 12, 40), (3, 7, 13)])
+def test_rdb_kernel_at_odd_batches_and_sizes(device, b, h, w, stashed):
+    """K7 at B = 1 and 3 on images whose sides are not multiples of its
+    64 x 4 tile (13 x 7: not even of its 8-pixel runs), with and without
+    the stash: within K1's bound of the plain version, two runs to the same
+    bits, the same output either way, and the stash's x, x1..x4 K7's own."""
+    f, g = 48, 24
+    x, ks, bs = _rdb_operands(b + h + w + 5, b, f, g, h, w, device)
+    if stashed:
+        got, stash = _stashed(x, ks, bs, h, w)
+        again, stash2 = _stashed(x, ks, bs, h, w)
+        assert torch.equal(stash, stash2)
+        assert torch.equal(stash[..., :f], x.transpose(1, 2))
+        srcs, _ = dense_block_sources(x, ks, bs, h=h, w=w)
+        want_stash = torch.cat(srcs[1:], 1).reshape(b, 4 * g, h * w).transpose(1, 2)
+        assert _rel_l2(stash[..., f:], want_stash) <= BWD_REL_L2
+    else:
+        got, again = fused_rdb_cm(x, ks, bs, h=h, w=w), fused_rdb_cm(x, ks, bs, h=h, w=w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, fused_rdb_cm(x, ks, bs, h=h, w=w, stash=None if stashed else
+                                         torch.empty(b, h * w, f + 4 * g, dtype=torch.bfloat16,
+                                                     device=device)))
+    want = rdb_cm_reference(x, ks, bs, h=h, w=w).float()
+    err = (got.float() - want).abs().max().item()
+    assert err <= K1_TOL * max(1.0, want.abs().max().item()), err
 
 
 @pytest.mark.parametrize("b,h,w", [(1, 20, 36), (3, 12, 40)])
