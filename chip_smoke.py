@@ -7,11 +7,18 @@ Phases, each printing a line, any failure ending the run with a non-zero
 exit code:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. the build of every CUDA source (both at once, one nvcc each), with time,
-   the ptxas lines of each kernel, and the dynamic shared memory of K2's
-   kernel and of K7's five conv kernels;
+2. the build of every CUDA source (all at once, one nvcc each), with time,
+   the ptxas lines of each kernel, ptxas's registers and spills of K1's,
+   K2's and K5's instantiations of the wgmma forward (``swin_fwd_wg_kernel<3,
+   32, false>``, ``<3, 32, true>``, ``hab_fwd_wg_kernel<2, 16>``), and the
+   dynamic shared memory of K1/K2's and K5's kernels and of K7's five conv
+   kernels;
 3. K1 (``fused_swin_block``) against its plain PyTorch version at the
-   flagship shapes (Bw=768, C=180, 6 heads, hidden 720, bf16), with times;
+   flagship shapes (Bw=768, C=180, 6 heads, hidden 720, bf16), run twice to
+   the same bits and on weights packed once (``pack_swin_block_weights``,
+   as the inference forward passes them) to the bits of a call that packs
+   them itself, with its time on weights packed once, with one window a
+   block instead of two, and packing on every call;
 4. the inference slice: a synthetic 128->512 test split and a seeded flagship
    SwinIR checkpoint through ``cli.main infer --arch swin --impl fused``,
    counting K1's launches (36 per image);
@@ -38,11 +45,14 @@ exit code:
 11. train patches/s of the fused bf16 step and of the same step with the
     bf16 ``nn.Module`` generator, their peak memory, and the fused step's
     ``torch.profiler`` top device ops, idle share and device time by kernel
-    group (K2, K3, K4, their weight-gradient products and column sums);
+    group (K2, K3, K4, their weight-gradient products and column sums; a
+    group whose patterns match no device time fails the phase, here and in
+    phases 15, 20 and 25);
 12. the HAT-hybrid kernels against their plain versions at the served
     config's shapes (BASELINE config #2, batch 8 of 128x128): K5
     (``fused_hab_block``, Bw=2048, C=90, 6 heads, hidden 360) unshifted and
-    shifted, K6 (``fused_ocab_block``, 64 queries against 144 overlap keys)
+    shifted, each run twice to the same bits and timed on weights padded and
+    packed once as the hybrid's forward passes them, K6 (``fused_ocab_block``, 64 queries against 144 overlap keys)
     and K7 (``fused_rdb_cm``, B=8, F=48 at 256x256, G=24, run twice to the
     same bits), with times and K7's device time per kernel (the x
     transpose and its five convs);
@@ -53,7 +63,8 @@ exit code:
 14. the fused bf16 hybrid against the fp32 ``nn.Module`` on one patch,
     beside the bf16 ``nn.Module``'s own distance;
 15. patches/s at batch 8 of the fused hybrid and of the bf16 ``nn.Module``,
-    and the fused forward's ``torch.profiler`` top device ops and idle share;
+    and the fused forward's ``torch.profiler`` top device ops, idle share
+    and device time by kernel group (K5, K6, K7) with each group's share;
 16. K8 (``fused_rdb_cm_bwd``, the dense-block backward) against its plain
     version at the hybrid train step's shapes (B=2, F=48, G=24, 256x256,
     bf16, dy ~ N(0, 1e-2)), run twice to show the same bits, with K7's
@@ -135,8 +146,9 @@ exit code:
 32. K13 (``swin_stage_block``, the stage-ablation block) in each of its nine
     modes, and ``mlp_polygelu`` with zero coefficients, against its plain
     version (relative L2) on K1's operands and on the ablation tool's
-    (Bw=2048, C=180, std 0.02 bf16), with ``mlp_tanhgelu`` bit for bit K1's
-    and ``allheads`` bit for bit ``full``'s; on K1's operands the
+    (Bw=2048, C=180, std 0.02 bf16), with ``mlp_tanhgelu`` within K1's bound
+    of K1 (K13 runs K1's first design, K1 its wgmma redesign) and
+    ``allheads`` bit for bit ``full``'s; on K1's operands the
     activations (erf, tanh, sigmoid, none, the zeroed polynomial) must lie
     further apart than the bound, so a swapped one fails; then the tool
     (``tools/swin_stage_ablation.py``) over all nine modes: 36-block chains
@@ -155,6 +167,7 @@ import ctypes
 import importlib
 import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -408,6 +421,31 @@ def kernel_split(fn, calls: int = 10) -> dict:
     return dict(sorted(split.items(), key=lambda kv: -kv[1]))
 
 
+def group_split(ops: list, groups: dict, phase: str) -> dict:
+    """Device ms per kernel group of ``device_profile``'s ops: a group sums
+    the ops whose names match any of its regular expressions. A group that
+    matches no device time fails the phase: its patterns no longer name
+    the kernels it stands for."""
+    split = {k: sum(t for name, t, _ in ops if any(re.search(p_, name) for p_ in pats))
+             for k, pats in groups.items()}
+    empty = {k: groups[k] for k, v in split.items() if not v > 0}
+    if empty:
+        raise SystemExit(f"[{phase}] kernel groups that matched no device time: {empty}")
+    return split
+
+
+def ptxas_stats(log_text: str, fragment: str) -> str:
+    """ptxas's registers, spills and stack of the kernel whose mangled name
+    contains ``fragment``, from a build log."""
+    lines = log_text.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and fragment in line:
+            stats = [x.strip().replace("ptxas info    : ", "") for x in lines[i + 1:i + 4]
+                     if "spill" in x or "registers" in x]
+            return "; ".join(stats)
+    raise SystemExit(f"no ptxas statistics for {fragment} in the build log")
+
+
 def device_profile(fn, steps: int = 2) -> tuple[list, float, float]:
     """Device ops (name, ms per step, calls per step) of ``steps`` calls of
     ``fn``, longest first, the device's busy ms per step and its idle share
@@ -488,6 +526,8 @@ def main() -> None:
         make_fused_hybrid_train,
         make_fused_swinir,
         ocab_block_reference,
+        pack_hab_weights,
+        pack_swin_block_weights,
         rdb_cm_bwd_reference,
         rdb_cm_reference,
         swin_block_bwd,
@@ -547,10 +587,22 @@ def main() -> None:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log("build", f"{name}: " + line.strip().replace("ptxas info    : ", ""))
 
+    for key, src, fragment in (
+            ("K1 swin_fwd_wg_kernel<3, 32, false>", "swin_block",
+             "swin_fwd_wg_kernelILi3ELi32ELb0E"),
+            ("K2 swin_fwd_wg_kernel<3, 32, true>", "swin_block",
+             "swin_fwd_wg_kernelILi3ELi32ELb1E"),
+            ("K5 hab_fwd_wg_kernel<2, 16>", "hab_block", "hab_fwd_wg_kernelILi2ELi16E")):
+        log("build", f"{key} (the flagship's or HAT's widths): "
+            + ptxas_stats(_build.build_log(src), fragment))
     klib = swin_block._kernel_library()
-    log("build", "dynamic shared memory: K2's kernel (swin_fwd_wg_kernel) at C=180, 6 heads, "
-        f"hidden 720 {klib.swin_block_fwd_h_smem_bytes(180, 6, 720)} B "
-        f"({klib.swin_block_fwd_h_windows(180, 6, 720)} windows a block); K7's five convs "
+    hlib = hab_block._library()
+    log("build", "dynamic shared memory: K1's and K2's kernel (swin_fwd_wg_kernel) at C=180, 6 "
+        f"heads, hidden 720 {klib.swin_block_smem_bytes(180, 6, 720)} B "
+        f"({klib.swin_block_windows(180, 6, 720)} windows a block); K5's (hab_fwd_wg_kernel) "
+        f"at C=96 (90 in device memory), 6 heads, hidden 360 "
+        f"{hlib.hab_block_smem_bytes(96, 90, 6, 360)} B "
+        f"({hlib.hab_block_windows(96, 90, 6, 360)} windows a block); K7's five convs "
         "(conv_kernel) at F/G = 48/24: " + ", ".join(
             f"conv{i + 1} {b} B" for i, b in enumerate(rdb_cm.smem_bytes(48, 24))))
 
@@ -559,16 +611,29 @@ def main() -> None:
     args = k1_inputs(gen, device)
     kw = dict(num_heads=6, scale=30**-0.5)
     got = fused_swin_block(*args, **kw)
+    # the inference forward packs each block's weights once
+    packed1 = pack_swin_block_weights(args[3], args[6], args[10], args[12], num_heads=6)
+    k1_same = (torch.equal(got, fused_swin_block(*args, **kw))
+               and torch.equal(got, fused_swin_block(*args, **kw, packed=packed1)))
     torch.cuda.synchronize()
     want = swin_block.swin_block_reference(*args, **kw)
     err = (got.float() - want.float()).abs().max().item()
     bound = K1_TOL * max(1.0, want.float().abs().max().item())
-    k1_ms = cuda_ms(lambda: fused_swin_block(*args, **kw))
+    k1_ms = cuda_ms(lambda: fused_swin_block(*args, **kw, packed=packed1))
+    k1_pack_ms = cuda_ms(lambda: fused_swin_block(*args, **kw))
+    vec1, w1d = swin_block._block_dicts(*args[1:5], *args[6:])
+    k1_one_ms = cuda_ms(lambda: swin_block._launch_forward(
+        args[0], vec1, w1d, args[5], 6, 30**-0.5, False, packed=packed1, windows=1))
     plain_ms = cuda_ms(lambda: swin_block.swin_block_reference(*args, **kw))
     log("k1", f"Bw=768 C=180 heads=6 hidden=720 bf16: max|kernel-plain|={err:.3e} "
-              f"(bound {bound:.3e}); kernel {k1_ms:.4f} ms, plain {plain_ms:.4f} ms on {card}")
-    if not err <= bound:
-        raise SystemExit(f"K1 disagrees with its plain version: {err} > {bound}")
+              f"(bound {bound:.3e}); twice, and on weights packed once, bit-identical: "
+              f"{k1_same}; on {card}: kernel {k1_ms:.4f} ms on weights packed once (two windows "
+              f"a block), {k1_one_ms:.4f} ms with one window a block, {k1_pack_ms:.4f} ms "
+              f"packing on every call; plain {plain_ms:.4f} ms")
+    if not err <= bound or not k1_same:
+        raise SystemExit(f"K1 disagrees with its plain version: {err} > {bound}, or gave other "
+                         f"bits on a second run or on weights packed once ({k1_same})")
+    del packed1
 
     # 4. the slice through the CLI
     model = SwinIR(**FLAGSHIP, generator=torch.Generator().manual_seed(seed))
@@ -653,8 +718,8 @@ def main() -> None:
     out, h = swin_block_fwd_h(*targs, **kw)
     again2 = swin_block_fwd_h(*targs, **kw)
     k2_same = torch.equal(out, again2[0]) and torch.equal(h, again2[1])
-    # K2 is a wgmma design of its own: against K1, which shares K2's
-    # rounding points, within K1's bound (their products sum in other orders)
+    # K2 is K1's wgmma kernel with the store of h: against K1 within K1's
+    # bound (the same products in the same order, so the bits agree today)
     k1_out = fused_swin_block(*targs, **kw)
     k2_k1_err = (out.float() - k1_out.float()).abs().max().item()
     k2_k1_bound = K1_TOL * max(1.0, k1_out.float().abs().max().item())
@@ -835,12 +900,13 @@ def main() -> None:
         if impl == "fused":
             ops, busy_ms, idle = device_profile(lambda: step(batch, 1e-4, 1e-4))
             # K2 packs with K3's and K4's packing kernels (the same names):
-            # their time counts under K3 and K4
-            groups = {"K2": ("swin_fwd_wg_kernel",), "K3": ("mlp_bwd_kernel", "mlp_pack_kernel"),
+            # their time counts under K3 and K4. K1 and K2 are one kernel
+            # template, told apart by STORE_H (K2's true)
+            groups = {"K2": (r"swin_fwd_wg_kernel<\d+, \d+, true>",),
+                      "K3": ("mlp_bwd_kernel", "mlp_pack_kernel"),
                       "K4": ("attn_wg_kernel", "attn_pack_kernel"),
                       "K3/K4 wgrad+colsum": ("wgrad_kernel", "colsum_kernel")}
-            split = {k: sum(t for name, t, _ in ops if any(p_ in name for p_ in pats))
-                     for k, pats in groups.items()}
+            split = group_split(ops, groups, "profile")
             log("profile", f"fused train step on {card}: device busy {busy_ms:.3f} ms per "
                            f"step, idle share {idle:.4f}; by kernel group per step: "
                            + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
@@ -861,21 +927,32 @@ def main() -> None:
     conv_x = (0.1 * torch.randn(bw_hat, 64, 90, generator=hgen)).to(device, torch.bfloat16)
     mask = torch.from_numpy(shift_window_attn_mask(128, 128, 8, 4)).to(device)
     hkw = dict(num_heads=6, scale=15**-0.5, conv_scale=0.01)
-    k5_err, k5_bound, k5_ms, k5_plain = {}, {}, {}, {}
+    k5_err, k5_bound, k5_ms, k5_plain, k5_same = {}, {}, {}, {}, {}
+    # the hybrid's forward pads and packs each block's weights once
+    pad5 = hab_block.pad_hab_operands(*hargs[1:5], *hargs[6:], num_heads=6)
+    pack5 = pack_hab_weights(pad5, num_heads=6)
     for tag, m in (("unshifted", None), ("shifted", mask)):
         a = (hargs[0], conv_x, m, *hargs[1:])
         got = fused_hab_block(*a, **hkw)
+        k5_same[tag] = (torch.equal(got, fused_hab_block(*a, **hkw)) and torch.equal(
+            got, fused_hab_block(*a, **hkw, padded=pad5, packed=pack5)))
         torch.cuda.synchronize()
         want = hab_block_reference(*a, **hkw)
         k5_err[tag] = (got.float() - want.float()).abs().max().item()
         k5_bound[tag] = K1_TOL * max(1.0, want.float().abs().max().item())
-        k5_ms[tag] = cuda_ms(lambda: fused_hab_block(*a, **hkw))
+        k5_ms[tag] = cuda_ms(lambda: fused_hab_block(*a, **hkw, padded=pad5, packed=pack5))
         k5_plain[tag] = cuda_ms(lambda: hab_block_reference(*a, **hkw), reps=5, warmup=1, calls=2)
         if not torch.isfinite(got).all() or not k5_err[tag] <= k5_bound[tag]:
             raise SystemExit(f"K5 ({tag}) disagrees with its plain version: {k5_err[tag]}")
-    log("k5", f"Bw={bw_hat} C=90 heads=6 hidden=360 bf16 on {card}: " + "; ".join(
-        f"{t}: max|kernel-plain|={k5_err[t]:.3e} (bound {k5_bound[t]:.3e}), kernel "
-        f"{k5_ms[t]:.4f} ms, plain {k5_plain[t]:.4f} ms" for t in k5_err))
+        if not k5_same[tag]:
+            raise SystemExit(f"K5 ({tag}) gave other bits on a second run or on weights "
+                             "padded and packed once")
+    log("k5", f"Bw={bw_hat} C=90 heads=6 hidden=360 bf16 on {card}, timed on weights padded "
+        "and packed once: " + "; ".join(
+            f"{t}: max|kernel-plain|={k5_err[t]:.3e} (bound {k5_bound[t]:.3e}), twice and "
+            f"packed once bit-identical {k5_same[t]}, kernel {k5_ms[t]:.4f} ms, plain "
+            f"{k5_plain[t]:.4f} ms" for t in k5_err))
+    del pad5, pack5
     oargs = [hargs[0], *(torch.randn(bw_hat, n, 90, generator=hgen).to(device, torch.bfloat16)
                          for n in (64, 144, 144)),
              (0.5 * torch.randn(6, 64, 144, generator=hgen)).to(device), *hargs[6:]]
@@ -996,8 +1073,16 @@ def main() -> None:
         f"nn.Module bf16 {HYBRID_BATCH * 1e3 / hyb16_ms:.3f} patches/s ({hyb16_ms:.3f} ms, "
         f"peak {hyb16_peak:.2f} GB)")
     ops, busy_ms, idle = device_profile(lambda: fused_h(x8))
+    # K5 runs hab_fwd_wg_kernel; K6 the first design's ocab_kernel without
+    # the h store (K10a's has it); K7 its transpose and five convs
+    split = group_split(ops, {"K5": ("hab_fwd_wg_kernel<",),
+                              "K6": (r"ocab_kernel<\d+, false>",),
+                              "K7": ("conv_kernel<", "stash_x_kernel")}, "hat-profile")
     log("hat-profile", f"fused hybrid forward, batch {HYBRID_BATCH} on {card}: device busy "
-                       f"{busy_ms:.3f} ms per forward, idle share {idle:.4f}; top device ops: "
+                       f"{busy_ms:.3f} ms per forward, idle share {idle:.4f}; by kernel group "
+                       "per forward: " + ", ".join(
+                           f"{k} {v:.3f} ms ({v / busy_ms:.1%} of busy)" for k, v in split.items())
+                       + "; top device ops: "
                        + "; ".join(f"{name[:60]} {t:.3f} ms x{n}" for name, t, n in ops[:10]))
     del hybrid, hybrid16, fused_h, x8, x8_16
     torch.cuda.empty_cache()
@@ -1217,11 +1302,9 @@ def main() -> None:
         if key == f"fused {HAT_MICRO}x{HAT_ACCUM}":
             ops, busy_ms, idle = device_profile(lambda: stp(hb, 1e-4, 1e-4), steps=1)
             groups = {"K7": ("conv_kernel<", "stash_x_kernel"),
-                      "K8": ("stack_kernel", "wgrad_kernel<",
-                                                    "dx_kernel"),
+                      "K8": ("stack_kernel", "wgrad_kernel<", "dx_kernel"),
                       "AdamW+EMA": ("multi_tensor_apply",)}
-            split = {k: sum(t for name, t, _ in ops if any(p in name for p in pats))
-                     for k, pats in groups.items()}
+            split = group_split(ops, groups, "hat-train-profile")
             split["rest"] = sum(t for _, t, _ in ops) - sum(split.values())
             # the step's other parts, timed alone at its shapes, per step
             xin = torch.from_numpy(hb["lr"][0].astype(np.float32) / 65535.0).to(device)
@@ -1464,15 +1547,16 @@ def main() -> None:
             ops, busy_ms, idle = device_profile(lambda: stp(hb, 1e-4, 1e-4), steps=1)
             # K8's weight-gradient kernel is the template wgrad_kernel<F, G>;
             # K9b/K9c/K10b share swin_block_train.cu's wgrad_kernel(...)
-            groups = {"K9a": ("swin_block_kernel<2, true, true>",),
+            # K9a is the first design's swin_block_kernel<NCH, STORE_H,
+            # HAB, STAGE, ACT> with the h store and HAB's operands
+            groups = {"K9a": ("swin_block_kernel<2, true, true,",),
                       "K9b": ("mlp_bwd_kernel", "mlp_pack_kernel"),
                       "K9c": ("attn_wg_kernel", "attn_pack_kernel"),
-                      "K10a": ("ocab_kernel<2, true>",), "K10b": ("ocab_bwd_kernel",),
-                      "K9/K10 wgrad+colsum": ("wgrad_kernel(", "colsum_kernel"),
+                      "K10a": (r"ocab_kernel<\d+, true>",), "K10b": ("ocab_bwd_kernel",),
+                      "K9/K10 wgrad+colsum": (r"wgrad_kernel\(", "colsum_kernel"),
                       "K7": ("conv_kernel<", "stash_x_kernel"),
                       "K8": ("stack_kernel", "wgrad_kernel<", "dx_kernel")}
-            split = {k: sum(t for name, t, _ in ops if any(p_ in name for p_ in pats))
-                     for k, pats in groups.items()}
+            split = group_split(ops, groups, "hab-train-profile")
             split["rest"] = sum(t for _, t, _ in ops) - sum(split.values())
             log("hab-train-profile",
                 f"fused-HAB hybrid GAN step, micro {micro} x accum {accum} on {card}: device "
@@ -1852,7 +1936,13 @@ def main() -> None:
                 "finite": bool(torch.isfinite(got).all())}
             outs13[name] = got
             del want
-        k13_same_k1 = torch.equal(outs13["mlp_tanhgelu"], fused_swin_block(x13, *w13, **skw))
+        # mlp_tanhgelu is K1's function on K1's first design, K1 runs its
+        # wgmma redesign: within K1's bound, not bit for bit
+        k1_13 = fused_swin_block(x13, *w13, **skw).float()
+        k13_k1_err = (outs13["mlp_tanhgelu"].float() - k1_13).abs().max().item()
+        k13_k1_bound = K1_TOL * max(1.0, k1_13.abs().max().item())
+        k13_same_k1 = k13_k1_err <= k13_k1_bound
+        del k1_13
         k13_allheads = torch.equal(outs13["allheads"], outs13["full"])
         if tag == "K1's":
             # the check's power: the activations it must tell apart lie
@@ -1869,11 +1959,12 @@ def main() -> None:
                    f"plain (bound {K13_REL_L2}): " + ", ".join(
                        f"{m.removesuffix(' on ' + tag)} {r['rel']:.3e}"
                        for m, r in k13.items() if m.endswith(tag))
-            + f"; mlp_tanhgelu == K1: {k13_same_k1}; allheads == full: {k13_allheads}")
+            + f"; max|mlp_tanhgelu - K1| {k13_k1_err:.3e} (bound {k13_k1_bound:.3e}); "
+              f"allheads == full: {k13_allheads}")
         bad = {m: r for m, r in k13.items() if not (r["finite"] and r["rel"] <= K13_REL_L2)}
         if bad or not (k13_same_k1 and k13_allheads):
-            raise SystemExit(f"K13 disagrees: {bad}, same as K1 {k13_same_k1}, allheads "
-                             f"{k13_allheads}")
+            raise SystemExit(f"K13 disagrees: {bad}, within K1's bound of K1 {k13_same_k1}, "
+                             f"allheads {k13_allheads}")
     del k1_ops
     k13_times = (cuda_ms(lambda: swin_stage_block(x13, *w13, mode="full", **skw), reps=10),
                  cuda_ms(lambda: stage.swin_stage_block_reference(x13, *w13, mode="full", **skw),

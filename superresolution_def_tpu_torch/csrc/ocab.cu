@@ -21,7 +21,7 @@
 // softmax with weight exp(bias), as in the reference. Key tiles past nk (none
 // at nk = 144 = 9 x 16) are padded with -inf scores, never with zeros.
 //
-// The second half (proj, residual, LN2, MLP) is K1's (block_tail in
+// The second half (proj, residual, LN2, MLP) is K1's first design (block_tail in
 // swin_block_kernel.cuh), run with the weights zero-padded from C = 90 to 96
 // by the wrapper while the windows keep their 90 columns and LN2 its
 // statistics over them. q, k and v of two heads at a time are copied into

@@ -8,7 +8,7 @@
 // (wgrad_kernel, colsum_kernel in swin_block_train.cu: fixed summation
 // order, no atomics, so two runs give the same bits).
 //
-// Its three phases share K1's (swin_block_kernel.cuh) and K3/K4's
+// Its three phases share K1's first design (swin_block_kernel.cuh) and K3/K4's
 // (swin_bwd_phases.cuh) device code. Its rounding points are the TPU
 // kernel's, which differ from K2 + K3 + K4 in three places:
 //   1. the recompute (K1's qkv_attention and proj_residual) keeps h in

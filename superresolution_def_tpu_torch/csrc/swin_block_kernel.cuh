@@ -1,6 +1,10 @@
-// The fused window-attention block kernel shared by swin_block.cu (K1, K2)
-// and hab_block.cu (K5). One thread block computes one pre-rolled,
-// pre-partitioned 8x8 window (N = 64 tokens) end to end:
+// The first design of the fused window-attention block kernel, which K1, K2
+// and K5 ran before their wgmma redesigns (swin_fwd_wg.cuh). It now serves
+// K9a (hab_block.cu), K13 (swin_stage_ablation.cu, the ablation of this
+// design), K6/K10a's second half (ocab.cu), K11's attention rows
+// (window_attention.cu) and K4b's recompute (swin_block_bwd.cu). One thread
+// block computes one pre-rolled, pre-partitioned 8x8 window (N = 64 tokens)
+// end to end:
 //
 //   LN1 (fp32 stats) -> QKV (+bqkv, rounded to bf16)
 //   -> per head: softmax(q*scale . k^T + bias[h] (+ mask[w])) . v (softmax fp32)
@@ -8,26 +12,29 @@
 //   -> LN2 of bf16(h) -> fc1 -> tanh GELU -> fc2 -> out = h + dp2 * mlp
 //
 // dp1 and dp2 are K9a's per-window drop-path scales of the two branches
-// (one fp32 value per window); K1, K2, K5 and K6 run with both at 1.
+// (one fp32 value per window); K6 and K13 run with both at 1.
 //
 // Every matrix product runs on the tensor cores (mma.sync m16n8k16 bf16 with
 // fp32 accumulators, operands through ldmatrix). The fp32 residual h lives in
 // the accumulator registers (proj and fc2 accumulate into it, LN2 reads it
 // there), q/k/v are produced two heads at a time and consumed at once by
 // register-resident attention, and the MLP streams its hidden dimension in
-// 64-wide chunks; swin_block.cu's header says why.
+// 64-wide chunks. What sets its time: every window streams all the weights
+// from L2 through shared memory in 64 x 64 tiles (cp.async, one barrier per
+// tile), and the latency of each tile's copies, products and epilogue, not
+// the tensor cores, sets its speed (PERF.md).
 //
 // Two widths: `c` is the width of the weights and of the kernel's internal
 // rows (heads * head_dim after the wrapper's zero padding), `cio` the width of
-// the windows in device memory and of the LayerNorm statistics. K1/K2 have
-// cio == c. K5 (HAT, C = 90, head_dim 15) gets c = 96: the wrapper pads each
+// the windows in device memory and of the LayerNorm statistics. K13 has
+// cio == c. K9a (HAT, C = 90, head_dim 15) gets c = 96: the wrapper pads each
 // head's q/k/v columns 15 -> 16 and the channel rows 90 -> 96 with zeros, so
 // padded q/k/v columns, proj/fc2 outputs and LN outputs are exactly zero and
 // the real 90 columns see the unpadded arithmetic.
 //
 // K13 (swin_stage_ablation.cu) is this kernel with two compile-time
 // switches, STAGE (which stages run) and ACT (the MLP's activation); their
-// defaults are K1's, so every other kernel here compiles as before. K4b
+// defaults are the full block with the tanh GELU. K4b
 // (swin_block_bwd.cu) reuses the first half, qkv_attention and
 // proj_residual, to recompute the forward inside the backward.
 
@@ -517,9 +524,9 @@ __device__ __forceinline__ void qkv_attention(const Params& p, int lda, const bf
 }
 
 // NCH = ceil(C / 64): the column chunks of the residual h held in registers.
-// STORE_H: K2 and K9a, which also write bf16(h) to p.h_out. HAB: K5 and K9a,
-// which add the mask to the scores and conv_scale * conv_x to the residual;
-// both together (K9a) also scale the branches by dp1, dp2. STAGE, ACT: K13's.
+// STORE_H: write bf16(h) to p.h_out. HAB: add the mask to the scores and
+// conv_scale * conv_x to the residual; both together (K9a) also scale the
+// branches by dp1, dp2. STAGE, ACT: K13's.
 template <int NCH, bool STORE_H, bool HAB, int STAGE = STAGE_FULL, int ACT = ACT_TANH>
 __global__ void __launch_bounds__(THREADS, 2) swin_block_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];

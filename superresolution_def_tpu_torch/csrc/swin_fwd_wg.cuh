@@ -1,13 +1,15 @@
-// K2, the Swin block's training forward, on wgmma (swin_block.cu's entry
-// point swin_block_fwd_h_bf16 launches it). It computes what K1 computes at
-// K1's rounding points and also stores h = x + proj(attn) rounded to bf16:
+// The Swin block's forward on wgmma, in three instantiations of one body:
+// K1, the inference block (swin_block.cu's swin_block_bf16), K2, the same
+// block for training, which also stores h (swin_block_fwd_h_bf16), and K5,
+// HAT's hybrid attention block (hab_block.cu's hab_block_bf16). Each
+// computes, at K1's rounding points:
 //
 //   LN1 (fp32 stats) -> QKV (+bqkv, rounded to bf16; q then * scale, rounded)
-//   -> per head: softmax(q . k^T + bias[h]) . v   (softmax in fp32, P bf16)
-//   -> proj (+bproj) -> h = x + proj               (residual in fp32)
+//   -> per head: softmax(q . k^T + bias[h] (+ mask[w], K5)) . v  (softmax fp32, P bf16)
+//   -> proj (+bproj) -> h = x + proj (+ conv_scale * conv_x, K5) (residual fp32)
 //   -> LN2 of bf16(h) -> fc1 -> tanh GELU -> fc2 -> out = h + mlp + b2
 //
-// The stored h is the bf16(h) that LN2 reads, so K3's recompute of LN2 from
+// K2's stored h is the bf16(h) that LN2 reads, so K3's recompute of LN2 from
 // it matches the forward.
 //
 // Design (the shape of K3's and K4's window kernels, swin_block_train.cu):
@@ -25,16 +27,43 @@
 // (the attention output from registers, accumulated over the heads into
 // the fp32 residual), fc1 (A = LN2's output in shared memory) and fc2 (the
 // GELU output from registers). The residual h stays in the accumulator
-// registers from proj to out, as K1's does; its rows lie in one quad of one
-// warp, so LN2 reduces by shuffles alone. x arrives by 16-byte cp.async;
-// h_out and out leave through the window's x buffer as 16-byte runs.
+// registers from proj to out; its rows lie in one quad of one warp, so LN2
+// reduces by shuffles alone. x arrives by 16-byte cp.async; out (and K2's
+// h) leave through the window's x buffer as 16-byte runs.
 //
-// STORE_H = false would be K1 on the same design (no h store); only K2's
-// instantiation is compiled here.
+// The weights: K2 packs the live weights on every call (pack_fwd_wg: two
+// launches, ~0.006 ms at the flagship widths). K1 and K5 take the tiles
+// packed: their inference forwards pack frozen weights once per block, and
+// a call that brings none packs them first, as K2 does.
+//
+// K5 (HAB). The wrapper pads the weights (pad_hab_operands): each head to
+// 16 columns and the channels to c = 96 at HAT's C = 90, while the windows
+// x, conv_x and out keep their cio = 90 columns in device memory. A window
+// of 64 x cio bf16 is 128 cio bytes, a multiple of 16, so x and conv_x
+// still arrive by 16-byte cp.async of the whole dense window and out leaves
+// the same way, though each 180-byte row is only 4-byte aligned: no gather
+// to 96-wide windows and no narrower copies. conv_x waits in shared memory
+// beside x (11.5 KB a window at cio = 90). LN1 and LN2 take their
+// statistics over the cio real columns; the padded columns of the LN
+// outputs, q, k and v are zero, and those of h are never read. Window w
+// adds mask[w mod nmask] to bias[h] in the scores' starting accumulator (as
+// K9c does); an unshifted call passes no mask and reads none. The conv
+// branch joins the residual in fp32 registers before LN2, in the first
+// design's order: h = (x + (proj + bproj)) + conv_scale * conv_x.
 //
 // Padding: C is rounded up to whole 64-column chunks (ck) and each head to
 // hp = 16 or 32 columns; the packed tiles, q, k, v and the LN outputs hold
-// zeros there, so the padded columns add nothing.
+// zeros there, so the padded columns add nothing. At K5's c = 96, ck = 128:
+// qkv's and fc1's K and proj's and fc2's N do a third more products than
+// the 96 columns need.
+//
+// The tail: a block walks the window groups (nw windows each) in strides of
+// the grid. K1 at batch 3 (Bw = 768) has 384 pairs over 132 SMs: three
+// rounds, the last with 120 of 132 blocks busy, so the tail leaves 3% of
+// the rounds' slots empty; K5 at batch 8 (Bw = 2048) has 1024 pairs, eight
+// rounds, the last with 100 busy (3%). One window a block (swin_block_bf16's
+// `windows` = 1: six rounds of 768 single windows) measured slower than two
+// at Bw = 768 (chip_smoke.py phase 3, PERF.md), so two stay the default.
 
 #pragma once
 
@@ -47,7 +76,9 @@ namespace {
 using namespace swin;
 
 struct FwdWgParams {
-  const bf16* x;       // (Bw, 64, c)
+  const bf16* x;       // (Bw, 64, cio)
+  const bf16* convx;   // K5: (Bw, 64, cio), the CAB branch in window layout
+  const float* mask;   // K5: (nmask, 64, 64) additive mask, or null
   const float* ln1_w;  // (c)
   const float* ln1_b;
   const float* bqkv;   // (3c)
@@ -59,10 +90,10 @@ struct FwdWgParams {
   const float* b2;     // (c)
   const bf16* wattn;   // attn_pack_kernel's tiles: per head wproj^T, wq, wk, wv
   const bf16* wmlp;    // mlp_pack_kernel's tiles: per hidden chunk w1, w2^T
-  bf16* out;           // (Bw, 64, c)
+  bf16* out;           // (Bw, 64, cio)
   bf16* h_out;         // (Bw, 64, c), K2 only
-  int c, heads, hd, hidden, bw;
-  float scale;
+  int c, cio, heads, hd, hidden, bw, nmask;
+  float scale, conv_scale;
 };
 
 constexpr int FWD_STAGES = 4;
@@ -75,15 +106,17 @@ enum { F_LN1W, F_LN1B, F_BQKV, F_BPROJ = 5, F_LN2W, F_LN2B, F_B2, F_B1 };
 
 // Shared memory at nw windows a block (bytes): the ring (4 slots of the
 // larger tile, ck x 64 bf16), per window its LN output (64 x ck, K-major
-// interleaved: LN1's, then LN2's), its x (dense 64 x c; then the staging of
-// h_out and out) and one head's q, k, v (64 x hp each, K-major
-// interleaved), the vectors, the ring's mbarriers.
+// interleaved: LN1's, then LN2's), its x (dense 64 x cio; then the staging
+// of K2's h_out and of out), K5's conv_x (dense 64 x cio) and one head's q,
+// k, v (64 x hp each, K-major interleaved), the vectors, the ring's
+// mbarriers.
 struct FwdWgLayout {
   int ck, hp;
-  size_t slot, ring, win, a, x, q, k, v, vec, bars, total;
+  size_t slot, ring, win, a, x, cx, q, k, v, vec, bars, total;
 };
 
-__host__ __device__ inline FwdWgLayout fwd_wg_layout(int c, int heads, int hidden, int nw) {
+__host__ __device__ inline FwdWgLayout fwd_wg_layout(int c, int cio, int heads, int hidden,
+                                                     int nw, bool hab) {
   FwdWgLayout L;
   L.ck = (c + TILE - 1) / TILE * TILE;
   L.hp = c / heads <= 16 ? 16 : 32;
@@ -91,7 +124,8 @@ __host__ __device__ inline FwdWgLayout fwd_wg_layout(int c, int heads, int hidde
   const size_t op = (size_t)N * L.hp * 2;
   size_t o = 0;
   L.a = o; o += (size_t)N * L.ck * 2;
-  L.x = o; o += align128((size_t)N * c * 2);
+  L.x = o; o += align128((size_t)N * cio * 2);
+  L.cx = o; o += hab ? align128((size_t)N * cio * 2) : 0;
   L.q = o; o += op;
   L.k = o; o += op;
   L.v = o; o += op;
@@ -136,13 +170,14 @@ __device__ __forceinline__ void fwd_cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
-template <int NCH, int HP, bool STORE_H>
-__global__ void __launch_bounds__(FWD_THREADS, 1) swin_fwd_wg_kernel(const FwdWgParams p, int nw) {
+// The body of every instantiation: STORE_H stores h (K2), HAB reads the
+// mask and conv_x and keeps the windows cio wide (K5).
+template <int NCH, int HP, bool STORE_H, bool HAB>
+__device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsigned char* fsm) {
   using namespace hopper;
-  extern __shared__ __align__(1024) unsigned char fsm[];
   constexpr int CK = NCH * TILE, CGS = HP * 16, NB = HP / 8;
-  const int C = p.c, heads = p.heads, hd = p.hd, hidden = p.hidden;
-  const FwdWgLayout L = fwd_wg_layout(C, heads, hidden, nw);
+  const int C = p.c, CIO = HAB ? p.cio : p.c, heads = p.heads, hd = p.hd, hidden = p.hidden;
+  const FwdWgLayout L = fwd_wg_layout(C, CIO, heads, hidden, nw, HAB);
   const int nj = (hidden + TILE - 1) / TILE;
   float* vec = reinterpret_cast<float*>(fsm + L.vec);
   uint64_t* full = reinterpret_cast<uint64_t*>(fsm + L.bars);
@@ -200,6 +235,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) swin_fwd_wg_kernel(const FwdWg
   unsigned char *a_s = wb + L.a, *x_s = wb + L.x, *q_s = wb + L.q, *k_s = wb + L.k,
                 *v_s = wb + L.v;
   bf16* xd = reinterpret_cast<bf16*>(x_s);
+  const bf16* cxd = reinterpret_cast<const bf16*>(wb + L.cx);
   const float qscale = round_bf16(p.scale);
   auto wg_sync = [&] { asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wgi) : "memory"); };
   auto proxy_fence = [] { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); };
@@ -214,23 +250,30 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) swin_fwd_wg_kernel(const FwdWg
       for (int j = 0; j < n; ++j) mbar_arrive(&empty[(tc + j) % FWD_STAGES]);
     tc += n;
   };
-  // the dense (64, C) window in x_s to global memory in 16-byte runs
-  auto store_window = [&](bf16* dst) {
+  // the dense (64, w) window in x_s to global memory in 16-byte runs
+  auto store_window = [&](bf16* dst, int w) {
     const uint4* s4 = reinterpret_cast<const uint4*>(x_s);
     uint4* d4 = reinterpret_cast<uint4*>(dst);
-    for (int i = wt; i < N * C / 8; i += 128) d4[i] = s4[i];
+    for (int i = wt; i < N * w / 8; i += 128) d4[i] = s4[i];
   };
 
   for (int pr = blockIdx.x; pr < npairs; pr += gridDim.x) {
     const int win = pr * nw + wgi;
     const bool live = win < p.bw;
     const size_t row0 = (size_t)win * N;
+    const float* mask =
+        HAB && live && p.mask != nullptr ? p.mask + (size_t)(win % p.nmask) * N * N : nullptr;
 
-    // ---- x by 16-byte asynchronous copies; LN1 (two-pass fp32 statistics,
-    // warp wi: rows 16 wi .., four at a time) into a_s, zero past C
+    // ---- x (and K5's conv_x) by 16-byte asynchronous copies; LN1 (two-pass
+    // fp32 statistics over the cio real columns, warp wi: rows 16 wi ..,
+    // four at a time) into a_s, zero past cio
     if (live) {
-      const bf16* xg = p.x + row0 * C;
-      for (int i = wt; i < N * C / 8; i += 128) fwd_cp_async16(x_s + 16 * i, xg + 8 * i);
+      const bf16* xg = p.x + row0 * CIO;
+      for (int i = wt; i < N * CIO / 8; i += 128) fwd_cp_async16(x_s + 16 * i, xg + 8 * i);
+      if constexpr (HAB) {
+        const bf16* cg = p.convx + row0 * CIO;
+        for (int i = wt; i < N * CIO / 8; i += 128) fwd_cp_async16(wb + L.cx + 16 * i, cg + 8 * i);
+      }
       cp_async_commit();
       cp_async_wait<0>();
       wg_sync();
@@ -244,10 +287,10 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) swin_fwd_wg_kernel(const FwdWg
 #pragma unroll
           for (int i = 0; i < NV; ++i) {
             const int c = lane + 32 * i;
-            v[q][i] = c < C ? __bfloat162float(xd[(rr + q) * C + c]) : 0.f;
+            v[q][i] = c < CIO ? __bfloat162float(xd[(rr + q) * CIO + c]) : 0.f;
             sum += v[q][i];
           }
-          mu[q] = warp_sum(sum) / C;
+          mu[q] = warp_sum(sum) / CIO;
         }
 #pragma unroll
         for (int q = 0; q < RW; ++q) {
@@ -255,10 +298,10 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) swin_fwd_wg_kernel(const FwdWg
 #pragma unroll
           for (int i = 0; i < NV; ++i) {
             const int c = lane + 32 * i;
-            const float d = c < C ? v[q][i] - mu[q] : 0.f;
+            const float d = c < CIO ? v[q][i] - mu[q] : 0.f;
             sq += d * d;
           }
-          rstd[q] = rsqrtf(warp_sum(sq) / C + 1e-5f);
+          rstd[q] = rsqrtf(warp_sum(sq) / CIO + 1e-5f);
         }
 #pragma unroll
         for (int q = 0; q < RW; ++q)
@@ -267,8 +310,9 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) swin_fwd_wg_kernel(const FwdWg
             const int c = lane + 32 * i;
             if (c < CK)
               *reinterpret_cast<bf16*>(a_s + kmaj(rr + q, c, CK)) = __float2bfloat16(
-                  c < C ? (v[q][i] - mu[q]) * rstd[q] * vec[F_LN1W * C + c] + vec[F_LN1B * C + c]
-                        : 0.f);
+                  c < CIO
+                      ? (v[q][i] - mu[q]) * rstd[q] * vec[F_LN1W * C + c] + vec[F_LN1B * C + c]
+                      : 0.f);
           }
       }
       proxy_fence();  // LN1's output, written here, is read by wgmma
@@ -329,14 +373,25 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) swin_fwd_wg_kernel(const FwdWg
         proxy_fence();
         wg_sync();  // q, k, v of every row in place
 
-        // scores: the bias as the accumulator's start, + q . k^T
+        // scores: the bias (and K5's mask) as the accumulator's start, +
+        // q . k^T
         const float* bh = p.bias + (size_t)hh * N * N;
         float s[32];
 #pragma unroll
         for (int t = 0; t < 8; ++t) {
-          const float2 b0 = __ldg(reinterpret_cast<const float2*>(bh + (r0 + g) * N + t * 8 + t4 * 2));
-          const float2 b1 =
+          float2 b0 = __ldg(reinterpret_cast<const float2*>(bh + (r0 + g) * N + t * 8 + t4 * 2));
+          float2 b1 =
               __ldg(reinterpret_cast<const float2*>(bh + (r0 + g + 8) * N + t * 8 + t4 * 2));
+          if (HAB && mask != nullptr) {
+            const float2 m0 =
+                __ldg(reinterpret_cast<const float2*>(mask + (r0 + g) * N + t * 8 + t4 * 2));
+            const float2 m1 =
+                __ldg(reinterpret_cast<const float2*>(mask + (r0 + g + 8) * N + t * 8 + t4 * 2));
+            b0.x += m0.x;
+            b0.y += m0.y;
+            b1.x += m1.x;
+            b1.y += m1.y;
+          }
           s[4 * t] = b0.x;
           s[4 * t + 1] = b0.y;
           s[4 * t + 2] = b1.x;
@@ -379,13 +434,16 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) swin_fwd_wg_kernel(const FwdWg
           l0 += __shfl_xor_sync(0xffffffffu, l0, o);
           l1 += __shfl_xor_sync(0xffffffffu, l1, o);
         }
+        // one division a row, then products: a masked key's exp is
+        // denormal, and dividing it takes the division's slow path
+        const float i0 = 1.f / l0, i1 = 1.f / l1;
         uint32_t pa[4][4];
 #pragma unroll
         for (int kb = 0; kb < 4; ++kb) {
-          pa[kb][0] = pack_bf16(s[8 * kb] / l0, s[8 * kb + 1] / l0);
-          pa[kb][1] = pack_bf16(s[8 * kb + 2] / l1, s[8 * kb + 3] / l1);
-          pa[kb][2] = pack_bf16(s[8 * kb + 4] / l0, s[8 * kb + 5] / l0);
-          pa[kb][3] = pack_bf16(s[8 * kb + 6] / l1, s[8 * kb + 7] / l1);
+          pa[kb][0] = pack_bf16(s[8 * kb] * i0, s[8 * kb + 1] * i0);
+          pa[kb][1] = pack_bf16(s[8 * kb + 2] * i1, s[8 * kb + 3] * i1);
+          pa[kb][2] = pack_bf16(s[8 * kb + 4] * i0, s[8 * kb + 5] * i0);
+          pa[kb][3] = pack_bf16(s[8 * kb + 6] * i1, s[8 * kb + 7] * i1);
         }
         float o[HP / 2];
 #pragma unroll
@@ -420,8 +478,9 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) swin_fwd_wg_kernel(const FwdWg
       if (live) wg_sync();  // q, k, v are read before the next head writes them
     }
 
-    // ---- the residual h = x + (proj + bproj) in fp32; bf16(h) over x in
-    // x_s and out as h_out; LN2 of bf16(h) into a_s
+    // ---- the residual h = x + (proj + bproj) (+ conv_scale * conv_x) in
+    // fp32; K2: bf16(h) over x in x_s and out as h_out; LN2 of bf16(h) into
+    // a_s
     if (live) {
 #pragma unroll
       for (int k = 0; k < NCH; ++k)
@@ -430,22 +489,28 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) swin_fwd_wg_kernel(const FwdWg
 #pragma unroll
           for (int s2 = 0; s2 < 2; ++s2) {
             const int r = r0 + g + 8 * s2, col = k * TILE + 8 * j8 + 2 * t4;
-            if (col < C) {  // col and C even: both columns are real
-              __nv_bfloat162* px = reinterpret_cast<__nv_bfloat162*>(xd + r * C + col);
+            if (col < CIO) {  // col and cio even: both columns are real
+              __nv_bfloat162* px = reinterpret_cast<__nv_bfloat162*>(xd + r * CIO + col);
               const float2 x2 = __bfloat1622float2(*px);
               float& v0 = h[k][4 * j8 + 2 * s2];
               float& v1 = h[k][4 * j8 + 2 * s2 + 1];
               v0 = x2.x + (v0 + vec[F_BPROJ * C + col]);
               v1 = x2.y + (v1 + vec[F_BPROJ * C + col + 1]);
+              if constexpr (HAB) {
+                const float2 c2 = __bfloat1622float2(
+                    *reinterpret_cast<const __nv_bfloat162*>(cxd + r * CIO + col));
+                v0 += p.conv_scale * c2.x;
+                v1 += p.conv_scale * c2.y;
+              }
               if constexpr (STORE_H) *px = __floats2bfloat162_rn(v0, v1);
             }
           }
       if constexpr (STORE_H) {
         wg_sync();
-        store_window(p.h_out + row0 * C);
+        store_window(p.h_out + row0 * C, C);
       }
       // a row's columns lie in the 4 lanes of one quad: two-pass statistics
-      // of bf16(h) over the C real columns by quad shuffles
+      // of bf16(h) over the cio real columns by quad shuffles
       float mu[2], rstd[2];
 #pragma unroll
       for (int pass = 0; pass < 2; ++pass) {
@@ -455,7 +520,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) swin_fwd_wg_kernel(const FwdWg
 #pragma unroll
           for (int i = 0; i < 32; ++i) {
             const int col = k * TILE + 8 * (i >> 2) + 2 * t4 + (i & 1);
-            if (col < C) {
+            if (col < CIO) {
               const float v = round_bf16(h[k][i]);
               const int s2 = (i >> 1) & 1;
               acc2[s2] += pass == 0 ? v : (v - mu[s2]) * (v - mu[s2]);
@@ -465,8 +530,8 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) swin_fwd_wg_kernel(const FwdWg
         for (int s2 = 0; s2 < 2; ++s2) {
           acc2[s2] += __shfl_xor_sync(0xffffffffu, acc2[s2], 1);
           acc2[s2] += __shfl_xor_sync(0xffffffffu, acc2[s2], 2);
-          if (pass == 0) mu[s2] = acc2[s2] / C;
-          else rstd[s2] = rsqrtf(acc2[s2] / C + 1e-5f);
+          if (pass == 0) mu[s2] = acc2[s2] / CIO;
+          else rstd[s2] = rsqrtf(acc2[s2] / CIO + 1e-5f);
         }
       }
 #pragma unroll
@@ -480,7 +545,8 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) swin_fwd_wg_kernel(const FwdWg
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const float v = (round_bf16(h[k][4 * j8 + 2 * s2 + e]) - mu[s2]) * rstd[s2];
-              y[e] = col + e < C ? v * vec[F_LN2W * C + col + e] + vec[F_LN2B * C + col + e] : 0.f;
+              y[e] = col + e < CIO ? v * vec[F_LN2W * C + col + e] + vec[F_LN2B * C + col + e]
+                                   : 0.f;
             }
             *reinterpret_cast<uint32_t*>(a_s + kmaj(r, col, CK)) = pack_bf16(y[0], y[1]);
           }
@@ -540,16 +606,32 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) swin_fwd_wg_kernel(const FwdWg
 #pragma unroll
           for (int s2 = 0; s2 < 2; ++s2) {
             const int r = r0 + g + 8 * s2, col = k * TILE + 8 * j8 + 2 * t4;
-            if (col < C)
-              *reinterpret_cast<__nv_bfloat162*>(xd + r * C + col) = __floats2bfloat162_rn(
+            if (col < CIO)
+              *reinterpret_cast<__nv_bfloat162*>(xd + r * CIO + col) = __floats2bfloat162_rn(
                   h[k][4 * j8 + 2 * s2] + vec[F_B2 * C + col],
                   h[k][4 * j8 + 2 * s2 + 1] + vec[F_B2 * C + col + 1]);
           }
       wg_sync();
-      store_window(p.out + row0 * C);
+      store_window(p.out + row0 * CIO, CIO);
       wg_sync();  // x_s is read before the next window's x lands there
     }
   }
+}
+
+// K1 (STORE_H = false) and K2 (STORE_H = true)
+template <int NCH, int HP, bool STORE_H>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+    swin_fwd_wg_kernel(const __grid_constant__ FwdWgParams p, int nw) {
+  extern __shared__ __align__(1024) unsigned char fsm[];
+  fwd_wg_body<NCH, HP, STORE_H, false>(p, nw, fsm);
+}
+
+// K5
+template <int NCH, int HP>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+    hab_fwd_wg_kernel(const __grid_constant__ FwdWgParams p, int nw) {
+  extern __shared__ __align__(1024) unsigned char fsm[];
+  fwd_wg_body<NCH, HP, false, true>(p, nw, fsm);
 }
 
 inline bool fwd_aligned(const void* ptr, uintptr_t bytes) {
@@ -557,84 +639,102 @@ inline bool fwd_aligned(const void* ptr, uintptr_t bytes) {
 }
 
 // windows a block: two where they fit in 227 KB
-inline int fwd_windows(int c, int heads, int hidden) {
-  return fwd_wg_layout(c, heads, hidden, 2).total <= 232448 ? 2 : 1;
+inline int fwd_windows(int c, int cio, int heads, int hidden, bool hab) {
+  return fwd_wg_layout(c, cio, heads, hidden, 2, hab).total <= 232448 ? 2 : 1;
 }
 
+// The packed weights (bf16 elements): the attention's tiles (*attn of them)
+// then the MLP's.
 inline size_t fwd_pack_elems(int c, int heads, int hidden, size_t* attn) {
-  const FwdWgLayout L = fwd_wg_layout(c, heads, hidden, 1);
+  const FwdWgLayout L = fwd_wg_layout(c, c, heads, hidden, 1, false);
   *attn = (size_t)L.ck * L.hp * 4 * heads;
   return *attn + (size_t)L.ck * 64 * 2 * ((hidden + TILE - 1) / TILE);
 }
 
-template <int NCH, int HP, bool STORE_H>
-cudaError_t launch_fwd_wg(const FwdWgParams& p, bf16* wpack, const bf16* wqkv,
-                          const bf16* wproj, const bf16* w1, const bf16* w2, cudaStream_t s) {
-  const int nw = fwd_windows(p.c, p.heads, p.hidden);
-  const FwdWgLayout L = fwd_wg_layout(p.c, p.heads, p.hidden, nw);
+inline bool fwd_widths_ok(int c, int heads, int hidden) {
+  const int hd = heads > 0 ? c / heads : 0;
+  return c > 0 && c <= MAX_C && c % 4 == 0 && heads > 0 && c % heads == 0 && hd <= DP &&
+         hd % 2 == 0 && hidden > 0 && hidden % 4 == 0;
+}
+
+// Packs wqkv, wproj, w1 and w2 ((in, out) bf16 at width c) into wpack
+// (fwd_pack_elems bf16, 16-byte aligned): two launches on `s`.
+inline int pack_fwd_wg(const bf16* wqkv, const bf16* wproj, const bf16* w1, const bf16* w2,
+                       int c, int heads, int hidden, bf16* wpack, cudaStream_t s) {
+  if (!fwd_widths_ok(c, heads, hidden)) return (int)cudaErrorInvalidValue;
+  if (!fwd_aligned(wpack, 16) || !fwd_aligned(wqkv, 2) || !fwd_aligned(wproj, 2) ||
+      !fwd_aligned(w1, 2) || !fwd_aligned(w2, 2))
+    return (int)cudaErrorMisalignedAddress;
+  const FwdWgLayout L = fwd_wg_layout(c, c, heads, hidden, 1, false);
+  size_t na = 0;
+  const size_t nm = fwd_pack_elems(c, heads, hidden, &na) - na;
+  attn_pack_kernel<<<(int)(na / 256 < 1024 ? na / 256 + 1 : 1024), 256, 0, s>>>(
+      wqkv, wproj, c, heads, L.ck, L.hp, wpack);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  mlp_pack_kernel<<<(int)(nm / 256 < 1024 ? nm / 256 + 1 : 1024), 256, 0, s>>>(
+      w1, w2, c, hidden, L.ck, wpack + na);
+  return (int)cudaGetLastError();
+}
+
+template <typename Kernel>
+cudaError_t launch_fwd_wg(Kernel kernel, const FwdWgParams& p, int nw, bool hab,
+                          cudaStream_t s) {
+  const FwdWgLayout L = fwd_wg_layout(p.c, p.cio, p.heads, p.hidden, nw, hab);
   if (L.total > 232448) return cudaErrorInvalidValue;
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, swin_fwd_wg_kernel<NCH, HP, STORE_H>);
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
   // setmaxnreg moves registers between the warpgroups of a block: the
   // consumers' 232 need the 168 the compiler gives each thread at launch
   if (attr.numRegs < FWD_MIN_REGS) return cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(swin_fwd_wg_kernel<NCH, HP, STORE_H>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return err;
-  size_t na = 0;
-  const size_t total = fwd_pack_elems(p.c, p.heads, p.hidden, &na);
-  attn_pack_kernel<<<(int)(na / 256 < 1024 ? na / 256 + 1 : 1024), 256, 0, s>>>(
-      wqkv, wproj, p.c, p.heads, L.ck, L.hp, wpack);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t nm = total - na;
-  mlp_pack_kernel<<<(int)(nm / 256 < 1024 ? nm / 256 + 1 : 1024), 256, 0, s>>>(
-      w1, w2, p.c, p.hidden, L.ck, wpack + na);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  FwdWgParams q = p;
-  q.wattn = wpack;
-  q.wmlp = wpack + na;
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int npairs = (p.bw + nw - 1) / nw;
-  swin_fwd_wg_kernel<NCH, HP, STORE_H>
-      <<<npairs < sms ? npairs : sms, (nw + 1) * 128, L.total, s>>>(q, nw);
+  kernel<<<npairs < sms ? npairs : sms, (nw + 1) * 128, L.total, s>>>(p, nw);
   return cudaGetLastError();
 }
 
-// Checks the widths and alignments, packs the weights into wpack
-// (fwd_pack_elems bf16) and launches the persistent kernel.
-template <bool STORE_H>
-int run_fwd_wg(FwdWgParams p, bf16* wpack, const bf16* wqkv, const bf16* wproj, const bf16* w1,
-               const bf16* w2, void* stream) {
-  const int c = p.c, heads = p.heads, hidden = p.hidden;
-  const int hd = heads > 0 ? c / heads : 0;
-  if (p.bw <= 0 || c <= 0 || c > MAX_C || c % 4 != 0 || heads <= 0 || c % heads != 0 ||
-      hd > DP || hd % 2 != 0 || hidden <= 0 || hidden % 4 != 0)
+template <bool STORE_H, bool HAB, int NCH, int HP>
+cudaError_t launch_fwd_wg_width(const FwdWgParams& p, int nw, cudaStream_t s) {
+  if constexpr (HAB) return launch_fwd_wg(hab_fwd_wg_kernel<NCH, HP>, p, nw, true, s);
+  else return launch_fwd_wg(swin_fwd_wg_kernel<NCH, HP, STORE_H>, p, nw, false, s);
+}
+
+// Checks the widths and alignments and launches the persistent kernel on
+// the packed weights p.wattn, p.wmlp (pack_fwd_wg's). `windows`: windows a
+// block, 1 or 2; 0 takes as many as fit. K1 and K2 take cio = c.
+template <bool STORE_H, bool HAB>
+int run_fwd_wg(FwdWgParams p, int windows, void* stream) {
+  const int c = p.c, cio = p.cio, heads = p.heads, hidden = p.hidden;
+  if (p.bw <= 0 || !fwd_widths_ok(c, heads, hidden) || cio <= 0 || cio > c || cio % 2 != 0 ||
+      (!HAB && cio != c) || (HAB && p.mask != nullptr && p.nmask <= 0) || windows < 0 ||
+      windows > 2)
     return (int)cudaErrorInvalidValue;
   if (!fwd_aligned(p.x, 16) || !fwd_aligned(p.out, 16) || (STORE_H && !fwd_aligned(p.h_out, 16)) ||
-      !fwd_aligned(p.bias, 8) || !fwd_aligned(wpack, 16) || !fwd_aligned(wqkv, 2) ||
-      !fwd_aligned(wproj, 2) || !fwd_aligned(w1, 2) || !fwd_aligned(w2, 2))
+      (HAB && (!fwd_aligned(p.convx, 16) || !fwd_aligned(p.mask, 8))) ||
+      !fwd_aligned(p.bias, 8) || !fwd_aligned(p.wattn, 16) || !fwd_aligned(p.wmlp, 16))
     return (int)cudaErrorMisalignedAddress;
-  p.hd = hd;
+  p.hd = c / heads;
+  const int nw = windows > 0 ? windows : fwd_windows(c, cio, heads, hidden, HAB);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nch = (c + TILE - 1) / TILE;
-  if (hd <= 16) {
+  if (p.hd <= 16) {
     switch (nch) {
-      case 1: return (int)launch_fwd_wg<1, 16, STORE_H>(p, wpack, wqkv, wproj, w1, w2, s);
-      case 2: return (int)launch_fwd_wg<2, 16, STORE_H>(p, wpack, wqkv, wproj, w1, w2, s);
-      case 3: return (int)launch_fwd_wg<3, 16, STORE_H>(p, wpack, wqkv, wproj, w1, w2, s);
-      default: return (int)launch_fwd_wg<4, 16, STORE_H>(p, wpack, wqkv, wproj, w1, w2, s);
+      case 1: return (int)launch_fwd_wg_width<STORE_H, HAB, 1, 16>(p, nw, s);
+      case 2: return (int)launch_fwd_wg_width<STORE_H, HAB, 2, 16>(p, nw, s);
+      case 3: return (int)launch_fwd_wg_width<STORE_H, HAB, 3, 16>(p, nw, s);
+      default: return (int)launch_fwd_wg_width<STORE_H, HAB, 4, 16>(p, nw, s);
     }
   }
   switch (nch) {
-    case 1: return (int)launch_fwd_wg<1, 32, STORE_H>(p, wpack, wqkv, wproj, w1, w2, s);
-    case 2: return (int)launch_fwd_wg<2, 32, STORE_H>(p, wpack, wqkv, wproj, w1, w2, s);
-    case 3: return (int)launch_fwd_wg<3, 32, STORE_H>(p, wpack, wqkv, wproj, w1, w2, s);
-    default: return (int)launch_fwd_wg<4, 32, STORE_H>(p, wpack, wqkv, wproj, w1, w2, s);
+    case 1: return (int)launch_fwd_wg_width<STORE_H, HAB, 1, 32>(p, nw, s);
+    case 2: return (int)launch_fwd_wg_width<STORE_H, HAB, 2, 32>(p, nw, s);
+    case 3: return (int)launch_fwd_wg_width<STORE_H, HAB, 3, 32>(p, nw, s);
+    default: return (int)launch_fwd_wg_width<STORE_H, HAB, 4, 32>(p, nw, s);
   }
 }
 

@@ -1,12 +1,15 @@
-// K13: the fused Swin block with swappable stages, for attributing K1's
-// time to its stages on Hopper. bf16 in and out.
+// K13: the fused Swin block with swappable stages, for attributing the
+// time of the block's first design to its stages on Hopper. bf16 in and
+// out.
 //
 // Replaces the TPU kernel scripts/swin_stage_ablation.py::block (kernel body
 // _make_kernel(mode)), the JAX package's op-class ablation of its fused
-// block. It is K1's kernel (swin_block_kernel.cuh), not a copy: the stage
-// and the activation are the kernel's compile-time switches STAGE and ACT,
-// one instantiation per mode, so a mode's time differs from K1's only by
-// the work it removes or swaps. The nine modes, in the script's order:
+// block. It is the first design of K1 (swin_block_kernel.cuh: mma.sync, one
+// window a block, which K1 ran until its wgmma redesign, swin_fwd_wg.cuh,
+// and K9a still runs), not a copy: the stage and the activation are the
+// kernel's compile-time switches STAGE and ACT, one instantiation per mode,
+// so a mode's time differs from the full block's only by the work it
+// removes or swaps. The nine modes, in the script's order:
 //
 //   full          the whole block with the A&S erf GELU (the script's
 //                 _gelu_exact, also in bf16; K1 uses tanh there)
@@ -18,7 +21,9 @@
 //                 already processed two at a time in registers, so it IS
 //                 full's instantiation and equals full bit for bit
 //   mlp_nogelu    full with no activation
-//   mlp_tanhgelu  full with the tanh GELU: K1's instantiation, bit for bit
+//   mlp_tanhgelu  full with the tanh GELU: K1's function on the first
+//                 design; within K1's bound of K1 (the products sum in
+//                 other orders on wgmma)
 //   mlp_siggelu   full with x * sigmoid(1.702 x)
 //   mlp_polygelu  full with erf as a degree-25 polynomial of x / sqrt(2)
 //                 clipped to [-4, 4], Horner from the highest power; the
@@ -121,7 +126,7 @@ extern "C" int swin_stage_block_bf16(const void* x, const void* ln1_w, const voi
   }
 }
 
-// Dynamic shared memory one block needs (K1's), for the wrapper's check.
+// Dynamic shared memory one block needs (the first design's), for the wrapper's check.
 extern "C" size_t swin_stage_block_smem_bytes(int c, int hidden) {
   return make_layout(c, round16(c), round16(hidden)).total;
 }

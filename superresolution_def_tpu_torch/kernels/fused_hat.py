@@ -21,7 +21,7 @@ permutation as x: the sum x + attn + conv_scale * conv_x is formed in shifted
 space and rolled back, which is the reference's sum since rolls are
 permutations and the MLP and LN2 act per token.
 
-The inference forwards cast, lay out and pad (or pack) the operands for the
+The inference forwards cast, lay out, pad and pack the operands for the
 kernels once, when the forward is made, and do not see later changes to the
 model; the training forwards read the parameters at every call, inside
 autograd, and repad (repack) a block's kernel weights only when they have
@@ -49,7 +49,7 @@ from ..ops import (
 from .fused_rdb import fused_rrdb_trunk
 from .fused_rdb_cm import fused_rrdb_trunk_cm, pack_rdb_cm_weights, pack_rdb_weights
 from .fused_rdb_cm_bwd import fused_rrdb_trunk_cm_ad
-from .hab_block import fused_hab_block, pad_hab_operands
+from .hab_block import fused_hab_block, pack_hab_weights, pad_hab_operands
 from .hab_train import HabCoreFn
 from .ocab import fused_ocab_block, pad_ocab_operands
 from .ocab_train import ocab_operands, ocab_train
@@ -101,10 +101,11 @@ def make_fused_hat(model, *, dtype: torch.dtype = torch.bfloat16):
                    *lin(mlp.fc2))
         kernel = (*weights[:4], bias, *weights[4:])
         padded = pad_hab_operands(*weights, num_heads=a.num_heads)
+        packed = pack_hab_weights(padded, num_heads=a.num_heads) if bias.is_cuda else None
         cab_ops = (wb(cab[0]), wb(cab[2]),
                    (ca[1].weight[:, :, 0, 0].to(dtype), ca[1].bias.to(dtype)),
                    (ca[3].weight[:, :, 0, 0].to(dtype), ca[3].bias.to(dtype)))
-        return ln(blk.norm1), cab_ops, kernel, padded, a.num_heads, blk.shift_size
+        return ln(blk.norm1), cab_ops, kernel, padded, packed, a.num_heads, blk.shift_size
 
     def ocab_ops(oc):
         bias = relative_position_bias_oca(oc.relative_position_bias_table, ws, oc.overlap_ratio)
@@ -124,7 +125,7 @@ def make_fused_hat(model, *, dtype: torch.dtype = torch.bfloat16):
         up = [wb(m) for m in model.upsample[::2]]
     factors = [shuffle.upscale_factor for shuffle in model.upsample[1::2]]
     def hab(ops, x):
-        norm1, cab_ops, kernel, padded, heads, shift = ops
+        norm1, cab_ops, kernel, padded, packed, heads, shift = ops
         b, h, w, c = x.shape
         if min(h, w) <= ws:  # the reference's rule: one window runs unshifted
             shift = 0
@@ -135,7 +136,7 @@ def make_fused_hat(model, *, dtype: torch.dtype = torch.bfloat16):
             _gather_rows(x.reshape(-1, c), fwd).reshape(-1, n, c),
             _gather_rows(conv_x.reshape(-1, c), fwd).reshape(-1, n, c), mask, *kernel,
             num_heads=heads, scale=(c // heads) ** -0.5, conv_scale=model.conv_scale,
-            padded=padded)
+            padded=padded, packed=packed)
         return _gather_rows(out.reshape(-1, c), inv).reshape(b, h, w, c)
 
     def ocab(ops, x):

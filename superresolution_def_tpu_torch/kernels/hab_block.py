@@ -7,13 +7,15 @@ weights ``(in, out)``, the relative-position bias gathered into
 ``(heads, 64, 64)`` fp32) with one change: the shift mask is the
 ``(nW, 64, 64)`` mask of one image, window w using ``mask[w mod nW]`` (the JAX
 package tiles the same mask over the batch), or ``None`` for an unshifted
-block. On a CUDA tensor it launches ``csrc/hab_block.cu`` (bf16, N = 64) or
+block. On a CUDA tensor it launches ``csrc/hab_block.cu`` (bf16, N = 64:
+the HAB instantiation of K1's wgmma kernel, ``csrc/swin_fwd_wg.cuh``) or
 raises; on a CPU tensor it runs :func:`hab_block_reference`.
 
-HAT's C = 90 with six heads of 15 does not fit the kernel's 4-element
-copies, so the wrapper zero-pads each head to an even width (a multiple of 4
-when the head count is odd) and the weights' channel rows to match; the
-windows keep their C columns and LayerNorm its statistics over them.
+The wrapper zero-pads each head to an even width (a multiple of 4 when the
+head count is odd; HAT's heads of 15 to 16) and the weights' channel rows to
+match (90 to 96), and the kernel reads the padded weights packed into its
+wgmma tiles (:func:`pack_hab_weights`); the windows keep their C columns and
+LayerNorm its statistics over them.
 
 The same source holds K9a, the training forward with h and drop-path
 (:mod:`.hab_train`): :func:`launch_hab` launches either, and
@@ -33,14 +35,17 @@ from .swin_block import (
     MAX_SMEM_BYTES,
     _branch_scale,
     _check,
+    _check_packed,
     _check_windows,
     _gelu,
     _ln_f32,
     _on_cuda,
+    _pack_on_card,
     _qkv_heads,
     _rounder,
     _softmax_f32,
     _stream,
+    pack_swin_block_weights,
 )
 
 
@@ -91,14 +96,20 @@ def hab_block_reference(
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = load_library("hab_block")
-    lib.hab_block_bf16.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-    lib.hab_block_bf16.restype = ctypes.c_int
-    lib.hab_block_fwd_h_bf16.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-    lib.hab_block_fwd_h_bf16.restype = ctypes.c_int
-    lib.hab_block_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.hab_block_smem_bytes.restype = ctypes.c_size_t
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.hab_block_pack_bf16.argtypes = [vp] * 4 + [i32] * 3 + [vp, vp]
+    lib.hab_block_bf16.argtypes = [vp] * 14 + [i32] * 6 + [f32, f32, vp]
+    lib.hab_block_fwd_h_bf16.argtypes = [vp] * 20 + [i32] * 6 + [f32, f32, vp]
+    for fn in (lib.hab_block_pack_bf16, lib.hab_block_bf16, lib.hab_block_fwd_h_bf16,
+               lib.hab_block_windows):
+        fn.restype = ctypes.c_int
+    lib.hab_block_pack_elems.argtypes = [i32] * 3
+    lib.hab_block_smem_bytes.argtypes = [i32] * 4
+    lib.hab_block_windows.argtypes = [i32] * 4
+    lib.hab_block_fwd_h_smem_bytes.argtypes = [i32] * 2
+    for fn in (lib.hab_block_pack_elems, lib.hab_block_smem_bytes,
+               lib.hab_block_fwd_h_smem_bytes):
+        fn.restype = ctypes.c_size_t
     return lib
 
 
@@ -153,24 +164,44 @@ def pad_hab_operands(ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1, b
     return tuple(t.contiguous() for t in out)
 
 
+def pack_hab_weights(padded: tuple, *, num_heads: int) -> torch.Tensor:
+    """K5's kernel weights: the padded wqkv, wproj, w1 and w2 of
+    :func:`pad_hab_operands`'s tuple packed as
+    :func:`~.swin_block.pack_swin_block_weights` packs K1's (the plain
+    packings on the CPU). About 0.3 MB a block at HAT's widths (C = 90
+    padded to 96, 6 heads, hidden 360), 7 MB for the hybrid's 24; a caller
+    that runs frozen weights packs once and passes the result to
+    :func:`fused_hab_block` as ``packed``."""
+    wqkv, wproj, w1, w2 = padded[2], padded[4], padded[8], padded[10]
+    if not _on_cuda("pack_hab_weights", wqkv):
+        return pack_swin_block_weights(wqkv, wproj, w1, w2, num_heads=num_heads)
+    lib = _library()
+    c, hidden = w1.shape
+    return _pack_on_card("pack_hab_weights", lib.hab_block_pack_bf16,
+                         lib.hab_block_pack_elems(c, num_heads, hidden), wqkv, wproj, w1, w2,
+                         num_heads)
+
+
 def fused_hab_block(
     x_windows, convx_windows, mask, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj,
     ln2_w, ln2_b, w1, b1, w2, b2, *, num_heads: int, scale: float, conv_scale: float = 0.01,
-    padded: tuple | None = None,
+    padded: tuple | None = None, packed: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """K5: one HAB over ``(Bw, 64, C)`` windows -> ``(Bw, 64, C)``.
 
     CUDA tensors launch the Hopper kernel (counted in
     ``fused_hab_block.launches``) or raise; CPU tensors take
     :func:`hab_block_reference`. ``padded``: the weights already through
-    :func:`pad_hab_operands` (the others are still checked).
+    :func:`pad_hab_operands`; ``packed``: those through
+    :func:`pack_hab_weights` (the kernel reads the weights from there; the
+    others are still checked). Without them each call pads and packs.
     """
     args = (x_windows, convx_windows, mask, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj,
             ln2_w, ln2_b, w1, b1, w2, b2)
     kw = dict(num_heads=num_heads, scale=scale, conv_scale=conv_scale)
     if not _on_cuda("fused_hab_block", x_windows):
         return hab_block_reference(*args, **kw)
-    out = launch_hab("fused_hab_block", *args, **kw, padded=padded)
+    out = launch_hab("fused_hab_block", *args, **kw, padded=padded, packed=packed)
     fused_hab_block.launches += 1
     return out
 
@@ -180,10 +211,12 @@ fused_hab_block.launches = 0
 
 def launch_hab(name: str, x_windows, convx_windows, mask, ln1_w, ln1_b, wqkv, bqkv, bias, wproj,
                bproj, ln2_w, ln2_b, w1, b1, w2, b2, *, num_heads: int, scale: float,
-               conv_scale: float, padded: tuple | None, dp: tuple | None = None):
-    """Checks the operands and launches K5, or K9a when ``dp`` is the pair
-    of branch scales ``(dp1, dp2)`` (each ``(Bw,)`` fp32 or ``None``):
-    returns ``out``, or ``(out, h)`` for K9a."""
+               conv_scale: float, padded: tuple | None, dp: tuple | None = None,
+               packed: torch.Tensor | None = None):
+    """Checks the operands and launches K5 (on ``packed``, or on the padded
+    weights it packs first), or K9a when ``dp`` is the pair of branch scales
+    ``(dp1, dp2)`` (each ``(Bw,)`` fp32 or ``None``): returns ``out``, or
+    ``(out, h)`` for K9a."""
     bw, n, c = _check_windows(name, x_windows, convx_windows)
     hidden = w1.shape[1]
     hd = c // num_heads
@@ -214,7 +247,9 @@ def launch_hab(name: str, x_windows, convx_windows, mask, ln1_w, ln1_b, wqkv, bq
     if any(t.device != x_windows.device for t in others):
         raise ValueError(f"{name}: every operand must be on the windows' device")
     lib = _library()
-    if lib.hab_block_smem_bytes(cp, hidden) > MAX_SMEM_BYTES:
+    smem = (lib.hab_block_smem_bytes(cp, c, num_heads, hidden) if dp is None
+            else lib.hab_block_fwd_h_smem_bytes(cp, hidden))
+    if smem > MAX_SMEM_BYTES:
         raise ValueError(f"{name}: C={c} needs more than 227 KB shared memory")
 
     if padded is None:
@@ -224,20 +259,28 @@ def launch_hab(name: str, x_windows, convx_windows, mask, ln1_w, ln1_b, wqkv, bq
     convx = convx_windows.contiguous()
     bias = bias.float().contiguous()
     mask_t = mask.float().contiguous() if mask is not None else None
-    if x.data_ptr() % 16 or convx.data_ptr() % 4:
+    # K5 copies conv_x as whole 16-byte runs, K9a reads it in 4-byte pairs
+    if x.data_ptr() % 16 or convx.data_ptr() % (16 if dp is None else 4):
         raise ValueError(f"{name}: windows must be 16-byte aligned")
     out = torch.empty_like(x)
-    ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1, b1, w2, b2 = padded
-    weights = [t.data_ptr() for t in (ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj, ln2_w, ln2_b,
-                                      w1, b1, w2, b2)]
     mask_ptr = mask_t.data_ptr() if mask_t is not None else None
     nw = mask.shape[0] if mask is not None else 1
     dims = (bw, cp, c, num_heads, hidden, nw, float(scale), float(conv_scale), _stream(x.device))
     with torch.cuda.device(x.device):
         if dp is None:
-            _check(lib.hab_block_bf16(x.data_ptr(), convx.data_ptr(), mask_ptr, *weights,
-                                      out.data_ptr(), *dims), "hab_block_bf16")
+            elems = lib.hab_block_pack_elems(cp, num_heads, hidden)
+            if packed is None:
+                packed = _pack_on_card(name, lib.hab_block_pack_bf16, elems, padded[2],
+                                       padded[4], padded[8], padded[10], num_heads)
+            packed = _check_packed(name, packed, x.device, elems)
+            vectors = [padded[i].data_ptr() for i in (0, 1, 3)] + [bias.data_ptr()] + [
+                padded[i].data_ptr() for i in (5, 6, 7, 9, 11)]
+            _check(lib.hab_block_bf16(x.data_ptr(), convx.data_ptr(), mask_ptr, *vectors,
+                                      packed.data_ptr(), out.data_ptr(), *dims), "hab_block_bf16")
             return out
+        ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1, b1, w2, b2 = padded
+        weights = [t.data_ptr() for t in (ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj, ln2_w,
+                                          ln2_b, w1, b1, w2, b2)]
         h = torch.empty_like(x)
         dp1, dp2 = (t.float().contiguous() if t is not None else None for t in dp)
         _check(lib.hab_block_fwd_h_bf16(

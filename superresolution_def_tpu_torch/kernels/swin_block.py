@@ -4,8 +4,9 @@ Port of ``superresolution_def_tpu/kernels/swin_block.py``:
 
 - K1 :func:`fused_swin_block` (``fused_swin_block``), the inference block;
 - K2 :func:`swin_block_fwd_h` (``fused_swin_block_fwd_h``), the same block's
-  function that also returns h = x + proj(attn) for the backward, as its own
-  wgmma kernel (``csrc/swin_fwd_wg.cuh``);
+  function that also returns h = x + proj(attn) for the backward; K1 and K2
+  are two instantiations of one wgmma kernel (``csrc/swin_fwd_wg.cuh``) on
+  weights packed by :func:`pack_swin_block_weights`;
 - K3 :func:`swin_block_bwd_mlp` (``_bwd_mlp``), the LN2 + MLP backward from h;
 - K4 :func:`swin_block_bwd_attn` (``_bwd_attn``), the attention + LN1 backward;
 - K4b :func:`swin_block_bwd` (``fused_swin_block_bwd``), the whole block's
@@ -281,17 +282,16 @@ def swin_block_bwd_reference(x, dout, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bpr
 def _kernel_library() -> ctypes.CDLL:
     lib = load_library("swin_block")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.swin_block_bf16.argtypes = [vp] * 15 + [i32] * 4 + [ctypes.c_float, vp]
+    lib.swin_block_pack_bf16.argtypes = [vp] * 4 + [i32] * 3 + [vp, vp]
+    lib.swin_block_bf16.argtypes = [vp] * 12 + [i32] * 4 + [ctypes.c_float, i32, vp]
     lib.swin_block_fwd_h_bf16.argtypes = [vp] * 17 + [i32] * 4 + [ctypes.c_float, vp]
-    for fn in (lib.swin_block_bf16, lib.swin_block_fwd_h_bf16, lib.swin_block_fwd_h_windows):
+    for fn in (lib.swin_block_pack_bf16, lib.swin_block_bf16, lib.swin_block_fwd_h_bf16,
+               lib.swin_block_windows):
         fn.restype = ctypes.c_int
-    lib.swin_block_smem_bytes.argtypes = [i32] * 3
-    lib.swin_block_smem_bytes.restype = ctypes.c_size_t
-    for fn in (lib.swin_block_fwd_h_pack_elems, lib.swin_block_fwd_h_smem_bytes,
-               lib.swin_block_fwd_h_windows):
+    for fn in (lib.swin_block_pack_elems, lib.swin_block_smem_bytes, lib.swin_block_windows):
         fn.argtypes = [i32] * 3
-    lib.swin_block_fwd_h_pack_elems.restype = ctypes.c_size_t
-    lib.swin_block_fwd_h_smem_bytes.restype = ctypes.c_size_t
+    lib.swin_block_pack_elems.restype = ctypes.c_size_t
+    lib.swin_block_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -412,34 +412,88 @@ def _checked_block_operands(name, x, vectors, weights, bias, num_heads, smem_byt
     return x, w, f32, bias.float().contiguous()
 
 
-def _launch_forward(x, vectors, weights, bias, num_heads, scale, store_h):
+def _check_packed(name: str, packed: torch.Tensor, device, elems: int) -> torch.Tensor:
+    if (packed.dtype != torch.bfloat16 or packed.device != device or packed.dim() != 1
+            or packed.numel() != elems or not packed.is_contiguous() or packed.data_ptr() % 16):
+        raise ValueError(f"{name}: packed wants a contiguous 16-byte aligned bfloat16 ({elems},) "
+                         f"on the windows' device, got {packed.dtype} {tuple(packed.shape)} on "
+                         f"{packed.device}")
+    return packed
+
+
+def _pack_on_card(name: str, pack, elems: int, wqkv, wproj, w1, w2, num_heads: int):
+    """The four weights packed by the C entry ``pack`` into a new bf16
+    tensor of ``elems`` (two launches on the current stream)."""
+    c, hidden = w1.shape
+    want = {"wqkv": (c, 3 * c), "wproj": (c, c), "w1": (c, hidden), "w2": (hidden, c)}
+    weights = dict(wqkv=wqkv, wproj=wproj, w1=w1, w2=w2)
+    _check_operands(name, wqkv.device, weights, want, {}, {})
+    _check_heads(name, c, num_heads)
+    w = [t.contiguous() for t in weights.values()]
+    out = torch.empty(elems, dtype=torch.bfloat16, device=wqkv.device)
+    with torch.cuda.device(wqkv.device):
+        _check(pack(*_ptrs(*w), c, num_heads, hidden, out.data_ptr(), _stream(wqkv.device)),
+               pack.__name__)
+    return out
+
+
+def pack_swin_block_weights(wqkv, wproj, w1, w2, *, num_heads: int) -> torch.Tensor:
+    """K1's and K2's weights packed for the wgmma kernel: a flat bf16 tensor,
+    :func:`attn_pack_reference`'s tiles then :func:`mlp_pack_reference`'s.
+
+    On CUDA the two packing kernels build it (``attn_pack_kernel``,
+    ``mlp_pack_kernel``); on the CPU the plain forms do. A caller that runs
+    frozen weights often packs once and passes the result to
+    :func:`fused_swin_block` as ``packed``: about 0.9 MB a block at the
+    flagship widths (C = 180, 6 heads, hidden 720), 32 MB for SwinIR's 36.
+    """
+    if not _on_cuda("pack_swin_block_weights", wqkv):
+        return torch.cat([attn_pack_reference(wqkv, wproj, num_heads),
+                          mlp_pack_reference(w1, w2)])
+    lib = _kernel_library()
+    c, hidden = w1.shape
+    return _pack_on_card("pack_swin_block_weights", lib.swin_block_pack_bf16,
+                         lib.swin_block_pack_elems(c, num_heads, hidden), wqkv, wproj, w1, w2,
+                         num_heads)
+
+
+def _launch_forward(x, vectors, weights, bias, num_heads, scale, store_h, packed=None,
+                    windows=0):
+    """Launches K2 (``store_h``: packing the weights first) or K1 (on
+    ``packed``, or on weights it packs first). ``windows``: K1's windows a
+    block, 1 or 2 (0: as many as fit)."""
     name = "swin_block_fwd_h" if store_h else "fused_swin_block"
     lib = _kernel_library()
-    smem = lib.swin_block_fwd_h_smem_bytes if store_h else lib.swin_block_smem_bytes
     x, w, f32, bias = _checked_block_operands(
         name, x, vectors, weights, bias, num_heads,
-        lambda c, hidden: smem(c, num_heads, hidden))
+        lambda c, hidden: lib.swin_block_smem_bytes(c, num_heads, hidden))
     bw, _, c = x.shape
     hidden = w["w1"].shape[1]
+    elems = lib.swin_block_pack_elems(c, num_heads, hidden)
     out = torch.empty_like(x)
-    extra = []
-    if store_h:  # h, and the scratch K2 packs its weights into
-        h = torch.empty_like(x)
-        wpack = torch.empty(lib.swin_block_fwd_h_pack_elems(c, num_heads, hidden),
-                            dtype=torch.bfloat16, device=x.device)
-        extra = [h.data_ptr(), wpack.data_ptr()]
-    args = [
-        x.data_ptr(), f32["ln1_w"].data_ptr(), f32["ln1_b"].data_ptr(),
-        w["wqkv"].data_ptr(), f32["bqkv"].data_ptr(), bias.data_ptr(),
-        w["wproj"].data_ptr(), f32["bproj"].data_ptr(),
-        f32["ln2_w"].data_ptr(), f32["ln2_b"].data_ptr(),
-        w["w1"].data_ptr(), f32["b1"].data_ptr(), w["w2"].data_ptr(), f32["b2"].data_ptr(),
-        out.data_ptr(), *extra, bw, c, num_heads, hidden, float(scale),
-    ]
+    vec = [f32[k].data_ptr() for k in ("ln1_w", "ln1_b")]
     with torch.cuda.device(x.device):
-        fn = lib.swin_block_fwd_h_bf16 if store_h else lib.swin_block_bf16
-        _check(fn(*args, _stream(x.device)), fn.__name__)
-    return (out, h) if store_h else out
+        if store_h:  # h, and the scratch K2 packs its weights into
+            h = torch.empty_like(x)
+            wpack = torch.empty(elems, dtype=torch.bfloat16, device=x.device)
+            _check(lib.swin_block_fwd_h_bf16(
+                x.data_ptr(), *vec, w["wqkv"].data_ptr(), f32["bqkv"].data_ptr(),
+                bias.data_ptr(), w["wproj"].data_ptr(), f32["bproj"].data_ptr(),
+                f32["ln2_w"].data_ptr(), f32["ln2_b"].data_ptr(), w["w1"].data_ptr(),
+                f32["b1"].data_ptr(), w["w2"].data_ptr(), f32["b2"].data_ptr(), out.data_ptr(),
+                h.data_ptr(), wpack.data_ptr(), bw, c, num_heads, hidden, float(scale),
+                _stream(x.device)), "swin_block_fwd_h_bf16")
+            return out, h
+        if packed is None:
+            packed = _pack_on_card(name, lib.swin_block_pack_bf16, elems, w["wqkv"],
+                                   w["wproj"], w["w1"], w["w2"], num_heads)
+        packed = _check_packed(name, packed, x.device, elems)
+        _check(lib.swin_block_bf16(
+            x.data_ptr(), *vec, f32["bqkv"].data_ptr(), bias.data_ptr(), f32["bproj"].data_ptr(),
+            f32["ln2_w"].data_ptr(), f32["ln2_b"].data_ptr(), f32["b1"].data_ptr(),
+            f32["b2"].data_ptr(), packed.data_ptr(), out.data_ptr(), bw, c, num_heads, hidden,
+            float(scale), windows, _stream(x.device)), "swin_block_bf16")
+    return out
 
 
 def _block_dicts(ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1, b1, w2, b2):
@@ -459,13 +513,15 @@ def _on_cuda(name: str, x: torch.Tensor) -> bool:
 
 def fused_swin_block(
     x_windows, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj, ln2_w, ln2_b, w1, b1, w2, b2,
-    *, num_heads: int, scale: float,
+    *, num_heads: int, scale: float, packed: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """K1: one Swin block over ``(Bw, N, C)`` windows -> ``(Bw, N, C)``.
 
     CUDA tensors launch the Hopper kernel (counted in
     ``fused_swin_block.launches``) or raise; CPU tensors take
-    :func:`swin_block_reference`.
+    :func:`swin_block_reference`. ``packed``: the weights already through
+    :func:`pack_swin_block_weights` (the kernel reads them from there; the
+    others are still checked); without it each call packs them first.
     """
     args = (x_windows, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj, ln2_w, ln2_b,
             w1, b1, w2, b2)
@@ -473,7 +529,8 @@ def fused_swin_block(
         return swin_block_reference(*args, num_heads=num_heads, scale=scale)
     vectors, weights = _block_dicts(ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b,
                                     w1, b1, w2, b2)
-    out = _launch_forward(x_windows, vectors, weights, bias, num_heads, scale, store_h=False)
+    out = _launch_forward(x_windows, vectors, weights, bias, num_heads, scale, store_h=False,
+                          packed=packed)
     fused_swin_block.launches += 1
     return out
 
@@ -489,9 +546,9 @@ def swin_block_fwd_h(
     io dtype.
 
     CUDA tensors launch the kernel (counted in ``swin_block_fwd_h.launches``)
-    or raise; CPU tensors take :func:`swin_block_fwd_h_reference`. The
-    kernel (``csrc/swin_fwd_wg.cuh``) is a wgmma design of its own: its
-    ``out`` matches K1's up to the products' summation order.
+    or raise; CPU tensors take :func:`swin_block_fwd_h_reference`. It runs
+    K1's wgmma kernel (``csrc/swin_fwd_wg.cuh``) with the store of h, and
+    packs the live weights on every call.
     """
     args = (x_windows, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj, ln2_w, ln2_b,
             w1, b1, w2, b2)
@@ -635,6 +692,22 @@ def attn_pack_reference(wqkv: torch.Tensor, wproj: torch.Tensor, num_heads: int)
     heads[:, 1:, :c, :hd] = w
     # (c // 8, c % 8, j // 8, j % 8) -> (c // 8, j // 8, c % 8, j % 8)
     tiles = heads.reshape(num_heads, 4, ck // 8, 8, hp // 8, 8).transpose(3, 4)
+    return tiles.reshape(-1).contiguous()
+
+
+def mlp_pack_reference(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """Plain form of the MLP weight packing (``mlp_pack_kernel``; bf16, flat).
+
+    Per 64-wide hidden chunk j two tiles of ck x 64 (ck: C rounded up to
+    64): w1[:, j] then w2[j, :]^T, element (c, jj) at position (c // 8) 512
+    + (jj // 8) 64 + (c % 8) 8 + jj % 8, zero past C and past hidden."""
+    c, hidden = w1.shape
+    ck, nj = -(-c // 64) * 64, -(-hidden // 64)
+    chunks = torch.zeros(nj, 2, ck, 64, dtype=w1.dtype, device=w1.device)
+    for which, w in enumerate((w1, w2.T)):  # both (c, hidden)
+        chunks[:, which, :c] = F.pad(w, (0, nj * 64 - hidden)).reshape(c, nj, 64).transpose(0, 1)
+    # (c // 8, c % 8, jj // 8, jj % 8) -> (c // 8, jj // 8, c % 8, jj % 8)
+    tiles = chunks.reshape(nj, 2, ck // 8, 8, 8, 8).transpose(3, 4)
     return tiles.reshape(-1).contiguous()
 
 
@@ -917,9 +990,10 @@ def make_fused_swinir(model, *, dtype: torch.dtype = torch.bfloat16,
     and W to be window multiples (no reflect pad, no small-input rule), and
     computes in ``dtype`` (bf16 by default) with LayerNorms in fp32.
 
-    ``differentiable=False`` (inference): the weights of ``model`` are cast and
-    laid out once, here, every block runs K1 under ``torch.no_grad``, and
-    later changes to ``model`` are not seen. ``differentiable=True``
+    ``differentiable=False`` (inference): the weights of ``model`` are cast,
+    laid out and, on the card, packed for K1 once, here (the packed tiles
+    take about 32 MB at the flagship widths), every block runs K1 under
+    ``torch.no_grad``, and later changes to ``model`` are not seen. ``differentiable=True``
     (training): the operands are built from the live parameters on every call,
     inside autograd, so the gradients flow back through the casts and the
     bias gather into ``model``'s fp32 parameters; with grad enabled each
@@ -946,16 +1020,21 @@ def make_fused_swinir(model, *, dtype: torch.dtype = torch.bfloat16,
                 (model.norm.weight.float(), model.norm.bias.float()),
                 [(m.weight.to(dtype), m.bias.to(dtype)) for m in convs])
 
+    packed = [None] * len(blocks)  # K1's weights packed once, for the frozen forward
     if not differentiable:
         with torch.no_grad():
             frozen = operands()
-        frozen = ([tuple(t.contiguous() for t in args) for args in frozen[0]], frozen[1],
-                  frozen[2])
+            frozen = ([tuple(t.contiguous() for t in args) for args in frozen[0]], frozen[1],
+                      frozen[2])
+            if frozen[0] and frozen[0][0][2].is_cuda:
+                packed = [pack_swin_block_weights(args[2], args[5], args[9], args[11],
+                                                  num_heads=heads)
+                          for args, (heads, _) in zip(frozen[0], meta)]
 
     def conv3(wb, x):
         return F.conv2d(x.permute(0, 3, 1, 2), wb[0], wb[1], padding=1).permute(0, 2, 3, 1)
 
-    def block(args, heads, shift, x):
+    def block(args, heads, shift, x, packed=None):
         # the rolls and the window partition/reverse as one gather each way
         b, h, w, c = x.shape
         fwd, inv = token_order(b, h, w, ws, shift, x.device)
@@ -965,7 +1044,7 @@ def make_fused_swinir(model, *, dtype: torch.dtype = torch.bfloat16,
             out = block_fn.apply(xw, *args, heads, scale)
             return _GatherRows.apply(out.reshape(-1, c), inv, fwd).reshape(b, h, w, c)
         xw = _gather_rows(x.reshape(-1, c), fwd).reshape(-1, n, c)
-        out = fused_swin_block(xw, *args, num_heads=heads, scale=scale)
+        out = fused_swin_block(xw, *args, num_heads=heads, scale=scale, packed=packed)
         return _gather_rows(out.reshape(-1, c), inv).reshape(b, h, w, c)
 
     def run(x: torch.Tensor) -> torch.Tensor:
@@ -977,8 +1056,8 @@ def make_fused_swinir(model, *, dtype: torch.dtype = torch.bfloat16,
         x = x.to(dtype)
         x_first = conv3(first, x)
         res = x_first
-        for args, (heads, shift) in zip(block_args, meta):
-            res = block(args, heads, shift, res)
+        for args, (heads, shift), pack in zip(block_args, meta, packed):
+            res = block(args, heads, shift, res, pack)
         res = _ln_f32(res, *norm).to(dtype)
         res = conv3(after_body, res) + x_first
         out = F.leaky_relu(conv3(before_up, res), 0.01)

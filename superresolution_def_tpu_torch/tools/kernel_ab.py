@@ -14,14 +14,19 @@ parent commit, unpacked with ``git archive``). The tool
    first few of them;
 2. times K7 (``fused_rdb_cm``) at B=8 and at B=2 with the stash (F/G = 48/24,
    256x256; its weights packed once, as the forwards pass them), K12
-   (``fused_rdb``) at B=8 and K2 (``swin_block_fwd_h``) at the flagship
-   train shape (Bw=2048, C=180, 6 heads, hidden 720), and end to end the
+   (``fused_rdb``) at B=8, K1 (``fused_swin_block``) at batch 3's Bw=768
+   and K2 (``swin_block_fwd_h``) at the flagship train shape (Bw=2048,
+   C=180, 6 heads, hidden 720), K5 (``fused_hab_block``) at the hybrid's
+   Bw=2048 (C=90, 6 heads, hidden 360) unshifted and shifted (K1's and K5's
+   weights packed once where the tree has ``pack_swin_block_weights`` and
+   ``pack_hab_weights``, as its forwards pass them), and end to end the
+   fused SwinIR's batch-3 forward (config #1, ``make_fused_swinir``), the
    fused hybrid's batch-8 forward (config #2, ``make_fused_hybrid``) and the
-   swin GAN step with the split backward at micro 8 (config #3), each tree
-   in its own process, alternated other, this, this, other (``--rounds``
-   such sets of turns), by CUDA events on the same seeded inputs; each turn
-   also hashes K1's output (Bw=768, flagship widths) to show whether the
-   two trees' K1 give the same bits;
+   swin GAN step at micro 8 (config #3) with the split and with the
+   recompute backward, each tree in its own process, alternated other,
+   this, this, other (``--rounds`` such sets of turns), by CUDA events on
+   the same seeded inputs; each turn also hashes K1's output (Bw=768,
+   flagship widths) to show whether the two trees' K1 give the same bits;
 3. prints one JSON line per turn and a summary line.
 
 Needs a CUDA card and nvcc; it imports nothing of the JAX package.
@@ -92,13 +97,43 @@ args = [a.to(dev) for a in (
     u(c, fan_in=hidden))]
 kw = dict(num_heads=6, scale=30 ** -0.5)
 import hashlib
-from superresolution_def_tpu_torch.kernels import fused_swin_block, make_fused_hybrid
-from superresolution_def_tpu_torch.models import HybridHATRealESRGAN
+from superresolution_def_tpu_torch import kernels as kmod
+from superresolution_def_tpu_torch.kernels import (fused_hab_block, fused_swin_block,
+                                                   make_fused_hybrid, make_fused_swinir)
+from superresolution_def_tpu_torch.kernels import hab_block as hab_mod
+from superresolution_def_tpu_torch.models import HybridHATRealESRGAN, SwinIR
+from superresolution_def_tpu_torch.ops import shift_window_attn_mask
 from superresolution_def_tpu_torch.train import (CombinedGANLoss, VGG19Features,
                                                  create_swin_train_state, make_swin_train_step)
-k1 = fused_swin_block(*[a[:768] if a.shape[0] == bw else a for a in args], **kw)
+args768 = [a[:768] if a.shape[0] == bw else a for a in args]
+k1 = fused_swin_block(*args768, **kw)
 torch.cuda.synchronize()
 k1_sha = hashlib.sha256(k1.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+# the inference forwards' weights: packed once where the tree packs them
+pack1 = getattr(kmod, "pack_swin_block_weights", None)
+kw1 = dict(kw, packed=pack1(args[3], args[6], args[10], args[12], num_heads=6)) if pack1 else kw
+hgen = torch.Generator().manual_seed(2)
+ch, hh = 90, 360
+def hu(*shape, fan_in):
+    return (torch.rand(*shape, generator=hgen) * 2 - 1) / fan_in ** 0.5
+hab_args = [a.to(dev) for a in (
+    torch.randn(bw, 64, ch, generator=hgen).to(bf), (0.1 * torch.randn(bw, 64, ch, generator=hgen)).to(bf),
+    1 + 0.1 * torch.randn(ch, generator=hgen), 0.1 * torch.randn(ch, generator=hgen),
+    hu(ch, 3 * ch, fan_in=ch).to(bf), hu(3 * ch, fan_in=ch), 0.5 * torch.randn(6, 64, 64, generator=hgen),
+    hu(ch, ch, fan_in=ch).to(bf), hu(ch, fan_in=ch), 1 + 0.1 * torch.randn(ch, generator=hgen),
+    0.1 * torch.randn(ch, generator=hgen), hu(ch, hh, fan_in=ch).to(bf), hu(hh, fan_in=ch),
+    hu(hh, ch, fan_in=hh).to(bf), hu(ch, fan_in=hh))]
+pad5 = hab_mod.pad_hab_operands(*hab_args[2:6], *hab_args[7:], num_heads=6)
+kw5 = dict(num_heads=6, scale=15 ** -0.5, conv_scale=0.01, padded=pad5)
+pack5 = getattr(kmod, "pack_hab_weights", None)
+if pack5:
+    kw5["packed"] = pack5(pad5, num_heads=6)
+mask5 = torch.from_numpy(shift_window_attn_mask(128, 128, 8, 4)).to(dev)
+swin = SwinIR(img_size=128, in_chans=1, embed_dim=180, depths=(6,) * 6, num_heads=(6,) * 6,
+              window_size=8, mlp_ratio=4.0, upscale=4,
+              generator=torch.Generator().manual_seed(0)).to(dev).eval()
+swin_fwd = make_fused_swinir(swin)
+xs = torch.from_numpy(rng.random((3, 128, 128, 1), dtype=np.float32)).to(dev)
 hyb = HybridHATRealESRGAN(img_size=128, in_chans=1, embed_dim=90, depths=(6,) * 4,
                           num_heads=(6,) * 4, window_size=8, num_rrdb=12, num_feat=48,
                           num_grow_ch=24, generator=torch.Generator().manual_seed(0)).to(dev).eval()
@@ -108,19 +143,31 @@ brng = np.random.default_rng(5)
 batch = {"lr": brng.integers(0, 65535, (1, 8, 128, 128, 1), dtype=np.uint16),
          "hr": brng.integers(0, 65535, (1, 8, 512, 512, 1), dtype=np.uint16)}
 vgg = VGG19Features(35, dtype=torch.bfloat16).to(dev).requires_grad_(False)
+crit = CombinedGANLoss(pixel_weight=1.0, perceptual_weight=0.5, adversarial_weight=0.005,
+                       vgg_apply=vgg)
 state = create_swin_train_state(torch.Generator().manual_seed(0), dtype=torch.bfloat16,
                                 fused=True, device=dev)
-step = make_swin_train_step(state, accum_steps=1, criterion_g=CombinedGANLoss(
-    pixel_weight=1.0, perceptual_weight=0.5, adversarial_weight=0.005, vgg_apply=vgg))
+step = make_swin_train_step(state, accum_steps=1, criterion_g=crit)
+state_r = create_swin_train_state(torch.Generator().manual_seed(0), dtype=torch.bfloat16,
+                                  fused=True, device=dev, backward="recompute")
+step_r = make_swin_train_step(state_r, accum_steps=1, criterion_g=crit)
 out = {"K1 sha256": k1_sha,
     "K7 B=8": cuda_ms(lambda: fused_rdb_cm(x8, ks, bs, h=256, w=256, packed=p7), reps=10),
     "K7 B=2 stash": cuda_ms(lambda: fused_rdb_cm(x2, ks, bs, h=256, w=256, packed=p7,
                                                  stash=stash), reps=10),
     "K12 B=8": cuda_ms(lambda: fused_rdb(x8n, ks, bs, packed=p12), reps=10),
+    "K1 Bw=768": cuda_ms(lambda: fused_swin_block(*args768, **kw1), reps=10),
     "K2 Bw=2048": cuda_ms(lambda: swin_block_fwd_h(*args, **kw), reps=10),
+    "K5 Bw=2048 unshifted": cuda_ms(lambda: fused_hab_block(hab_args[0], hab_args[1], None,
+                                                            *hab_args[2:], **kw5), reps=10),
+    "K5 Bw=2048 shifted": cuda_ms(lambda: fused_hab_block(hab_args[0], hab_args[1], mask5,
+                                                          *hab_args[2:], **kw5), reps=10),
+    "swinir forward B=3": cuda_ms(lambda: swin_fwd(xs), reps=10, warmup=2, calls=2),
     "hybrid forward B=8": cuda_ms(lambda: fwd(xh), reps=5, warmup=2, calls=2),
     "swin split step micro 8": cuda_ms(lambda: step(batch, 1e-4, 1e-4), reps=3, warmup=2,
                                        calls=2),
+    "swin recompute step micro 8": cuda_ms(lambda: step_r(batch, 1e-4, 1e-4), reps=3,
+                                           warmup=2, calls=2),
 }
 print(json.dumps(out))
 '''

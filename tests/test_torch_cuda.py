@@ -26,9 +26,13 @@ another summation order), on q, k and v that are strided views of one qkv
 tensor. K12 (the dense block, NHWC) runs at F/G = 48/24, 64/32 and 16/8 and
 on a 40 x 24 image, held to K1's bound against its plain version and
 against K7 (the two keep the same rounding points and sum in different
-orders: K7 runs each conv as a wgmma GEMM). K2 (the training forward, a wgmma
-design of its own) is held to K1's bound against its plain version and
-against K1's out, and runs at 1, 3 and 7 windows twice to the same bits;
+orders: K7 runs each conv as a wgmma GEMM). K1, K2 and K5 are one wgmma
+kernel (K2 with the store of h, K5 with HAB's mask, conv branch and padded
+widths): K2 is held to K1's bound against its plain version and against
+K1's out, and runs at 1, 3 and 7 windows twice to the same bits; K1 runs at
+1, 3, 7 and 768 windows and K5 at 3, 7 and 9 (shifted by a mask of nW
+windows, nW dividing Bw, and unshifted) twice to the same bits and, on
+weights packed once, to the bits of a call that packs them itself;
 K7 runs at B = 1 and 3 on odd sizes with and without the stash, twice to
 the same bits. K4b (the block's backward from
 x and dout, the forward recomputed) runs at K1-K4's five width sets, held
@@ -38,9 +42,10 @@ against K2's bf16 h and K3's bf16 dh), twice to the same bits; the
 recompute SwinIR's gradients are held as the split one's. K13 (the
 stage-ablation block, C in 129..192) runs each of its nine modes at the
 flagship widths, held to K1's bound and to 5e-4 relative L2, with
-``mlp_tanhgelu`` equal to K1 and ``allheads`` to ``full`` bit for bit (each
-is the other's instantiation); its activations, and a polygelu with zeroed
-coefficients, lie further apart than that.
+``mlp_tanhgelu`` within K1's bound of K1 (K13 runs K1's first design, K1
+its wgmma redesign) and ``allheads`` equal to ``full`` bit for bit (one
+instantiation); its activations, and a polygelu with zeroed coefficients,
+lie further apart than that.
 
 Bounds. K1 and K2: bf16 io rounds the output to 8 significant bits, and
 kernel and plain version sum in different orders, so max |kernel - plain|
@@ -96,6 +101,8 @@ from superresolution_def_tpu_torch.kernels import (
     swin_block_fwd_h,
     swin_block_fwd_h_reference,
     ocab_block_reference,
+    pack_hab_weights,
+    pack_swin_block_weights,
     rdb_cm_bwd_reference,
     rdb_cm_reference,
     rdb_nhwc_reference,
@@ -106,6 +113,7 @@ from superresolution_def_tpu_torch.kernels import (
     window_attention_reference,
 )
 from superresolution_def_tpu_torch.kernels.fused_rdb_cm import dense_block_sources
+from superresolution_def_tpu_torch.kernels.hab_block import pad_hab_operands
 from superresolution_def_tpu_torch.kernels.swin_stage_ablation import MODES
 from superresolution_def_tpu_torch.models import HybridHATRealESRGAN, SwinIR
 from superresolution_def_tpu_torch.ops import shift_window_attn_mask
@@ -213,6 +221,28 @@ def test_fwd_h_at_odd_window_counts(device, bw):
     for got, want in zip((out, h), swin_block_fwd_h_reference(*args, **kw)):
         err = (got.float() - want.float()).abs().max().item()
         assert err <= K1_TOL * max(1.0, want.float().abs().max().item()), err
+
+
+@pytest.mark.parametrize("bw", [1, 3, 7, 768])
+def test_kernel_at_odd_window_counts_and_packed_once(device, bw):
+    """K1 on its two-window wgmma blocks at window counts that leave a dead
+    warpgroup (1, 3, 7) and at batch 3's 768: twice to the same bits, on
+    weights packed once (as the inference forward passes them) to the bits
+    of a call that packs them itself, within K1's bound of the plain
+    version."""
+    args = _operands(bw + 17, bw, 180, 6, 720, device)
+    kw = dict(num_heads=6, scale=30**-0.5)
+    before = fused_swin_block.launches
+    got = fused_swin_block(*args, **kw)
+    again = fused_swin_block(*args, **kw)
+    packed = pack_swin_block_weights(args[3], args[6], args[10], args[12], num_heads=6)
+    once = fused_swin_block(*args, **kw, packed=packed)
+    torch.cuda.synchronize()
+    assert fused_swin_block.launches == before + 3
+    assert torch.equal(got, again) and torch.equal(got, once)
+    want = swin_block_reference(*args, **kw).float()
+    err = (got.float() - want).abs().max().item()
+    assert err <= K1_TOL * max(1.0, want.abs().max().item()), err
 
 
 @pytest.mark.parametrize("bw,c,heads,hidden", WIDTHS)
@@ -389,6 +419,55 @@ def test_hab_kernel_matches_plain_version(device, bw, c, heads, hidden, shifted)
     want = hab_block_reference(x, convx, mask, *params, **kw).float()
     err = (got.float() - want).abs().max().item()
     assert err <= K1_TOL * max(1.0, want.abs().max().item()), err
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("bw,nw", [(3, 3), (7, 7), (9, 3)])
+def test_hab_kernel_at_odd_window_counts(device, bw, nw, shifted):
+    """K5 at HAT's widths (C = 90, heads of 15) on window counts that leave
+    its two-window blocks a dead warpgroup, shifted with a mask of nW
+    windows (nW dividing Bw, window w taking mask[w mod nW]) and unshifted:
+    twice to the same bits, packed once to the bits of a call that pads and
+    packs itself, within K1's bound of the plain version."""
+    x, convx, *params = _hat_operands(bw + 31, bw, 90, 6, 360, device)
+    rng = np.random.default_rng(bw)
+    mask = (torch.from_numpy(np.where(rng.random((nw, 64, 64)) < 0.25, -100.0, 0.0)
+                             .astype(np.float32)).to(device) if shifted else None)
+    kw = dict(num_heads=6, scale=15**-0.5, conv_scale=0.01)
+    before = fused_hab_block.launches
+    got = fused_hab_block(x, convx, mask, *params, **kw)
+    again = fused_hab_block(x, convx, mask, *params, **kw)
+    padded = pad_hab_operands(*params[:4], *params[5:], num_heads=6)
+    once = fused_hab_block(x, convx, mask, *params, **kw, padded=padded,
+                           packed=pack_hab_weights(padded, num_heads=6))
+    torch.cuda.synchronize()
+    assert fused_hab_block.launches == before + 3
+    assert torch.equal(got, again) and torch.equal(got, once)
+    want = hab_block_reference(x, convx, mask, *params, **kw).float()
+    err = (got.float() - want).abs().max().item()
+    assert err <= K1_TOL * max(1.0, want.abs().max().item()), err
+
+
+def test_packed_weights_are_checked(device):
+    """K1's and K5's ``packed`` must be the packing of their widths: a
+    wrong size or dtype raises before any launch."""
+    args = _operands(3, 2, 180, 6, 720, device)
+    kw = dict(num_heads=6, scale=30**-0.5)
+    packed = pack_swin_block_weights(args[3], args[6], args[10], args[12], num_heads=6)
+    x, convx, *params = _hat_operands(4, 2, 90, 6, 360, device)
+    hkw = dict(num_heads=6, scale=15**-0.5)
+    padded = pad_hab_operands(*params[:4], *params[5:], num_heads=6)
+    hpacked = pack_hab_weights(padded, num_heads=6)
+    before = (fused_swin_block.launches, fused_hab_block.launches)
+    with pytest.raises(ValueError, match="packed"):
+        fused_swin_block(*args, **kw, packed=packed[:-8])
+    with pytest.raises(ValueError, match="packed"):
+        fused_swin_block(*args, **kw, packed=packed.float())
+    with pytest.raises(ValueError, match="packed"):
+        fused_hab_block(x, convx, None, *params, **hkw, padded=padded, packed=packed)
+    with pytest.raises(ValueError, match="packed"):
+        fused_hab_block(x, convx, None, *params, **hkw, padded=padded, packed=hpacked.cpu())
+    assert (fused_swin_block.launches, fused_hab_block.launches) == before
 
 
 @pytest.mark.parametrize("bw,c,heads,hidden", HAT_WIDTHS)
@@ -938,12 +1017,9 @@ def test_attention_modules_run_the_window_attention_kernel(device):
 
 
 def test_fused_hybrid_kernel_trunk_matches_cm_trunk(device):
-    """make_fused_hybrid(trunk_impl="kernel") (K12) against the K7 trunk:
-    the two dense blocks keep the same rounding points and sum their convs
-    in different orders, so a bf16 rounding of x1..x4 or of a block's output
-    may land one step apart, and six blocks and the tail carry it on (the
-    H100 read 4.5e-3 relative L2); bounded at 1e-2, where a layout error
-    moves the output by O(1)."""
+    """make_fused_hybrid(trunk_impl="kernel") (K12) and the default K7
+    trunk, each held to the fp32 module at max(2e-2, 2x the bf16 module's
+    own distance), as chip_smoke.py's phases 14 and 29 hold them."""
     model = HybridHATRealESRGAN(**HYBRID, generator=torch.Generator().manual_seed(0))
     model = model.to(device).eval()
     x = torch.from_numpy(np.random.default_rng(2).random((2, 16, 24, 1), dtype=np.float32))
@@ -951,11 +1027,17 @@ def test_fused_hybrid_kernel_trunk_matches_cm_trunk(device):
     before = (fused_rdb.launches, fused_rdb_cm.launches)
     got = make_fused_hybrid(model, trunk_impl="kernel")(x)
     mid = (fused_rdb.launches, fused_rdb_cm.launches)
-    want = make_fused_hybrid(model)(x)
+    cm = make_fused_hybrid(model)(x)
     assert mid == (before[0] + 6, before[1])
     assert fused_rdb_cm.launches == before[1] + 6
-    print(f"K12 trunk against K7 trunk: rel L2 {_rel_l2(got, want):.3e}")
-    assert torch.isfinite(got).all() and _rel_l2(got, want) <= 1e-2
+    with torch.no_grad():
+        want = model(x)
+        ref16 = copy.deepcopy(model).to(torch.bfloat16)(x.to(torch.bfloat16)).float()
+    err16 = _rel_l2(ref16, want)
+    for name, out in (("K12 trunk", got), ("K7 trunk", cm)):
+        err = _rel_l2(out, want)
+        print(f"{name}: rel L2 to fp32 {err:.3e}, nn.Module bf16 {err16:.3e}")
+        assert torch.isfinite(out).all() and err <= max(2e-2, 2 * err16), (name, err, err16)
 
 
 BWD_NAMES = ["dx", "dln1_w", "dln1_b", "dwqkv", "dbqkv", "dbias", "dwproj", "dbproj", "dln2_w",
@@ -1095,10 +1177,15 @@ def test_stage_kernel_tells_its_activations_apart(device):
 
 
 def test_stage_kernel_tanhgelu_is_k1_and_allheads_is_full(device):
+    """mlp_tanhgelu computes K1's function on K1's first design, K1 on its
+    wgmma redesign: the two sum their products in other orders, so they
+    agree within K1's bound, not bit for bit. allheads is full's
+    instantiation: the same bits."""
     args = _operands(11, 32, 180, 6, 720, device)
     kw = dict(num_heads=6, scale=30**-0.5)
-    assert torch.equal(swin_stage_block(*args, mode="mlp_tanhgelu", **kw),
-                       fused_swin_block(*args, **kw))
+    k1 = fused_swin_block(*args, **kw).float()
+    err = (swin_stage_block(*args, mode="mlp_tanhgelu", **kw).float() - k1).abs().max().item()
+    assert err <= K1_TOL * max(1.0, k1.abs().max().item()), err
     assert torch.equal(swin_stage_block(*args, mode="allheads", **kw),
                        swin_stage_block(*args, mode="full", **kw))
 
