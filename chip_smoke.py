@@ -9,10 +9,12 @@ exit code:
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of every CUDA source (all at once, one nvcc each), with time,
    the ptxas lines of each kernel, ptxas's registers and spills of K1's,
-   K2's and K5's instantiations of the wgmma forward (``swin_fwd_wg_kernel<3,
-   32, false>``, ``<3, 32, true>``, ``hab_fwd_wg_kernel<2, 16>``), and the
-   dynamic shared memory of K1/K2's and K5's kernels and of K7's five conv
-   kernels;
+   K2's, K5's and K9a's instantiations of the wgmma forward
+   (``swin_fwd_wg_kernel<3, 32, false>``, ``<3, 32, true>``,
+   ``hab_fwd_wg_kernel<2, 16>``, ``hab_fwd_h_wg_kernel<2, 16>``) and of K4b's
+   three phases (``swin_fwd_h32_wg_kernel<3, 32>``, ``mlp_bwd_f32_kernel<3>``,
+   ``attn_wg_f32_kernel<3, 32>``), and the dynamic shared memory of K1/K2's,
+   K5/K9a's and K4b's kernels and of K7's five conv kernels;
 3. K1 (``fused_swin_block``) against its plain PyTorch version at the
    flagship shapes (Bw=768, C=180, 6 heads, hidden 720, bf16), run twice to
    the same bits and on weights packed once (``pack_swin_block_weights``,
@@ -88,15 +90,17 @@ exit code:
     backbone, D and VGG timed alone at the step's shapes;
 21. the fused-HAB training kernels' build lines (``ocab_train.cu``, built
     with phase 2's; K9a, K9b and K9c are entry points of ``hab_block.cu`` and
-    ``swin_block_train.cu``): ptxas registers and spills;
+    ``swin_block_train.cu``, whose lines phases 2 and 7 print): ptxas
+    registers and spills;
 22. K9a (``hab_fwd_h``), K9b (``hab_bwd_mlp``), K9c (``hab_bwd_attn``),
     K10a (``ocab_fwd_h``) and K10b (``ocab_bwd_attn``) against their plain
     versions at the fused-HAB step's shapes (Bw=512: micro 2 of 128x128,
     C=90, 6 heads, hidden 360, bf16; K9 unshifted and shifted, drop-path
     scales that drop one of the two samples, K10 on a real overlap gather,
-    dout ~ N(0, 1e-2)), each backward run twice to show the same bits, with
-    times, and K9c's device time per kernel (window kernel, weight-gradient
-    products, column sums, weight packing) unshifted and shifted;
+    dout ~ N(0, 1e-2)), K9a-c and K10b each run twice to show the same bits,
+    with times, and K9c's device time per kernel (window kernel,
+    weight-gradient products, column sums, weight packing) unshifted and
+    shifted;
 23. the fused-HAB hybrid generator's gradients against fp32 autograd of the
     ``nn.Module`` on one patch, beside the bf16 ``nn.Module``'s own distance
     (with phase 17);
@@ -109,7 +113,8 @@ exit code:
     8 and micro 8 x accum 2 (beside phase 19's fused step), and its
     ``torch.profiler`` idle share, device kernel launches per step and device
     time by kernel group (K9a, K9b, K9c, K10a, K10b, their products and
-    column sums, K7, K8);
+    column sums, K7, K8), failing if a first-design block kernel
+    (``swin_block_kernel<``) ran;
 26. K11 (``window_attention_nomask`` for K11a and K11c, one instantiation,
     and ``window_attention_masked`` for K11b) against its plain version in
     bf16 at the attention modules' shapes: SwinIR's (Bw=768, 6 heads, 64
@@ -134,15 +139,21 @@ exit code:
     a forward, agreement with the fp32 module, patches/s beside the default
     K7 trunk;
 30. K4b (``swin_block_bwd``, the block's backward from x and dout with the
-    forward recomputed) at the flagship train shapes (Bw=2048, bf16, dout ~
-    N(0, 1e-2)) against its plain version and against K3 + K4 on K2's h
-    (relative L2 per output), run twice to show the same bits, with its
-    time beside K3 + K4's and the plain version's;
+    forward recomputed, in three wgmma phases) at the flagship train shapes
+    (Bw=2048, bf16, dout ~ N(0, 1e-2)) against its plain version and against
+    K3 + K4 on K2's h (relative L2 per output), run twice to show the same
+    bits, with its time beside K3 + K4's and the plain version's, K1 + K4b
+    beside K2 + K3 + K4, its device time per kernel (each phase, the weight
+    packings, products and column sums; no first-design kernel), and its
+    phases' ptxas registers, spills and shared memory;
 31. the fused SwinIR GAN step with ``backward="recompute"`` (K1 forward,
     K4b backward): its bf16 gradients against fp32 autograd on one patch,
     its launches in one counted step (36 K1 and 36 K4b, no K2, K3 or K4),
-    and patches/s and peak memory at micro 8 x accum 1 alternated with
-    ``backward="split"`` (split, recompute, recompute, split);
+    patches/s and peak memory at micro 8 x accum 1 alternated with
+    ``backward="split"`` (split, recompute, recompute, split), and one
+    recompute step's ``torch.profiler`` device time by kernel group (K1,
+    K4b's three phases, the packings, the products and column sums), failing
+    if a first-design kernel ran;
 32. K13 (``swin_stage_block``, the stage-ablation block) in each of its nine
     modes, and ``mlp_polygelu`` with zero coefficients, against its plain
     version (relative L2) on K1's operands and on the ablation tool's
@@ -402,7 +413,10 @@ def short_name(kernel: str) -> str:
 
 def kernel_split(fn, calls: int = 10) -> dict:
     """Device milliseconds per call of ``fn`` by kernel name, from
-    ``torch.profiler`` over ``calls`` calls after one untimed call."""
+    ``torch.profiler`` over ``calls`` calls after one untimed call. The
+    launches the profiler recorded, by kernel name, are left in
+    ``kernel_split.counts``: a kernel launched once a call that reads fewer
+    than ``calls`` lost records, and its time per call reads low."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -411,13 +425,15 @@ def kernel_split(fn, calls: int = 10) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    split = {}
+    split, counts = {}, {}
     for e in prof.key_averages():
         t = getattr(e, "device_time_total", None)
         if t is None:
             t = e.cuda_time_total
         if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
             split[e.key] = split.get(e.key, 0.0) + t / 1e3 / calls
+            counts[e.key] = counts.get(e.key, 0) + e.count
+    kernel_split.counts = counts
     return dict(sorted(split.items(), key=lambda kv: -kv[1]))
 
 
@@ -592,7 +608,14 @@ def main() -> None:
              "swin_fwd_wg_kernelILi3ELi32ELb0E"),
             ("K2 swin_fwd_wg_kernel<3, 32, true>", "swin_block",
              "swin_fwd_wg_kernelILi3ELi32ELb1E"),
-            ("K5 hab_fwd_wg_kernel<2, 16>", "hab_block", "hab_fwd_wg_kernelILi2ELi16E")):
+            ("K5 hab_fwd_wg_kernel<2, 16>", "hab_block", "hab_fwd_wg_kernelILi2ELi16E"),
+            ("K9a hab_fwd_h_wg_kernel<2, 16>", "hab_block", "hab_fwd_h_wg_kernelILi2ELi16E"),
+            ("K4b's recompute swin_fwd_h32_wg_kernel<3, 32>", "swin_block_bwd",
+             "swin_fwd_h32_wg_kernelILi3ELi32E"),
+            ("K4b's MLP phase mlp_bwd_f32_kernel<3>", "swin_block_bwd",
+             "mlp_bwd_f32_kernelILi3E"),
+            ("K4b's attention phase attn_wg_f32_kernel<3, 32>", "swin_block_bwd",
+             "attn_wg_f32_kernelILi3ELi32E")):
         log("build", f"{key} (the flagship's or HAT's widths): "
             + ptxas_stats(_build.build_log(src), fragment))
     klib = swin_block._kernel_library()
@@ -602,7 +625,9 @@ def main() -> None:
         f"({klib.swin_block_windows(180, 6, 720)} windows a block); K5's (hab_fwd_wg_kernel) "
         f"at C=96 (90 in device memory), 6 heads, hidden 360 "
         f"{hlib.hab_block_smem_bytes(96, 90, 6, 360)} B "
-        f"({hlib.hab_block_windows(96, 90, 6, 360)} windows a block); K7's five convs "
+        f"({hlib.hab_block_windows(96, 90, 6, 360)} windows a block; K9a's the same); K4b's "
+        f"phases at C=180, 6 heads, hidden 720 (the largest) "
+        f"{swin_block._bwd_library().swin_bwd_block_smem_bytes(180, 6, 720)} B; K7's five convs "
         "(conv_kernel) at F/G = 48/24: " + ", ".join(
             f"conv{i + 1} {b} B" for i, b in enumerate(rdb_cm.smem_bytes(48, 24))))
 
@@ -1391,13 +1416,15 @@ def main() -> None:
         kw9a = dict(**hkw9, conv_scale=0.01, padded=pad9)
         kw9c = dict(**hkw9, padded=pad9)
         out9, h9 = hab_fwd_h(*fwd_args, **kw9a)
+        fwd_again = hab_fwd_h(*fwd_args, **kw9a)
         mlp9 = hab_bwd_mlp(*mlp_args(h9), padded=pad9[6:11])
         attn_args = (x9, mlp9[0], m, dp1, ln1_w, ln1_b, wqkv, bqkv, bias9, wproj)
         attn9 = hab_bwd_attn(*attn_args, **kw9c)
         again = (*hab_bwd_mlp(*mlp_args(h9), padded=pad9[6:11]),
                  *hab_bwd_attn(*attn_args, **kw9c))
         torch.cuda.synchronize()
-        same9[tag] = all(torch.equal(a, b_) for a, b_ in zip((*mlp9, *attn9), again))
+        same9[tag] = all(torch.equal(a, b_) for a, b_ in zip((out9, h9, *mlp9, *attn9),
+                                                             (*fwd_again, *again)))
         # the dropped branches pass the cotangent through: dh = dout on
         # sample 0 (MLP dropped), dx = dh on sample 1 (attention dropped)
         passed9[tag] = (torch.equal(mlp9[0][:per_image], dout9[:per_image])
@@ -1412,7 +1439,7 @@ def main() -> None:
             errs9[f"{tag} {name}"] = rel_l2(got_t, want_t)
         max9[tag] = {k: (gots[i].float() - wants[i].float()).abs().max().item()
                      for k, i in (("K9a", 0), ("K9b", 2), ("K9c", 9))}
-        del again, wants
+        del again, fwd_again, wants
         t9[tag] = {
             "K9a": (cuda_ms(lambda: hab_fwd_h(*fwd_args, **kw9a)),
                     cuda_ms(lambda: hab_fwd_h_reference(*fwd_args, **hkw9, conv_scale=0.01),
@@ -1456,7 +1483,7 @@ def main() -> None:
                   f"dropped per branch: rel L2 vs plain (bound {BWD_REL_L2}): "
                   + ", ".join(f"{k} {v:.3e}" for k, v in {**errs9, **{
                       f"K10 {k}": v for k, v in errs10.items()}}.items()))
-    log("k9-k10", f"backwards bit-identical over two runs: K9 {same9}, K10b {same10}; dropped "
+    log("k9-k10", f"bit-identical over two runs: K9a-c {same9}, K10b {same10}; dropped "
                   f"branches pass the cotangent through: {passed9}")
     log("k9-k10", f"on {card}: " + "; ".join(
         f"{k} {tag} {v[0]:.4f} ms (plain {v[1]:.4f} ms, bound {least_ms(work_t[k])[0]:.4f} ms)"
@@ -1547,9 +1574,10 @@ def main() -> None:
             ops, busy_ms, idle = device_profile(lambda: stp(hb, 1e-4, 1e-4), steps=1)
             # K8's weight-gradient kernel is the template wgrad_kernel<F, G>;
             # K9b/K9c/K10b share swin_block_train.cu's wgrad_kernel(...)
-            # K9a is the first design's swin_block_kernel<NCH, STORE_H,
-            # HAB, STAGE, ACT> with the h store and HAB's operands
-            groups = {"K9a": ("swin_block_kernel<2, true, true,",),
+            # K9a is the wgmma forward's hab_fwd_h_wg_kernel<NCH, HP>; its
+            # weight packing (K5's) shares the pack kernels' names with
+            # K9b/K9c's, whose groups take them
+            groups = {"K9a": ("hab_fwd_h_wg_kernel<",),
                       "K9b": ("mlp_bwd_kernel", "mlp_pack_kernel"),
                       "K9c": ("attn_wg_kernel", "attn_pack_kernel"),
                       "K10a": (r"ocab_kernel<\d+, true>",), "K10b": ("ocab_bwd_kernel",),
@@ -1557,6 +1585,10 @@ def main() -> None:
                       "K7": ("conv_kernel<", "stash_x_kernel"),
                       "K8": ("stack_kernel", "wgrad_kernel<", "dx_kernel")}
             split = group_split(ops, groups, "hab-train-profile")
+            first_design = [name for name, _, _ in ops if "swin_block_kernel<" in name]
+            if first_design:
+                raise SystemExit(f"[hab-train-profile] the fused-HAB step ran the first "
+                                 f"design: {first_design}")
             split["rest"] = sum(t for _, t, _ in ops) - sum(split.values())
             log("hab-train-profile",
                 f"fused-HAB hybrid GAN step, micro {micro} x accum {accum} on {card}: device "
@@ -1825,6 +1857,11 @@ def main() -> None:
                  cuda_ms(lambda: swin_block.swin_block_bwd_reference(xw, dout, *bargs[1:], **kw),
                          reps=3, warmup=1, calls=1))
     split_ms = cuda_ms(split_bwd, reps=10)
+    # the two backwards with their forwards, as each step runs them: K1
+    # packing its live weights on every call, then K4b; K2, then K3 + K4
+    k1_live_ms = cuda_ms(lambda: fused_swin_block(*bargs, **kw), reps=10)
+    k2_ms = cuda_ms(lambda: swin_block_fwd_h(*bargs, **kw), reps=10)
+    k4b_split = kernel_split(lambda: swin_block_bwd(xw, dout, *bargs[1:], **kw))
     log("k4b", f"Bw={bw_train} C=180 heads=6 hidden=720 bf16, dout ~ N(0, 1e-2): rel L2 vs "
                f"plain (bound {BWD_REL_L2}): "
         + ", ".join(f"{k} {v:.3e}" for k, v in k4b_rel.items()))
@@ -1832,7 +1869,24 @@ def main() -> None:
         + ", ".join(f"{k} {v:.3e}" for k, v in k4b_rel_split.items())
         + f"; two runs bit-identical: {k4b_same_bits}")
     log("k4b", f"on {card}: K4b {k4b_times[0]:.4f} ms (K3 + K4 in this run {split_ms:.4f} ms), "
-               f"plain {k4b_times[1]:.4f} ms")
+               f"plain {k4b_times[1]:.4f} ms; with the forward: K1 + K4b "
+               f"{k1_live_ms + k4b_times[0]:.4f} ms (K1 {k1_live_ms:.4f}) against K2 + K3 + K4 "
+               f"{k2_ms + split_ms:.4f} ms (K2 {k2_ms:.4f})")
+    log("k4b", "K4b device ms per call by kernel (its three phases, their weight packings, "
+               "the weight-gradient products and column sums; launches the profiler recorded "
+               "over 10 calls): " + ", ".join(
+                   f"{short_name(name)} {t:.4f} (x{kernel_split.counts[name]})"
+                   for name, t in k4b_split.items()))
+    log("k4b", "ptxas (NCH=3, HP=32, the flagship's): " + "; ".join(
+        f"{key} {ptxas_stats(_build.build_log('swin_block_bwd'), frag)}" for key, frag in (
+            ("swin_fwd_h32_wg_kernel", "swin_fwd_h32_wg_kernelILi3ELi32E"),
+            ("mlp_bwd_f32_kernel", "mlp_bwd_f32_kernelILi3E"),
+            ("attn_wg_f32_kernel", "attn_wg_f32_kernelILi3ELi32E")))
+        + f"; dynamic shared memory, the largest phase's: "
+          f"{swin_block._bwd_library().swin_bwd_block_smem_bytes(180, 6, 720)} B")
+    if any(kind_ in name for name in k4b_split for kind_ in ("block_bwd_kernel",
+                                                               "swin_block_kernel<")):
+        raise SystemExit(f"K4b ran a first-design kernel: {list(k4b_split)}")
     if not (finite and k4b_same_bits):
         raise SystemExit(f"K4b non-finite ({not finite}) or not reproducible")
     bad = {k: v for k, v in {**k4b_rel, **{f"{k} vs split": v for k, v in k4b_rel_split.items()}
@@ -1894,6 +1948,32 @@ def main() -> None:
         step31_peak.setdefault(how, []).append(torch.cuda.max_memory_allocated() / 1e9)
         del state, step
         torch.cuda.empty_cache()
+    # one recompute step under the profiler: its device time by kernel group
+    state = create_swin_train_state(torch.Generator().manual_seed(seed), dtype=bf, fused=True,
+                                    device=device, backward="recompute")
+    step = make_swin_train_step(state, accum_steps=1, criterion_g=crit)
+    step(batch, 1e-4, 1e-4)
+    ops, busy_ms, idle = device_profile(lambda: step(batch, 1e-4, 1e-4), steps=1)
+    # K1 and K4b's first and third phases share the packing kernels (their
+    # own group); the weight-gradient products and column sums are K4b's
+    groups31 = {"K1": ("swin_fwd_wg_kernel<3, 32, false>",),
+                "K4b recompute": ("swin_fwd_h32_wg_kernel<",),
+                "K4b MLP phase": ("mlp_bwd_f32_kernel<",),
+                "K4b attention phase": ("attn_wg_f32_kernel<",),
+                "K1/K4b weight packings": ("attn_pack_kernel", "mlp_pack_kernel"),
+                "K4b wgrad+colsum": (r"wgrad_kernel\(", "colsum_kernel")}
+    split31 = group_split(ops, groups31, "k4b-train")
+    first_design = [name for name, _, _ in ops
+                    if "block_bwd_kernel" in name or "swin_block_kernel<" in name]
+    log("k4b-train", f"recompute step under torch.profiler on {card}: device busy {busy_ms:.3f} "
+        f"ms, idle share {idle:.4f}; by kernel group: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in split31.items())
+        + "; top device ops: " + "; ".join(f"{name[:60]} {t:.3f} ms x{n}"
+                                           for name, t, n in ops[:8]))
+    if first_design:
+        raise SystemExit(f"[k4b-train] the recompute step ran the first design: {first_design}")
+    del state, step
+    torch.cuda.empty_cache()
     k4b_launches = step31_launches["recompute"]["swin_block_bwd"]
     log("k4b-train", f"launches in one GAN step: " + "; ".join(
         f"{how}: " + ", ".join(f"{k} {v}" for k, v in c.items())

@@ -34,52 +34,58 @@
 //
 // K9a replaces superresolution_def_tpu/kernels/hab_train.py::_hab_fwd_h
 // (kernel body _make_hab_fwd_h_kernel): K5's function with K2's store of h
-// (rounded to bf16) for the backward, and per-sample drop-path on both
-// branches, h = x + dp1 * proj + conv_scale * conv_x and out = h + dp2 *
-// mlp. The JAX kernel takes dp1, dp2 as (Bw, 1, C) windows of one value
-// each; here they are that value, one fp32 per window. It still runs the
-// first design (swin_block_kernel.cuh: mma.sync, one window a block, every
-// window streaming the weights through shared memory in 64 x 64 tiles by
-// cp.async). Its bound is K5's plus the h store (11.5 KB more per window):
-// operation-bound at the tensor cores' peak.
+// for the backward, and per-sample drop-path on both branches, h = x + dp1
+// * (proj + bproj) + conv_scale * conv_x and out = h + dp2 * (mlp + b2). The
+// JAX kernel takes dp1, dp2 as (Bw, 1, C) windows of one value each; here
+// they are that value, one fp32 per window. It is the third instantiation
+// of the same body, hab_fwd_h_wg_kernel<NCH, HP>: h leaves as bf16(h), the
+// value LN2 reads and K9b reads back, in one dense window of 16-byte runs at
+// cio columns, as out does;
+// the MLP accumulates into h's registers, so a window whose dp2 is neither
+// 0 nor 1 divides h by dp2 before it and multiplies the sum after, and a
+// window with dp2 = 0 skips the MLP's products. Its weights are live: the
+// wrapper packs them on every call (hab_block_pack_bf16's two launches into
+// the scratch wpack), as K2 does. Its bound is K5's plus the h store (11.5
+// KB more per window) and the scales: operation-bound at the tensor cores'
+// peak.
 
-#include "swin_block_kernel.cuh"
 #include "swin_fwd_wg.cuh"
 
 using namespace swin;
 
 namespace {
 
-Params hab_params(const void* x, const void* convx, const void* mask, const void* ln1_w,
-                  const void* ln1_b, const void* wqkv, const void* bqkv, const void* bias,
-                  const void* wproj, const void* bproj, const void* ln2_w, const void* ln2_b,
-                  const void* w1, const void* b1, const void* w2, const void* b2, void* out,
-                  int c, int cio, int heads, int hidden, int nw, float scale, float conv_scale) {
-  Params p = {};
+FwdWgParams hab_params(const void* x, const void* convx, const void* mask, const void* ln1_w,
+                       const void* ln1_b, const void* bqkv, const void* bias, const void* bproj,
+                       const void* ln2_w, const void* ln2_b, const void* b1, const void* b2,
+                       const void* wpack, void* out, int bw, int c, int cio, int heads,
+                       int hidden, int nw, float scale, float conv_scale) {
+  FwdWgParams p = {};
   p.x = static_cast<const bf16*>(x);
   p.convx = static_cast<const bf16*>(convx);
   p.mask = static_cast<const float*>(mask);
   p.ln1_w = static_cast<const float*>(ln1_w);
   p.ln1_b = static_cast<const float*>(ln1_b);
-  p.wqkv = static_cast<const bf16*>(wqkv);
   p.bqkv = static_cast<const float*>(bqkv);
   p.bias = static_cast<const float*>(bias);
-  p.wproj = static_cast<const bf16*>(wproj);
   p.bproj = static_cast<const float*>(bproj);
   p.ln2_w = static_cast<const float*>(ln2_w);
   p.ln2_b = static_cast<const float*>(ln2_b);
-  p.w1 = static_cast<const bf16*>(w1);
   p.b1 = static_cast<const float*>(b1);
-  p.w2 = static_cast<const bf16*>(w2);
   p.b2 = static_cast<const float*>(b2);
   p.out = static_cast<bf16*>(out);
   p.c = c;
   p.cio = cio;
   p.heads = heads;
   p.hidden = hidden;
-  p.nw = nw;
+  p.bw = bw;
+  p.nmask = nw;
   p.scale = scale;
   p.conv_scale = conv_scale;
+  size_t attn = 0;
+  fwd_pack_elems(c, heads, hidden, &attn);
+  p.wattn = static_cast<const bf16*>(wpack);
+  p.wmlp = p.wattn + attn;
   return p;
 }
 
@@ -107,33 +113,10 @@ extern "C" int hab_block_bf16(const void* x, const void* convx, const void* mask
                               const void* ln2_b, const void* b1, const void* b2,
                               const void* wpack, void* out, int bw, int c, int cio, int heads,
                               int hidden, int nw, float scale, float conv_scale, void* stream) {
-  FwdWgParams p = {};
-  p.x = static_cast<const bf16*>(x);
-  p.convx = static_cast<const bf16*>(convx);
-  p.mask = static_cast<const float*>(mask);
-  p.ln1_w = static_cast<const float*>(ln1_w);
-  p.ln1_b = static_cast<const float*>(ln1_b);
-  p.bqkv = static_cast<const float*>(bqkv);
-  p.bias = static_cast<const float*>(bias);
-  p.bproj = static_cast<const float*>(bproj);
-  p.ln2_w = static_cast<const float*>(ln2_w);
-  p.ln2_b = static_cast<const float*>(ln2_b);
-  p.b1 = static_cast<const float*>(b1);
-  p.b2 = static_cast<const float*>(b2);
-  p.out = static_cast<bf16*>(out);
-  p.c = c;
-  p.cio = cio;
-  p.heads = heads;
-  p.hidden = hidden;
-  p.bw = bw;
-  p.nmask = nw;
-  p.scale = scale;
-  p.conv_scale = conv_scale;
-  size_t attn = 0;
-  fwd_pack_elems(c, heads, hidden, &attn);
-  p.wattn = static_cast<const bf16*>(wpack);
-  p.wmlp = p.wattn + attn;
-  return run_fwd_wg<false, true>(p, 0, stream);
+  return run_fwd_wg<false, true>(hab_params(x, convx, mask, ln1_w, ln1_b, bqkv, bias, bproj,
+                                            ln2_w, ln2_b, b1, b2, wpack, out, bw, c, cio, heads,
+                                            hidden, nw, scale, conv_scale),
+                                 0, stream);
 }
 
 extern "C" size_t hab_block_pack_elems(int c, int heads, int hidden) {
@@ -152,24 +135,25 @@ extern "C" int hab_block_windows(int c, int cio, int heads, int hidden) {
 }
 
 // K9a: as hab_block_bf16, plus h (bw, 64, cio) bf16 and the per-window
-// branch scales dp1, dp2 (bw,) fp32 (either may be null: all one).
+// branch scales dp1, dp2 (bw,) fp32 (either may be null: all one), on the
+// weights wqkv, wproj, w1, w2 (at the padded width c), which it packs into
+// the scratch wpack (hab_block_pack_elems bf16, 16-byte aligned) first.
 extern "C" int hab_block_fwd_h_bf16(const void* x, const void* convx, const void* mask,
                                     const void* dp1, const void* dp2, const void* ln1_w,
                                     const void* ln1_b, const void* wqkv, const void* bqkv,
                                     const void* bias, const void* wproj, const void* bproj,
                                     const void* ln2_w, const void* ln2_b, const void* w1,
                                     const void* b1, const void* w2, const void* b2, void* out,
-                                    void* h, int bw, int c, int cio, int heads, int hidden, int nw,
-                                    float scale, float conv_scale, void* stream) {
-  Params p = hab_params(x, convx, mask, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj, ln2_w,
-                        ln2_b, w1, b1, w2, b2, out, c, cio, heads, hidden, nw, scale, conv_scale);
+                                    void* h, void* wpack, int bw, int c, int cio, int heads,
+                                    int hidden, int nw, float scale, float conv_scale,
+                                    void* stream) {
+  const int err = hab_block_pack_bf16(wqkv, wproj, w1, w2, c, heads, hidden, wpack, stream);
+  if (err != 0) return err;
+  FwdWgParams p = hab_params(x, convx, mask, ln1_w, ln1_b, bqkv, bias, bproj, ln2_w, ln2_b, b1,
+                             b2, wpack, out, bw, c, cio, heads, hidden, nw, scale, conv_scale);
   p.h_out = static_cast<bf16*>(h);
-  p.dp1 = static_cast<const float*>(dp1);
-  p.dp2 = static_cast<const float*>(dp2);
-  return run_block<true, true>(p, bw, stream);
-}
-
-// K9a's dynamic shared memory at padded width c (one window a block).
-extern "C" size_t hab_block_fwd_h_smem_bytes(int c, int hidden) {
-  return make_layout(c, round16(c), round16(hidden)).total;
+  FwdWgExtra e = {};
+  e.dp1 = static_cast<const float*>(dp1);
+  e.dp2 = static_cast<const float*>(dp2);
+  return run_fwd_wg<true, true>(p, 0, stream, e);
 }

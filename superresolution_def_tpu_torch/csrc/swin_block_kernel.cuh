@@ -1,18 +1,15 @@
-// The first design of the fused window-attention block kernel, which K1, K2
-// and K5 ran before their wgmma redesigns (swin_fwd_wg.cuh). It now serves
-// K9a (hab_block.cu), K13 (swin_stage_ablation.cu, the ablation of this
-// design), K6/K10a's second half (ocab.cu), K11's attention rows
-// (window_attention.cu) and K4b's recompute (swin_block_bwd.cu). One thread
+// The first design of the fused window-attention block kernel, which K1, K2,
+// K5 and K9a ran before their wgmma redesigns (swin_fwd_wg.cuh), and K4b's
+// recompute before its own (swin_block_bwd.cu). It now serves K13
+// (swin_stage_ablation.cu, the ablation of this design), K6/K10a's second
+// half (ocab.cu) and K11's attention rows (window_attention.cu). One thread
 // block computes one pre-rolled, pre-partitioned 8x8 window (N = 64 tokens)
 // end to end:
 //
 //   LN1 (fp32 stats) -> QKV (+bqkv, rounded to bf16)
 //   -> per head: softmax(q*scale . k^T + bias[h] (+ mask[w])) . v (softmax fp32)
-//   -> proj (+bproj) -> h = x + dp1 * proj (+ conv_scale * conv_x)  (residual fp32)
-//   -> LN2 of bf16(h) -> fc1 -> tanh GELU -> fc2 -> out = h + dp2 * mlp
-//
-// dp1 and dp2 are K9a's per-window drop-path scales of the two branches
-// (one fp32 value per window); K6 and K13 run with both at 1.
+//   -> proj (+bproj) -> h = x + proj (+ conv_scale * conv_x)  (residual fp32)
+//   -> LN2 of bf16(h) -> fc1 -> tanh GELU -> fc2 -> out = h + mlp
 //
 // Every matrix product runs on the tensor cores (mma.sync m16n8k16 bf16 with
 // fp32 accumulators, operands through ldmatrix). The fp32 residual h lives in
@@ -27,16 +24,14 @@
 // Two widths: `c` is the width of the weights and of the kernel's internal
 // rows (heads * head_dim after the wrapper's zero padding), `cio` the width of
 // the windows in device memory and of the LayerNorm statistics. K13 has
-// cio == c. K9a (HAT, C = 90, head_dim 15) gets c = 96: the wrapper pads each
+// cio == c. HAT (C = 90, head_dim 15) gets c = 96: the wrapper pads each
 // head's q/k/v columns 15 -> 16 and the channel rows 90 -> 96 with zeros, so
 // padded q/k/v columns, proj/fc2 outputs and LN outputs are exactly zero and
 // the real 90 columns see the unpadded arithmetic.
 //
 // K13 (swin_stage_ablation.cu) is this kernel with two compile-time
 // switches, STAGE (which stages run) and ACT (the MLP's activation); their
-// defaults are the full block with the tanh GELU. K4b
-// (swin_block_bwd.cu) reuses the first half, qkv_attention and
-// proj_residual, to recompute the forward inside the backward.
+// defaults are the full block with the tanh GELU.
 
 #pragma once
 
@@ -63,8 +58,6 @@ struct Params {
   bf16* h_out;        // K2 only: h rounded to bf16
   const bf16* convx;  // K5 only: the CAB branch in window layout (cio wide)
   const float* mask;  // K5 only: (nw, 64, 64) additive mask, or null (all zero)
-  const float* dp1;   // K9a only: (bw,) branch scales, or null (all one)
-  const float* dp2;
   int c, cp, cio, heads, hd, hidden, hidden_p, nw;
   float scale, conv_scale;
 };
@@ -234,15 +227,15 @@ __device__ __forceinline__ void attention_rows(const bf16* qh, const bf16* kh, c
   }
 }
 
-// proj into the register-resident residual h = x + d1 * (attn @ wproj +
-// bproj) (+ conv_scale * conv_x with CONV), from the attention output in
+// proj into the register-resident residual h = x + (attn @ wproj + bproj)
+// (+ conv_scale * conv_x with CONV), from the attention output in
 // `attn` (64 x cp bf16, zero beyond the real columns); with STORE_H also
 // bf16(h) to p.h_out. MLPONLY (K13) skips proj: h = x. xw is the window's
-// rows in device memory. Shared by block_tail and K4b's recompute.
+// rows in device memory.
 template <int NCH, bool STORE_H, bool CONV, int STAGE = STAGE_FULL>
 __device__ __forceinline__ void proj_residual(float (&h)[NCH][4][4], const Params& p, int lda,
                                               const bf16* attn, bf16* ring, const float* vec,
-                                              const bf16* xw, size_t win, float d1) {
+                                              const bf16* xw, size_t win) {
   const int C = p.c, CP = p.cp, CIO = p.cio;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = (warp & 3) * 16, c0 = (warp >> 2) * 32, g = lane >> 2, tig = lane & 3;
@@ -283,8 +276,8 @@ __device__ __forceinline__ void proj_residual(float (&h)[NCH][4][4], const Param
             h[ch][t][2 * half + 1] = x2.y;
             continue;
           }
-          float v0 = x2.x + d1 * (h[ch][t][2 * half] + vec[V_BPROJ * C + col]);
-          float v1 = x2.y + d1 * (h[ch][t][2 * half + 1] + vec[V_BPROJ * C + col + 1]);
+          float v0 = x2.x + (h[ch][t][2 * half] + vec[V_BPROJ * C + col]);
+          float v1 = x2.y + (h[ch][t][2 * half + 1] + vec[V_BPROJ * C + col + 1]);
           if constexpr (CONV) {
             const unsigned cc =
                 __ldg(reinterpret_cast<const unsigned*>(p.convx + win + r * CIO + col));
@@ -301,27 +294,23 @@ __device__ __forceinline__ void proj_residual(float (&h)[NCH][4][4], const Param
       }
 }
 
-// The block's second half, shared by K1/K2/K5/K9a/K13 and K6/K10a (ocab.cu):
+// The block's second half, shared by K13 and K6/K10a (ocab.cu):
 // from the attention output in `attn` (64 x cp bf16, zero beyond the real
 // columns), proj into the register-resident residual
-// h = x + d1 * (attn @ wproj + bproj) (+ conv_scale * conv_x with CONV), LN2
-// of bf16(h), the MLP, and out = h + d2 * (mlp + b2) rounded to bf16. xw/ow
-// are the window's rows in device memory. The MLP accumulates into h's
-// registers, so a branch scale d2 other than 1 divides h by d2 before it and
-// multiplies the sum after (exact but for one fp32 rounding each way); a
-// window with d2 = 0 skips the MLP and writes h. STAGE and ACT: K13's
-// switches (ATTNONLY writes h and stops).
+// h = x + (attn @ wproj + bproj) (+ conv_scale * conv_x with CONV), LN2 of
+// bf16(h), the MLP accumulated into h's registers, and out = h + mlp + b2
+// rounded to bf16. xw/ow are the window's rows in device memory. STAGE and
+// ACT: K13's switches (ATTNONLY writes h and stops).
 template <int NCH, bool STORE_H, bool CONV, int STAGE = STAGE_FULL, int ACT = ACT_TANH>
 __device__ __forceinline__ void block_tail(const Params& p, int lda, bf16* abuf, const bf16* attn,
                                            bf16* mid, bf16* ring, const float* vec, float* red,
-                                           const bf16* xw, bf16* ow, size_t win, float d1 = 1.f,
-                                           float d2 = 1.f) {
+                                           const bf16* xw, bf16* ow, size_t win) {
   const int C = p.c, CP = p.cp, CIO = p.cio, hidden = p.hidden;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = (warp & 3) * 16, c0 = (warp >> 2) * 32, g = lane >> 2, tig = lane & 3;
   const int nkc = (CP + TILE - 1) / TILE;
   float h[NCH][4][4];
-  proj_residual<NCH, STORE_H, CONV, STAGE>(h, p, lda, attn, ring, vec, xw, win, d1);
+  proj_residual<NCH, STORE_H, CONV, STAGE>(h, p, lda, attn, ring, vec, xw, win);
   if constexpr (STAGE == STAGE_ATTNONLY) {
 #pragma unroll
     for (int ch = 0; ch < NCH; ++ch)
@@ -389,59 +378,48 @@ __device__ __forceinline__ void block_tail(const Params& p, int lda, bf16* abuf,
 
   // ---- MLP in 64-wide hidden chunks j: fc1 slice (nkc tiles of w1), GELU ->
   // mid, then mid @ w2[j rows] accumulated into h (NCH tiles of w2)
-  if (d2 != 1.f && d2 != 0.f) {
+  const int per = nkc + NCH;
+  float acc[4][4];
+  pipeline(
+      ((hidden + TILE - 1) / TILE) * per, ring,
+      [&](int s) {
+        const int j = s / per, u = s - j * per;
+        if (u < nkc)
+          return Tile{p.w1, hidden, u * TILE, min(TILE, C - u * TILE), j * TILE,
+                      min(TILE, hidden - j * TILE)};
+        return Tile{p.w2, C, j * TILE, min(TILE, hidden - j * TILE), (u - nkc) * TILE,
+                    min(TILE, C - (u - nkc) * TILE)};
+      },
+      [&](int s, const bf16* t) {
+        const int j = s / per, u = s - j * per;
+        if (u < nkc) {
+          const int nn = min(TILE, hidden - j * TILE);
+          if (u == 0) {
 #pragma unroll
-    for (int ch = 0; ch < NCH; ++ch)
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) h[ch][t][e] /= d2;
-  }
-  if (d2 != 0.f) {  // uniform over the block: every thread skips the barriers alike
-    const int per = nkc + NCH;
-    float acc[4][4];
-    pipeline(
-        ((hidden + TILE - 1) / TILE) * per, ring,
-        [&](int s) {
-          const int j = s / per, u = s - j * per;
-          if (u < nkc)
-            return Tile{p.w1, hidden, u * TILE, min(TILE, C - u * TILE), j * TILE,
-                        min(TILE, hidden - j * TILE)};
-          return Tile{p.w2, C, j * TILE, min(TILE, hidden - j * TILE), (u - nkc) * TILE,
-                      min(TILE, C - (u - nkc) * TILE)};
-        },
-        [&](int s, const bf16* t) {
-          const int j = s / per, u = s - j * per;
-          if (u < nkc) {
-            const int nn = min(TILE, hidden - j * TILE);
-            if (u == 0) {
-#pragma unroll
-              for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-            }
-            if (c0 >= nn) return;
-            mma_tile(acc, abuf + u * TILE, lda, min(TILE, CP - u * TILE) / 16, t, c0 + 16 < nn);
-            if (u != nkc - 1) return;
-            for_pairs(acc, 0, c0 + 16 < nn, [&](int r, int c, float v0, float v1) {
-              const float v[2] = {v0, v1};
-#pragma unroll
-              for (int e = 0; e < 2; ++e)
-                mid[r * LDT + c + e] = __float2bfloat16(
-                    c + e < nn ? activation<ACT>(v[e] + vec[V_B1 * C + j * TILE + c + e])
-                               : 0.f);
-            });
-          } else {
-            const int chunk = u - nkc, nn = C - chunk * TILE;
-            if (c0 >= nn) return;
-            const int ksteps = round16(min(TILE, hidden - j * TILE)) / 16;
-#pragma unroll
-            for (int ch = 0; ch < NCH; ++ch)
-              if (ch == chunk) mma_tile(h[ch], mid, LDT, ksteps, t, c0 + 16 < nn);
+            for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
           }
-        });
-  }
+          if (c0 >= nn) return;
+          mma_tile(acc, abuf + u * TILE, lda, min(TILE, CP - u * TILE) / 16, t, c0 + 16 < nn);
+          if (u != nkc - 1) return;
+          for_pairs(acc, 0, c0 + 16 < nn, [&](int r, int c, float v0, float v1) {
+            const float v[2] = {v0, v1};
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              mid[r * LDT + c + e] = __float2bfloat16(
+                  c + e < nn ? activation<ACT>(v[e] + vec[V_B1 * C + j * TILE + c + e])
+                             : 0.f);
+          });
+        } else {
+          const int chunk = u - nkc, nn = C - chunk * TILE;
+          if (c0 >= nn) return;
+          const int ksteps = round16(min(TILE, hidden - j * TILE)) / 16;
+#pragma unroll
+          for (int ch = 0; ch < NCH; ++ch)
+            if (ch == chunk) mma_tile(h[ch], mid, LDT, ksteps, t, c0 + 16 < nn);
+        }
+      });
 
-  // ---- out = h + d2 * (mlp + b2), rounded to bf16, straight from the registers
-  const float b2s = d2 != 0.f ? 1.f : 0.f;
+  // ---- out = h + mlp + b2, rounded to bf16, straight from the registers
 #pragma unroll
   for (int ch = 0; ch < NCH; ++ch)
 #pragma unroll
@@ -450,10 +428,9 @@ __device__ __forceinline__ void block_tail(const Params& p, int lda, bf16* abuf,
       for (int half = 0; half < 2; ++half) {
         const int r = r0 + g + 8 * half, col = ch * TILE + c0 + t * 8 + tig * 2;
         if (col < CIO) {
-          const float o0 = h[ch][t][2 * half] + b2s * vec[V_B2 * C + col];
-          const float o1 = h[ch][t][2 * half + 1] + b2s * vec[V_B2 * C + col + 1];
-          *reinterpret_cast<__nv_bfloat162*>(ow + r * CIO + col) =
-              d2 != 0.f ? __floats2bfloat162_rn(d2 * o0, d2 * o1) : __floats2bfloat162_rn(o0, o1);
+          *reinterpret_cast<__nv_bfloat162*>(ow + r * CIO + col) = __floats2bfloat162_rn(
+              h[ch][t][2 * half] + vec[V_B2 * C + col],
+              h[ch][t][2 * half + 1] + vec[V_B2 * C + col + 1]);
         }
       }
 }
@@ -463,8 +440,7 @@ __device__ __forceinline__ void block_tail(const Params& p, int lda, bf16* abuf,
 // second; each warp owns 16 query rows -> attn columns head*hd ..
 // head*hd+hd-1. abuf holds LN1's output (64 x cp bf16), qkv the zeroed
 // q/k/v slots of a head pair. NOATTN (K13) writes the unscaled q columns to
-// attn instead of the attention output. Shared by swin_block_kernel and
-// K4b's recompute.
+// attn instead of the attention output.
 template <int STAGE = STAGE_FULL>
 __device__ __forceinline__ void qkv_attention(const Params& p, int lda, const bf16* abuf,
                                               bf16* attn, bf16* qkv, bf16* ring,
@@ -525,8 +501,7 @@ __device__ __forceinline__ void qkv_attention(const Params& p, int lda, const bf
 
 // NCH = ceil(C / 64): the column chunks of the residual h held in registers.
 // STORE_H: write bf16(h) to p.h_out. HAB: add the mask to the scores and
-// conv_scale * conv_x to the residual; both together (K9a) also scale the
-// branches by dp1, dp2. STAGE, ACT: K13's.
+// conv_scale * conv_x to the residual. STAGE, ACT: K13's.
 template <int NCH, bool STORE_H, bool HAB, int STAGE = STAGE_FULL, int ACT = ACT_TANH>
 __global__ void __launch_bounds__(THREADS, 2) swin_block_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -547,13 +522,8 @@ __global__ void __launch_bounds__(THREADS, 2) swin_block_kernel(const Params p) 
   const bf16* xw = p.x + win;
   bf16* ow = p.out + win;
   const float* mask = nullptr;
-  float d1 = 1.f, d2 = 1.f;
   if constexpr (HAB)
     if (p.mask != nullptr) mask = p.mask + (size_t)(blockIdx.x % p.nw) * N * N;
-  if constexpr (HAB && STORE_H) {  // K9a; K5 keeps the constant scales
-    if (p.dp1 != nullptr) d1 = __ldg(p.dp1 + blockIdx.x);
-    if (p.dp2 != nullptr) d2 = __ldg(p.dp2 + blockIdx.x);
-  }
 
   // q/k/v padding must read as zero; the window goes to the idle attention
   // buffer, the small vectors and the pair column map to theirs
@@ -590,8 +560,8 @@ __global__ void __launch_bounds__(THREADS, 2) swin_block_kernel(const Params p) 
   if constexpr (STAGE != STAGE_MLPONLY)
     qkv_attention<STAGE>(p, lda, abuf, attn, qkv, ring, vec, qmap, mask);
 
-  block_tail<NCH, STORE_H, HAB, STAGE, ACT>(p, lda, abuf, attn, mid, ring, vec, red, xw, ow, win,
-                                            d1, d2);
+  block_tail<NCH, STORE_H, HAB, STAGE, ACT>(p, lda, abuf, attn, mid, ring, vec, red, xw, ow,
+                                            win);
 }
 
 template <int NCH, bool STORE_H, bool HAB, int STAGE, int ACT>

@@ -1,8 +1,10 @@
-// The Swin block's forward on wgmma, in three instantiations of one body:
+// The Swin block's forward on wgmma, in five instantiations of one body:
 // K1, the inference block (swin_block.cu's swin_block_bf16), K2, the same
-// block for training, which also stores h (swin_block_fwd_h_bf16), and K5,
-// HAT's hybrid attention block (hab_block.cu's hab_block_bf16). Each
-// computes, at K1's rounding points:
+// block for training, which also stores h (swin_block_fwd_h_bf16), K5,
+// HAT's hybrid attention block (hab_block.cu's hab_block_bf16), K9a, K5 for
+// training with K2's store of h and the two branches' drop-path scales
+// (hab_block_fwd_h_bf16), and K4b's recompute, which stops at the fp32 h
+// (swin_block_bwd.cu). Each computes, at K1's rounding points:
 //
 //   LN1 (fp32 stats) -> QKV (+bqkv, rounded to bf16; q then * scale, rounded)
 //   -> per head: softmax(q . k^T + bias[h] (+ mask[w], K5)) . v  (softmax fp32, P bf16)
@@ -31,10 +33,16 @@
 // reduces by shuffles alone. x arrives by 16-byte cp.async; out (and K2's
 // h) leave through the window's x buffer as 16-byte runs.
 //
-// The weights: K2 packs the live weights on every call (pack_fwd_wg: two
-// launches, ~0.006 ms at the flagship widths). K1 and K5 take the tiles
+// The weights: K2 and K9a pack the live weights on every call (pack_fwd_wg:
+// two launches, ~0.006 ms at the flagship widths). K1 and K5 take the tiles
 // packed: their inference forwards pack frozen weights once per block, and
-// a call that brings none packs them first, as K2 does.
+// a call that brings none packs them first, as K2 does. K4b's recompute
+// streams only the attention's tiles, which K4b packs once for it and its
+// attention phase.
+//
+// K9a and K4b's recompute take the operands K1, K2 and K5 lack (dp1, dp2;
+// h32) as kernel arguments of their own (FwdWgExtra): FwdWgParams, which
+// all five read, carries none of them.
 //
 // K5 (HAB). The wrapper pads the weights (pad_hab_operands): each head to
 // 16 columns and the channels to c = 96 at HAT's C = 90, while the windows
@@ -171,9 +179,14 @@ __device__ __forceinline__ void fwd_cp_async16(void* dst, const void* src) {
 }
 
 // The body of every instantiation: STORE_H stores h (K2), HAB reads the
-// mask and conv_x and keeps the windows cio wide (K5).
-template <int NCH, int HP, bool STORE_H, bool HAB>
-__device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsigned char* fsm) {
+// mask and conv_x and keeps the windows cio wide (K5); both (K9a) also scale
+// the two branches by dp1, dp2 ((Bw,) fp32 each, null: 1). H32 (K4b's
+// recompute) stops at h = x + (proj + bproj), which it writes in fp32 to h32
+// ((Bw, 64, c)): no LN2, no MLP, no out, and no MLP tiles in the ring.
+template <int NCH, int HP, bool STORE_H, bool HAB, bool H32 = false>
+__device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsigned char* fsm,
+                                            const float* dp1 = nullptr,
+                                            const float* dp2 = nullptr, float* h32 = nullptr) {
   using namespace hopper;
   constexpr int CK = NCH * TILE, CGS = HP * 16, NB = HP / 8;
   const int C = p.c, CIO = HAB ? p.cio : p.c, heads = p.heads, hd = p.hd, hidden = p.hidden;
@@ -187,10 +200,12 @@ __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsign
     const float* vsrc[] = {p.ln1_w, p.ln1_b, p.bqkv, p.bproj, p.ln2_w, p.ln2_b, p.b2};
     const int voff[] = {F_LN1W, F_LN1B, F_BQKV, F_BPROJ, F_LN2W, F_LN2B, F_B2};
     const int vlen[] = {C, C, 3 * C, C, C, C, C};
+    constexpr int NVEC = H32 ? 4 : 7;  // the recompute: LN1, bqkv and bproj only
 #pragma unroll
-    for (int v = 0; v < 7; ++v)
+    for (int v = 0; v < NVEC; ++v)
       for (int i = tid; i < vlen[v]; i += blockDim.x) vec[voff[v] * C + i] = __ldg(vsrc[v] + i);
-    for (int i = tid; i < hidden; i += blockDim.x) vec[F_B1 * C + i] = __ldg(p.b1 + i);
+    if constexpr (!H32)
+      for (int i = tid; i < hidden; i += blockDim.x) vec[F_B1 * C + i] = __ldg(p.b1 + i);
   }
   if (tid == 0) {
     for (int s = 0; s < FWD_STAGES; ++s) {
@@ -201,7 +216,7 @@ __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsign
   }
   __syncthreads();
   const int npairs = (p.bw + nw - 1) / nw;
-  const int per_pass = 4 * heads + 2 * nj;
+  const int per_pass = 4 * heads + (H32 ? 0 : 2 * nj);
 
   if (wgi == nw) {  // producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
@@ -263,6 +278,11 @@ __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsign
     const size_t row0 = (size_t)win * N;
     const float* mask =
         HAB && live && p.mask != nullptr ? p.mask + (size_t)(win % p.nmask) * N * N : nullptr;
+    float d1 = 1.f, d2 = 1.f;  // K9a's branch scales
+    if constexpr (HAB && STORE_H) {
+      if (live && dp1 != nullptr) d1 = __ldg(dp1 + win);
+      if (live && dp2 != nullptr) d2 = __ldg(dp2 + win);
+    }
 
     // ---- x (and K5's conv_x) by 16-byte asynchronous copies; LN1 (two-pass
     // fp32 statistics over the cio real columns, warp wi: rows 16 wi ..,
@@ -478,6 +498,30 @@ __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsign
       if (live) wg_sync();  // q, k, v are read before the next head writes them
     }
 
+    if constexpr (H32) {
+      // ---- K4b's recompute: h = x + (proj + bproj) in fp32 to h32, straight
+      // from the accumulators (a quad writes 32 contiguous bytes of a row)
+      if (live) {
+#pragma unroll
+        for (int k = 0; k < NCH; ++k)
+#pragma unroll
+          for (int j8 = 0; j8 < 8; ++j8)
+#pragma unroll
+            for (int s2 = 0; s2 < 2; ++s2) {
+              const int r = r0 + g + 8 * s2, col = k * TILE + 8 * j8 + 2 * t4;
+              if (col < C) {  // col and c even: both columns are real
+                const float2 x2 =
+                    __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xd + r * C + col));
+                *reinterpret_cast<float2*>(h32 + (row0 + r) * C + col) =
+                    make_float2(x2.x + (h[k][4 * j8 + 2 * s2] + vec[F_BPROJ * C + col]),
+                                x2.y + (h[k][4 * j8 + 2 * s2 + 1] + vec[F_BPROJ * C + col + 1]));
+              }
+            }
+        wg_sync();  // x_s is read before the next window's x lands there
+      }
+      continue;
+    }
+
     // ---- the residual h = x + (proj + bproj) (+ conv_scale * conv_x) in
     // fp32; K2: bf16(h) over x in x_s and out as h_out; LN2 of bf16(h) into
     // a_s
@@ -494,8 +538,13 @@ __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsign
               const float2 x2 = __bfloat1622float2(*px);
               float& v0 = h[k][4 * j8 + 2 * s2];
               float& v1 = h[k][4 * j8 + 2 * s2 + 1];
-              v0 = x2.x + (v0 + vec[F_BPROJ * C + col]);
-              v1 = x2.y + (v1 + vec[F_BPROJ * C + col + 1]);
+              if constexpr (HAB && STORE_H) {  // K9a: the attention branch scaled
+                v0 = x2.x + d1 * (v0 + vec[F_BPROJ * C + col]);
+                v1 = x2.y + d1 * (v1 + vec[F_BPROJ * C + col + 1]);
+              } else {
+                v0 = x2.x + (v0 + vec[F_BPROJ * C + col]);
+                v1 = x2.y + (v1 + vec[F_BPROJ * C + col + 1]);
+              }
               if constexpr (HAB) {
                 const float2 c2 = __bfloat1622float2(
                     *reinterpret_cast<const __nv_bfloat162*>(cxd + r * CIO + col));
@@ -507,7 +556,7 @@ __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsign
           }
       if constexpr (STORE_H) {
         wg_sync();
-        store_window(p.h_out + row0 * C, C);
+        store_window(p.h_out + row0 * CIO, CIO);
       }
       // a row's columns lie in the 4 lanes of one quad: two-pass statistics
       // of bf16(h) over the cio real columns by quad shuffles
@@ -552,6 +601,18 @@ __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsign
           }
       proxy_fence();
       wg_sync();  // LN2's output in place; h_out's reads of x_s done
+      if constexpr (HAB && STORE_H) {
+        // K9a: the MLP accumulates into h's registers, so a branch scale d2
+        // other than 1 divides h by d2 before it and multiplies the sum
+        // after (exact but for one fp32 rounding each way); d2 = 0 skips the
+        // MLP and writes h
+        if (d2 != 1.f && d2 != 0.f) {
+#pragma unroll
+          for (int k = 0; k < NCH; ++k)
+#pragma unroll
+            for (int i = 0; i < 32; ++i) h[k][i] /= d2;
+        }
+      }
     }
 
     // ---- the MLP, 64 hidden columns at a time: u = LN2 . w1 (+ b1), GELU,
@@ -559,7 +620,7 @@ __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsign
     const float* b1s = vec + F_B1 * C;
     for (int j = 0; j < nj; ++j) {
       wait_tiles(2);
-      if (live) {
+      if (live && d2 != 0.f) {
         const unsigned char *w1t = tile(0), *w2t = tile(1);
         float u[32];
 #pragma unroll
@@ -597,7 +658,8 @@ __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsign
       release_tiles(2);
     }
 
-    // ---- out = h + mlp + b2, rounded, through x_s in 16-byte runs
+    // ---- out = h + mlp + b2 (K9a: h + d2 * (mlp + b2)), rounded, through
+    // x_s in 16-byte runs
     if (live) {
 #pragma unroll
       for (int k = 0; k < NCH; ++k)
@@ -606,10 +668,20 @@ __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsign
 #pragma unroll
           for (int s2 = 0; s2 < 2; ++s2) {
             const int r = r0 + g + 8 * s2, col = k * TILE + 8 * j8 + 2 * t4;
-            if (col < CIO)
+            if constexpr (HAB && STORE_H) {
+              if (col < CIO) {
+                const float b2s = d2 != 0.f ? 1.f : 0.f;
+                const float o0 = h[k][4 * j8 + 2 * s2] + b2s * vec[F_B2 * C + col];
+                const float o1 = h[k][4 * j8 + 2 * s2 + 1] + b2s * vec[F_B2 * C + col + 1];
+                *reinterpret_cast<__nv_bfloat162*>(xd + r * CIO + col) =
+                    d2 != 0.f ? __floats2bfloat162_rn(d2 * o0, d2 * o1)
+                              : __floats2bfloat162_rn(o0, o1);
+              }
+            } else if (col < CIO) {
               *reinterpret_cast<__nv_bfloat162*>(xd + r * CIO + col) = __floats2bfloat162_rn(
                   h[k][4 * j8 + 2 * s2] + vec[F_B2 * C + col],
                   h[k][4 * j8 + 2 * s2 + 1] + vec[F_B2 * C + col + 1]);
+            }
           }
       wg_sync();
       store_window(p.out + row0 * CIO, CIO);
@@ -633,6 +705,31 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
   extern __shared__ __align__(1024) unsigned char fsm[];
   fwd_wg_body<NCH, HP, false, true>(p, nw, fsm);
 }
+
+// K9a: K5 with the h store and the branch scales dp1, dp2
+template <int NCH, int HP>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+    hab_fwd_h_wg_kernel(const __grid_constant__ FwdWgParams p, int nw, const float* dp1,
+                        const float* dp2) {
+  extern __shared__ __align__(1024) unsigned char fsm[];
+  fwd_wg_body<NCH, HP, true, true>(p, nw, fsm, dp1, dp2);
+}
+
+// K4b's recompute: the forward up to the fp32 h, to h32
+template <int NCH, int HP>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+    swin_fwd_h32_wg_kernel(const __grid_constant__ FwdWgParams p, int nw, float* h32) {
+  extern __shared__ __align__(1024) unsigned char fsm[];
+  fwd_wg_body<NCH, HP, false, false, true>(p, nw, fsm, nullptr, nullptr, h32);
+}
+
+// The operands of K9a and K4b's recompute that K1, K2 and K5 do not take,
+// passed as kernel arguments of their own.
+struct FwdWgExtra {
+  const float* dp1;  // K9a: (Bw,) or null
+  const float* dp2;
+  float* h32;        // K4b's recompute: (Bw, 64, c) fp32
+};
 
 inline bool fwd_aligned(const void* ptr, uintptr_t bytes) {
   return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
@@ -677,9 +774,9 @@ inline int pack_fwd_wg(const bf16* wqkv, const bf16* wproj, const bf16* w1, cons
   return (int)cudaGetLastError();
 }
 
-template <typename Kernel>
-cudaError_t launch_fwd_wg(Kernel kernel, const FwdWgParams& p, int nw, bool hab,
-                          cudaStream_t s) {
+template <typename Kernel, typename... Extra>
+cudaError_t launch_fwd_wg(Kernel kernel, const FwdWgParams& p, int nw, bool hab, cudaStream_t s,
+                          Extra... extra) {
   const FwdWgLayout L = fwd_wg_layout(p.c, p.cio, p.heads, p.hidden, nw, hab);
   if (L.total > 232448) return cudaErrorInvalidValue;
   cudaFuncAttributes attr;
@@ -694,29 +791,38 @@ cudaError_t launch_fwd_wg(Kernel kernel, const FwdWgParams& p, int nw, bool hab,
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int npairs = (p.bw + nw - 1) / nw;
-  kernel<<<npairs < sms ? npairs : sms, (nw + 1) * 128, L.total, s>>>(p, nw);
+  kernel<<<npairs < sms ? npairs : sms, (nw + 1) * 128, L.total, s>>>(p, nw, extra...);
   return cudaGetLastError();
 }
 
-template <bool STORE_H, bool HAB, int NCH, int HP>
-cudaError_t launch_fwd_wg_width(const FwdWgParams& p, int nw, cudaStream_t s) {
-  if constexpr (HAB) return launch_fwd_wg(hab_fwd_wg_kernel<NCH, HP>, p, nw, true, s);
-  else return launch_fwd_wg(swin_fwd_wg_kernel<NCH, HP, STORE_H>, p, nw, false, s);
+template <bool STORE_H, bool HAB, bool H32, int NCH, int HP>
+cudaError_t launch_fwd_wg_width(const FwdWgParams& p, int nw, cudaStream_t s,
+                                const FwdWgExtra& e) {
+  if constexpr (H32)
+    return launch_fwd_wg(swin_fwd_h32_wg_kernel<NCH, HP>, p, nw, false, s, e.h32);
+  else if constexpr (HAB && STORE_H)
+    return launch_fwd_wg(hab_fwd_h_wg_kernel<NCH, HP>, p, nw, true, s, e.dp1, e.dp2);
+  else if constexpr (HAB)
+    return launch_fwd_wg(hab_fwd_wg_kernel<NCH, HP>, p, nw, true, s);
+  else
+    return launch_fwd_wg(swin_fwd_wg_kernel<NCH, HP, STORE_H>, p, nw, false, s);
 }
 
 // Checks the widths and alignments and launches the persistent kernel on
-// the packed weights p.wattn, p.wmlp (pack_fwd_wg's). `windows`: windows a
-// block, 1 or 2; 0 takes as many as fit. K1 and K2 take cio = c.
-template <bool STORE_H, bool HAB>
-int run_fwd_wg(FwdWgParams p, int windows, void* stream) {
+// the packed weights p.wattn, p.wmlp (pack_fwd_wg's; H32 streams only the
+// attention's). `windows`: windows a block, 1 or 2; 0 takes as many as fit.
+// K1, K2 and K4b's recompute (H32) take cio = c.
+template <bool STORE_H, bool HAB, bool H32 = false>
+int run_fwd_wg(FwdWgParams p, int windows, void* stream, const FwdWgExtra& e = {}) {
   const int c = p.c, cio = p.cio, heads = p.heads, hidden = p.hidden;
   if (p.bw <= 0 || !fwd_widths_ok(c, heads, hidden) || cio <= 0 || cio > c || cio % 2 != 0 ||
       (!HAB && cio != c) || (HAB && p.mask != nullptr && p.nmask <= 0) || windows < 0 ||
-      windows > 2)
+      windows > 2 || (H32 && (HAB || STORE_H || e.h32 == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (!fwd_aligned(p.x, 16) || !fwd_aligned(p.out, 16) || (STORE_H && !fwd_aligned(p.h_out, 16)) ||
       (HAB && (!fwd_aligned(p.convx, 16) || !fwd_aligned(p.mask, 8))) ||
-      !fwd_aligned(p.bias, 8) || !fwd_aligned(p.wattn, 16) || !fwd_aligned(p.wmlp, 16))
+      !fwd_aligned(p.bias, 8) || !fwd_aligned(p.wattn, 16) || !fwd_aligned(p.wmlp, 16) ||
+      !fwd_aligned(e.h32, 8))
     return (int)cudaErrorMisalignedAddress;
   p.hd = c / heads;
   const int nw = windows > 0 ? windows : fwd_windows(c, cio, heads, hidden, HAB);
@@ -724,17 +830,17 @@ int run_fwd_wg(FwdWgParams p, int windows, void* stream) {
   const int nch = (c + TILE - 1) / TILE;
   if (p.hd <= 16) {
     switch (nch) {
-      case 1: return (int)launch_fwd_wg_width<STORE_H, HAB, 1, 16>(p, nw, s);
-      case 2: return (int)launch_fwd_wg_width<STORE_H, HAB, 2, 16>(p, nw, s);
-      case 3: return (int)launch_fwd_wg_width<STORE_H, HAB, 3, 16>(p, nw, s);
-      default: return (int)launch_fwd_wg_width<STORE_H, HAB, 4, 16>(p, nw, s);
+      case 1: return (int)launch_fwd_wg_width<STORE_H, HAB, H32, 1, 16>(p, nw, s, e);
+      case 2: return (int)launch_fwd_wg_width<STORE_H, HAB, H32, 2, 16>(p, nw, s, e);
+      case 3: return (int)launch_fwd_wg_width<STORE_H, HAB, H32, 3, 16>(p, nw, s, e);
+      default: return (int)launch_fwd_wg_width<STORE_H, HAB, H32, 4, 16>(p, nw, s, e);
     }
   }
   switch (nch) {
-    case 1: return (int)launch_fwd_wg_width<STORE_H, HAB, 1, 32>(p, nw, s);
-    case 2: return (int)launch_fwd_wg_width<STORE_H, HAB, 2, 32>(p, nw, s);
-    case 3: return (int)launch_fwd_wg_width<STORE_H, HAB, 3, 32>(p, nw, s);
-    default: return (int)launch_fwd_wg_width<STORE_H, HAB, 4, 32>(p, nw, s);
+    case 1: return (int)launch_fwd_wg_width<STORE_H, HAB, H32, 1, 32>(p, nw, s, e);
+    case 2: return (int)launch_fwd_wg_width<STORE_H, HAB, H32, 2, 32>(p, nw, s, e);
+    case 3: return (int)launch_fwd_wg_width<STORE_H, HAB, H32, 3, 32>(p, nw, s, e);
+    default: return (int)launch_fwd_wg_width<STORE_H, HAB, H32, 4, 32>(p, nw, s, e);
   }
 }
 

@@ -5,8 +5,8 @@
 // Replaces the TPU kernel scripts/swin_stage_ablation.py::block (kernel body
 // _make_kernel(mode)), the JAX package's op-class ablation of its fused
 // block. It is the first design of K1 (swin_block_kernel.cuh: mma.sync, one
-// window a block, which K1 ran until its wgmma redesign, swin_fwd_wg.cuh,
-// and K9a still runs), not a copy: the stage and the activation are the
+// window a block, which K1 ran until its wgmma redesign, swin_fwd_wg.cuh),
+// not a copy: the stage and the activation are the
 // kernel's compile-time switches STAGE and ACT, one instantiation per mode,
 // so a mode's time differs from the full block's only by the work it
 // removes or swaps. The nine modes, in the script's order:

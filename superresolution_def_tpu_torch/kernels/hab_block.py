@@ -18,8 +18,9 @@ wgmma tiles (:func:`pack_hab_weights`); the windows keep their C columns and
 LayerNorm its statistics over them.
 
 The same source holds K9a, the training forward with h and drop-path
-(:mod:`.hab_train`): :func:`launch_hab` launches either, and
-:func:`hab_fwd_h_reference` is the plain version of both.
+(:mod:`.hab_train`), the same kernel's third instantiation: :func:`launch_hab`
+launches either, and :func:`hab_fwd_h_reference` is the plain version of
+both.
 """
 
 from __future__ import annotations
@@ -99,16 +100,14 @@ def _library() -> ctypes.CDLL:
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.hab_block_pack_bf16.argtypes = [vp] * 4 + [i32] * 3 + [vp, vp]
     lib.hab_block_bf16.argtypes = [vp] * 14 + [i32] * 6 + [f32, f32, vp]
-    lib.hab_block_fwd_h_bf16.argtypes = [vp] * 20 + [i32] * 6 + [f32, f32, vp]
+    lib.hab_block_fwd_h_bf16.argtypes = [vp] * 21 + [i32] * 6 + [f32, f32, vp]
     for fn in (lib.hab_block_pack_bf16, lib.hab_block_bf16, lib.hab_block_fwd_h_bf16,
                lib.hab_block_windows):
         fn.restype = ctypes.c_int
     lib.hab_block_pack_elems.argtypes = [i32] * 3
     lib.hab_block_smem_bytes.argtypes = [i32] * 4
     lib.hab_block_windows.argtypes = [i32] * 4
-    lib.hab_block_fwd_h_smem_bytes.argtypes = [i32] * 2
-    for fn in (lib.hab_block_pack_elems, lib.hab_block_smem_bytes,
-               lib.hab_block_fwd_h_smem_bytes):
+    for fn in (lib.hab_block_pack_elems, lib.hab_block_smem_bytes):
         fn.restype = ctypes.c_size_t
     return lib
 
@@ -215,8 +214,10 @@ def launch_hab(name: str, x_windows, convx_windows, mask, ln1_w, ln1_b, wqkv, bq
                packed: torch.Tensor | None = None):
     """Checks the operands and launches K5 (on ``packed``, or on the padded
     weights it packs first), or K9a when ``dp`` is the pair of branch scales
-    ``(dp1, dp2)`` (each ``(Bw,)`` fp32 or ``None``): returns ``out``, or
-    ``(out, h)`` for K9a."""
+    ``(dp1, dp2)`` (each ``(Bw,)`` fp32 or ``None``; K9a packs the padded
+    weights on every call, into scratch): returns ``out``, or ``(out, h)``
+    for K9a. Both copy x and conv_x as whole 16-byte runs: a window tensor
+    that is not 16-byte aligned raises, it is not copied."""
     bw, n, c = _check_windows(name, x_windows, convx_windows)
     hidden = w1.shape[1]
     hd = c // num_heads
@@ -247,9 +248,7 @@ def launch_hab(name: str, x_windows, convx_windows, mask, ln1_w, ln1_b, wqkv, bq
     if any(t.device != x_windows.device for t in others):
         raise ValueError(f"{name}: every operand must be on the windows' device")
     lib = _library()
-    smem = (lib.hab_block_smem_bytes(cp, c, num_heads, hidden) if dp is None
-            else lib.hab_block_fwd_h_smem_bytes(cp, hidden))
-    if smem > MAX_SMEM_BYTES:
+    if lib.hab_block_smem_bytes(cp, c, num_heads, hidden) > MAX_SMEM_BYTES:
         raise ValueError(f"{name}: C={c} needs more than 227 KB shared memory")
 
     if padded is None:
@@ -259,16 +258,15 @@ def launch_hab(name: str, x_windows, convx_windows, mask, ln1_w, ln1_b, wqkv, bq
     convx = convx_windows.contiguous()
     bias = bias.float().contiguous()
     mask_t = mask.float().contiguous() if mask is not None else None
-    # K5 copies conv_x as whole 16-byte runs, K9a reads it in 4-byte pairs
-    if x.data_ptr() % 16 or convx.data_ptr() % (16 if dp is None else 4):
+    if x.data_ptr() % 16 or convx.data_ptr() % 16:
         raise ValueError(f"{name}: windows must be 16-byte aligned")
     out = torch.empty_like(x)
     mask_ptr = mask_t.data_ptr() if mask_t is not None else None
     nw = mask.shape[0] if mask is not None else 1
     dims = (bw, cp, c, num_heads, hidden, nw, float(scale), float(conv_scale), _stream(x.device))
+    elems = lib.hab_block_pack_elems(cp, num_heads, hidden)
     with torch.cuda.device(x.device):
         if dp is None:
-            elems = lib.hab_block_pack_elems(cp, num_heads, hidden)
             if packed is None:
                 packed = _pack_on_card(name, lib.hab_block_pack_bf16, elems, padded[2],
                                        padded[4], padded[8], padded[10], num_heads)
@@ -282,11 +280,12 @@ def launch_hab(name: str, x_windows, convx_windows, mask, ln1_w, ln1_b, wqkv, bq
         weights = [t.data_ptr() for t in (ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj, ln2_w,
                                           ln2_b, w1, b1, w2, b2)]
         h = torch.empty_like(x)
+        wpack = torch.empty(elems, dtype=torch.bfloat16, device=x.device)
         dp1, dp2 = (t.float().contiguous() if t is not None else None for t in dp)
         _check(lib.hab_block_fwd_h_bf16(
             x.data_ptr(), convx.data_ptr(), mask_ptr,
             *(t.data_ptr() if t is not None else None for t in (dp1, dp2)), *weights,
-            out.data_ptr(), h.data_ptr(), *dims), "hab_block_fwd_h_bf16")
+            out.data_ptr(), h.data_ptr(), wpack.data_ptr(), *dims), "hab_block_fwd_h_bf16")
     return out, h
 
 

@@ -10,7 +10,10 @@ Port of ``superresolution_def_tpu/kernels/swin_block.py``:
 - K3 :func:`swin_block_bwd_mlp` (``_bwd_mlp``), the LN2 + MLP backward from h;
 - K4 :func:`swin_block_bwd_attn` (``_bwd_attn``), the attention + LN1 backward;
 - K4b :func:`swin_block_bwd` (``fused_swin_block_bwd``), the whole block's
-  backward from x and dout alone, the forward recomputed.
+  backward from x and dout alone, the forward recomputed: three phases on
+  K2's, K3's and K4's wgmma kernels (``csrc/swin_block_bwd.cu``), whose plain
+  forms are :func:`swin_block_h_reference`, :func:`swin_block_bwd_mlp_reference`
+  on the fp32 h and :func:`swin_block_bwd_attn_reference` on the fp32 dh.
 
 They keep the JAX argument layout: pre-rolled, pre-partitioned windows
 ``(Bw, N, C)``, weights ``(in, out)``, and the relative-position bias gathered
@@ -105,6 +108,22 @@ def _softmax_f32(s):
     return s / s.sum(dim=-1, keepdim=True)
 
 
+def swin_block_h_reference(x, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj, *,
+                           num_heads: int, scale: float) -> torch.Tensor:
+    """Plain PyTorch form of K4b's first phase, the recompute to h: K2's
+    forward up to h = x + (proj + bproj), returned in fp32 ``(Bw, N, C)``
+    without K2's rounding to the io dtype."""
+    dt = x.dtype
+    bw, n, c = x.shape
+    rnd = _rounder(dt)
+    xf = x.float()
+    q, k, v = _qkv_heads(rnd(_ln_f32(xf, ln1_w, ln1_b)), wqkv, bqkv, num_heads, rnd)
+    q = rnd(q * rnd(torch.tensor(scale, dtype=torch.float32)))
+    p = _softmax_f32(torch.matmul(q, k.transpose(-1, -2)) + bias.float())
+    o = torch.matmul(rnd(p), v).permute(0, 2, 1, 3).reshape(bw, n, c)
+    return xf + (torch.matmul(rnd(o), wproj.float()) + bproj.float())
+
+
 def swin_block_fwd_h_reference(
     x_windows, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj, ln2_w, ln2_b, w1, b1, w2, b2,
     *, num_heads: int, scale: float,
@@ -117,14 +136,9 @@ def swin_block_fwd_h_reference(
     uses the tanh GELU and fp32 io the exact erf GELU, as the JAX kernel does.
     """
     dt = x_windows.dtype
-    bw, n, c = x_windows.shape
     rnd = _rounder(dt)
-    x = x_windows.float()
-    q, k, v = _qkv_heads(rnd(_ln_f32(x, ln1_w, ln1_b)), wqkv, bqkv, num_heads, rnd)
-    q = rnd(q * rnd(torch.tensor(scale, dtype=torch.float32)))
-    p = _softmax_f32(torch.matmul(q, k.transpose(-1, -2)) + bias.float())
-    o = torch.matmul(rnd(p), v).permute(0, 2, 1, 3).reshape(bw, n, c)
-    h = x + (torch.matmul(rnd(o), wproj.float()) + bproj.float())
+    h = swin_block_h_reference(x_windows, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj,
+                               num_heads=num_heads, scale=scale)
     m = _gelu(torch.matmul(rnd(_ln_f32(rnd(h), ln2_w, ln2_b)), w1.float()) + b1.float(), dt)
     m = torch.matmul(rnd(m), w2.float()) + b2.float()
     return (h + m).to(dt), h.to(dt)
@@ -144,12 +158,13 @@ def swin_block_bwd_mlp_reference(h, dout, ln2_w, ln2_b, w1, b1, w2, *, dp=None):
     """Plain PyTorch form of K3 (and of K9b with ``dp``), with the TPU
     kernel's rounding points.
 
-    Returns ``(dh, dln2_w, dln2_b, dw1, db1, dw2, db2)``: dh in the io dtype,
+    Returns ``(dh, dln2_w, dln2_b, dw1, db1, dw2, db2)``: dh in h's dtype,
     the rest fp32 sums over all windows. ``dp``: the MLP branch's scale per
     window ``(Bw,)``; the cotangent entering the branch is ``dp * dout`` while
-    dh's residual term is ``dout`` itself.
+    dh's residual term is ``dout`` itself. The io dtype is dout's: an fp32 h
+    with a bf16 dout is K4b's MLP phase, LN2 of the fp32 h and dh kept fp32.
     """
-    dt = h.dtype
+    dt = dout.dtype
     c = h.shape[-1]
     rnd = _rounder(dt)
     xhat, rstd = _ln_parts(h)
@@ -162,7 +177,7 @@ def swin_block_bwd_mlp_reference(h, dout, ln2_w, ln2_b, w1, b1, w2, *, dp=None):
     dw1 = torch.matmul(hn.T, rnd(du))
     dhn = torch.matmul(rnd(du), w1.float().T).reshape(h.shape)
     dh = _ln_backward(dhn, xhat, rstd, ln2_w) + dout.float()
-    return (dh.to(dt), (dhn * xhat).sum((0, 1)), dhn.sum((0, 1)), dw1, du.sum(0), dw2,
+    return (dh.to(h.dtype), (dhn * xhat).sum((0, 1)), dhn.sum((0, 1)), dw1, du.sum(0), dw2,
             dm.sum(0))
 
 
@@ -175,7 +190,9 @@ def swin_block_bwd_attn_reference(x, dh, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, 
     in the io dtype, the rest fp32 sums over all windows. ``mask``: the
     ``(nW, N, N)`` shift mask, window w adding ``mask[w mod nW]`` to its
     scores; ``dp``: the attention branch's scale per window ``(Bw,)``, which
-    scales the cotangent entering the branch but not dx's residual term.
+    scales the cotangent entering the branch but not dx's residual term. The
+    io dtype is x's: an fp32 dh with bf16 x is K4b's attention phase, do and
+    dWproj on bf16(dh), dbproj and dx's residual on the fp32 dh.
     """
     dt = x.dtype
     bw, n, c = x.shape
@@ -227,6 +244,9 @@ def swin_block_bwd_reference(x, dout, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bpr
     (K3 reads K2's bf16 h), and dh stays fp32 into dbproj and dx's residual
     (K3 rounds it for K4); only do's and dWproj's operands are bf16(dh). b2
     does not enter the gradients; it is taken for the JAX argument list.
+    The kernel's three phases compose to it: :func:`swin_block_h_reference`,
+    then :func:`swin_block_bwd_mlp_reference` on that fp32 h, then
+    :func:`swin_block_bwd_attn_reference` on the fp32 dh.
     """
     dt = x.dtype
     bw, n, c = x.shape
@@ -329,9 +349,9 @@ def _train_library() -> ctypes.CDLL:
 def _bwd_library() -> ctypes.CDLL:
     lib = load_library("swin_block_bwd")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.swin_bwd_block_bf16.argtypes = [vp] * 25 + [i32] * 4 + [ctypes.c_float, vp]
+    lib.swin_bwd_block_bf16.argtypes = [vp] * 28 + [i32] * 5 + [ctypes.c_float, vp]
     lib.swin_bwd_block_bf16.restype = ctypes.c_int
-    lib.swin_bwd_block_smem_bytes.argtypes = [i32, i32]
+    lib.swin_bwd_block_smem_bytes.argtypes = [i32] * 3
     lib.swin_bwd_block_smem_bytes.restype = ctypes.c_size_t
     return lib
 
@@ -846,33 +866,40 @@ def swin_block_bwd(x, dout, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj, ln2_w,
     vectors, weights = _block_dicts(ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b,
                                     w1, b1, w2, b2)
     lib, train = _bwd_library(), _train_library()
-    x, w, f32, bias = _checked_block_operands(name, x, vectors, weights, bias, num_heads,
-                                              lib.swin_bwd_block_smem_bytes, (dout,))
+    x, w, f32, bias = _checked_block_operands(
+        name, x, vectors, weights, bias, num_heads,
+        lambda c, hidden: lib.swin_bwd_block_smem_bytes(c, num_heads, hidden), (dout,))
     dout = dout.contiguous()
     bw, n, c = x.shape
     hidden = w["w1"].shape[1]
-    t = bw * n
-    dx = torch.empty_like(x)
-    xn, att, hn, dhb = (torch.empty(t, c, dtype=torch.bfloat16, device=x.device)
-                        for _ in range(4))
-    dqkv = torch.empty(t, 3 * c, dtype=torch.bfloat16, device=x.device)
-    g, du = (torch.empty(t, hidden, dtype=torch.bfloat16, device=x.device) for _ in range(2))
-    dh = torch.empty(t, c, dtype=torch.float32, device=x.device)
-    vec = torch.empty(bw, 9 * c + hidden, dtype=torch.float32, device=x.device)
-    dbias = torch.empty(bw, num_heads * n * n, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        _check(lib.swin_bwd_block_bf16(
-            *_ptrs(x, dout, f32["ln1_w"], f32["ln1_b"], w["wqkv"], f32["bqkv"], bias, w["wproj"],
-                   f32["bproj"], f32["ln2_w"], f32["ln2_b"], w["w1"], f32["b1"], w["w2"], dx, xn,
-                   att, dqkv, hn, g, du, dhb, dh, vec, dbias),
-            bw, c, num_heads, hidden, float(scale), _stream(x.device)), "swin_bwd_block_bf16")
-        dwqkv = _wgrad(train, xn, dqkv)
-        dwproj = _wgrad(train, att, dhb)
-        dw1 = _wgrad(train, hn, du)
-        dw2 = _wgrad(train, g, dout.reshape(t, c))
-        dbqkv, dbproj, dln1_w, dln1_b, db1, db2, dln2_w, dln2_b = _colsum(train, vec).split(
-            [3 * c, c, c, c, hidden, c, c, c])
-        dbias = _colsum(train, dbias).reshape(num_heads, n, n)
+    t, dev = bw * n, x.device
+    # the MLP phase's: the fp32 h and dh; bf16(dh), hn, g, du and w1 | w2
+    # packed; the per-window sums db1 | db2 | dln2s | dln2b | dbproj
+    h32, dh32 = torch.empty(2, t * c, dtype=torch.float32, device=dev)
+    mlp_pack = train.swin_bwd_mlp_pack_bytes(c, hidden) // 2
+    dhb, hn, g, du, wmlp = torch.empty(
+        2 * t * c + 2 * t * hidden + mlp_pack, dtype=torch.bfloat16, device=dev).split(
+        [t * c, t * c, t * hidden, t * hidden, mlp_pack])
+    vec = torch.empty(bw, hidden + 4 * c, dtype=torch.float32, device=dev)
+    head = _ptrs(x, dout, f32["ln1_w"], f32["ln1_b"], w["wqkv"], f32["bqkv"], bias, w["wproj"],
+                 f32["bproj"], f32["ln2_w"], f32["ln2_b"], w["w1"], f32["b1"], w["w2"])
+    tail = _ptrs(h32, dh32, dhb, hn, g, du, vec, wmlp)
+
+    def launch(dx, xn, att, dqkv, _dhs, part, wattn, wpw, stream):
+        # the three phases; the attention phase's outputs and its packed
+        # tiles (which the recompute streams too) in the shared scratch
+        _check(lib.swin_bwd_block_bf16(*head, dx, xn, att, dqkv, part, wattn, *tail, bw, c,
+                                       num_heads, hidden, wpw, float(scale), stream),
+               "swin_bwd_block_bf16")
+
+    with torch.cuda.device(dev):
+        # dWproj's operand is bf16(dh), as K4's; dbproj comes from the MLP
+        # phase's fp32 dh, not from the attention phase's partial sums
+        dx, dln1_w, dln1_b, dwqkv, dbqkv, dbias, dwproj, _ = _attn_window_grads(
+            train, launch, x, dhb, num_heads, c, c // num_heads, dhs=False)
+        dw1 = _wgrad(train, hn.view(t, c), du.view(t, hidden))
+        dw2 = _wgrad(train, g.view(t, hidden), dout.reshape(t, c))
+        db1, db2, dln2_w, dln2_b, dbproj = _colsum(train, vec).split([hidden, c, c, c, c])
     swin_block_bwd.launches += 1
     return (dx, dln1_w, dln1_b, dwqkv, dbqkv, dbias, dwproj, dbproj, dln2_w, dln2_b, dw1, db1,
             dw2, db2)

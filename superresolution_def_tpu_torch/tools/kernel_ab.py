@@ -23,7 +23,15 @@ parent commit, unpacked with ``git archive``). The tool
    fused SwinIR's batch-3 forward (config #1, ``make_fused_swinir``), the
    fused hybrid's batch-8 forward (config #2, ``make_fused_hybrid``) and the
    swin GAN step at micro 8 (config #3) with the split and with the
-   recompute backward, each tree in its own process, alternated other,
+   recompute backward; the training backwards at the flagship train shape
+   (Bw=2048): K3 (``swin_block_bwd_mlp``), K4 (``swin_block_bwd_attn``), K4b
+   (``swin_block_bwd``) and K1 packing its live weights on every call, as the
+   recompute step runs it (so K1 + K4b stands beside K2 + K3 + K4); at the
+   fused-HAB step's Bw=512 (C=90, drop-path scales that drop one of two
+   samples) K9a (``hab_fwd_h``) and K9c (``hab_bwd_attn``), unshifted and
+   shifted; and the device busy time of one fused-HAB hybrid GAN step at
+   micro 2 x accum 8 (config #4, ``torch.profiler``); each tree in its own
+   process, alternated other,
    this, this, other (``--rounds`` such sets of turns), by CUDA events on
    the same seeded inputs; each turn also hashes K1's output (Bw=768,
    flagship widths) to show whether the two trees' K1 give the same bits;
@@ -50,6 +58,8 @@ import json, statistics, sys
 import numpy as np, torch
 import importlib
 from superresolution_def_tpu_torch.kernels import fused_rdb, fused_rdb_cm, swin_block_fwd_h
+from superresolution_def_tpu_torch.kernels import (hab_bwd_attn, hab_fwd_h, swin_block_bwd,
+                                                   swin_block_bwd_attn, swin_block_bwd_mlp)
 cm = importlib.import_module("superresolution_def_tpu_torch.kernels.fused_rdb_cm")
 
 def cuda_ms(fn, reps=20, warmup=3, calls=5):
@@ -151,6 +161,51 @@ step = make_swin_train_step(state, accum_steps=1, criterion_g=crit)
 state_r = create_swin_train_state(torch.Generator().manual_seed(0), dtype=torch.bfloat16,
                                   fused=True, device=dev, backward="recompute")
 step_r = make_swin_train_step(state_r, accum_steps=1, criterion_g=crit)
+# the training backwards at Bw=2048: K3 on K2's h, K4 on K3's dh, K4b from x
+dout = (1e-2 * torch.randn(bw, 64, c, generator=gen)).to(dev, bf)
+_, h2 = swin_block_fwd_h(*args, **kw)
+x, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, _, ln2_w, ln2_b, w1, b1, w2, _ = args
+mlp_args = (h2, dout, ln2_w, ln2_b, w1, b1, w2)
+attn_args = (x, swin_block_bwd_mlp(*mlp_args)[0], ln1_w, ln1_b, wqkv, bqkv, bias, wproj)
+# K9a and K9c at the fused-HAB step's 512 windows, one of two samples
+# dropped per branch, the padded weights made once as the step caches them
+b9 = 512
+def per_sample(values):
+    return torch.tensor(values, dtype=torch.float32).repeat_interleave(b9 // 2).to(dev)
+dp1, dp2 = per_sample([1 / 0.9, 0.0]), per_sample([0.0, 1 / 0.9])
+x9, cx9 = hab_args[0][:b9].contiguous(), hab_args[1][:b9].contiguous()
+kw9 = dict(num_heads=6, scale=15 ** -0.5, padded=pad5)
+dh9 = (1e-2 * torch.randn(b9, 64, ch, generator=hgen)).to(dev, bf)
+def k9a(mask):
+    return hab_fwd_h(x9, cx9, mask, dp1, dp2, *hab_args[2:], **kw9, conv_scale=0.01)
+def k9c(mask):
+    return hab_bwd_attn(x9, dh9, mask, dp1, *hab_args[2:6], hab_args[6], hab_args[7], **kw9)
+# the fused-HAB hybrid GAN step (config #4): its device busy time per step
+from torch.profiler import ProfilerActivity, profile
+from superresolution_def_tpu_torch.train import create_hat_train_state, make_hat_train_step
+hat_state = create_hat_train_state(torch.Generator().manual_seed(0), dtype=bf, fused=True,
+                                   fused_hab=True, device=dev)
+hat_step = make_hat_train_step(hat_state, accum_steps=8, criterion_g=CombinedGANLoss(
+    pixel_weight=1.0, perceptual_weight=1.0, adversarial_weight=0.005, vgg_apply=vgg))
+hrng = np.random.default_rng(6)
+hat_batch = {"lr": hrng.integers(0, 65535, (8, 2, 128, 128, 1), dtype=np.uint16),
+             "hr": hrng.integers(0, 65535, (8, 2, 512, 512, 1), dtype=np.uint16)}
+def busy_ms(fn):
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    total, cur_s, cur_e = 0.0, *spans[0]
+    for s_, e_ in spans[1:]:
+        if s_ > cur_e:
+            total += cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    return (total + cur_e - cur_s) / 1e3
 out = {"K1 sha256": k1_sha,
     "K7 B=8": cuda_ms(lambda: fused_rdb_cm(x8, ks, bs, h=256, w=256, packed=p7), reps=10),
     "K7 B=2 stash": cuda_ms(lambda: fused_rdb_cm(x2, ks, bs, h=256, w=256, packed=p7,
@@ -168,6 +223,15 @@ out = {"K1 sha256": k1_sha,
                                        calls=2),
     "swin recompute step micro 8": cuda_ms(lambda: step_r(batch, 1e-4, 1e-4), reps=3,
                                            warmup=2, calls=2),
+    "K1 Bw=2048 packing": cuda_ms(lambda: fused_swin_block(*args, **kw), reps=10),
+    "K3 Bw=2048": cuda_ms(lambda: swin_block_bwd_mlp(*mlp_args), reps=10),
+    "K4 Bw=2048": cuda_ms(lambda: swin_block_bwd_attn(*attn_args, **kw), reps=10),
+    "K4b Bw=2048": cuda_ms(lambda: swin_block_bwd(x, dout, *args[1:], **kw), reps=10),
+    "K9a Bw=512 unshifted": cuda_ms(lambda: k9a(None), reps=10),
+    "K9a Bw=512 shifted": cuda_ms(lambda: k9a(mask5), reps=10),
+    "K9c Bw=512 unshifted": cuda_ms(lambda: k9c(None), reps=10),
+    "K9c Bw=512 shifted": cuda_ms(lambda: k9c(mask5), reps=10),
+    "fused-HAB step busy micro 2 x 8": busy_ms(lambda: hat_step(hat_batch, 1e-4, 1e-4)),
 }
 print(json.dumps(out))
 '''

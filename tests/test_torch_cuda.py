@@ -16,7 +16,10 @@ not a multiple of the kernel's tile. K5, K6 and K7 are held to K1's bound.
 The HAB and OCAB training kernels K9a-c and K10a-b run at the same three
 HAT widths, K9 shifted and unshifted, with per-window drop-path scales that
 drop one sample: K9a/K10a held to K1's bound, the backwards (K9b, K9c, K10b)
-to K3/K4's, and each backward twice to the same bits. K11 (standalone
+to K3/K4's, and each backward twice to the same bits; K9a (K5's wgmma kernel
+with the h store and the scales) also at 3, 7 and 9 windows, shifted and
+not, with and without scales, twice to the same bits, and refusing a conv_x
+that is not 16-byte aligned. K11 (standalone
 window attention) runs at head_dim 5, 15, 30 and 32, 64 and 144 keys, with
 and without the shift mask, in bf16 (relative L2 <= 1e-3 to its plain
 version: both keep the Pallas rounding points, fp32 scores, bias and
@@ -35,10 +38,11 @@ windows, nW dividing Bw, and unshifted) twice to the same bits and, on
 weights packed once, to the bits of a call that packs them itself;
 K7 runs at B = 1 and 3 on odd sizes with and without the stash, twice to
 the same bits. K4b (the block's backward from
-x and dout, the forward recomputed) runs at K1-K4's five width sets, held
-to K3/K4's bound against its plain version and against K3 + K4 on K2's h
-(the two differ by where they round: LN2 on the fp32 h and an fp32 dh
-against K2's bf16 h and K3's bf16 dh), twice to the same bits; the
+x and dout, the forward recomputed, in three phases on K2's, K3's and K4's
+wgmma kernels) runs at K1-K4's five width sets and at 1, 3, 7 and 263
+windows, held to K3/K4's bound against its plain version and against K3 +
+K4 on K2's h (the two differ by where they round: LN2 on the fp32 h and an
+fp32 dh against K2's bf16 h and K3's bf16 dh), twice to the same bits; the
 recompute SwinIR's gradients are held as the split one's. K13 (the
 stage-ablation block, C in 129..192) runs each of its nine modes at the
 flagship widths, held to K1's bound and to 5e-4 relative L2, with
@@ -752,6 +756,41 @@ def test_hab_train_kernels_match_plain_versions(device, bw, c, heads, hidden, sh
     assert torch.equal(attn[0][4:8], mlp[0][4:8])   # image 1's attention branch dropped
 
 
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("bw,nw", [(3, 3), (7, 7), (9, 3)])
+def test_hab_fwd_h_at_odd_window_counts(device, bw, nw, shifted, scaled):
+    """K9a at HAT's widths on window counts that leave its two-window blocks
+    a dead warpgroup, shifted by a mask of nW windows and unshifted, with no
+    branch scales and with per-window ones (zero on dropped windows, 1 / 0.9
+    on kept ones): (out, h) within K1's bound of the plain version, twice to
+    the same bits; a window whose MLP branch is dropped has out = h."""
+    x, convx, *params = _hat_operands(bw + 61, bw, 90, 6, 360, device)
+    rng = np.random.default_rng(bw + 1)
+    mask = (torch.from_numpy(np.where(rng.random((nw, 64, 64)) < 0.25, -100.0, 0.0)
+                             .astype(np.float32)).to(device) if shifted else None)
+    dp1 = dp2 = None
+    if scaled:
+        keep = rng.random((2, bw)) < 0.6
+        keep[:, 0] = [True, False]  # window 0: attention kept, MLP dropped
+        dp1, dp2 = (torch.from_numpy(np.where(k, 1 / 0.9, 0.0).astype(np.float32)).to(device)
+                    for k in keep)
+    kw = dict(num_heads=6, scale=15**-0.5, conv_scale=0.01)
+    before = hab_fwd_h.launches
+    out, h = hab_fwd_h(x, convx, mask, dp1, dp2, *params, **kw)
+    out2, h2 = hab_fwd_h(x, convx, mask, dp1, dp2, *params, **kw)
+    torch.cuda.synchronize()
+    assert hab_fwd_h.launches == before + 2
+    assert torch.equal(out, out2) and torch.equal(h, h2)
+    wants = hab_fwd_h_reference(x, convx, mask, dp1, dp2, *params, **kw)
+    for got, want in zip((out, h), wants):
+        want = want.float()
+        err = (got.float() - want).abs().max().item()
+        assert err <= K1_TOL * max(1.0, want.abs().max().item()), err
+    if scaled:
+        assert torch.equal(out[0], h[0])
+
+
 @pytest.mark.parametrize("bw,c,heads,hidden", HAT_WIDTHS)
 def test_ocab_train_kernels_match_plain_versions(device, bw, c, heads, hidden):
     """K10a's (out, h) within K1's bound and K10b's outputs within BWD_REL_L2
@@ -810,6 +849,13 @@ def test_hab_train_kernels_raise_on_what_they_do_not_take(device):
         hab_fwd_h(x.float(), convx, None, dp, dp, *params, **kw)
     with pytest.raises(ValueError, match="branch scale"):
         hab_fwd_h(x, convx, None, dp[:4], dp, *params, **kw)
+    # K9a copies conv_x as whole 16-byte runs: a window tensor 2 bytes off is
+    # refused, not copied
+    shifted_convx = torch.empty(convx.numel() + 1, dtype=torch.bfloat16,
+                                device=device)[1:].view(convx.shape)
+    shifted_convx.copy_(convx)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        hab_fwd_h(x, shifted_convx, None, dp, dp, *params, **kw)
     with pytest.raises(TypeError, match="bfloat16"):
         hab_bwd_mlp(x, x.float(), dp, ln2_w, ln2_b, w1, b1, w2)
     with pytest.raises(ValueError, match="branch scale"):
@@ -1044,7 +1090,12 @@ BWD_NAMES = ["dx", "dln1_w", "dln1_b", "dwqkv", "dbqkv", "dbias", "dwproj", "dbp
              "dln2_b", "dw1", "db1", "dw2", "db2"]
 
 
-@pytest.mark.parametrize("bw,c,heads,hidden", WIDTHS)
+# K4b at window counts that leave its two-window blocks a dead warpgroup,
+# and at 263, whose last wave of the persistent phases is ragged
+ODD_BW = [(1, 180, 6, 720), (3, 180, 6, 720), (7, 180, 6, 720), (263, 180, 6, 720)]
+
+
+@pytest.mark.parametrize("bw,c,heads,hidden", WIDTHS + ODD_BW)
 def test_block_bwd_kernel_matches_plain_version_and_split(device, bw, c, heads, hidden):
     args = _operands(c + heads + 3, bw, c, heads, hidden, device)
     kw = dict(num_heads=heads, scale=(c // heads) ** -0.5)
@@ -1070,10 +1121,11 @@ def test_block_bwd_kernel_matches_plain_version_and_split(device, bw, c, heads, 
         assert _rel_l2(g, sp) <= BWD_REL_L2, (name, "vs K3 + K4", _rel_l2(g, sp))
 
 
-def test_block_bwd_kernel_is_reproducible(device):
+@pytest.mark.parametrize("bw", [16, 1, 3, 7, 263])
+def test_block_bwd_kernel_is_reproducible(device, bw):
     """Fixed summation order, no atomics: two runs give the same bits."""
-    args = _operands(8, 16, 180, 6, 720, device)
-    dout = (1e-2 * torch.randn(16, 64, 180, generator=torch.Generator().manual_seed(1))).to(
+    args = _operands(8, bw, 180, 6, 720, device)
+    dout = (1e-2 * torch.randn(bw, 64, 180, generator=torch.Generator().manual_seed(1))).to(
         device, torch.bfloat16)
     kw = dict(num_heads=6, scale=30**-0.5)
     first = swin_block_bwd(args[0], dout, *args[1:], **kw)
