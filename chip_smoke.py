@@ -100,7 +100,8 @@ exit code:
     dout ~ N(0, 1e-2)), K9a-c and K10b each run twice to show the same bits,
     with times, and K9c's device time per kernel (window kernel,
     weight-gradient products, column sums, weight packing) unshifted and
-    shifted;
+    shifted, and K10b's (window kernel, weight-gradient product, column
+    sums);
 23. the fused-HAB hybrid generator's gradients against fp32 autograd of the
     ``nn.Module`` on one patch, beside the bf16 ``nn.Module``'s own distance
     (with phase 17);
@@ -126,9 +127,9 @@ exit code:
     ``F.scaled_dot_product_attention``'s;
 27. K12 (``fused_rdb``, the NHWC dense block) against its plain version at
     B=8, F=48, G=24, 256x256 bf16, and against K7 on the same data within
-    K1's bound (K12 fuses the five convs in one tile, K7 runs each conv as
-    a wgmma implicit GEMM), with its time, plain time and K7's time in the
-    same run;
+    K1's bound (K12 runs K7's conv kernels on K7's packing with x read in
+    place: whether the two give the same bits is printed), with its time,
+    plain time, device time per conv kernel and K7's time in the same run;
 28. the attention modules with ``attn_impl="pallas"``: the config-#1 SwinIR
     ``nn.Module`` in bf16 at batch 3 (36 mask-less K11 launches a forward)
     and the config-#2 hybrid at batch 8 (16 mask-less, 4 of them its OCABs'
@@ -615,7 +616,10 @@ def main() -> None:
             ("K4b's MLP phase mlp_bwd_f32_kernel<3>", "swin_block_bwd",
              "mlp_bwd_f32_kernelILi3E"),
             ("K4b's attention phase attn_wg_f32_kernel<3, 32>", "swin_block_bwd",
-             "attn_wg_f32_kernelILi3ELi32E")):
+             "attn_wg_f32_kernelILi3ELi32E"),
+            ("K10b ocab_bwd_wg_kernel<16>", "ocab_train", "ocab_bwd_wg_kernelILi16E"),
+            ("K12's conv5 nhwc_conv_kernel<48, 144, 48, true>", "fused_rdb",
+             "nhwc_conv_kernelILi48ELi144ELi48ELb1E")):
         log("build", f"{key} (the flagship's or HAT's widths): "
             + ptxas_stats(_build.build_log(src), fragment))
     klib = swin_block._kernel_library()
@@ -629,7 +633,11 @@ def main() -> None:
         f"phases at C=180, 6 heads, hidden 720 (the largest) "
         f"{swin_block._bwd_library().swin_bwd_block_smem_bytes(180, 6, 720)} B; K7's five convs "
         "(conv_kernel) at F/G = 48/24: " + ", ".join(
-            f"conv{i + 1} {b} B" for i, b in enumerate(rdb_cm.smem_bytes(48, 24))))
+            f"conv{i + 1} {b} B" for i, b in enumerate(rdb_cm.smem_bytes(48, 24)))
+        + "; K12's (nhwc_conv_kernel): " + ", ".join(
+            f"conv{i + 1} {b} B" for i, b in enumerate(rdb_nhwc.smem_bytes(48, 24)))
+        + "; K10b's window kernel (ocab_bwd_wg_kernel) at C=96 (90 in device memory), "
+        f"head_dim 15: {ocab_train_mod._library().ocab_bwd_attn_smem_bytes(96, 15)} B")
 
     # 3. K1 against its plain version at the flagship shapes
     gen = torch.Generator().manual_seed(seed)
@@ -1474,6 +1482,8 @@ def main() -> None:
              "K10b": max((gots10[i].float() - wants10[i].float()).abs().max().item()
                          for i in (2, 3, 4))}
     del wants10
+    split10 = kernel_split(lambda: ocab_bwd_attn(*bwd10, **kw10b))
+    split10_counts = kernel_split.counts
     t10 = {"K10a": (cuda_ms(lambda: ocab_fwd_h(*oargs9, **hkw9, padded=pad10)),
                     cuda_ms(lambda: ocab_fwd_h_reference(*oargs9, **hkw9), **timing)),
            "K10b": (cuda_ms(lambda: ocab_bwd_attn(*bwd10, **kw10b)),
@@ -1493,6 +1503,10 @@ def main() -> None:
     for tag, split in split9.items():
         log("k9-k10", f"K9c {tag} device ms per call by kernel: " + ", ".join(
             f"{short_name(name)} {t:.4f}" for name, t in split.items()))
+    log("k9-k10", "K10b device ms per call by kernel (window kernel, weight-gradient product, "
+                  "column sums): " + ", ".join(
+                      f"{short_name(name)} {t:.4f} (x{split10_counts[name]})"
+                      for name, t in split10.items()))
     bad = {k: v for k, v in {**errs9, **errs10}.items() if not v <= BWD_REL_L2}
     if bad or not all(same9.values()) or not same10 or not all(passed9.values()):
         raise SystemExit(f"K9/K10 disagree with their plain versions {bad}, or are not "
@@ -1580,7 +1594,7 @@ def main() -> None:
             groups = {"K9a": ("hab_fwd_h_wg_kernel<",),
                       "K9b": ("mlp_bwd_kernel", "mlp_pack_kernel"),
                       "K9c": ("attn_wg_kernel", "attn_pack_kernel"),
-                      "K10a": (r"ocab_kernel<\d+, true>",), "K10b": ("ocab_bwd_kernel",),
+                      "K10a": (r"ocab_kernel<\d+, true>",), "K10b": ("ocab_bwd_wg_kernel<",),
                       "K9/K10 wgrad+colsum": (r"wgrad_kernel\(", "colsum_kernel"),
                       "K7": ("conv_kernel<", "stash_x_kernel"),
                       "K8": ("stack_kernel", "wgrad_kernel<", "dx_kernel")}
@@ -1700,22 +1714,24 @@ def main() -> None:
           for i in range(5)]
     bs = [torch.from_numpy((0.05 * kgen12.standard_normal(g if i < 4 else f)).astype(np.float32))
           .to(device) for i in range(5)]
-    packed12 = rdb_cm.pack_rdb_weights(ks, bs, device)
-    packed7 = rdb_cm.pack_rdb_cm_weights(ks, bs, device)
+    packed7 = rdb_cm.pack_rdb_cm_weights(ks, bs, device)  # K7's packing serves K12 too
     xcm = xr.permute(0, 3, 1, 2).reshape(HYBRID_BATCH, f, 256 * 256).contiguous()
-    got = rdb_nhwc.fused_rdb(xr, ks, bs, packed=packed12)
+    got = rdb_nhwc.fused_rdb(xr, ks, bs, packed=packed7)
     torch.cuda.synchronize()
     want = rdb_nhwc.rdb_nhwc_reference(xr, ks, bs)
     k12_err = (got.float() - want.float()).abs().max().item()
     k12_rel = rel_l2(got, want)
-    # K12 fuses the five convs, K7 runs each as a wgmma GEMM: the same
-    # rounding points, other summation orders, so within K1's bound
+    # K12 runs K7's convs on K7's packing, only x read in another layout:
+    # held to K1's bound, and whether the bits are the same is printed
     k7cm = fused_rdb_cm(xcm, ks, bs, **rkw, packed=packed7).reshape(
         HYBRID_BATCH, f, 256, 256).permute(0, 2, 3, 1)
     k12_k7_err = (got.float() - k7cm.float()).abs().max().item()
     k12_k7_bound = K1_TOL * max(1.0, k7cm.float().abs().max().item())
+    k12_k7_same = torch.equal(got, k7cm)
     del k7cm
-    k12_times = (cuda_ms(lambda: rdb_nhwc.fused_rdb(xr, ks, bs, packed=packed12), reps=10),
+    k12_split = kernel_split(lambda: rdb_nhwc.fused_rdb(xr, ks, bs, packed=packed7))
+    k12_split_counts = kernel_split.counts
+    k12_times = (cuda_ms(lambda: rdb_nhwc.fused_rdb(xr, ks, bs, packed=packed7), reps=10),
                  cuda_ms(lambda: rdb_nhwc.rdb_nhwc_reference(xr, ks, bs), reps=5, warmup=1,
                          calls=2))
     k7_same_run = cuda_ms(lambda: fused_rdb_cm(xcm, ks, bs, **rkw, packed=packed7), reps=10)
@@ -1724,10 +1740,14 @@ def main() -> None:
                f"{k12_rel:.3e} (bound {K12_REL_L2}), max abs {k12_err:.3e}; max|K12-K7|="
                f"{k12_k7_err:.3e} (bound {k12_k7_bound:.3e}); K12 {k12_times[0]:.4f} ms (bound "
                f"{k12_bound[0]:.4f} ms, "
-               f"{k12_bound[1]}), plain {k12_times[1]:.4f} ms, K7 in this run {k7_same_run:.4f} ms")
+               f"{k12_bound[1]}), plain {k12_times[1]:.4f} ms, K7 in this run "
+               f"{k7_same_run:.4f} ms; the same bits as K7: {k12_k7_same}")
+    log("k12", "device ms per call by kernel: " + ", ".join(
+        f"{short_name(name)} {t:.4f} (x{k12_split_counts[name]})"
+        for name, t in k12_split.items()))
     if not (torch.isfinite(got).all() and k12_rel <= K12_REL_L2 and k12_k7_err <= k12_k7_bound):
         raise SystemExit(f"K12 disagrees: rel L2 {k12_rel}, against K7 {k12_k7_err}")
-    del xr, xcm, ks, bs, got, want, packed12, packed7
+    del xr, xcm, ks, bs, got, want, packed7
     torch.cuda.empty_cache()
 
     # 28. the attention modules with attn_impl="pallas" (K11's main path:

@@ -6,8 +6,7 @@
 // branch). The OCAB tail is h = x + proj(cross_attn(q, k, v, bias)); the
 // MLP's backward is K9b's (swin_block_train.cu, unit scale) and dx = dh is
 // the caller's. From the saved q (64 queries) and the pre-gathered k and v
-// (nk <= 144 keys of the 12x12 overlap) of each window and dh, one thread
-// block per window computes
+// (nk <= 144 keys of the 12x12 overlap) of each window and dh, it computes
 //
 //   do = bf16(dh . wproj^T)
 //   per head: a = softmax(bf16(q * scale) . k^T + bias[h]) (recomputed, fp32;
@@ -18,389 +17,640 @@
 //
 // and writes dq (Bw, 64, C), dk and dv (Bw, nk, C) per window (the gather's
 // backward outside sums the overlaps and drops the out-of-image rows), the
-// window's (heads, 64, nk) bias gradient and its dbproj row, and the bf16
-// attention output and dh at the padded width for the weight-gradient
+// bf16 attention output and dh at the padded width for the weight-gradient
 // product dWproj = att^T . dh, which runs in swin_block_train.cu's wgrad
-// kernel; the per-window rows are summed by its colsum kernel. Every sum
-// runs in a fixed order, with no atomics: two runs give the same bits.
+// kernel, and per block the sums of its windows' ds (the bias gradient) and
+// of their dh's columns (dbproj), which one ordered column sum over the
+// blocks (swin_block_train.cu's colsum kernel) finishes. Every sum runs in
+// a fixed order, with no atomics: two runs give the same bits.
 //
-// Layout: two heads at a time, warps 0-3 on the first and 4-7 on the
-// second, 16 query rows each. A warp keeps its 16 x 144 probabilities in
-// registers (72 floats) and never holds da whole: one pass over the nine
-// 16-key tiles recomputes da = do . v^T tile by tile for rowsum(da * a), a
-// second recomputes it for ds, which goes at once into dq's product (the
-// accumulator of two 8-key tiles is the A fragment of one 16-key step) and,
-// rounded, into shared memory beside bf16(a) for dk and dv, which the warps
-// then take 16 key rows at a time.
+// Design. Persistent blocks, one an SM, each over a fixed run of wpb
+// consecutive windows (the wrapper's wpb = ceil(Bw / SMs)). A block walks
+// the heads two at a time outside its windows: consumer warpgroup j takes
+// head 2 pass + j of every window, so the running sum of that head's ds
+// over the block's windows (64 x 144 fp32) stays in its registers, in the
+// layout the products leave ds in, and leaves once per pass as the
+// block's partial. A producer warpgroup brings each window's two heads of
+// q, k and v (zero past nk) and all of dh into a two-stage ring under
+// mbarriers by 4-byte cp.async straight into the wgmma operand layouts,
+// the heads split there: head h's hd columns land at slots o .. o + hd - 1
+// of its 16 (or 32) with o = (h hd) & 1, so every copy is 4-byte aligned;
+// the other slots hold zeros or neighbouring columns, which meet exact
+// zeros (q's masked copy, do's zero weight rows) or feed outputs nobody
+// stores. The next window lands while this one computes. Per head and
+// window, all on wgmma (m64 rows = the 64 queries): do (K = C padded to
+// 16), the scores with the bias as the accumulator's start (A = bf16(q *
+// scale) from registers, N = 144), the softmax with one reciprocal a row,
+// the attention output (A = bf16(a) from registers), da in three 48-key
+// thirds twice (once for rowsum(da * a), once for ds; a and the ds sum
+// keep 144 registers, so da is recomputed rather than held), dq from ds in
+// registers, and dk and dv as three m64 tiles of keys (144 padded to 192)
+// with A = bf16(ds)^T and bf16(a)^T read transposed from shared memory: the
+// four warps share every key tile evenly, where mma.sync's nine 16-key
+// tiles split 3/2/2/2 over them. A pass's dq, dk, dv and attention output
+// are staged dense in the window's ring stage once both consumers are done
+// with it, and the producer writes them out, as 4-byte runs of each row's
+// columns of the pair, while the consumers compute the next window.
 //
 // What bounds it: at C = 90, six heads of 15, nk = 144 a window does six
 // 64 x 144 x 90 products (scores, the attention output, da, dq, dk, dv) and
 // two 64 x 90 x 90 (do, dWproj), 12.0 MFLOP, against the bf16 q, dh, dq
 // (3 x 11.5 KB) and k, v, dk, dv (4 x 25.9 KB) it must read or write: 138 KB,
-// 87 FLOP per byte, byte-bound at the card's peaks. This design also writes
-// and re-reads a 221 KB fp32 bias-gradient partial per window (the ordered
-// sum's input), and like K4 it is latency-bound.
+// 87 FLOP per byte, byte-bound at the card's peaks (0.021 ms at Bw = 512).
+// The design reads dh once per head pair (three times at six heads), does
+// the products at m64 with N or K as small as 16, and is latency-bound: on
+// the H100 at Bw = 512 the window kernel took 0.19 ms, 0.14 of it without
+// the output stores, which write each row a pair's columns at a time (60
+// of 180 bytes at C = 90: partial sectors).
 
-#include "swin_common.cuh"
+#include "hopper.cuh"
+#include "swin_pack.cuh"
 
 namespace {
 
 using namespace swin;
 
-constexpr int NKT = 9;          // key tiles of 16: nk <= 144
-constexpr int NKP = 16 * NKT;   // key rows staged per head
-constexpr int LDK = NKP + 8;    // bf16 row stride of a 64 x 144 probability / ds tile
+constexpr int NKR = 144;          // key rows staged per head (nk <= 144)
+constexpr int NKT = NKR / 8;      // their 8-key accumulator blocks
+constexpr int NKM = 192;          // keys of the staged bf16(a) and bf16(ds): three m64 tiles
+constexpr int OB_THREADS = 3 * 128;  // two consumer warpgroups and a producer
+constexpr int OB_MIN_REGS = 168;     // 384 x 168: the producer gives 128 x 128 to the consumers
+constexpr size_t OB_MAX_SMEM = 232448;
 
 struct Params {
-  const bf16* q;      // (bw, 64, cio)
-  const bf16* k;      // (bw, nk, cio)
-  const bf16* v;      // (bw, nk, cio)
-  const bf16* dh;     // (bw, 64, cio)
+  const bf16* q;      // (bw, 64, ld)
+  const bf16* k;      // (bw, nk, ld)
+  const bf16* v;      // (bw, nk, ld)
+  const bf16* dh;     // (bw, 64, ld)
   const float* bias;  // (heads, 64, nk)
-  const bf16* wproj;  // (c, c), zero-padded from cio
-  bf16* dq;           // (bw, 64, cio)
-  bf16* dk;           // (bw, nk, cio)
-  bf16* dv;           // (bw, nk, cio)
-  bf16* att;          // (bw*64, c) attention output, zero past cio
-  bf16* dhp;          // (bw*64, c) dh, zero past cio
-  float* vec;         // (bw, c) dbproj of each window
-  float* dbias;       // (bw, heads, 64, nk)
-  int nk, c, cp, cio, heads, hd;
+  const bf16* wproj;  // (cp, cp), zero-padded
+  bf16* dq;           // (bw, 64, ld)
+  bf16* dk;           // (bw, nk, ld)
+  bf16* dv;           // (bw, nk, ld)
+  bf16* att;          // (bw*64, cp) attention output, zero past heads * hd
+  bf16* dhp;          // (bw*64, cp) dh, zero past ld
+  float* part;        // (grid, heads*64*nk + cp): each block's ds sums, then its dh column sums
+  int bw, wpb, nk, cp, ld, heads, hd;
   float scale;
 };
 
-struct Layout {
-  int lda;
-  size_t d, q, qs, k, v, dop, pr, ds, ring, qmap, total;
+// Shared memory (bytes): `ns` stages of [q of the pair's two heads (64 x
+// hp) | k of both, then v of both (144 x hp) | dh (64 x cp)], then per
+// consumer warpgroup bf16(a) and bf16(ds) (64 x 192), do (64 x hp) and its
+// head's wproj rows (hp x cp), then the ring's mbarriers. Every operand is
+// interleaved K-major (swin_pack.cuh's kmaj) at the width given.
+struct ObLayout {
+  int ns;
+  size_t q, k, dh, stage, a, ds, dop, wp, bars, total;
 };
 
-__host__ __device__ inline Layout make_layout(int cp) {
-  Layout L;
-  L.lda = cp + 8;
-  size_t o = 0;
-  L.d = o;    o += align128(sizeof(bf16) * N * L.lda);     // dh
-  L.q = o;    o += align128(sizeof(bf16) * 2 * N * LDQ);   // q of the pair
-  L.qs = o;   o += align128(sizeof(bf16) * 2 * N * LDQ);   // bf16(q * scale)
-  L.k = o;    o += align128(sizeof(bf16) * 2 * NKP * LDQ);
-  L.v = o;    o += align128(sizeof(bf16) * 2 * NKP * LDQ);
-  L.dop = o;  o += align128(sizeof(bf16) * 2 * N * LDQ);   // do of the pair
-  L.pr = o;   o += align128(sizeof(bf16) * 2 * N * LDK);   // bf16(a) of the pair
-  L.ds = o;   o += align128(sizeof(bf16) * 2 * N * LDK);   // bf16(ds) of the pair
-  L.ring = o; o += align128(sizeof(bf16) * STAGES * TILE * LDT);
-  L.qmap = o; o += align128(sizeof(int) * 2 * DP);
-  L.total = o;
+__host__ __device__ inline ObLayout ob_layout(int cp, int hp) {
+  ObLayout L;
+  L.q = 0;
+  L.k = L.q + 2 * (size_t)N * hp * 2;
+  L.dh = L.k + 4 * (size_t)NKR * hp * 2;
+  L.stage = align128(L.dh + (size_t)N * cp * 2);
+  const size_t sq = (size_t)N * NKM * 2, fixed = 4 * sq + 2 * (size_t)N * hp * 2 +
+                                                2 * (size_t)hp * cp * 2 + 128;
+  L.ns = fixed + 2 * L.stage <= OB_MAX_SMEM ? 2 : 1;
+  L.a = L.ns * L.stage;
+  L.ds = L.a + 2 * sq;
+  L.dop = L.ds + 2 * sq;
+  L.wp = L.dop + 2 * (size_t)N * hp * 2;
+  L.bars = L.wp + 2 * (size_t)hp * cp * 2;
+  L.total = L.bars + 128;
   return L;
 }
 
-// acc (16 x 16, two 8-wide accumulator tiles) = a[q0..q0+15, 0:32] . b[key
-// rows kt*16 .. +15, 0:32]^T with a's fragments fa preloaded and b stored
-// [token][LDQ].
-__device__ __forceinline__ void tile_nt(float (&acc)[2][4], const uint32_t (&fa)[2][4],
-                                        const bf16* b, int kt) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    uint32_t fb[4];
-    ldsm_b_nmajor(fb, b, LDQ, kk * 16, kt * 16);
-    mma_bf16(acc[0], fa[kk], fb[0], fb[1]);
-    mma_bf16(acc[1], fa[kk], fb[2], fb[3]);
+// 4-byte asynchronous global -> shared copy; zero-fills when !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// `total` rows x hp slots of one head into the interleaved layout: slot
+// pair (2s, 2s + 1) from columns base + 2s, + 1 of each row (zero past ld
+// and past `rows`)
+template <int HP>
+__device__ __forceinline__ void fetch_head(unsigned char* dst, const bf16* src, int rows,
+                                           int total, int ld, int base, int pt) {
+  for (int i = pt; i < total * (HP / 2); i += 128) {
+    const int r = i / (HP / 2), s = 2 * (i - r * (HP / 2)), col = base + s;
+    const bool ok = r < rows && col < ld;
+    cp_async4(dst + kmaj(r, s, HP), ok ? src + (size_t)r * ld + col : src, ok);
   }
 }
 
-// o (16 x 32) += bf16([p0 p1]) (16 x 16: two 8-wide accumulator tiles) .
-// b[key rows kt*16 .. +15, 0:32] with b stored [token][LDQ].
-__device__ __forceinline__ void tile_pv(float (&o)[4][4], const float (&p0)[4],
-                                        const float (&p1)[4], const bf16* b, int kt) {
-  const uint32_t pa[4] = {pack_bf16(p0[0], p0[1]), pack_bf16(p0[2], p0[3]),
-                          pack_bf16(p1[0], p1[1]), pack_bf16(p1[2], p1[3])};
-#pragma unroll
-  for (int dp = 0; dp < DP / 16; ++dp) {
-    uint32_t fb[4];
-    ldsm_b_kmajor(fb, b, LDQ, kt * 16, dp * 16);
-    mma_bf16(o[2 * dp], pa, fb[0], fb[1]);
-    mma_bf16(o[2 * dp + 1], pa, fb[2], fb[3]);
+// bf16(q * s) of a packed pair of q's slots `slot`, +1, zero outside the
+// head's [o, o + hd): the scores' A operand
+__device__ __forceinline__ uint32_t scaled_q(uint32_t v, float s, int slot, int o, int hd) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+  const bool lo = slot >= o && slot < o + hd, hi = slot + 1 >= o && slot + 1 < o + hd;
+  return pack_bf16(lo ? f.x * s : 0.f, hi ? f.y * s : 0.f);
+}
+
+// the m16k16 A fragment of 16 columns (accumulator blocks 2 kb, 2 kb + 1)
+// of an fp32 accumulator, rounded to bf16
+__device__ __forceinline__ void a_frag(uint32_t (&f)[4], const float* acc, int kb) {
+  f[0] = pack_bf16(acc[8 * kb], acc[8 * kb + 1]);
+  f[1] = pack_bf16(acc[8 * kb + 2], acc[8 * kb + 3]);
+  f[2] = pack_bf16(acc[8 * kb + 4], acc[8 * kb + 5]);
+  f[3] = pack_bf16(acc[8 * kb + 6], acc[8 * kb + 7]);
+}
+
+template <int HP>
+__device__ __forceinline__ void wg_mma_ss(float (&d)[HP / 2], uint64_t da, uint64_t db,
+                                          int ta_mn) {
+  using namespace hopper;
+  if (ta_mn) {
+    if constexpr (HP == 16) wgmma_n16<MNMAJ, MNMAJ>(d, da, db, 1);
+    else wgmma_n32<MNMAJ, MNMAJ>(d, da, db, 1);
+  } else {
+    if constexpr (HP == 16) wgmma_n16<KMAJ, KMAJ>(d, da, db, 1);
+    else wgmma_n32<KMAJ, KMAJ>(d, da, db, 1);
   }
 }
 
-// o (16 keys x 32) += at^T[k0..k0+15, 0:64] . b (64 x 32) with at stored
-// [q][LDK] and b stored [q][LDQ]: dk = ds^T . q, dv = a^T . do.
-__device__ __forceinline__ void rows_tn(float (&o)[4][4], const bf16* at, int k0, const bf16* b) {
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-    uint32_t fa[4];
-    ldsm_a_trans(fa, at, LDK, kk * 16, k0);
-#pragma unroll
-    for (int dp = 0; dp < DP / 16; ++dp) {
-      uint32_t fb[4];
-      ldsm_b_kmajor(fb, b, LDQ, kk * 16, dp * 16);
-      mma_bf16(o[2 * dp], fa, fb[0], fb[1]);
-      mma_bf16(o[2 * dp + 1], fa, fb[2], fb[3]);
-    }
-  }
+template <int HP>
+__device__ __forceinline__ void wg_mma_rs_mn(float (&d)[HP / 2], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  using namespace hopper;
+  if constexpr (HP == 16) wgmma_n16_rs<MNMAJ>(d, a, db, 1);
+  else wgmma_n32_rs<MNMAJ>(d, a, db, 1);
 }
 
-// Writes columns d < hd of a 16 x 32 fragment (rows r0 + g, r0 + g + 8 of
-// the warp's tile) times `mul` to dst[row * ld + d], rows below `rows`.
-__device__ __forceinline__ void store_head(bf16* dst, int ld, const float (&o)[4][4], int r0,
-                                           int rows, int hd, float mul) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
+template <int R>
+__device__ __forceinline__ void zero(float (&d)[R]) {
 #pragma unroll
-  for (int t = 0; t < 4; ++t)
+  for (int i = 0; i < R; ++i) d[i] = 0.f;
+}
+
+// Writes slots [o, o + hd) of the warp's rows of an m64 x HP accumulator,
+// times `mul`, to dst[(row) * ld + slot - o] for rows row0 + r < rows.
+template <int HP>
+__device__ __forceinline__ void store_slots(bf16* dst, int ld, const float (&acc)[HP / 2],
+                                            int row0, int rows, int o, int hd, float mul) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3, w = (threadIdx.x >> 5) & 3;
+#pragma unroll
+  for (int j = 0; j < HP / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int d = t * 8 + tig * 2 + (e & 1), r = r0 + g + 8 * (e >> 1);
-      if (d < hd && r < rows) dst[(size_t)r * ld + d] = __float2bfloat16(o[t][e] * mul);
+      const int slot = 8 * j + 2 * t4 + (e & 1), r = row0 + 16 * w + g + 8 * (e >> 1);
+      if (slot >= o && slot < o + hd && r < rows)
+        dst[(size_t)r * ld + slot - o] = __float2bfloat16(acc[4 * j + e] * mul);
     }
 }
 
-__global__ void __launch_bounds__(THREADS, 1) ocab_bwd_kernel(const Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int C = p.c, CP = p.cp, CIO = p.cio, heads = p.heads, hd = p.hd, nk = p.nk;
-  const Layout L = make_layout(CP);
-  bf16* dbuf = reinterpret_cast<bf16*>(smem + L.d);
-  bf16* qb = reinterpret_cast<bf16*>(smem + L.q);      // [head][token][LDQ]
-  bf16* qsb = reinterpret_cast<bf16*>(smem + L.qs);
-  bf16* kb = reinterpret_cast<bf16*>(smem + L.k);      // [head][key][LDQ]
-  bf16* vb = reinterpret_cast<bf16*>(smem + L.v);
-  bf16* dop = reinterpret_cast<bf16*>(smem + L.dop);
-  bf16* prob = reinterpret_cast<bf16*>(smem + L.pr);   // [head][q][LDK]
-  bf16* dsb = reinterpret_cast<bf16*>(smem + L.ds);
-  bf16* ring = reinterpret_cast<bf16*>(smem + L.ring);
-  int* qmap = reinterpret_cast<int*>(smem + L.qmap);
-  const int lda = L.lda;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int r0 = (warp & 3) * 16, c0 = (warp >> 2) * 32, g = lane >> 2, tig = lane & 3;
-  const int nkc = (CP + TILE - 1) / TILE;
-  const size_t win = blockIdx.x;
-  const size_t row0 = win * N, krow0 = win * nk;
-  const int hl = warp >> 2;  // the warp's head within a pair
+// rows x cols bf16 of a dense staging (row stride cs, even) to dst (row
+// stride ld; dst and ld even) by the producer warpgroup: 4-byte words, a
+// half-warp on each row (cols <= 64: 32 words)
+__device__ __forceinline__ void copy_out(bf16* dst, int ld, const unsigned char* st, int cs,
+                                         int rows, int cols, int t) {
+  const int words = (cols + 1) / 2;
+  for (int w = t & 15; w < words; w += 16)
+    for (int r = t >> 4; r < rows; r += 8) {
+      const uint32_t v = *reinterpret_cast<const uint32_t*>(st + (r * cs + 2 * w) * 2);
+      bf16* d = dst + (size_t)r * ld + 2 * w;
+      if (2 * w + 1 < cols) *reinterpret_cast<uint32_t*>(d) = v;
+      else *d = *reinterpret_cast<const bf16*>(&v);
+    }
+}
 
-  {  // zeros under the head padding, past nk and past cio
-    uint4* z = reinterpret_cast<uint4*>(smem + L.q);
-    for (size_t i = tid; i < (L.pr - L.q) / 16; i += THREADS) z[i] = make_uint4(0u, 0u, 0u, 0u);
-    const bf16* dh = p.dh + row0 * CIO;
-    for (int i = tid; i < N * CP; i += THREADS) {
-      const int r = i / CP, c = i - r * CP;
-      dbuf[r * lda + c] = c < CIO ? dh[r * CIO + c] : __float2bfloat16(0.f);
+// Where a (window, head pair) item's output rows are staged in its ring
+// stage, once both consumers are done with the stage's inputs: dk and dv
+// over k and v, att over q, dq over dh; dense, row stride cs (even).
+struct OutStage {
+  unsigned char *dk, *dv, *att, *dq;
+};
+
+__device__ __forceinline__ OutStage out_stage(unsigned char* stg, const ObLayout& L, int nk,
+                                              int cs) {
+  return {stg + L.k, stg + L.k + (size_t)nk * cs * 2, stg + L.q, stg + L.dh};
+}
+
+template <int HP>
+__global__ void __launch_bounds__(OB_THREADS, 1) ocab_bwd_wg_kernel(const Params p) {
+  using namespace hopper;
+  extern __shared__ __align__(1024) unsigned char sm[];
+  const int CP = p.cp, LD = p.ld, nk = p.nk, hd = p.hd, heads = p.heads;
+  const ObLayout L = ob_layout(CP, HP);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.bars);
+  uint64_t* empty = full + 2;
+  const int tid = threadIdx.x, wgi = tid >> 7;
+  const int w0 = blockIdx.x * p.wpb, nwin = min(p.wpb, p.bw - w0);
+  const int npass = (heads + 1) / 2, ns = L.ns;
+  constexpr int QB = N * HP * 2, KB = NKR * HP * 2;
+
+  if (tid == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&full[s], 128);  // every producer thread
+      mbar_init(&empty[s], 8);   // every consumer warp
     }
-    for (int j = tid; j < 2 * hd; j += THREADS) qmap[j] = (j / hd) * N * LDQ + j % hd;
-    for (int c = tid; c < C; c += THREADS) {  // dbproj = column sums of dh
-      float s = 0.f;
-      if (c < CIO)
-        for (int r = 0; r < N; ++r) s += __bfloat162float(dh[r * CIO + c]);
-      p.vec[win * C + c] = s;
-    }
-    for (int i = tid; i < N * (C - CIO); i += THREADS)  // att's padding columns
-      p.att[(row0 + i / (C - CIO)) * C + CIO + i % (C - CIO)] = __float2bfloat16(0.f);
+    mbar_fence_init();
   }
   __syncthreads();
-  {  // dh at the padded width for dWproj
-    bf16* dst = p.dhp + row0 * C;
-    for (int i = tid; i < N * C; i += THREADS) dst[i] = dbuf[(i / C) * lda + i % C];
+
+  if (wgi == 2) {  // producer warpgroup: the ring of windows
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int pt = tid - 256;
+    // item j's output rows, staged in its stage, to device memory
+    auto flush = [&](int j) {
+      const int pass = j / nwin, cols = min(2, heads - 2 * pass) * hd, cs = (cols + 1) / 2 * 2;
+      const size_t win = w0 + j % nwin, cpass = 2 * pass * hd;
+      const OutStage o = out_stage(sm + (j % ns) * L.stage, L, nk, cs);
+      copy_out(p.dk + win * nk * LD + cpass, LD, o.dk, cs, nk, cols, pt);
+      copy_out(p.dv + win * nk * LD + cpass, LD, o.dv, cs, nk, cols, pt);
+      copy_out(p.dq + win * N * LD + cpass, LD, o.dq, cs, N, cols, pt);
+      copy_out(p.att + win * N * CP + cpass, CP, o.att, cs, N, cols, pt);
+      asm volatile("bar.sync 4, 128;\n" ::: "memory");  // the staging is read
+    };
+    int it = 0;
+    for (int pass = 0; pass < npass; ++pass)
+      for (int i = 0; i < nwin; ++i, ++it) {
+        const int st = it % ns;
+        if (it >= ns) {
+          mbar_wait(&empty[st], (it / ns - 1) & 1);
+          flush(it - ns);
+        }
+        unsigned char* stg = sm + st * L.stage;
+        const size_t win = w0 + i;
+        for (int j = 0; j < 2 && 2 * pass + j < heads; ++j) {
+          const int base = ((2 * pass + j) * hd) & ~1;
+          fetch_head<HP>(stg + L.q + j * QB, p.q + win * N * LD, N, N, LD, base, pt);
+          fetch_head<HP>(stg + L.k + j * KB, p.k + win * nk * LD, nk, NKR, LD, base, pt);
+          fetch_head<HP>(stg + L.k + (2 + j) * KB, p.v + win * nk * LD, nk, NKR, LD, base, pt);
+        }
+        const bf16* dh = p.dh + win * N * LD;
+        for (int idx = pt; idx < N * (CP / 2); idx += 128) {
+          const int r = idx / (CP / 2), c = 2 * (idx - r * (CP / 2));
+          const bool ok = c < LD;
+          cp_async4(stg + L.dh + kmaj(r, c, CP), ok ? dh + (size_t)r * LD + c : dh, ok);
+        }
+        mbar_arrive_cp_async(&full[st]);  // once this thread's copies land
+      }
+    for (int j = max(0, it - ns); j < it; ++j) {
+      mbar_wait(&empty[j % ns], (j / ns) & 1);
+      flush(j);
+    }
+    return;
   }
 
-  const float qscale = round_bf16(p.scale);
-  for (int h0 = 0; h0 < heads; h0 += 2) {
-    const int seg = min(2, heads - h0) * hd;  // the pair's columns of q, k, v
-    // ---- stage q, bf16(q * scale), k and v of the pair (the previous pair's
-    // readers finished at the loop's last barrier)
-    const bf16* qw = p.q + row0 * CIO;
-    for (int i = tid; i < N * seg; i += THREADS) {
-      const int r = i / seg, j = i - r * seg, hh = j / hd, d = j - hh * hd;
-      const bf16 y = qw[r * CIO + h0 * hd + j];
-      qb[(hh * N + r) * LDQ + d] = y;
-      qsb[(hh * N + r) * LDQ + d] = __float2bfloat16(__bfloat162float(y) * qscale);
-    }
-    for (int i = tid; i < nk * seg; i += THREADS) {
-      const int r = i / seg, j = i - r * seg, hh = j / hd, d = j - hh * hd;
-      const size_t src = (krow0 + r) * CIO + h0 * hd + j;
-      kb[(hh * NKP + r) * LDQ + d] = p.k[src];
-      vb[(hh * NKP + r) * LDQ + d] = p.v[src];
+  // consumer warpgroup wgi: head 2 pass + wgi of every window of the block
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wt = tid & 127, wi = wt >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int r0 = 16 * wi;  // the warp's 16 query rows
+  unsigned char* a_s = sm + L.a + wgi * (size_t)N * NKM * 2;
+  unsigned char* ds_s = sm + L.ds + wgi * (size_t)N * NKM * 2;
+  unsigned char* do_s = sm + L.dop + wgi * (size_t)QB;
+  unsigned char* wp_s = sm + L.wp + wgi * (size_t)HP * CP * 2;
+  const size_t LB = (size_t)heads * N * nk;  // the bias gradient's part of a row of `part`
+  float* part = p.part + blockIdx.x * (LB + CP);
+  const float qscale = round_bf16(p.scale), ninf = -__int_as_float(0x7f800000);
+  auto wg_sync = [&] { asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wgi) : "memory"); };
+  auto pair_sync = [] { asm volatile("bar.sync 3, 256;\n" ::: "memory"); };  // both consumers
+  auto proxy_fence = [] { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); };
+  float dbp[2] = {0.f, 0.f};  // wg 0: dh's column sums, columns wt and wt + 128
+
+  int it = 0;
+  for (int pass = 0; pass < npass; ++pass) {
+    const int head = 2 * pass + wgi, c0 = head * hd, o = c0 & 1;
+    const bool live = head < heads;
+    // the pass's columns of dq, dk, dv and att: its heads' hd each, staged
+    // dense in shared memory at row stride cs (even)
+    const int cols = min(2, heads - 2 * pass) * hd, cs = (cols + 1) / 2 * 2;
+    const float* bh = p.bias + (size_t)(live ? head : 0) * N * nk;
+    // the scores' starting value: the bias, -inf past nk
+    float a[4 * NKT];
+    auto load_bias = [&] {
+#pragma unroll
+      for (int t = 0; t < NKT; ++t) {
+        const int c = 8 * t + 2 * t4;
+        if (c < nk) {
+          const float2 b0 = __ldg(reinterpret_cast<const float2*>(bh + (r0 + g) * nk + c));
+          const float2 b1 = __ldg(reinterpret_cast<const float2*>(bh + (r0 + g + 8) * nk + c));
+          a[4 * t] = b0.x; a[4 * t + 1] = b0.y; a[4 * t + 2] = b1.x; a[4 * t + 3] = b1.y;
+        } else {
+          a[4 * t] = a[4 * t + 1] = a[4 * t + 2] = a[4 * t + 3] = ninf;
+        }
+      }
+    };
+    float dbs[4 * NKT];  // this head's sum of ds over the block's windows
+    zero(dbs);
+    if (live) {
+      load_bias();
+      // the head's wproj rows at slots o .. o + hd - 1, zero elsewhere: the
+      // B operand of do, whose other slots come out exactly zero
+      for (int i = wt; i < HP * (CP / 2); i += 128) {
+        const int d = i / (CP / 2), c = 2 * (i - d * (CP / 2));
+        const bool real = d >= o && d < o + hd;
+        *reinterpret_cast<uint32_t*>(wp_s + kmaj(d, c, CP)) =
+            real ? *reinterpret_cast<const uint32_t*>(p.wproj + (size_t)(c0 + d - o) * CP + c)
+                 : 0u;
+      }
+      proxy_fence();
+      wg_sync();
     }
 
-    // ---- do = bf16(dh . wproj[pair rows, :]^T); the pipeline's first
-    // barrier also orders the staging above before anyone reads it
-    {
-      const bool lo = c0 < seg, hi = c0 + 16 < seg;
-      float acc[4][4];
-      pipeline(
-          nkc, ring,
-          [&](int s) {
-            return Tile{p.wproj, C, h0 * hd, seg, s * TILE, min(TILE, C - s * TILE)};
-          },
-          [&](int s, const bf16* t) {
-            if (s == 0) {
+    for (int i = 0; i < nwin; ++i, ++it) {
+      const int st = it % ns;
+      mbar_wait(&full[st], (it / ns) & 1);
+      proxy_fence();  // the stage's copies are read by wgmma
+      const unsigned char* stg = sm + st * L.stage;
+      const unsigned char* q_h = stg + L.q + wgi * QB;
+      const unsigned char* k_h = stg + L.k + wgi * KB;
+      const unsigned char* v_h = stg + L.k + (2 + wgi) * KB;
+      const unsigned char* dh_s = stg + L.dh;
+      const size_t win = w0 + i, row0 = win * N;
+
+      if (pass == 0) {
+        // dh at the padded width for dWproj (16-byte runs), its column sums,
+        // and att's padding columns
+        for (int idx = tid; idx < N * (CP / 8); idx += 256) {
+          const int r = idx / (CP / 8), c8 = 8 * (idx - r * (CP / 8));
+          *reinterpret_cast<uint4*>(p.dhp + (row0 + r) * CP + c8) =
+              *reinterpret_cast<const uint4*>(dh_s + kmaj(r, c8, CP));
+        }
+        if (wgi == 0)
 #pragma unroll
-              for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+          for (int u = 0; u < 2; ++u) {
+            const int c = wt + 128 * u;
+            if (c < CP) {
+              float s = 0.f;
+              for (int r = 0; r < N; ++r)
+                s += __bfloat162float(*reinterpret_cast<const bf16*>(dh_s + kmaj(r, c, CP)));
+              dbp[u] += s;
             }
-            if (!lo) return;
-            mma_tile_nt(acc, dbuf + s * TILE, lda, min(TILE, CP - s * TILE) / 16, t, hi);
-            if (s != nkc - 1) return;
-            for_pairs(acc, 0, hi, [&](int r, int c, float v0, float v1) {
-              if (c < seg) dop[qmap[c] + r * LDQ] = __float2bfloat16(v0);
-              if (c + 1 < seg) dop[qmap[c + 1] + r * LDQ] = __float2bfloat16(v1);
-            });
-          });
-    }
-    __syncthreads();  // do of both heads is in shared memory
-
-    const int head = h0 + hl;
-    const bf16* qh = qb + hl * N * LDQ;
-    const bf16* qsh = qsb + hl * N * LDQ;
-    const bf16* kh = kb + hl * NKP * LDQ;
-    const bf16* vh = vb + hl * NKP * LDQ;
-    const bf16* doh = dop + hl * N * LDQ;
-    bf16* ph = prob + hl * N * LDK;
-    bf16* dsh = dsb + hl * N * LDK;
-    if (head < heads) {
-      // ---- scores and softmax of the warp's 16 query rows, in registers
-      const float* bh = p.bias + (size_t)head * N * nk;
-      float a[2 * NKT][4];
-#pragma unroll
-      for (int t = 0; t < 2 * NKT; ++t) {  // the bias is the accumulator's starting value
-        const int c = t * 8 + tig * 2;
-        if (c >= nk) {
-          a[t][0] = a[t][1] = a[t][2] = a[t][3] = -__int_as_float(0x7f800000);  // -inf
-          continue;
-        }
-        const float2 b0 = *reinterpret_cast<const float2*>(bh + (r0 + g) * nk + c);
-        const float2 b1 = *reinterpret_cast<const float2*>(bh + (r0 + g + 8) * nk + c);
-        a[t][0] = b0.x; a[t][1] = b0.y; a[t][2] = b1.x; a[t][3] = b1.y;
-      }
-      uint32_t fq[DP / 16][4], fdo[DP / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        ldsm_x4(fq[kk], qsh + (r0 + (lane & 15)) * LDQ + kk * 16 + (lane >> 4) * 8);
-        ldsm_x4(fdo[kk], doh + (r0 + (lane & 15)) * LDQ + kk * 16 + (lane >> 4) * 8);
-      }
-#pragma unroll
-      for (int kt = 0; kt < NKT; ++kt) {
-        float s[2][4];
-        tile_nt(s, fq, kh, kt);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) a[2 * kt + i][e] += s[i][e];
-      }
-      float m0 = a[0][0], m1 = a[0][2];
-#pragma unroll
-      for (int t = 0; t < 2 * NKT; ++t) {
-        m0 = fmaxf(m0, fmaxf(a[t][0], a[t][1]));
-        m1 = fmaxf(m1, fmaxf(a[t][2], a[t][3]));
-      }
-#pragma unroll
-      for (int o = 1; o <= 2; o <<= 1) {
-        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
-        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
-      }
-      float l0 = 0.f, l1 = 0.f;
-#pragma unroll
-      for (int t = 0; t < 2 * NKT; ++t) {
-        a[t][0] = expf(a[t][0] - m0); a[t][1] = expf(a[t][1] - m0);
-        a[t][2] = expf(a[t][2] - m1); a[t][3] = expf(a[t][3] - m1);
-        l0 += a[t][0] + a[t][1];
-        l1 += a[t][2] + a[t][3];
-      }
-#pragma unroll
-      for (int o = 1; o <= 2; o <<= 1) {
-        l0 += __shfl_xor_sync(0xffffffffu, l0, o);
-        l1 += __shfl_xor_sync(0xffffffffu, l1, o);
-      }
-#pragma unroll
-      for (int t = 0; t < 2 * NKT; ++t) {
-        a[t][0] /= l0; a[t][1] /= l0;
-        a[t][2] /= l1; a[t][3] /= l1;
-        *reinterpret_cast<uint32_t*>(ph + (r0 + g) * LDK + t * 8 + tig * 2) =
-            pack_bf16(a[t][0], a[t][1]);
-        *reinterpret_cast<uint32_t*>(ph + (r0 + g + 8) * LDK + t * 8 + tig * 2) =
-            pack_bf16(a[t][2], a[t][3]);
-      }
-      {  // attention output bf16(a) . v, for dWproj
-        float o[4][4] = {};
-#pragma unroll
-        for (int kt = 0; kt < NKT; ++kt) tile_pv(o, a[2 * kt], a[2 * kt + 1], vh, kt);
-        store_head(p.att + row0 * C + head * hd, C, o, r0, N, hd, 1.f);
-      }
-      // ---- rowsum(da * a), da = do . v^T recomputed tile by tile
-      float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-      for (int kt = 0; kt < NKT; ++kt) {
-        float da[2][4];
-        tile_nt(da, fdo, vh, kt);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          s0 += da[i][0] * a[2 * kt + i][0] + da[i][1] * a[2 * kt + i][1];
-          s1 += da[i][2] * a[2 * kt + i][2] + da[i][3] * a[2 * kt + i][3];
-        }
-      }
-#pragma unroll
-      for (int o = 1; o <= 2; o <<= 1) {
-        s0 += __shfl_xor_sync(0xffffffffu, s0, o);
-        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-      }
-      // ---- ds = a * (da - rowsum) -> the window's bias gradient, bf16(ds)
-      // to shared memory, and dq += bf16(ds) . k
-      float* db = p.dbias + (win * heads + head) * N * nk;
-      float dq[4][4] = {};
-#pragma unroll
-      for (int kt = 0; kt < NKT; ++kt) {
-        float ds[2][4];
-        tile_nt(ds, fdo, vh, kt);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          ds[i][0] = a[2 * kt + i][0] * (ds[i][0] - s0);
-          ds[i][1] = a[2 * kt + i][1] * (ds[i][1] - s0);
-          ds[i][2] = a[2 * kt + i][2] * (ds[i][2] - s1);
-          ds[i][3] = a[2 * kt + i][3] * (ds[i][3] - s1);
-          const int c = kt * 16 + i * 8 + tig * 2;
-          if (c < nk) {
-            *reinterpret_cast<float2*>(db + (r0 + g) * nk + c) = make_float2(ds[i][0], ds[i][1]);
-            *reinterpret_cast<float2*>(db + (r0 + g + 8) * nk + c) =
-                make_float2(ds[i][2], ds[i][3]);
           }
-          *reinterpret_cast<uint32_t*>(dsh + (r0 + g) * LDK + c) = pack_bf16(ds[i][0], ds[i][1]);
-          *reinterpret_cast<uint32_t*>(dsh + (r0 + g + 8) * LDK + c) =
-              pack_bf16(ds[i][2], ds[i][3]);
-        }
-        tile_pv(dq, ds[0], ds[1], kh, kt);
+        const int pad = CP - heads * hd;
+        for (int idx = tid; idx < N * pad; idx += 256)
+          p.att[(row0 + idx / pad) * CP + heads * hd + idx % pad] = __float2bfloat16(0.f);
       }
-      store_head(p.dq + row0 * CIO + head * hd, CIO, dq, r0, N, hd, p.scale);
-    }
-    __syncthreads();  // bf16(a) and bf16(ds) of both heads are in shared memory
 
-    // ---- dk = bf16(ds)^T . q * scale and dv = bf16(a)^T . do, 16 key rows
-    // at a time: warp w & 3 of each head takes key tiles w & 3, +4, +8
-    if (head < heads) {
-      for (int kt = warp & 3; kt < NKT && kt * 16 < nk; kt += 4) {
-        float dk[4][4] = {}, dv[4][4] = {};
-        rows_tn(dk, dsh, kt * 16, qh);
-        rows_tn(dv, ph, kt * 16, doh);
-        store_head(p.dk + krow0 * CIO + head * hd, CIO, dk, kt * 16, nk, hd, p.scale);
-        store_head(p.dv + krow0 * CIO + head * hd, CIO, dv, kt * 16, nk, hd, 1.f);
+      float oa[HP / 2], dq[HP / 2];  // the attention output and dq, staged after dk and dv
+      if (live) {
+        // ---- do = bf16(dh . wproj[head rows]^T), and the scores' A operand
+        float ao[HP / 2];
+        zero(ao);
+        fence_regs(ao);
+        wg_fence();
+        for (int ks = 0; ks < CP / 16; ++ks)
+          wg_mma_ss<HP>(ao, desc(dh_s + ks * 256, 128, CP * 16),
+                        desc(wp_s + ks * 256, 128, CP * 16), 0);
+        wg_commit();
+        uint32_t fq[HP / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < HP / 16; ++kk) {
+          ldsm_x4(fq[kk], reinterpret_cast<const bf16*>(
+                              q_h + kmaj(r0 + (lane & 15), kk * 16 + (lane >> 4) * 8, HP)));
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            fq[kk][e] = scaled_q(fq[kk][e], qscale, kk * 16 + 2 * t4 + (e >> 1) * 8, o, hd);
+        }
+        wg_wait<0>();
+        fence_regs(ao);
+        uint32_t fdo[HP / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < HP / 16; ++kk) a_frag(fdo[kk], ao, kk);
+#pragma unroll
+        for (int j = 0; j < HP / 8; ++j)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            *reinterpret_cast<uint32_t*>(do_s + kmaj(r0 + g + 8 * hh, 8 * j + 2 * t4, HP)) =
+                pack_bf16(ao[4 * j + 2 * hh], ao[4 * j + 2 * hh + 1]);
+
+        // ---- scores on the bias: a += bf16(q * scale) . k^T (N = 144)
+        fence_regs(a);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < HP / 16; ++kk)
+          wgmma_n144_rs<KMAJ>(a, fq[kk], desc(k_h + kk * 256, 128, HP * 16), 1);
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(a);
+
+        // ---- softmax of rows r0 + g and r0 + g + 8 (one reciprocal a row),
+        // bf16(a) into a_s for dv
+        float m0 = a[0], m1 = a[2];
+#pragma unroll
+        for (int t = 0; t < NKT; ++t) {
+          m0 = fmaxf(m0, fmaxf(a[4 * t], a[4 * t + 1]));
+          m1 = fmaxf(m1, fmaxf(a[4 * t + 2], a[4 * t + 3]));
+        }
+#pragma unroll
+        for (int sh = 1; sh <= 2; sh <<= 1) {
+          m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, sh));
+          m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, sh));
+        }
+        float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+        for (int t = 0; t < NKT; ++t) {
+          a[4 * t] = expf(a[4 * t] - m0);
+          a[4 * t + 1] = expf(a[4 * t + 1] - m0);
+          a[4 * t + 2] = expf(a[4 * t + 2] - m1);
+          a[4 * t + 3] = expf(a[4 * t + 3] - m1);
+          l0 += a[4 * t] + a[4 * t + 1];
+          l1 += a[4 * t + 2] + a[4 * t + 3];
+        }
+#pragma unroll
+        for (int sh = 1; sh <= 2; sh <<= 1) {
+          l0 += __shfl_xor_sync(0xffffffffu, l0, sh);
+          l1 += __shfl_xor_sync(0xffffffffu, l1, sh);
+        }
+        const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+#pragma unroll
+        for (int t = 0; t < NKT; ++t) {
+          a[4 * t] *= inv0; a[4 * t + 1] *= inv0;
+          a[4 * t + 2] *= inv1; a[4 * t + 3] *= inv1;
+          *reinterpret_cast<uint32_t*>(a_s + kmaj(r0 + g, 8 * t + 2 * t4, NKM)) =
+              pack_bf16(a[4 * t], a[4 * t + 1]);
+          *reinterpret_cast<uint32_t*>(a_s + kmaj(r0 + g + 8, 8 * t + 2 * t4, NKM)) =
+              pack_bf16(a[4 * t + 2], a[4 * t + 3]);
+        }
+
+        // ---- the attention output bf16(a) . v, for dWproj
+        zero(oa);
+        fence_regs(oa);
+        wg_fence();
+#pragma unroll
+        for (int kb = 0; kb < NKR / 16; ++kb) {
+          uint32_t pa[4];
+          a_frag(pa, a, kb);
+          wg_mma_rs_mn<HP>(oa, pa, desc(v_h + kb * 2 * HP * 16, HP * 16, 128));
+        }
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(oa);
+
+        // ---- da = do . v^T by 48-key thirds: rowsum(da * a), then ds =
+        // a * (da - rowsum) into the ds sum, bf16(ds) into ds_s, and dq +=
+        // bf16(ds) . k
+        auto da_third = [&](float (&da)[24], int th) {
+          zero(da);
+          fence_regs(da);
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < HP / 16; ++kk)
+            wgmma_n48_rs<KMAJ>(da, fdo[kk], desc(v_h + th * 6 * HP * 16 + kk * 256, 128,
+                                                 HP * 16), 1);
+          wg_commit();
+          wg_wait<0>();
+          fence_regs(da);
+        };
+        float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+        for (int th = 0; th < 3; ++th) {
+          float da[24];
+          da_third(da, th);
+#pragma unroll
+          for (int jj = 0; jj < 6; ++jj) {
+            const int t = 6 * th + jj;
+            s0 += da[4 * jj] * a[4 * t] + da[4 * jj + 1] * a[4 * t + 1];
+            s1 += da[4 * jj + 2] * a[4 * t + 2] + da[4 * jj + 3] * a[4 * t + 3];
+          }
+        }
+#pragma unroll
+        for (int sh = 1; sh <= 2; sh <<= 1) {
+          s0 += __shfl_xor_sync(0xffffffffu, s0, sh);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, sh);
+        }
+        zero(dq);
+#pragma unroll
+        for (int th = 0; th < 3; ++th) {
+          float da[24];
+          da_third(da, th);
+#pragma unroll
+          for (int jj = 0; jj < 6; ++jj) {
+            const int t = 6 * th + jj;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float ds = a[4 * t + e] * (da[4 * jj + e] - (e < 2 ? s0 : s1));
+              dbs[4 * t + e] += ds;
+              da[4 * jj + e] = ds;
+            }
+            *reinterpret_cast<uint32_t*>(ds_s + kmaj(r0 + g, 8 * t + 2 * t4, NKM)) =
+                pack_bf16(da[4 * jj], da[4 * jj + 1]);
+            *reinterpret_cast<uint32_t*>(ds_s + kmaj(r0 + g + 8, 8 * t + 2 * t4, NKM)) =
+                pack_bf16(da[4 * jj + 2], da[4 * jj + 3]);
+          }
+          fence_regs(dq);
+          wg_fence();
+#pragma unroll
+          for (int kb = 0; kb < 3; ++kb) {
+            uint32_t pa[4];
+            a_frag(pa, da, kb);
+            wg_mma_rs_mn<HP>(dq, pa, desc(k_h + (3 * th + kb) * 2 * HP * 16, HP * 16, 128));
+          }
+          wg_commit();
+          wg_wait<0>();
+          fence_regs(dq);
+        }
+        proxy_fence();  // a_s, ds_s and do_s are read by wgmma next
       }
+
+      // ---- dk = bf16(ds)^T . q * scale and dv = bf16(a)^T . do: three m64
+      // tiles of keys, A read transposed from ds_s and a_s. The stage's
+      // room takes the pass's output rows once both consumers are done with
+      // it (k and v: dk and dv; then q and dh: att and dq); the producer
+      // writes them out before it refills the stage (on the H100, 2-byte
+      // stores straight from the accumulators took 0.14 of the kernel's
+      // 0.26 ms at Bw = 512, and 4-byte runs by the consumers 0.07 of 0.21).
+      const OutStage os = out_stage(sm + st * L.stage, L, nk, cs);
+      pair_sync();
+      if (live) {
+#pragma unroll 1
+        for (int mt = 0; mt < 3 && 64 * mt < nk; ++mt) {
+          float dk[HP / 2], dv[HP / 2];
+          zero(dk);
+          zero(dv);
+          fence_regs(dk);
+          fence_regs(dv);
+          wg_fence();
+#pragma unroll
+          for (int ks = 0; ks < N / 16; ++ks) {
+            const int off = ks * 2 * NKM * 16 + mt * 1024;
+            wg_mma_ss<HP>(dk, desc(ds_s + off, NKM * 16, 128),
+                          desc(q_h + ks * 2 * HP * 16, HP * 16, 128), 1);
+            wg_mma_ss<HP>(dv, desc(a_s + off, NKM * 16, 128),
+                          desc(do_s + ks * 2 * HP * 16, HP * 16, 128), 1);
+          }
+          wg_commit();
+          wg_wait<0>();
+          fence_regs(dk);
+          fence_regs(dv);
+          store_slots<HP>(reinterpret_cast<bf16*>(os.dk) + wgi * hd, cs, dk, 64 * mt, nk, o, hd,
+                          p.scale);
+          store_slots<HP>(reinterpret_cast<bf16*>(os.dv) + wgi * hd, cs, dv, 64 * mt, nk, o, hd,
+                          1.f);
+        }
+      }
+      pair_sync();  // q is read
+      if (live) {
+        store_slots<HP>(reinterpret_cast<bf16*>(os.att) + wgi * hd, cs, oa, 0, N, o, hd, 1.f);
+        store_slots<HP>(reinterpret_cast<bf16*>(os.dq) + wgi * hd, cs, dq, 0, N, o, hd, p.scale);
+      }
+      if (live && i + 1 < nwin) load_bias();  // the next window's scores start from it
+      __syncwarp();
+      // this warp is done with the stage: its staged rows go out with the producer
+      if (lane == 0) mbar_arrive(&empty[st]);
     }
-    __syncthreads();  // the pair's q, k, v, do, a and ds are consumed
+
+    if (live)  // the head's ds summed over the block's windows
+#pragma unroll
+      for (int t = 0; t < NKT; ++t) {
+        const int c = 8 * t + 2 * t4;
+        if (c >= nk) continue;
+        float* dst = part + (size_t)head * N * nk + (r0 + g) * nk + c;
+        *reinterpret_cast<float2*>(dst) = make_float2(dbs[4 * t], dbs[4 * t + 1]);
+        *reinterpret_cast<float2*>(dst + 8 * nk) = make_float2(dbs[4 * t + 2], dbs[4 * t + 3]);
+      }
   }
+  if (wgi == 0)
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      if (wt + 128 * u < CP) part[LB + wt + 128 * u] = dbp[u];
 }
+
+template <int HP>
+cudaError_t launch(const Params& p, cudaStream_t s) {
+  const ObLayout L = ob_layout(p.cp, HP);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, ocab_bwd_wg_kernel<HP>);
+  if (err != cudaSuccess) return err;
+  // setmaxnreg moves registers between the warpgroups: the consumers' 232
+  // need the 168 a thread gets at launch
+  if (attr.numRegs < OB_MIN_REGS) return cudaErrorInvalidConfiguration;
+  err = cudaFuncSetAttribute(ocab_bwd_wg_kernel<HP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)L.total);
+  if (err != cudaSuccess) return err;
+  const int grid = (p.bw + p.wpb - 1) / p.wpb;
+  ocab_bwd_wg_kernel<HP><<<grid, OB_THREADS, L.total, s>>>(p);
+  return cudaGetLastError();
+}
+
+bool aligned(const void* ptr, size_t n) { return reinterpret_cast<uintptr_t>(ptr) % n == 0; }
 
 }  // namespace
 
 // C entry point, bound with ctypes; returns a cudaError_t. q, dh (bw, 64,
-// cio) and k, v (bw, nk, cio) bf16; bias (heads, 64, nk) fp32; wproj (c, c)
-// bf16 zero-padded from cio. Writes dq (bw, 64, cio), dk and dv (bw, nk,
-// cio), att and dhp (bw*64, c) bf16, vec (bw, c) and dbias (bw, heads, 64,
-// nk) fp32.
+// ld) and k, v (bw, nk, ld) bf16 with ld even (the heads' hd columns first,
+// zeros after); bias (heads, 64, nk) fp32; wproj (cp, cp) bf16 zero-padded;
+// wpb windows a block (grid ceil(bw / wpb)). Writes dq (bw, 64, ld), dk and
+// dv (bw, nk, ld) in the heads' columns, att and dhp (bw*64, cp) bf16 and
+// part (grid, heads*64*nk + cp) fp32.
 extern "C" int ocab_bwd_attn_bf16(const void* q, const void* k, const void* v, const void* dh,
                                   const void* bias, const void* wproj, void* dq, void* dk,
-                                  void* dv, void* att, void* dhp, void* vec, void* dbias, int bw,
-                                  int nk, int c, int cio, int heads, float scale, void* stream) {
-  const int hd = heads > 0 ? cio / heads : 0;
-  if (bw <= 0 || nk <= 0 || nk > NKP || nk % 2 != 0 || c <= 0 || c > MAX_C || c % 4 != 0 ||
-      cio <= 0 || cio > c || heads <= 0 || cio % heads != 0 || hd > DP)
+                                  void* dv, void* att, void* dhp, void* part, int bw, int wpb,
+                                  int nk, int cp, int ld, int heads, int hd, float scale,
+                                  void* stream) {
+  if (bw <= 0 || wpb <= 0 || nk <= 0 || nk > NKR || nk % 2 != 0 || cp <= 0 || cp > MAX_C ||
+      cp % 16 != 0 || ld <= 0 || ld % 2 != 0 || ld > cp || heads <= 0 || hd <= 0 ||
+      hd > DP || heads * hd > ld)
     return (int)cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(wproj) % 8 != 0 || reinterpret_cast<uintptr_t>(bias) % 8 != 0 ||
-      reinterpret_cast<uintptr_t>(dbias) % 8 != 0)
+  const void* four[] = {q, k, v, dh, wproj, dq, dk, dv, att};
+  for (const void* ptr : four)
+    if (!aligned(ptr, 4)) return (int)cudaErrorMisalignedAddress;
+  if (!aligned(bias, 8) || !aligned(part, 8) || !aligned(dhp, 16))
     return (int)cudaErrorMisalignedAddress;
   Params p;
   p.q = static_cast<const bf16*>(q);
@@ -414,22 +664,20 @@ extern "C" int ocab_bwd_attn_bf16(const void* q, const void* k, const void* v, c
   p.dv = static_cast<bf16*>(dv);
   p.att = static_cast<bf16*>(att);
   p.dhp = static_cast<bf16*>(dhp);
-  p.vec = static_cast<float*>(vec);
-  p.dbias = static_cast<float*>(dbias);
+  p.part = static_cast<float*>(part);
+  p.bw = bw;
+  p.wpb = wpb;
   p.nk = nk;
-  p.c = c;
-  p.cp = round16(c);
-  p.cio = cio;
+  p.cp = cp;
+  p.ld = ld;
   p.heads = heads;
   p.hd = hd;
   p.scale = scale;
-  const size_t smem = make_layout(p.cp).total;
-  cudaError_t err = cudaFuncSetAttribute(ocab_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  ocab_bwd_kernel<<<bw, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(hd + (hd & 1) <= 16 ? launch<16>(p, s) : launch<32>(p, s));
 }
 
-// Dynamic shared memory one block needs at padded width c.
-extern "C" size_t ocab_bwd_attn_smem_bytes(int c) { return make_layout(round16(c)).total; }
+// Dynamic shared memory one block needs at padded width cp and head_dim hd.
+extern "C" size_t ocab_bwd_attn_smem_bytes(int cp, int hd) {
+  return ob_layout(cp, hd + (hd & 1) <= 16 ? 16 : 32).total;
+}

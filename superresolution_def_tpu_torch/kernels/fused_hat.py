@@ -47,7 +47,7 @@ from ..ops import (
     window_reverse,
 )
 from .fused_rdb import fused_rrdb_trunk
-from .fused_rdb_cm import fused_rrdb_trunk_cm, pack_rdb_cm_weights, pack_rdb_weights
+from .fused_rdb_cm import fused_rrdb_trunk_cm, pack_rdb_cm_weights
 from .fused_rdb_cm_bwd import fused_rrdb_trunk_cm_ad
 from .hab_block import fused_hab_block, pack_hab_weights, pad_hab_operands
 from .hab_train import HabCoreFn
@@ -208,10 +208,9 @@ def make_fused_hybrid(model, *, dtype: torch.dtype = torch.bfloat16, trunk_impl:
     def dense_block(rdb):
         kernels = [c.weight.permute(2, 3, 1, 0).to(dtype).contiguous() for c in rdb.convs()]
         biases = [c.bias.float() for c in rdb.convs()]
-        # each trunk's kernel takes its own packing: K7's wgmma layout, K12's
-        # B fragments
-        pack = {"cm": pack_rdb_cm_weights, "kernel": pack_rdb_weights}.get(trunk_impl)
-        packed = pack(kernels, biases, kernels[0].device) if kernels[0].is_cuda and pack else None
+        # K7 and K12 run the same conv kernels on the same packing
+        kernel_trunk = trunk_impl in ("cm", "kernel") and kernels[0].is_cuda
+        packed = pack_rdb_cm_weights(kernels, biases, kernels[0].device) if kernel_trunk else None
         return kernels, biases, packed
 
     with torch.no_grad():

@@ -11,9 +11,8 @@ package, which falls back to an XLA dense block when W is not a multiple of
 128, the kernel takes every width.
 
 The kernel's weights go through :func:`pack_rdb_cm_weights` (per conv, per
-16-channel k step, wgmma's K-major B layout, :func:`cm_pack_index`). :func:`pack_rdb_weights`
-(mma.sync B-fragment order) is K12's packing (``fused_rdb.py``), whose
-kernel fuses the five convs in one tile.
+16-channel k step, wgmma's K-major B layout, :func:`cm_pack_index`), which
+K12 (``fused_rdb.py``, the NHWC block on the same conv kernels) takes too.
 """
 
 from __future__ import annotations
@@ -56,45 +55,6 @@ def dense_block_sources(xf: torch.Tensor, kernels, biases, *, h: int, w: int):
 
 
 @functools.cache
-def fragment_index(f: int, g: int) -> tuple[tuple[np.ndarray, ...], tuple[int, ...]]:
-    """Per conv, the flat HWIO index of each bf16 of its B fragments in the
-    kernel's order, and each conv's word (2 x bf16) offset.
-
-    Order: groups of G output channels (conv5 has F / G of them; the kernel
-    stages one group at a time in shared memory), then taps (ky, kx), then
-    sources x, x1, .., then 16-channel chunks (an 8-channel chunk last when a
-    source's width is not a multiple of 16), then the group's n8-tiles, then
-    the 32 lanes; lane (g = l / 4, t = l % 4) of an m16n8k16 fragment holds
-    rows 2t, 2t+1, 2t+8, 2t+9 of column g (m16n8k8: rows 2t, 2t+1).
-    """
-    lane = np.arange(32)
-    gq, tig = lane // 4, lane % 4
-    k16 = np.stack([2 * tig, 2 * tig + 1, 2 * tig + 8, 2 * tig + 9], -1)  # (32, 4)
-    k8 = np.stack([2 * tig, 2 * tig + 1], -1)                             # (32, 2)
-    index, offsets, total = [], [], 0
-    for i in range(5):
-        cin, cout = f + i * g, (g if i < 4 else f)
-        parts = []
-        for grp in range(cout // g):
-            n = (grp * g + np.arange(g // 8)[:, None, None] * 8) + gq[None, :, None]  # (NTU, 32, 1)
-            for tap in range(9):
-                for s in range(i + 1):
-                    base, cs = (0, f) if s == 0 else (f + (s - 1) * g, g)
-                    k0 = 0
-                    while k0 < cs:
-                        kk = k16 if k0 + 16 <= cs else k8
-                        rows = base + k0 + kk[None]                       # (1, 32, kw)
-                        parts.append(((tap * cin + rows) * cout + n).reshape(-1))
-                        k0 += 16 if kk is k16 else 8
-        idx = np.concatenate(parts)
-        assert idx.size == 9 * cin * cout
-        index.append(idx)
-        offsets.append(total // 2)
-        total += idx.size
-    return tuple(index), tuple(offsets)
-
-
-@functools.cache
 def _library() -> ctypes.CDLL:
     lib = load_library("rdb_cm")
     lib.rdb_cm_bf16.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -102,24 +62,6 @@ def _library() -> ctypes.CDLL:
     lib.rdb_cm_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.rdb_cm_smem_bytes.restype = ctypes.c_int
     return lib
-
-
-@functools.cache
-def _device_index(f: int, g: int, device: torch.device) -> tuple[torch.Tensor, ...]:
-    return tuple(torch.from_numpy(idx).to(device) for idx in fragment_index(f, g)[0])
-
-
-def pack_rdb_weights(kernels, biases, device) -> tuple[torch.Tensor, tuple[int, ...], torch.Tensor]:
-    """K12's packing: the five HWIO weights in mma.sync's B-fragment order
-    (bf16, :func:`fragment_index`), each conv's word offset, and b1..b5
-    concatenated in fp32."""
-    f, g = kernels[0].shape[2], kernels[0].shape[3]
-    device = torch.device(device)
-    frags = [k.to(device, torch.bfloat16).reshape(-1)[idx]
-             for k, idx in zip(kernels, _device_index(f, g, device))]
-    offsets = fragment_index(f, g)[1]
-    bias = torch.cat([b.to(device, torch.float32).reshape(-1) for b in biases])
-    return torch.cat(frags).contiguous(), offsets, bias.contiguous()
 
 
 def cm_k_starts(cin: int) -> list[int]:

@@ -78,7 +78,9 @@ def bwd_fragment_index(f: int, g: int) -> tuple[np.ndarray, tuple[int, ...]]:
     m_K's part (K = 1..4: the transposed conv into level K reads levels
     K+1..5, the gradients of convs K+1..5): taps t, then levels, then
     16-channel chunks of the level (an 8-channel chunk last), then the G/8
-    n8-tiles, then the 32 lanes as :func:`~.fused_rdb_cm.fragment_index`.
+    n8-tiles, then the 32 lanes: lane (g = l / 4, t = l % 4) of an
+    m16n8k16 B fragment holds rows 2t, 2t+1, 2t+8, 2t+9 of column g
+    (m16n8k8: rows 2t, 2t+1).
     Entry (row n, column c) at tap t of level l is conv l's weight
     ``W_l[8 - t][c_K + c][n]``: the taps flipped, in and out swapped.
     """

@@ -41,6 +41,7 @@ from .swin_block import (
     _on_cuda,
     _ptrs,
     _rounder,
+    _sm_count,
     _softmax_f32,
     _stream,
     _train_library,
@@ -105,10 +106,10 @@ def ocab_bwd_attn_reference(q_windows, k_windows, v_windows, dh, bias, wproj, *,
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = load_library("ocab_train")
-    lib.ocab_bwd_attn_bf16.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [
+    lib.ocab_bwd_attn_bf16.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_void_p]
     lib.ocab_bwd_attn_bf16.restype = ctypes.c_int
-    lib.ocab_bwd_attn_smem_bytes.argtypes = [ctypes.c_int]
+    lib.ocab_bwd_attn_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.ocab_bwd_attn_smem_bytes.restype = ctypes.c_size_t
     return lib
 
@@ -120,6 +121,10 @@ def ocab_bwd_attn(q_windows, k_windows, v_windows, dh, bias, wproj, *, num_heads
     CUDA tensors launch the kernels (counted in ``ocab_bwd_attn.launches``)
     or raise; CPU tensors take :func:`ocab_bwd_attn_reference`.
     ``padded_wproj``: wproj as :func:`~.ocab.pad_ocab_operands` pads it.
+    Four launches: the window kernel (persistent blocks of ``ceil(Bw /
+    SMs)`` windows, each summing its windows' ds and dh columns), the
+    weight-gradient product and its ordered sum over token slices, and one
+    ordered column sum over the blocks for dbias and dbproj.
     """
     if not _on_cuda("ocab_bwd_attn", q_windows):
         return ocab_bwd_attn_reference(q_windows, k_windows, v_windows, dh, bias, wproj,
@@ -127,7 +132,8 @@ def ocab_bwd_attn(q_windows, k_windows, v_windows, dh, bias, wproj, *, num_heads
     name = "ocab_bwd_attn"
     bw, nq, nk, c = check_ocab_windows(name, dh, q_windows, k_windows, v_windows)
     cp = -(-c // 16) * 16
-    if c % num_heads or c // num_heads > 32 or cp > 256:
+    hd = c // num_heads
+    if c % num_heads or hd > 32 or cp > 256:
         raise ValueError(f"{name}: unsupported width C={c} with {num_heads} heads")
     if tuple(wproj.shape) != (c, c) or wproj.dtype != torch.bfloat16:
         raise ValueError(f"{name}: wproj wants bfloat16 {(c, c)}, got {wproj.dtype} "
@@ -137,27 +143,35 @@ def ocab_bwd_attn(q_windows, k_windows, v_windows, dh, bias, wproj, *, num_heads
     if any(t.device != q_windows.device for t in (k_windows, v_windows, dh, bias, wproj)):
         raise ValueError(f"{name}: every operand must be on the windows' device")
     lib, train_lib = _library(), _train_library()
-    if lib.ocab_bwd_attn_smem_bytes(cp) > MAX_SMEM_BYTES:
+    if lib.ocab_bwd_attn_smem_bytes(cp, hd) > MAX_SMEM_BYTES:
         raise ValueError(f"{name}: C={c} needs more than 227 KB shared memory")
     if padded_wproj is None:
         padded_wproj = F.pad(wproj, (0, cp - c, 0, cp - c)).contiguous()
-    q, k, v, dh = (t.contiguous() for t in (q_windows, k_windows, v_windows, dh))
+    # the kernel copies pairs of channels (4 bytes): rows of an even width
+    # (a zero channel after an odd C), 4-byte aligned
+    ld = c + c % 2
+    q, k, v, dh = (F.pad(t, (0, ld - c)) if ld != c else t.contiguous()
+                   for t in (q_windows, k_windows, v_windows, dh))
+    q, k, v, dh = (t.clone() if t.data_ptr() % 4 else t for t in (q, k, v, dh))
     bias = bias.float().contiguous()
-    t = bw * nq
+    wpb = -(-bw // _sm_count(q.device.index))
+    grid = -(-bw // wpb)
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    att, dhp = (torch.empty(t, cp, dtype=torch.bfloat16, device=q.device) for _ in range(2))
-    vec = torch.empty(bw, cp, dtype=torch.float32, device=q.device)
-    dbias = torch.empty(bw, num_heads * nq * nk, dtype=torch.float32, device=q.device)
+    att, dhp = (torch.empty(bw * nq, cp, dtype=torch.bfloat16, device=q.device)
+                for _ in range(2))
+    nbias = num_heads * nq * nk
+    part = torch.empty(grid, nbias + cp, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         _check(lib.ocab_bwd_attn_bf16(*_ptrs(q, k, v, dh, bias, padded_wproj, dq, dk, dv, att,
-                                             dhp, vec, dbias), bw, nk, cp, c, num_heads,
+                                             dhp, part), bw, wpb, nk, cp, ld, num_heads, hd,
                                       float(scale), _stream(q.device)), "ocab_bwd_attn_bf16")
         dwproj = _wgrad(train_lib, att, dhp)[:c, :c]
-        dbproj = _colsum(train_lib, vec)[:c]
-        dbias = _colsum(train_lib, dbias).reshape(num_heads, nq, nk)
+        sums = _colsum(train_lib, part)
+    if ld != c:
+        dq, dk, dv = (t[..., :c].contiguous() for t in (dq, dk, dv))
     ocab_bwd_attn.launches += 1
-    return dq, dk, dv, dbias, dwproj, dbproj
+    return dq, dk, dv, sums[:nbias].reshape(num_heads, nq, nk), dwproj, sums[nbias:nbias + c]
 
 
 ocab_bwd_attn.launches = 0

@@ -14,14 +14,18 @@ parent commit, unpacked with ``git archive``). The tool
    first few of them;
 2. times K7 (``fused_rdb_cm``) at B=8 and at B=2 with the stash (F/G = 48/24,
    256x256; its weights packed once, as the forwards pass them), K12
-   (``fused_rdb``) at B=8, K1 (``fused_swin_block``) at batch 3's Bw=768
+   (``fused_rdb``) at B=8 (on the tree's own packing: K12's
+   ``pack_rdb_weights`` where the tree has it, else K7's), K10b
+   (``ocab_bwd_attn``) at the fused-HAB step's Bw=512 (C=90, 6 heads, 144
+   keys, the first 14 zero), K1 (``fused_swin_block``) at batch 3's Bw=768
    and K2 (``swin_block_fwd_h``) at the flagship train shape (Bw=2048,
    C=180, 6 heads, hidden 720), K5 (``fused_hab_block``) at the hybrid's
    Bw=2048 (C=90, 6 heads, hidden 360) unshifted and shifted (K1's and K5's
    weights packed once where the tree has ``pack_swin_block_weights`` and
    ``pack_hab_weights``, as its forwards pass them), and end to end the
    fused SwinIR's batch-3 forward (config #1, ``make_fused_swinir``), the
-   fused hybrid's batch-8 forward (config #2, ``make_fused_hybrid``) and the
+   fused hybrid's batch-8 forward (config #2, ``make_fused_hybrid``) with the
+   K7 trunk and with ``trunk_impl="kernel"`` (K12), and the
    swin GAN step at micro 8 (config #3) with the split and with the
    recompute backward; the training backwards at the flagship train shape
    (Bw=2048): K3 (``swin_block_bwd_mlp``), K4 (``swin_block_bwd_attn``), K4b
@@ -58,8 +62,9 @@ import json, statistics, sys
 import numpy as np, torch
 import importlib
 from superresolution_def_tpu_torch.kernels import fused_rdb, fused_rdb_cm, swin_block_fwd_h
-from superresolution_def_tpu_torch.kernels import (hab_bwd_attn, hab_fwd_h, swin_block_bwd,
-                                                   swin_block_bwd_attn, swin_block_bwd_mlp)
+from superresolution_def_tpu_torch.kernels import (hab_bwd_attn, hab_fwd_h, ocab_bwd_attn,
+                                                   swin_block_bwd, swin_block_bwd_attn,
+                                                   swin_block_bwd_mlp)
 cm = importlib.import_module("superresolution_def_tpu_torch.kernels.fused_rdb_cm")
 
 def cuda_ms(fn, reps=20, warmup=3, calls=5):
@@ -88,7 +93,8 @@ bs = [torch.from_numpy((0.05 * rng.standard_normal(g if i < 4 else f)).astype(np
       for i in range(5)]
 pack7 = getattr(cm, "pack_rdb_cm_weights", None) or cm.pack_rdb_weights
 p7 = pack7(ks, bs, dev)
-p12 = cm.pack_rdb_weights(ks, bs, dev)
+pack12 = getattr(cm, "pack_rdb_weights", None) or cm.pack_rdb_cm_weights
+p12 = pack12(ks, bs, dev)
 x8 = torch.from_numpy(0.5 * rng.standard_normal((8, f, 256 * 256)).astype(np.float32)).to(dev, torch.bfloat16)
 x2 = x8[:2].contiguous()
 x8n = x8.reshape(8, f, 256, 256).permute(0, 2, 3, 1).contiguous()
@@ -148,6 +154,7 @@ hyb = HybridHATRealESRGAN(img_size=128, in_chans=1, embed_dim=90, depths=(6,) * 
                           num_heads=(6,) * 4, window_size=8, num_rrdb=12, num_feat=48,
                           num_grow_ch=24, generator=torch.Generator().manual_seed(0)).to(dev).eval()
 fwd = make_fused_hybrid(hyb)
+fwd12 = make_fused_hybrid(hyb, trunk_impl="kernel")
 xh = torch.from_numpy(rng.random((8, 128, 128, 1), dtype=np.float32)).to(dev)
 brng = np.random.default_rng(5)
 batch = {"lr": brng.integers(0, 65535, (1, 8, 128, 128, 1), dtype=np.uint16),
@@ -180,6 +187,15 @@ def k9a(mask):
     return hab_fwd_h(x9, cx9, mask, dp1, dp2, *hab_args[2:], **kw9, conv_scale=0.01)
 def k9c(mask):
     return hab_bwd_attn(x9, dh9, mask, dp1, *hab_args[2:6], hab_args[6], hab_args[7], **kw9)
+# K10b at the fused-HAB step's 512 windows: 144 keys, the first 14 zero as
+# the overlap gather leaves an edge window's
+q10, k10, v10 = (torch.randn(b9, n, ch, generator=hgen).to(dev, bf) for n in (64, 144, 144))
+k10[:, :14] = 0
+v10[:, :14] = 0
+bias10 = (0.5 * torch.randn(6, 64, 144, generator=hgen)).to(dev)
+wproj10 = hu(ch, ch, fan_in=ch).to(dev, bf)
+kw10 = dict(num_heads=6, scale=15 ** -0.5,
+            padded_wproj=torch.nn.functional.pad(wproj10, (0, 6, 0, 6)).contiguous())
 # the fused-HAB hybrid GAN step (config #4): its device busy time per step
 from torch.profiler import ProfilerActivity, profile
 from superresolution_def_tpu_torch.train import create_hat_train_state, make_hat_train_step
@@ -219,6 +235,9 @@ out = {"K1 sha256": k1_sha,
                                                           *hab_args[2:], **kw5), reps=10),
     "swinir forward B=3": cuda_ms(lambda: swin_fwd(xs), reps=10, warmup=2, calls=2),
     "hybrid forward B=8": cuda_ms(lambda: fwd(xh), reps=5, warmup=2, calls=2),
+    "hybrid forward B=8 K12 trunk": cuda_ms(lambda: fwd12(xh), reps=5, warmup=2, calls=2),
+    "K10b Bw=512": cuda_ms(lambda: ocab_bwd_attn(q10, k10, v10, dh9, bias10, wproj10, **kw10),
+                           reps=10),
     "swin split step micro 8": cuda_ms(lambda: step(batch, 1e-4, 1e-4), reps=3, warmup=2,
                                        calls=2),
     "swin recompute step micro 8": cuda_ms(lambda: step_r(batch, 1e-4, 1e-4), reps=3,

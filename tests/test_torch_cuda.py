@@ -27,9 +27,12 @@ softmax, and differ by fp32 summation order; scores rounded to bf16 as the
 XLA path does would land near 3e-3) and fp32 (max |kernel - plain| <= 1e-5: the same fp32 arithmetic in
 another summation order), on q, k and v that are strided views of one qkv
 tensor. K12 (the dense block, NHWC) runs at F/G = 48/24, 64/32 and 16/8 and
-on a 40 x 24 image, held to K1's bound against its plain version and
-against K7 (the two keep the same rounding points and sum in different
-orders: K7 runs each conv as a wgmma GEMM). K1, K2 and K5 are one wgmma
+on a 40 x 24 image, held to K1's bound against its plain version, and
+gives K7's bits (it runs K7's conv kernels on K7's packing, x read in
+place). K10b (the OCAB attention backward) also runs at 1, 7, 133 and 512
+windows (below, off and above one persistent wave of blocks) and at an odd
+width with an odd head count and fewer keys, against its plain version and
+twice to the same bits. K1, K2 and K5 are one wgmma
 kernel (K2 with the store of h, K5 with HAB's mask, conv branch and padded
 widths): K2 is held to K1's bound against its plain version and against
 K1's out, and runs at 1, 3 and 7 windows twice to the same bits; K1 runs at
@@ -819,6 +822,36 @@ def test_ocab_train_kernels_match_plain_versions(device, bw, c, heads, hidden):
         assert _rel_l2(g, w) <= BWD_REL_L2, (name, _rel_l2(g, w))
 
 
+@pytest.mark.parametrize("bw,c,heads,nk", [
+    (1, 90, 6, 144),     # one block
+    (7, 90, 6, 144),     # one window a block
+    (133, 90, 6, 144),   # two windows a block, the last block with one
+    (512, 90, 6, 144),   # the fused-HAB step's windows
+    (5, 45, 3, 120),     # an odd width (a zero channel added), an odd head count, fewer keys
+])
+def test_ocab_bwd_attn_over_window_counts(device, bw, c, heads, nk):
+    """K10b's persistent blocks at window counts below, off and above one
+    wave of the card's SMs: every output within BWD_REL_L2 of the plain
+    version, twice to the same bits."""
+    args = _hat_operands(bw + c + nk, bw, c, heads, 4 * c, device, nk=nk)
+    args[2][:, :14] = 0
+    args[3][:, :14] = 0
+    q, k, v, bias, wproj = args[1], args[2], args[3], args[4], args[5]
+    dh = _windows(bw + 2, bw, c, 64, device)
+    kw = dict(num_heads=heads, scale=(c // heads) ** -0.5)
+    before = ocab_bwd_attn.launches
+    got = ocab_bwd_attn(q, k, v, dh, bias, wproj, **kw)
+    again = ocab_bwd_attn(q, k, v, dh, bias, wproj, **kw)
+    torch.cuda.synchronize()
+    assert ocab_bwd_attn.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ocab_bwd_attn_reference(q, k, v, dh, bias, wproj, **kw)
+    for name, g, w in zip(["dq", "dk", "dv", "dbias", "dwproj", "dbproj"], got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert torch.isfinite(g).all(), name
+        assert _rel_l2(g, w) <= BWD_REL_L2, (name, _rel_l2(g, w))
+
+
 def test_hab_and_ocab_backwards_are_reproducible(device):
     """No atomics, the per-window sums reduced in a fixed order: two runs of
     K9b, K9c and K10b give the same bits."""
@@ -1012,11 +1045,12 @@ def test_rdb_nhwc_kernel_matches_plain_version_and_k7(device, f, g, h, w):
     want = rdb_nhwc_reference(x, ks, bs).float()
     err = (got.float() - want).abs().max().item()
     assert err <= K1_TOL * max(1.0, want.abs().max().item()), err
-    # K7 computes the same function at the same rounding points, its convs
-    # summed in another order
+    # K12 runs K7's conv kernels on K7's packing, only x read in place: the
+    # same products in the same order
     k7 = fused_rdb_cm(xf, ks, bs, h=h, w=w).reshape(2, f, h, w).permute(0, 2, 3, 1)
     err = (got.float() - k7.float()).abs().max().item()
     assert err <= K1_TOL * max(1.0, k7.float().abs().max().item()), err
+    assert torch.equal(got, k7)
 
 
 def test_rdb_nhwc_kernel_raises_on_what_it_does_not_take(device):

@@ -176,19 +176,3 @@ def test_wrappers_reject_devices_they_have_no_path_for():
         fused_ocab_block(o[0].to("meta"), *o[1:], num_heads=HEADS, scale=SCALE)
     with pytest.raises(ValueError, match="cpu or cuda"):
         fused_rdb_cm(torch.from_numpy(x).to("meta"), ks, bs, h=8, w=8)
-
-
-@pytest.mark.parametrize("f,g", [(48, 24), (64, 32), (16, 8)])
-def test_dense_block_fragment_order_is_a_permutation_of_each_conv(f, g):
-    """K7's weight layout moves every HWIO weight exactly once, conv by conv,
-    at word offsets that keep each conv and each staged group 16-byte
-    aligned."""
-    from superresolution_def_tpu_torch.kernels.fused_rdb_cm import fragment_index
-
-    index, offsets = fragment_index(f, g)
-    total = 0
-    for i, (idx, off) in enumerate(zip(index, offsets)):
-        cin, cout = f + i * g, (g if i < 4 else f)
-        assert np.array_equal(np.sort(idx), np.arange(9 * cin * cout))
-        assert off == total // 2 and off % 4 == 0 and (9 * cin * g // 2) % 4 == 0
-        total += idx.size

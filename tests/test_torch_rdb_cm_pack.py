@@ -9,7 +9,10 @@ over their input channels (:func:`cm_k_starts`, the last step of a width off
 16 moved back 8 channels), and the result must be each HWIO conv weight with
 every input channel taken exactly once; then the implicit GEMM the kernel
 runs on those operands (per tap, the shifted source's 16-channel slices
-times the step's B) must give ``F.conv2d``."""
+times the step's B) must give ``F.conv2d``. K12 runs the same convs on the
+same packing with x read through a map of its own (``nhwc_k_steps``): its
+steps must read only x's channels or the scratch channels written so far,
+and take every input channel once."""
 
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from superresolution_def_tpu_torch.kernels.fused_rdb import nhwc_k_steps
 from superresolution_def_tpu_torch.kernels.fused_rdb_cm import (
     KERNEL_WIDTHS,
     cm_k_starts,
@@ -95,3 +99,38 @@ def test_packed_weights_compute_the_convs(f, g):
                 got[0] += torch.einsum("chw,cn->nhw", a, steps[s, tap])
         want = F.conv2d(src, k.float().permute(3, 2, 0, 1), padding=1)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("f,g", sorted(KERNEL_WIDTHS))
+def test_nhwc_steps_read_each_input_channel_once(f, g):
+    """K12's k steps over its two maps, x (F channels) and the x1..x4
+    scratch (4G channels, of which conv i + 1 finds i G written), against
+    K7's packed weights: a step reads whole 8-channel groups, each inside x,
+    inside the written scratch, or (the scratch's channels -8..-1) zeros;
+    every input channel of every conv comes from exactly one slot whose
+    weights are that channel's, and every other slot's weights are zero."""
+    ks, bs = _kernels(f, g, 3 * f + g)
+    packed, offsets, _ = pack_rdb_cm_weights(ks, bs, "cpu")
+    flat = packed.float().numpy()
+    plan = nhwc_k_steps(f, g)
+    assert [len(steps) for steps in plan] == [len(cm_k_starts(f + i * g)) for i in range(5)]
+    for i, (k, steps) in enumerate(zip(ks, plan)):
+        cin, cout = k.shape[2], k.shape[3]
+        b = _steps(flat, offsets[i], cin, cout)                  # (steps, 9, 16, cout)
+        hwio = k.float().numpy().reshape(9, cin, cout)
+        taken = np.zeros(cin, int)
+        for s, (src, c0) in enumerate(steps):
+            assert c0 % 8 == 0
+            if src == "x":
+                assert 0 <= c0 and c0 + 16 <= f
+            else:
+                assert src == "scratch" and -8 <= c0 and c0 + 16 <= i * g
+            for j in range(16):
+                c = c0 + j
+                ch = c if src == "x" else (f + c if c >= 0 else None)
+                if ch is None or taken[ch]:
+                    assert not b[s, :, j].any(), (i, s, j)
+                else:
+                    taken[ch] += 1
+                    np.testing.assert_array_equal(b[s, :, j], hwio[:, ch])
+        assert (taken == 1).all(), i
