@@ -54,8 +54,11 @@ exit code:
     config's shapes (BASELINE config #2, batch 8 of 128x128): K5
     (``fused_hab_block``, Bw=2048, C=90, 6 heads, hidden 360) unshifted and
     shifted, each run twice to the same bits and timed on weights padded and
-    packed once as the hybrid's forward passes them, K6 (``fused_ocab_block``, 64 queries against 144 overlap keys)
-    and K7 (``fused_rdb_cm``, B=8, F=48 at 256x256, G=24, run twice to the
+    packed once as the hybrid's forward passes them, K6 (``fused_ocab_block``,
+    64 queries against 144 overlap keys, the first 14 zero; run twice and on
+    weights padded and packed once to the same bits, timed on those as the
+    hybrid's forward passes them, and with the padding and packing on every
+    call beside it) and K7 (``fused_rdb_cm``, B=8, F=48 at 256x256, G=24, run twice to the
     same bits), with times and K7's device time per kernel (the x
     transpose and its five convs);
 13. the hybrid slice: a seeded config-#2 ``best_hybrid_model.pth`` through
@@ -544,6 +547,7 @@ def main() -> None:
         make_fused_swinir,
         ocab_block_reference,
         pack_hab_weights,
+        pack_ocab_weights,
         pack_swin_block_weights,
         rdb_cm_bwd_reference,
         rdb_cm_reference,
@@ -611,6 +615,8 @@ def main() -> None:
              "swin_fwd_wg_kernelILi3ELi32ELb1E"),
             ("K5 hab_fwd_wg_kernel<2, 16>", "hab_block", "hab_fwd_wg_kernelILi2ELi16E"),
             ("K9a hab_fwd_h_wg_kernel<2, 16>", "hab_block", "hab_fwd_h_wg_kernelILi2ELi16E"),
+            ("K6 ocab_fwd_wg_kernel<2, 16, false>", "ocab", "ocab_fwd_wg_kernelILi2ELi16ELb0E"),
+            ("K10a ocab_fwd_wg_kernel<2, 16, true>", "ocab", "ocab_fwd_wg_kernelILi2ELi16ELb1E"),
             ("K4b's recompute swin_fwd_h32_wg_kernel<3, 32>", "swin_block_bwd",
              "swin_fwd_h32_wg_kernelILi3ELi32E"),
             ("K4b's MLP phase mlp_bwd_f32_kernel<3>", "swin_block_bwd",
@@ -629,7 +635,11 @@ def main() -> None:
         f"({klib.swin_block_windows(180, 6, 720)} windows a block); K5's (hab_fwd_wg_kernel) "
         f"at C=96 (90 in device memory), 6 heads, hidden 360 "
         f"{hlib.hab_block_smem_bytes(96, 90, 6, 360)} B "
-        f"({hlib.hab_block_windows(96, 90, 6, 360)} windows a block; K9a's the same); K4b's "
+        f"({hlib.hab_block_windows(96, 90, 6, 360)} windows a block; K9a's the same); K6's and "
+        f"K10a's (ocab_fwd_wg_kernel) at C=96 (90 in device memory), 6 heads, hidden 360 "
+        f"{ocab._library().ocab_block_smem_bytes(96, 90, 6, 360)} B (windows a block and "
+        f"gather stages a window {divmod(ocab._library().ocab_block_shape(96, 90, 6, 360), 10)}"
+        f"); K4b's "
         f"phases at C=180, 6 heads, hidden 720 (the largest) "
         f"{swin_block._bwd_library().swin_bwd_block_smem_bytes(180, 6, 720)} B; K7's five convs "
         "(conv_kernel) at F/G = 48/24: " + ", ".join(
@@ -989,19 +999,30 @@ def main() -> None:
     oargs = [hargs[0], *(torch.randn(bw_hat, n, 90, generator=hgen).to(device, torch.bfloat16)
                          for n in (64, 144, 144)),
              (0.5 * torch.randn(6, 64, 144, generator=hgen)).to(device), *hargs[6:]]
+    oargs[2][:, :14] = 0  # the overlap gather's out-of-image keys of an edge window
+    oargs[3][:, :14] = 0
     okw = dict(num_heads=6, scale=15**-0.5)
+    # the hybrid's forward pads and packs each OCAB's weights once
+    pad6 = ocab.pad_ocab_operands(*oargs[5:])
+    okw6 = dict(okw, padded=pad6, packed=pack_ocab_weights(pad6, num_heads=6, channels=90))
     got = fused_ocab_block(*oargs, **okw)
+    k6_same = (torch.equal(got, fused_ocab_block(*oargs, **okw))
+               and torch.equal(got, fused_ocab_block(*oargs, **okw6)))
     torch.cuda.synchronize()
     want = ocab_block_reference(*oargs, **okw)
     k6_err = (got.float() - want.float()).abs().max().item()
     k6_bound = K1_TOL * max(1.0, want.float().abs().max().item())
-    k6_times = (cuda_ms(lambda: fused_ocab_block(*oargs, **okw)),
+    k6_times = (cuda_ms(lambda: fused_ocab_block(*oargs, **okw6)),
                 cuda_ms(lambda: ocab_block_reference(*oargs, **okw), reps=5, warmup=1, calls=2))
-    log("k6", f"Bw={bw_hat} nq=64 nk=144 C=90 heads=6 hidden=360 bf16 on {card}: "
-              f"max|kernel-plain|={k6_err:.3e} (bound {k6_bound:.3e}), kernel "
-              f"{k6_times[0]:.4f} ms, plain {k6_times[1]:.4f} ms")
-    if not torch.isfinite(got).all() or not k6_err <= k6_bound:
-        raise SystemExit(f"K6 disagrees with its plain version: {k6_err} > {k6_bound}")
+    k6_per_call = cuda_ms(lambda: fused_ocab_block(*oargs, **okw))
+    log("k6", f"Bw={bw_hat} nq=64 nk=144 (the first 14 zero) C=90 heads=6 hidden=360 bf16 on "
+              f"{card}: max|kernel-plain|={k6_err:.3e} (bound {k6_bound:.3e}), twice and packed "
+              f"once bit-identical {k6_same}, kernel {k6_times[0]:.4f} ms on weights padded and "
+              f"packed once ({k6_per_call:.4f} ms padding and packing on every call), plain "
+              f"{k6_times[1]:.4f} ms")
+    if not torch.isfinite(got).all() or not k6_err <= k6_bound or not k6_same:
+        raise SystemExit(f"K6 disagrees with its plain version: {k6_err} > {k6_bound}, or gave "
+                         f"other bits on a second run or on weights packed once ({k6_same})")
     del hargs, conv_x, oargs, got, want
     rgen = np.random.default_rng(seed + 7)
     f, g = HYBRID["num_feat"], HYBRID["num_grow_ch"]
@@ -1106,10 +1127,10 @@ def main() -> None:
         f"nn.Module bf16 {HYBRID_BATCH * 1e3 / hyb16_ms:.3f} patches/s ({hyb16_ms:.3f} ms, "
         f"peak {hyb16_peak:.2f} GB)")
     ops, busy_ms, idle = device_profile(lambda: fused_h(x8))
-    # K5 runs hab_fwd_wg_kernel; K6 the first design's ocab_kernel without
-    # the h store (K10a's has it); K7 its transpose and five convs
+    # K5 runs hab_fwd_wg_kernel; K6 the wgmma body's OCAB mode without the
+    # h store (K10a's has it); K7 its transpose and five convs
     split = group_split(ops, {"K5": ("hab_fwd_wg_kernel<",),
-                              "K6": (r"ocab_kernel<\d+, false>",),
+                              "K6": (r"ocab_fwd_wg_kernel<\d+, \d+, false>",),
                               "K7": ("conv_kernel<", "stash_x_kernel")}, "hat-profile")
     log("hat-profile", f"fused hybrid forward, batch {HYBRID_BATCH} on {card}: device busy "
                        f"{busy_ms:.3f} ms per forward, idle share {idle:.4f}; by kernel group "
@@ -1414,6 +1435,7 @@ def main() -> None:
     pad9 = hab_block.pad_hab_operands(ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1,
                                       b1, w2, b2, num_heads=6)
     pad10 = ocab.pad_ocab_operands(*targs9[6:])
+    pack10 = pack_ocab_weights(pad10, num_heads=6, channels=90)
     hkw9 = dict(num_heads=6, scale=15**-0.5)
     names9 = ["out", "h", "dh", "dln2_w", "dln2_b", "dw1", "db1", "dw2", "db2", "dx", "dln1_w",
               "dln1_b", "dwqkv", "dbqkv", "dbias", "dwproj", "dbproj"]
@@ -1466,7 +1488,7 @@ def main() -> None:
               (0.5 * torch.randn(6, 64, 144, generator=ogen)).to(device), *targs9[6:]]
     bwd10 = (*oargs9[1:4], dout9, oargs9[4], wproj)
     kw10b = dict(**hkw9, padded_wproj=pad10[0])
-    out10, h10 = ocab_fwd_h(*oargs9, **hkw9, padded=pad10)
+    out10, h10 = ocab_fwd_h(*oargs9, **hkw9, padded=pad10, packed=pack10)
     g10 = ocab_bwd_attn(*bwd10, **kw10b)
     same10 = all(torch.equal(a, b_) for a, b_ in zip(g10, ocab_bwd_attn(*bwd10, **kw10b)))
     torch.cuda.synchronize()
@@ -1484,7 +1506,7 @@ def main() -> None:
     del wants10
     split10 = kernel_split(lambda: ocab_bwd_attn(*bwd10, **kw10b))
     split10_counts = kernel_split.counts
-    t10 = {"K10a": (cuda_ms(lambda: ocab_fwd_h(*oargs9, **hkw9, padded=pad10)),
+    t10 = {"K10a": (cuda_ms(lambda: ocab_fwd_h(*oargs9, **hkw9, padded=pad10, packed=pack10)),
                     cuda_ms(lambda: ocab_fwd_h_reference(*oargs9, **hkw9), **timing)),
            "K10b": (cuda_ms(lambda: ocab_bwd_attn(*bwd10, **kw10b)),
                     cuda_ms(lambda: ocab_bwd_attn_reference(*bwd10, **hkw9), **timing))}
@@ -1588,13 +1610,15 @@ def main() -> None:
             ops, busy_ms, idle = device_profile(lambda: stp(hb, 1e-4, 1e-4), steps=1)
             # K8's weight-gradient kernel is the template wgrad_kernel<F, G>;
             # K9b/K9c/K10b share swin_block_train.cu's wgrad_kernel(...)
-            # K9a is the wgmma forward's hab_fwd_h_wg_kernel<NCH, HP>; its
-            # weight packing (K5's) shares the pack kernels' names with
-            # K9b/K9c's, whose groups take them
+            # K9a is the wgmma forward's hab_fwd_h_wg_kernel<NCH, HP>, K10a
+            # its OCAB mode; their weight packings (K5's; K10a's 4 a step)
+            # share the pack kernels' names with K9b/K9c's, whose groups
+            # take them
             groups = {"K9a": ("hab_fwd_h_wg_kernel<",),
                       "K9b": ("mlp_bwd_kernel", "mlp_pack_kernel"),
                       "K9c": ("attn_wg_kernel", "attn_pack_kernel"),
-                      "K10a": (r"ocab_kernel<\d+, true>",), "K10b": ("ocab_bwd_wg_kernel<",),
+                      "K10a": (r"ocab_fwd_wg_kernel<\d+, \d+, true>",),
+                      "K10b": ("ocab_bwd_wg_kernel<",),
                       "K9/K10 wgrad+colsum": (r"wgrad_kernel\(", "colsum_kernel"),
                       "K7": ("conv_kernel<", "stash_x_kernel"),
                       "K8": ("stack_kernel", "wgrad_kernel<", "dx_kernel")}

@@ -1,7 +1,7 @@
 // Hopper-only device helpers shared by the kernels redesigned for sm_90a
 // (rdb_cm_bwd.cu: K8; swin_block_train.cu: K3/K9b, K4/K9c and the
 // weight-gradient product; rdb_conv.cuh: K7 and K12; swin_fwd_wg.cuh: K1,
-// K2, K5, K9a; ocab_train.cu: K10b): mbarriers, TMA copies (bulk and
+// K2, K5, K9a, K6, K10a; ocab_train.cu: K10b): mbarriers, TMA copies (bulk and
 // tensor), and warpgroup matrix products (wgmma) with operands in shared
 // memory or, for A, in registers.
 //

@@ -122,34 +122,6 @@ __host__ __device__ inline ObLayout ob_layout(int cp, int hp) {
   return L;
 }
 
-// 4-byte asynchronous global -> shared copy; zero-fills when !valid.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-// `total` rows x hp slots of one head into the interleaved layout: slot
-// pair (2s, 2s + 1) from columns base + 2s, + 1 of each row (zero past ld
-// and past `rows`)
-template <int HP>
-__device__ __forceinline__ void fetch_head(unsigned char* dst, const bf16* src, int rows,
-                                           int total, int ld, int base, int pt) {
-  for (int i = pt; i < total * (HP / 2); i += 128) {
-    const int r = i / (HP / 2), s = 2 * (i - r * (HP / 2)), col = base + s;
-    const bool ok = r < rows && col < ld;
-    cp_async4(dst + kmaj(r, s, HP), ok ? src + (size_t)r * ld + col : src, ok);
-  }
-}
-
-// bf16(q * s) of a packed pair of q's slots `slot`, +1, zero outside the
-// head's [o, o + hd): the scores' A operand
-__device__ __forceinline__ uint32_t scaled_q(uint32_t v, float s, int slot, int o, int hd) {
-  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
-  const bool lo = slot >= o && slot < o + hd, hi = slot + 1 >= o && slot + 1 < o + hd;
-  return pack_bf16(lo ? f.x * s : 0.f, hi ? f.y * s : 0.f);
-}
-
 // the m16k16 A fragment of 16 columns (accumulator blocks 2 kb, 2 kb + 1)
 // of an fp32 accumulator, rounded to bf16
 __device__ __forceinline__ void a_frag(uint32_t (&f)[4], const float* acc, int kb) {
@@ -277,9 +249,10 @@ __global__ void __launch_bounds__(OB_THREADS, 1) ocab_bwd_wg_kernel(const Params
         const size_t win = w0 + i;
         for (int j = 0; j < 2 && 2 * pass + j < heads; ++j) {
           const int base = ((2 * pass + j) * hd) & ~1;
-          fetch_head<HP>(stg + L.q + j * QB, p.q + win * N * LD, N, N, LD, base, pt);
-          fetch_head<HP>(stg + L.k + j * KB, p.k + win * nk * LD, nk, NKR, LD, base, pt);
-          fetch_head<HP>(stg + L.k + (2 + j) * KB, p.v + win * nk * LD, nk, NKR, LD, base, pt);
+          fetch_head<HP, 128>(stg + L.q + j * QB, p.q + win * N * LD, N, N, LD, base, pt);
+          fetch_head<HP, 128>(stg + L.k + j * KB, p.k + win * nk * LD, nk, NKR, LD, base, pt);
+          fetch_head<HP, 128>(stg + L.k + (2 + j) * KB, p.v + win * nk * LD, nk, NKR, LD, base,
+                              pt);
         }
         const bf16* dh = p.dh + win * N * LD;
         for (int idx = pt; idx < N * (CP / 2); idx += 128) {

@@ -1,8 +1,9 @@
 // The first design of the fused window-attention block kernel, which K1, K2,
-// K5 and K9a ran before their wgmma redesigns (swin_fwd_wg.cuh), and K4b's
+// K5 and K9a ran before their wgmma redesigns (swin_fwd_wg.cuh), K6/K10a's
+// second half before theirs (the same body's OCAB mode), and K4b's
 // recompute before its own (swin_block_bwd.cu). It now serves K13
-// (swin_stage_ablation.cu, the ablation of this design), K6/K10a's second
-// half (ocab.cu) and K11's attention rows (window_attention.cu). One thread
+// (swin_stage_ablation.cu, the ablation of this design) and K11's attention
+// rows (window_attention.cu). One thread
 // block computes one pre-rolled, pre-partitioned 8x8 window (N = 64 tokens)
 // end to end:
 //
@@ -294,7 +295,7 @@ __device__ __forceinline__ void proj_residual(float (&h)[NCH][4][4], const Param
       }
 }
 
-// The block's second half, shared by K13 and K6/K10a (ocab.cu):
+// The block's second half, K13's:
 // from the attention output in `attn` (64 x cp bf16, zero beyond the real
 // columns), proj into the register-resident residual
 // h = x + (attn @ wproj + bproj) (+ conv_scale * conv_x with CONV), LN2 of

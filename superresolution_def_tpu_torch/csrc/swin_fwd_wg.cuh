@@ -1,10 +1,12 @@
-// The Swin block's forward on wgmma, in five instantiations of one body:
+// The Swin block's forward on wgmma, in seven instantiations of one body:
 // K1, the inference block (swin_block.cu's swin_block_bf16), K2, the same
 // block for training, which also stores h (swin_block_fwd_h_bf16), K5,
 // HAT's hybrid attention block (hab_block.cu's hab_block_bf16), K9a, K5 for
 // training with K2's store of h and the two branches' drop-path scales
-// (hab_block_fwd_h_bf16), and K4b's recompute, which stops at the fp32 h
-// (swin_block_bwd.cu). Each computes, at K1's rounding points:
+// (hab_block_fwd_h_bf16), K4b's recompute, which stops at the fp32 h
+// (swin_block_bwd.cu), and K6 and K10a, HAT's OCAB tail for inference and
+// for training with K2's store of h (ocab.cu; the OCAB mode below). Each
+// computes, at K1's rounding points:
 //
 //   LN1 (fp32 stats) -> QKV (+bqkv, rounded to bf16; q then * scale, rounded)
 //   -> per head: softmax(q . k^T + bias[h] (+ mask[w], K5)) . v  (softmax fp32, P bf16)
@@ -65,6 +67,35 @@
 // qkv's and fc1's K and proj's and fc2's N do a third more products than
 // the 96 columns need.
 //
+// K6 and K10a (OCAB). The tail of the overlapping cross-attention block: q
+// (Bw, 64, cio), k and v (Bw, nk, cio) come from device memory (LN1, the
+// qkv product and the overlap gather stay outside), so the mode has no
+// LN1, no qkv tiles, no mask and no conv branch; per head the scores run
+// over nk <= 144 keys (m64 x n144, A = bf16(q * scale) from registers,
+// keys past nk starting at -inf), P . v takes nine k16 steps, and the
+// rest is K5's: proj, the residual, LN2 over the cio real columns, the
+// MLP, out (and K10a's h) as dense cio-wide windows. Its extra operands
+// (q, k, v, nk, the gather's stage count) are a kernel argument of their
+// own (OcabIn). The producer warpgroup's thread 0 streams per pass only
+// the heads' wproj tiles and the MLP's (pack_ocab's packing: zero wqkv
+// tiles that are never streamed); its warps 1-3 gather each (window, head)'s
+// q, k and v by 4-byte cp.async straight into the K-major interleaved
+// layout at hp slots (fetch_head: a head of odd first column h hd lands at
+// slots 1 .. hd, its neighbour's column beside it), into a ring of `ns`
+// stages per window under mbarriers, so head h + 1 lands while head h
+// computes. Whatever a padding slot holds meets an exact zero: q's copy is
+// masked to zero outside the head (scaled_q), and the packed wproj tile
+// holds zero rows outside the head's slots. The attention output of every
+// head waits in shared memory (the LN buffer, heads x hp columns wide) and
+// proj runs after the last head, one tile a head: the 144-key scores (72
+// fp32 registers a thread) and their packed probabilities (36) never share
+// the registers with the residual (32 per 64 columns). The softmax takes
+// the hardware exponential (__expf), and the gathering threads keep 56
+// registers, the consumers 224 (the other modes: 40 and 232); on the H100
+// at Bw = 2048 each saved a few percent, and the gather's 4-byte copies,
+// one slot pair a thread walking the rows, take ~15% of the time
+// (tools/ocab_fwd_ablation.py).
+//
 // The tail: a block walks the window groups (nw windows each) in strides of
 // the grid. K1 at batch 3 (Bw = 768) has 384 pairs over 132 SMs: three
 // rounds, the last with 120 of 132 blocks busy, so the tail leaves 3% of
@@ -104,6 +135,19 @@ struct FwdWgParams {
   float scale, conv_scale;
 };
 
+// K6's and K10a's operands the other modes lack: the windows' q (Bw, 64,
+// cio) and the overlap's k, v (Bw, nk, cio), and the gather's stages per
+// window
+struct OcabIn {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  int nk, ns;
+};
+
+constexpr int OC_KEYS = 144;   // key rows staged per head (nk <= 144): nine k16 steps
+constexpr int OC_GATHER = 96;  // the producer warpgroup's gathering threads (warps 1-3)
+
 constexpr int FWD_STAGES = 4;
 constexpr int FWD_THREADS = 3 * 128;  // two consumer warpgroups and a producer
 constexpr int FWD_MIN_REGS = 168;     // 384 x 168: the producer gives 128 x 128 to the consumers
@@ -121,6 +165,8 @@ enum { F_LN1W, F_LN1B, F_BQKV, F_BPROJ = 5, F_LN2W, F_LN2B, F_B2, F_B1 };
 struct FwdWgLayout {
   int ck, hp;
   size_t slot, ring, win, a, x, cx, q, k, v, vec, bars, total;
+  int ns;        // OCAB: gather stages a window, each `stage` bytes from q
+  size_t stage;
 };
 
 __host__ __device__ inline FwdWgLayout fwd_wg_layout(int c, int cio, int heads, int hidden,
@@ -143,6 +189,36 @@ __host__ __device__ inline FwdWgLayout fwd_wg_layout(int c, int cio, int heads, 
   o += (size_t)nw * L.win;
   L.vec = o; o += align128(sizeof(float) * (F_B1 * (size_t)c + hidden));
   L.bars = o; o += 2 * FWD_STAGES * sizeof(uint64_t);
+  L.total = o;
+  return L;
+}
+
+// The OCAB mode's shared memory (bytes) at nw windows a block and ns
+// gather stages a window: the ring, per window its LN buffer (64 x
+// max(ck, heads hp): every head's attention output, K-major at heads hp
+// columns, then LN2's output), its x (dense 64 x cio; then the staging of
+// K10a's h and of out) and ns stages of one head's q (64 x hp), k and v
+// (144 x hp each), then the vectors and the two rings' mbarriers.
+__host__ __device__ inline FwdWgLayout ocab_wg_layout(int c, int cio, int heads, int hidden,
+                                                      int nw, int ns) {
+  FwdWgLayout L;
+  L.ck = (c + TILE - 1) / TILE * TILE;
+  L.hp = cio / heads <= 16 ? 16 : 32;
+  L.slot = (size_t)L.ck * 128;
+  L.ns = ns;
+  const int ko = heads * L.hp > L.ck ? heads * L.hp : L.ck;
+  size_t o = 0;
+  L.a = o; o += (size_t)N * ko * 2;
+  L.x = o; o += align128((size_t)N * cio * 2);
+  L.cx = L.k = L.v = 0;
+  L.stage = (size_t)(N + 2 * OC_KEYS) * L.hp * 2;
+  L.q = o; o += ns * L.stage;
+  L.win = align128(o);
+  o = 0;
+  L.ring = o; o += FWD_STAGES * L.slot;
+  o += (size_t)nw * L.win;
+  L.vec = o; o += align128(sizeof(float) * (F_B1 * (size_t)c + hidden));
+  L.bars = o; o += (2 * FWD_STAGES + 2 * nw * ns) * sizeof(uint64_t);
   L.total = o;
   return L;
 }
@@ -182,21 +258,35 @@ __device__ __forceinline__ void fwd_cp_async16(void* dst, const void* src) {
 // mask and conv_x and keeps the windows cio wide (K5); both (K9a) also scale
 // the two branches by dp1, dp2 ((Bw,) fp32 each, null: 1). H32 (K4b's
 // recompute) stops at h = x + (proj + bproj), which it writes in fp32 to h32
-// ((Bw, 64, c)): no LN2, no MLP, no out, and no MLP tiles in the ring.
-template <int NCH, int HP, bool STORE_H, bool HAB, bool H32 = false>
+// ((Bw, 64, c)): no LN2, no MLP, no out, and no MLP tiles in the ring. OCAB
+// (K6; with STORE_H K10a) takes q, k, v from `oc` in place of LN1 and qkv,
+// and keeps the windows cio wide.
+template <int NCH, int HP, bool STORE_H, bool HAB, bool H32 = false, bool OCAB = false>
 __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsigned char* fsm,
                                             const float* dp1 = nullptr,
-                                            const float* dp2 = nullptr, float* h32 = nullptr) {
+                                            const float* dp2 = nullptr, float* h32 = nullptr,
+                                            const OcabIn& oc = OcabIn{}) {
   using namespace hopper;
   constexpr int CK = NCH * TILE, CGS = HP * 16, NB = HP / 8;
-  const int C = p.c, CIO = HAB ? p.cio : p.c, heads = p.heads, hd = p.hd, hidden = p.hidden;
-  const FwdWgLayout L = fwd_wg_layout(C, CIO, heads, hidden, nw, HAB);
+  const int C = p.c, CIO = HAB || OCAB ? p.cio : p.c, heads = p.heads, hd = p.hd,
+            hidden = p.hidden;
+  const FwdWgLayout L = OCAB ? ocab_wg_layout(C, CIO, heads, hidden, nw, oc.ns)
+                             : fwd_wg_layout(C, CIO, heads, hidden, nw, HAB);
   const int nj = (hidden + TILE - 1) / TILE;
   float* vec = reinterpret_cast<float*>(fsm + L.vec);
   uint64_t* full = reinterpret_cast<uint64_t*>(fsm + L.bars);
   uint64_t* empty = full + FWD_STAGES;
+  uint64_t* gfull = empty + FWD_STAGES;  // OCAB: the gather ring, window w's stage s at w ns + s
+  uint64_t* gempty = gfull + (OCAB ? nw * L.ns : 0);
   const int tid = threadIdx.x, wgi = tid >> 7;
-  {
+  if constexpr (OCAB) {
+    const float* vsrc[] = {p.bproj, p.ln2_w, p.ln2_b, p.b2};
+    const int voff[] = {F_BPROJ, F_LN2W, F_LN2B, F_B2};
+#pragma unroll
+    for (int v = 0; v < 4; ++v)
+      for (int i = tid; i < C; i += blockDim.x) vec[voff[v] * C + i] = __ldg(vsrc[v] + i);
+    for (int i = tid; i < hidden; i += blockDim.x) vec[F_B1 * C + i] = __ldg(p.b1 + i);
+  } else {
     const float* vsrc[] = {p.ln1_w, p.ln1_b, p.bqkv, p.bproj, p.ln2_w, p.ln2_b, p.b2};
     const int voff[] = {F_LN1W, F_LN1B, F_BQKV, F_BPROJ, F_LN2W, F_LN2B, F_B2};
     const int vlen[] = {C, C, 3 * C, C, C, C, C};
@@ -212,14 +302,21 @@ __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsign
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 4 * nw);  // one arrival per consumer warp
     }
+    if constexpr (OCAB)
+      for (int s = 0; s < nw * L.ns; ++s) {
+        mbar_init(&gfull[s], OC_GATHER);  // every gathering thread, once its copies land
+        mbar_init(&gempty[s], 4);         // every warp of the window's warpgroup
+      }
     mbar_fence_init();
   }
   __syncthreads();
   const int npairs = (p.bw + nw - 1) / nw;
-  const int per_pass = 4 * heads + (H32 ? 0 : 2 * nj);
+  // per pass: OCAB's heads' wproj tiles, else their wq, wk, wv and wproj;
+  // then the MLP's (none for the recompute)
+  const int per_pass = OCAB ? heads + 2 * nj : 4 * heads + (H32 ? 0 : 2 * nj);
 
-  if (wgi == nw) {  // producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+  if (wgi == nw) {  // producer (OCAB's gathering threads keep 56 registers)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(OCAB ? 56 : 40) : "memory");
     if (tid == nw * 128) {
       const unsigned char* wa = reinterpret_cast<const unsigned char*>(p.wattn);
       const unsigned char* wm = reinterpret_cast<const unsigned char*>(p.wmlp);
@@ -227,23 +324,50 @@ __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsign
       uint32_t i = 0;
       for (int pr = blockIdx.x; pr < npairs; pr += gridDim.x)
         for (int t = 0; t < per_pass; ++t, ++i) {
-          // per head: wq, wk, wv (packed 4h + 1 .. 3), then wproj (4h)
+          // per head: wq, wk, wv (packed 4h + 1 .. 3), then wproj (4h); OCAB
+          // only wproj
           const int u = t & 3;
           const unsigned char* src =
-              t < 4 * heads ? wa + (size_t)(4 * (t >> 2) + (u < 3 ? u + 1 : 0)) * ta
-                            : wm + (size_t)(t - 4 * heads) * tm;
-          const uint32_t bytes = t < 4 * heads ? ta : tm;
+              OCAB ? (t < heads ? wa + (size_t)(4 * t) * ta : wm + (size_t)(t - heads) * tm)
+              : t < 4 * heads ? wa + (size_t)(4 * (t >> 2) + (u < 3 ? u + 1 : 0)) * ta
+                              : wm + (size_t)(t - 4 * heads) * tm;
+          const uint32_t bytes = OCAB ? (t < heads ? ta : tm) : t < 4 * heads ? ta : tm;
           const uint32_t st = i % FWD_STAGES, use = i / FWD_STAGES;
           if (use > 0) mbar_wait(&empty[st], (use - 1) & 1);
           mbar_arrive_expect_tx(&full[st], bytes);
           bulk_load(fsm + L.ring + st * L.slot, src, bytes, &full[st]);
         }
     }
+    if constexpr (OCAB) {
+      // warps 1-3: per (pair, head), each live window's q, k and v of the
+      // head into its next stage
+      const int gt = tid - nw * 128 - 32;
+      if (gt >= 0) {
+        uint32_t it = 0;
+        for (int pr = blockIdx.x; pr < npairs; pr += gridDim.x)
+          for (int hh = 0; hh < heads; ++hh, ++it) {
+            const int st = it % L.ns, base = (hh * hd) & ~1;
+            const uint32_t use = it / L.ns;
+            for (int w = 0; w < nw && pr * nw + w < p.bw; ++w) {
+              const size_t win = (size_t)pr * nw + w;
+              if (use > 0) mbar_wait(&gempty[w * L.ns + st], (use - 1) & 1);
+              unsigned char* stg = fsm + L.ring + FWD_STAGES * L.slot + w * L.win + L.q +
+                                   st * L.stage;
+              fetch_head<HP, OC_GATHER>(stg, oc.q + win * N * CIO, N, N, CIO, base, gt);
+              fetch_head<HP, OC_GATHER>(stg + N * HP * 2, oc.k + win * oc.nk * CIO, oc.nk,
+                                        OC_KEYS, CIO, base, gt);
+              fetch_head<HP, OC_GATHER>(stg + (N + OC_KEYS) * HP * 2, oc.v + win * oc.nk * CIO,
+                                        oc.nk, OC_KEYS, CIO, base, gt);
+              mbar_arrive_cp_async(&gfull[w * L.ns + st]);  // once this thread's copies land
+            }
+          }
+      }
+    }
     return;
   }
 
   // consumer warpgroup wgi
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(OCAB ? 224 : 232) : "memory");
   const int wt = tid & 127, wi = wt >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
   const int r0 = 16 * wi;  // the warp's 16 rows of the window
   unsigned char* wb = fsm + L.ring + FWD_STAGES * L.slot + (size_t)wgi * L.win;
@@ -272,6 +396,7 @@ __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsign
     for (int i = wt; i < N * w / 8; i += 128) d4[i] = s4[i];
   };
 
+  uint32_t git = 0;  // OCAB: gather stages consumed
   for (int pr = blockIdx.x; pr < npairs; pr += gridDim.x) {
     const int win = pr * nw + wgi;
     const bool live = win < p.bw;
@@ -284,10 +409,127 @@ __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsign
       if (live && dp2 != nullptr) d2 = __ldg(dp2 + win);
     }
 
-    // ---- x (and K5's conv_x) by 16-byte asynchronous copies; LN1 (two-pass
-    // fp32 statistics over the cio real columns, warp wi: rows 16 wi ..,
-    // four at a time) into a_s, zero past cio
-    if (live) {
+    if constexpr (OCAB) {
+      // ---- x by 16-byte asynchronous copies (waited for at the residual);
+      // per head: the gathered q, k, v, the scores over the nk keys, the
+      // softmax, P . v, rounded, into a_s at the head's hp columns
+      if (live) {
+        const bf16* xg = p.x + row0 * CIO;
+        for (int i = wt; i < N * CIO / 8; i += 128) fwd_cp_async16(x_s + 16 * i, xg + 8 * i);
+        cp_async_commit();
+        const int KO = heads * HP, nk = oc.nk;
+        const float ninf = -__int_as_float(0x7f800000);
+        for (int hh = 0; hh < heads; ++hh, ++git) {
+          // the scores' starting value: the bias, -inf past nk
+          const float* bh = p.bias + (size_t)hh * N * nk;
+          auto load_bias = [&](float (&d)[OC_KEYS / 2]) {
+#pragma unroll
+            for (int t = 0; t < OC_KEYS / 8; ++t) {
+              const int c = 8 * t + 2 * t4;
+              if (c < nk) {
+                const float2 b0 = __ldg(reinterpret_cast<const float2*>(bh + (r0 + g) * nk + c));
+                const float2 b1 =
+                    __ldg(reinterpret_cast<const float2*>(bh + (r0 + g + 8) * nk + c));
+                d[4 * t] = b0.x; d[4 * t + 1] = b0.y; d[4 * t + 2] = b1.x; d[4 * t + 3] = b1.y;
+              } else {
+                d[4 * t] = d[4 * t + 1] = d[4 * t + 2] = d[4 * t + 3] = ninf;
+              }
+            }
+          };
+          float s[OC_KEYS / 2];
+          load_bias(s);
+          const int st = git % L.ns;
+          mbar_wait(&gfull[wgi * L.ns + st], (git / L.ns) & 1);
+          proxy_fence();  // the stage's copies are read by wgmma
+          const unsigned char* q_h = wb + L.q + st * L.stage;
+          const unsigned char* k_h = q_h + N * HP * 2;
+          const unsigned char* v_h = k_h + OC_KEYS * HP * 2;
+          const int o = (hh * hd) & 1;  // the head's first slot
+          uint32_t fq[HP / 16][4];
+#pragma unroll
+          for (int kk = 0; kk < HP / 16; ++kk) {
+            ldsm_x4(fq[kk], reinterpret_cast<const bf16*>(
+                                q_h + kmaj(r0 + (lane & 15), kk * 16 + (lane >> 4) * 8, HP)));
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              fq[kk][e] = scaled_q(fq[kk][e], qscale, kk * 16 + 2 * t4 + (e >> 1) * 8, o, hd);
+          }
+          fence_regs(s);
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < HP / 16; ++kk)
+            wgmma_n144_rs<KMAJ>(s, fq[kk], desc(k_h + kk * 256, 128, CGS), 1);
+          wg_commit();
+          wg_wait<0>();
+          fence_regs(s);
+          // softmax over the keys of rows r0 + g and r0 + g + 8, fp32 (the
+          // hardware exponential), one reciprocal a row
+          float m0 = s[0], m1 = s[2];
+#pragma unroll
+          for (int t = 0; t < OC_KEYS / 8; ++t) {
+            m0 = fmaxf(m0, fmaxf(s[4 * t], s[4 * t + 1]));
+            m1 = fmaxf(m1, fmaxf(s[4 * t + 2], s[4 * t + 3]));
+          }
+#pragma unroll
+          for (int sh = 1; sh <= 2; sh <<= 1) {
+            m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, sh));
+            m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, sh));
+          }
+          float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+          for (int t = 0; t < OC_KEYS / 8; ++t) {
+            s[4 * t] = __expf(s[4 * t] - m0);
+            s[4 * t + 1] = __expf(s[4 * t + 1] - m0);
+            s[4 * t + 2] = __expf(s[4 * t + 2] - m1);
+            s[4 * t + 3] = __expf(s[4 * t + 3] - m1);
+            l0 += s[4 * t] + s[4 * t + 1];
+            l1 += s[4 * t + 2] + s[4 * t + 3];
+          }
+#pragma unroll
+          for (int sh = 1; sh <= 2; sh <<= 1) {
+            l0 += __shfl_xor_sync(0xffffffffu, l0, sh);
+            l1 += __shfl_xor_sync(0xffffffffu, l1, sh);
+          }
+          const float i0 = 1.f / l0, i1 = 1.f / l1;
+          // every k16 step's P packed before the products: A registers
+          // written between two of them would cost a fence each
+          uint32_t pa[OC_KEYS / 16][4];
+#pragma unroll
+          for (int kb = 0; kb < OC_KEYS / 16; ++kb) {
+            pa[kb][0] = pack_bf16(s[8 * kb] * i0, s[8 * kb + 1] * i0);
+            pa[kb][1] = pack_bf16(s[8 * kb + 2] * i1, s[8 * kb + 3] * i1);
+            pa[kb][2] = pack_bf16(s[8 * kb + 4] * i0, s[8 * kb + 5] * i0);
+            pa[kb][3] = pack_bf16(s[8 * kb + 6] * i1, s[8 * kb + 7] * i1);
+          }
+          float ov[HP / 2];
+#pragma unroll
+          for (int i = 0; i < HP / 2; ++i) ov[i] = 0.f;
+          fence_regs(ov);
+          wg_fence();
+#pragma unroll
+          for (int kb = 0; kb < OC_KEYS / 16; ++kb)
+            fwd_mma_pv<HP>(ov, pa[kb], desc(v_h + kb * 2 * CGS, CGS, 128));
+          wg_commit();
+          wg_wait<0>();
+          fence_regs(ov);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&gempty[wgi * L.ns + st]);  // this warp is done with it
+#pragma unroll
+          for (int jb = 0; jb < NB; ++jb)
+#pragma unroll
+            for (int s2 = 0; s2 < 2; ++s2)
+              *reinterpret_cast<uint32_t*>(
+                  a_s + kmaj(r0 + g + 8 * s2, hh * HP + 8 * jb + 2 * t4, KO)) =
+                  pack_bf16(ov[4 * jb + 2 * s2], ov[4 * jb + 2 * s2 + 1]);
+        }
+        cp_async_wait<0>();
+        proxy_fence();  // the attention outputs, written here, are read by wgmma
+        wg_sync();      // x and every row of them in place
+      }
+    } else if (live) {
+      // ---- x (and K5's conv_x) by 16-byte asynchronous copies; LN1 (two-pass
+      // fp32 statistics over the cio real columns, warp wi: rows 16 wi ..,
+      // four at a time) into a_s, zero past cio
       const bf16* xg = p.x + row0 * CIO;
       for (int i = wt; i < N * CIO / 8; i += 128) fwd_cp_async16(x_s + 16 * i, xg + 8 * i);
       if constexpr (HAB) {
@@ -340,11 +582,36 @@ __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsign
     }
 
     // ---- per head: q, k, v; the attention; proj into the residual h
+    // (OCAB: proj of the attention outputs waiting in a_s, a tile a head)
     float h[NCH][32];
 #pragma unroll
     for (int k = 0; k < NCH; ++k)
 #pragma unroll
       for (int i = 0; i < 32; ++i) h[k][i] = 0.f;
+    if constexpr (OCAB) {
+      for (int hh = 0; hh < heads; ++hh) {
+        wait_tiles(1);
+        if (live) {
+          const unsigned char* tp = tile(0);
+#pragma unroll
+          for (int k = 0; k < NCH; ++k) fence_regs(h[k]);
+          wg_fence();
+#pragma unroll
+          for (int k = 0; k < NCH; ++k)
+#pragma unroll
+            for (int ks = 0; ks < HP / 16; ++ks)
+              wgmma_n64<KMAJ, KMAJ>(h[k], desc(a_s + (hh * (HP / 16) + ks) * 256, 128,
+                                               heads * CGS),
+                                    desc(tp + k * 8 * CGS + ks * 256, 128, CGS), 1);
+          wg_commit();
+          wg_wait<0>();
+#pragma unroll
+          for (int k = 0; k < NCH; ++k) fence_regs(h[k]);
+        }
+        release_tiles(1);
+      }
+      if (live) wg_sync();  // the attention outputs are read before LN2's output lands there
+    } else
     for (int hh = 0; hh < heads; ++hh) {
       wait_tiles(3);
       float aq[HP / 2], ak[HP / 2], av[HP / 2];
@@ -721,6 +988,15 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
     swin_fwd_h32_wg_kernel(const __grid_constant__ FwdWgParams p, int nw, float* h32) {
   extern __shared__ __align__(1024) unsigned char fsm[];
   fwd_wg_body<NCH, HP, false, false, true>(p, nw, fsm, nullptr, nullptr, h32);
+}
+
+// K6 (STORE_H = false) and K10a (STORE_H = true): the OCAB tail
+template <int NCH, int HP, bool STORE_H>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+    ocab_fwd_wg_kernel(const __grid_constant__ FwdWgParams p, int nw,
+                       const __grid_constant__ OcabIn oc) {
+  extern __shared__ __align__(1024) unsigned char fsm[];
+  fwd_wg_body<NCH, HP, STORE_H, false, false, true>(p, nw, fsm, nullptr, nullptr, nullptr, oc);
 }
 
 // The operands of K9a and K4b's recompute that K1, K2 and K5 do not take,

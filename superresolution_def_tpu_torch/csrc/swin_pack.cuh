@@ -4,7 +4,9 @@
 // forward: mlp_pack_kernel (w1 and w2 per 64-wide hidden chunk) and
 // attn_pack_kernel (wproj, wq, wk, wv per head), both in the interleaved
 // layout hopper.cuh describes, and kmaj, the byte offset of an element of a
-// 64-row K-major operand in that layout.
+// 64-row K-major operand in that layout. Also the OCAB kernels' head gather
+// (K6/K10a in swin_fwd_wg.cuh, K10b in ocab_train.cu): fetch_head and
+// scaled_q.
 
 #pragma once
 
@@ -61,6 +63,39 @@ __global__ void attn_pack_kernel(const bf16* wqkv, const bf16* wproj, int C, int
     }
     out[idx] = v;
   }
+}
+
+// 4-byte asynchronous global -> shared copy; zero-fills when !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// `total` rows x hp slots of one head into the interleaved layout by NT
+// threads (pt: this thread's index): slot pair (2s, 2s + 1) from columns
+// base + 2s, + 1 of each row (zero past ld and past `rows`). A head whose
+// first column h hd is odd takes base = h hd - 1 and lands at slots 1 ..
+// hd; every copy is 4-byte aligned. A thread keeps one slot pair and walks
+// the rows NT / (hp / 2) apart.
+template <int HP, int NT>
+__device__ __forceinline__ void fetch_head(unsigned char* dst, const bf16* src, int rows,
+                                           int total, int ld, int base, int pt) {
+  static_assert(NT % (HP / 2) == 0, "a thread keeps one slot pair");
+  const int s = 2 * (pt % (HP / 2)), col = base + s;
+  const bool in_row = col < ld;
+  for (int r = pt / (HP / 2); r < total; r += NT / (HP / 2)) {
+    const bool ok = in_row && r < rows;
+    cp_async4(dst + kmaj(r, s, HP), ok ? src + (size_t)r * ld + col : src, ok);
+  }
+}
+
+// bf16(q * s) of a packed pair of q's slots `slot`, +1, zero outside the
+// head's [o, o + hd): the scores' A operand
+__device__ __forceinline__ uint32_t scaled_q(uint32_t v, float s, int slot, int o, int hd) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+  const bool lo = slot >= o && slot < o + hd, hi = slot + 1 >= o && slot + 1 < o + hd;
+  return pack_bf16(lo ? f.x * s : 0.f, hi ? f.y * s : 0.f);
 }
 
 }  // namespace

@@ -20,7 +20,7 @@
 // fp32; probabilities cast to v's dtype; P.V accumulated in fp32 and cast.
 //
 // Design. One thread block (8 warps) takes one window and walks its heads.
-// bf16: two heads at a time, as K6 (ocab.cu) does: q (scaled, rounded), k
+// bf16: two heads at a time, as K6's first design did: q (scaled, rounded), k
 // and v of the pair are copied into shared memory, each head's d columns
 // padded to 32 with zeros (the padding is zeroed once and never written,
 // so the QK^T k-steps past d add exact zeros) and its keys padded to a

@@ -51,7 +51,7 @@ from .fused_rdb_cm import fused_rrdb_trunk_cm, pack_rdb_cm_weights
 from .fused_rdb_cm_bwd import fused_rrdb_trunk_cm_ad
 from .hab_block import fused_hab_block, pack_hab_weights, pad_hab_operands
 from .hab_train import HabCoreFn
-from .ocab import fused_ocab_block, pad_ocab_operands
+from .ocab import fused_ocab_block, pack_ocab_weights, pad_ocab_operands
 from .ocab_train import ocab_operands, ocab_train
 from .swin_block import _gather_rows, _GatherRows, _gelu, _ln_f32, token_order
 
@@ -110,8 +110,11 @@ def make_fused_hat(model, *, dtype: torch.dtype = torch.bfloat16):
     def ocab_ops(oc):
         bias = relative_position_bias_oca(oc.relative_position_bias_table, ws, oc.overlap_ratio)
         weights = (*lin(oc.proj), *ln(oc.norm2), *lin(oc.mlp.fc1), *lin(oc.mlp.fc2))
+        padded = pad_ocab_operands(*weights)
+        packed = (pack_ocab_weights(padded, num_heads=oc.num_heads,
+                                    channels=weights[0].shape[0]) if bias.is_cuda else None)
         return (ln(oc.norm1), wb(oc.qkv), oc.num_heads, (bias.float().contiguous(), *weights),
-                pad_ocab_operands(*weights))
+                padded, packed)
 
     with torch.no_grad():
         groups = [([hab_ops(blk) for blk in layer.residual_group.blocks],
@@ -140,7 +143,7 @@ def make_fused_hat(model, *, dtype: torch.dtype = torch.bfloat16):
         return _gather_rows(out.reshape(-1, c), inv).reshape(b, h, w, c)
 
     def ocab(ops, x):
-        norm1, qkv_wb, heads, kernel, padded = ops
+        norm1, qkv_wb, heads, kernel, padded, packed = ops
         b, h, w, c = x.shape
         qkv = F.linear(_ln(norm1, x), *qkv_wb)
         kv = overlap_windows(qkv[..., c:], ws, owin)
@@ -148,7 +151,7 @@ def make_fused_hat(model, *, dtype: torch.dtype = torch.bfloat16):
             window_partition(x, ws).reshape(-1, n, c),
             window_partition(qkv[..., :c], ws).reshape(-1, n, c),
             kv[..., :c].contiguous(), kv[..., c:].contiguous(), *kernel,
-            num_heads=heads, scale=(c // heads) ** -0.5, padded=padded)
+            num_heads=heads, scale=(c // heads) ** -0.5, padded=padded, packed=packed)
         return window_reverse(out.reshape(-1, ws, ws, c), ws, h, w)
 
     @torch.no_grad()
@@ -321,10 +324,10 @@ def make_fused_hat_train(model, *, dtype: torch.dtype = torch.bfloat16, fused_oc
             params = {k: v.to(dtype) for k, v in oc.named_parameters()}
             return functional_call(oc, params, (x.reshape(b, h * w, c), (h, w))).reshape(
                 b, h, w, c)
-        padded = None
+        padded = packed = None
         if x.is_cuda:
-            padded = pads.get(oc, lambda: ocab_operands(oc, dtype))
-        return ocab_train(oc, x, dtype=dtype, padded=padded)
+            padded, packed = pads.get(oc, lambda: ocab_operands(oc, dtype))
+        return ocab_train(oc, x, dtype=dtype, padded=padded, packed=packed)
 
     def forward(x: torch.Tensor, deterministic: bool = True,
                 generator: torch.Generator | None = None) -> torch.Tensor:

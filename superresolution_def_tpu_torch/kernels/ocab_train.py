@@ -32,7 +32,13 @@ import torch.nn.functional as F
 from ..ops import overlap_windows, relative_position_bias_oca, window_partition, window_reverse
 from ._build import load_library
 from .hab_train import hab_bwd_mlp
-from .ocab import check_ocab_windows, launch_ocab, ocab_fwd_h_reference, pad_ocab_operands
+from .ocab import (
+    check_ocab_windows,
+    launch_ocab,
+    ocab_fwd_h_reference,
+    pack_ocab_weights,
+    pad_ocab_operands,
+)
 from .swin_block import (
     MAX_SMEM_BYTES,
     _check,
@@ -50,19 +56,22 @@ from .swin_block import (
 
 
 def ocab_fwd_h(x_windows, q_windows, k_windows, v_windows, bias, wproj, bproj, ln2_w, ln2_b,
-               w1, b1, w2, b2, *, num_heads: int, scale: float, padded: tuple | None = None):
+               w1, b1, w2, b2, *, num_heads: int, scale: float, padded: tuple | None = None,
+               packed: torch.Tensor | None = None):
     """K10a: ``(out, h)`` of the OCAB tail over ``(Bw, 64, C)`` query windows.
 
     CUDA tensors launch the kernel (counted in ``ocab_fwd_h.launches``) or
     raise; CPU tensors take :func:`~.ocab.ocab_fwd_h_reference`. ``padded``:
-    the weights already through :func:`~.ocab.pad_ocab_operands`.
+    the weights already through :func:`~.ocab.pad_ocab_operands`; ``packed``:
+    those through :func:`~.ocab.pack_ocab_weights` (without it each call
+    packs them).
     """
     args = (x_windows, q_windows, k_windows, v_windows, bias, wproj, bproj, ln2_w, ln2_b,
             w1, b1, w2, b2)
     if not _on_cuda("ocab_fwd_h", x_windows):
         return ocab_fwd_h_reference(*args, num_heads=num_heads, scale=scale)
     out = launch_ocab("ocab_fwd_h", *args, num_heads=num_heads, scale=scale, padded=padded,
-                      store_h=True)
+                      packed=packed, store_h=True)
     ocab_fwd_h.launches += 1
     return out
 
@@ -180,17 +189,18 @@ ocab_bwd_attn.launches = 0
 class OcabTailFn(torch.autograd.Function):
     """The OCAB tail with K10a forward and K9b + K10b backward (the JAX
     ``ocab_tail_ad``). Inputs as :func:`ocab_fwd_h`'s, then ``num_heads``,
-    ``scale`` and ``padded`` (the weights through
-    :func:`~.ocab.pad_ocab_operands`, or ``None``). dx = dh: the shortcut
-    passes the MLP backward's output through. Each gradient comes back in its
-    input's dtype, as ``_ocab_ad_bwd`` casts it."""
+    ``scale``, ``padded`` (the weights through
+    :func:`~.ocab.pad_ocab_operands`, or ``None``) and, optionally,
+    ``packed`` (those through :func:`~.ocab.pack_ocab_weights`). dx = dh:
+    the shortcut passes the MLP backward's output through. Each gradient
+    comes back in its input's dtype, as ``_ocab_ad_bwd`` casts it."""
 
     @staticmethod
     def forward(ctx, x, q, k, v, bias, wproj, bproj, ln2_w, ln2_b, w1, b1, w2, b2, num_heads,
-                scale, padded):
+                scale, padded, packed=None):
         params = (bias, wproj, bproj, ln2_w, ln2_b, w1, b1, w2, b2)
         out, h = ocab_fwd_h(x, q, k, v, *params, num_heads=num_heads, scale=scale,
-                            padded=padded)
+                            padded=padded, packed=packed)
         ctx.save_for_backward(q, k, v, h, bias, wproj, ln2_w, ln2_b, w1, b1, w2)
         ctx.dtypes = [t.dtype for t in (q, k, v, *params)]
         ctx.num_heads, ctx.scale, ctx.padded = num_heads, scale, padded
@@ -207,18 +217,20 @@ class OcabTailFn(torch.autograd.Function):
             q, k, v, dh, bias, wproj, num_heads=ctx.num_heads, scale=ctx.scale,
             padded_wproj=padded and padded[0])
         grads = (dq, dk, dv, dbias, dwproj, dbproj, dln2_w, dln2_b, dw1, db1, dw2, db2)
-        return (dh, *(g.to(dt) for g, dt in zip(grads, ctx.dtypes)), None, None, None)
+        return (dh, *(g.to(dt) for g, dt in zip(grads, ctx.dtypes)), None, None, None, None)
 
 
-def ocab_train(oc, x: torch.Tensor, *, dtype: torch.dtype, padded: tuple | None = None):
+def ocab_train(oc, x: torch.Tensor, *, dtype: torch.dtype, padded: tuple | None = None,
+               packed: torch.Tensor | None = None):
     """One differentiable OCAB of the ``nn.Module`` ``oc`` over NHWC ``x``
     (in ``dtype``) with the tail through :class:`OcabTailFn` (the JAX
     ``ocab_train``): LN1 (fp32 statistics), the qkv product with its weight
     and bias cast to ``dtype``, the window and overlap gathers and the
     relative-position bias gather as autograd ops, and the tail's weights
     cast inside autograd (``(in, out)`` in ``dtype``, vectors fp32), so
-    every gradient reaches ``oc``'s parameters. ``padded``: the tail's
-    weights through :func:`~.ocab.pad_ocab_operands`, for the kernels."""
+    every gradient reaches ``oc``'s parameters. ``padded``, ``packed``: the
+    tail's weights through :func:`~.ocab.pad_ocab_operands` and
+    :func:`~.ocab.pack_ocab_weights`, for the kernels."""
     b, h, w, c = x.shape
     ws = oc.window_size
     n = ws * ws
@@ -235,14 +247,18 @@ def ocab_train(oc, x: torch.Tensor, *, dtype: torch.dtype, padded: tuple | None 
         oc.proj.weight.T.to(dtype), oc.proj.bias.float(), oc.norm2.weight.float(),
         oc.norm2.bias.float(), oc.mlp.fc1.weight.T.to(dtype), oc.mlp.fc1.bias.float(),
         oc.mlp.fc2.weight.T.to(dtype), oc.mlp.fc2.bias.float(), heads, (c // heads) ** -0.5,
-        padded)
+        padded, packed)
     return window_reverse(out.reshape(-1, ws, ws, c), ws, h, w)
 
 
 def ocab_operands(oc, dtype: torch.dtype) -> tuple:
-    """The tail's weights of ``oc`` through :func:`~.ocab.pad_ocab_operands`,
-    for :func:`ocab_train`'s ``padded`` (no autograd)."""
+    """``(padded, packed)``: the tail's weights of ``oc`` through
+    :func:`~.ocab.pad_ocab_operands` and :func:`~.ocab.pack_ocab_weights`,
+    for :func:`ocab_train` (no autograd)."""
     with torch.no_grad():
-        return pad_ocab_operands(oc.proj.weight.T.to(dtype), oc.proj.bias, oc.norm2.weight,
-                                 oc.norm2.bias, oc.mlp.fc1.weight.T.to(dtype), oc.mlp.fc1.bias,
-                                 oc.mlp.fc2.weight.T.to(dtype), oc.mlp.fc2.bias)
+        padded = pad_ocab_operands(oc.proj.weight.T.to(dtype), oc.proj.bias, oc.norm2.weight,
+                                   oc.norm2.bias, oc.mlp.fc1.weight.T.to(dtype),
+                                   oc.mlp.fc1.bias, oc.mlp.fc2.weight.T.to(dtype),
+                                   oc.mlp.fc2.bias)
+        return padded, pack_ocab_weights(padded, num_heads=oc.num_heads,
+                                         channels=oc.proj.weight.shape[0])

@@ -22,7 +22,11 @@ parent commit, unpacked with ``git archive``). The tool
    C=180, 6 heads, hidden 720), K5 (``fused_hab_block``) at the hybrid's
    Bw=2048 (C=90, 6 heads, hidden 360) unshifted and shifted (K1's and K5's
    weights packed once where the tree has ``pack_swin_block_weights`` and
-   ``pack_hab_weights``, as its forwards pass them), and end to end the
+   ``pack_hab_weights``, as its forwards pass them), K6
+   (``fused_ocab_block``) at the hybrid's Bw=2048 and K10a (``ocab_fwd_h``)
+   at the fused-HAB step's Bw=512 (C=90, 6 heads, hidden 360, 144 keys, the
+   first 14 zero; the weights padded once, and packed once where the tree
+   has ``pack_ocab_weights``), and end to end the
    fused SwinIR's batch-3 forward (config #1, ``make_fused_swinir``), the
    fused hybrid's batch-8 forward (config #2, ``make_fused_hybrid``) with the
    K7 trunk and with ``trunk_impl="kernel"`` (K12), and the
@@ -62,9 +66,9 @@ import json, statistics, sys
 import numpy as np, torch
 import importlib
 from superresolution_def_tpu_torch.kernels import fused_rdb, fused_rdb_cm, swin_block_fwd_h
-from superresolution_def_tpu_torch.kernels import (hab_bwd_attn, hab_fwd_h, ocab_bwd_attn,
-                                                   swin_block_bwd, swin_block_bwd_attn,
-                                                   swin_block_bwd_mlp)
+from superresolution_def_tpu_torch.kernels import (fused_ocab_block, hab_bwd_attn, hab_fwd_h,
+                                                   ocab_bwd_attn, ocab_fwd_h, swin_block_bwd,
+                                                   swin_block_bwd_attn, swin_block_bwd_mlp)
 cm = importlib.import_module("superresolution_def_tpu_torch.kernels.fused_rdb_cm")
 
 def cuda_ms(fn, reps=20, warmup=3, calls=5):
@@ -196,6 +200,21 @@ bias10 = (0.5 * torch.randn(6, 64, 144, generator=hgen)).to(dev)
 wproj10 = hu(ch, ch, fan_in=ch).to(dev, bf)
 kw10 = dict(num_heads=6, scale=15 ** -0.5,
             padded_wproj=torch.nn.functional.pad(wproj10, (0, 6, 0, 6)).contiguous())
+# K6 at the hybrid's 2048 windows and K10a at the fused-HAB step's 512, on
+# K5's tail weights, padded once and packed once where the tree packs them
+ocab_mod = importlib.import_module("superresolution_def_tpu_torch.kernels.ocab")
+q6, k6, v6 = (torch.randn(bw, n, ch, generator=hgen).to(dev, bf) for n in (64, 144, 144))
+k6[:, :14] = 0
+v6[:, :14] = 0
+bias6 = (0.5 * torch.randn(6, 64, 144, generator=hgen)).to(dev)
+tail6 = hab_args[7:]
+pad6 = ocab_mod.pad_ocab_operands(*tail6)
+kw6 = dict(num_heads=6, scale=15 ** -0.5, padded=pad6)
+pack6 = getattr(ocab_mod, "pack_ocab_weights", None)
+if pack6:
+    kw6["packed"] = pack6(pad6, num_heads=6, channels=ch)
+args6 = (hab_args[0], q6, k6, v6, bias6, *tail6)
+args10a = (*(a[:b9].contiguous() for a in args6[:4]), bias6, *tail6)
 # the fused-HAB hybrid GAN step (config #4): its device busy time per step
 from torch.profiler import ProfilerActivity, profile
 from superresolution_def_tpu_torch.train import create_hat_train_state, make_hat_train_step
@@ -238,6 +257,8 @@ out = {"K1 sha256": k1_sha,
     "hybrid forward B=8 K12 trunk": cuda_ms(lambda: fwd12(xh), reps=5, warmup=2, calls=2),
     "K10b Bw=512": cuda_ms(lambda: ocab_bwd_attn(q10, k10, v10, dh9, bias10, wproj10, **kw10),
                            reps=10),
+    "K6 Bw=2048": cuda_ms(lambda: fused_ocab_block(*args6, **kw6), reps=10),
+    "K10a Bw=512": cuda_ms(lambda: ocab_fwd_h(*args10a, **kw6), reps=10),
     "swin split step micro 8": cuda_ms(lambda: step(batch, 1e-4, 1e-4), reps=3, warmup=2,
                                        calls=2),
     "swin recompute step micro 8": cuda_ms(lambda: step_r(batch, 1e-4, 1e-4), reps=3,

@@ -32,13 +32,15 @@ gives K7's bits (it runs K7's conv kernels on K7's packing, x read in
 place). K10b (the OCAB attention backward) also runs at 1, 7, 133 and 512
 windows (below, off and above one persistent wave of blocks) and at an odd
 width with an odd head count and fewer keys, against its plain version and
-twice to the same bits. K1, K2 and K5 are one wgmma
+twice to the same bits. K1, K2, K5, K6 and K10a are one wgmma
 kernel (K2 with the store of h, K5 with HAB's mask, conv branch and padded
-widths): K2 is held to K1's bound against its plain version and against
-K1's out, and runs at 1, 3 and 7 windows twice to the same bits; K1 runs at
-1, 3, 7 and 768 windows and K5 at 3, 7 and 9 (shifted by a mask of nW
-windows, nW dividing Bw, and unshifted) twice to the same bits and, on
-weights packed once, to the bits of a call that packs them itself;
+widths; K6 and K10a its OCAB mode): K2 is held to K1's bound against its
+plain version and against K1's out, and runs at 1, 3 and 7 windows twice to
+the same bits; K1 runs at 1, 3, 7 and 768 windows, K5 at 3, 7 and 9
+(shifted by a mask of nW windows, nW dividing Bw, and unshifted) and K6
+and K10a at 1, 7, 133 and 2048 (the first 14 keys zero, as the overlap
+gather leaves an edge window's) twice to the same bits and, on weights
+packed once, to the bits of a call that packs them itself;
 K7 runs at B = 1 and 3 on odd sizes with and without the stash, twice to
 the same bits. K4b (the block's backward from
 x and dout, the forward recomputed, in three phases on K2's, K3's and K4's
@@ -109,6 +111,7 @@ from superresolution_def_tpu_torch.kernels import (
     swin_block_fwd_h_reference,
     ocab_block_reference,
     pack_hab_weights,
+    pack_ocab_weights,
     pack_swin_block_weights,
     rdb_cm_bwd_reference,
     rdb_cm_reference,
@@ -121,6 +124,7 @@ from superresolution_def_tpu_torch.kernels import (
 )
 from superresolution_def_tpu_torch.kernels.fused_rdb_cm import dense_block_sources
 from superresolution_def_tpu_torch.kernels.hab_block import pad_hab_operands
+from superresolution_def_tpu_torch.kernels.ocab import pad_ocab_operands
 from superresolution_def_tpu_torch.kernels.swin_stage_ablation import MODES
 from superresolution_def_tpu_torch.models import HybridHATRealESRGAN, SwinIR
 from superresolution_def_tpu_torch.ops import shift_window_attn_mask
@@ -456,7 +460,7 @@ def test_hab_kernel_at_odd_window_counts(device, bw, nw, shifted):
 
 
 def test_packed_weights_are_checked(device):
-    """K1's and K5's ``packed`` must be the packing of their widths: a
+    """K1's, K5's and K6's ``packed`` must be the packing of their widths: a
     wrong size or dtype raises before any launch."""
     args = _operands(3, 2, 180, 6, 720, device)
     kw = dict(num_heads=6, scale=30**-0.5)
@@ -474,21 +478,71 @@ def test_packed_weights_are_checked(device):
         fused_hab_block(x, convx, None, *params, **hkw, padded=padded, packed=packed)
     with pytest.raises(ValueError, match="packed"):
         fused_hab_block(x, convx, None, *params, **hkw, padded=padded, packed=hpacked.cpu())
+    oargs = _hat_operands(5, 2, 90, 6, 360, device, nk=144)
+    opadded = pad_ocab_operands(*oargs[5:])
+    opacked = pack_ocab_weights(opadded, num_heads=6, channels=90)
+    before6 = fused_ocab_block.launches
+    with pytest.raises(ValueError, match="packed"):
+        fused_ocab_block(*oargs, **hkw, padded=opadded, packed=opacked[:-8])
+    with pytest.raises(ValueError, match="packed"):
+        fused_ocab_block(*oargs, **hkw, padded=opadded, packed=opacked.float())
     assert (fused_swin_block.launches, fused_hab_block.launches) == before
+    assert fused_ocab_block.launches == before6
 
 
-@pytest.mark.parametrize("bw,c,heads,hidden", HAT_WIDTHS)
+# and 14 heads of 9: odd heads land one slot in, and the heads' slots (14 x
+# 16) outrun the residual's 128 columns
+@pytest.mark.parametrize("bw,c,heads,hidden", HAT_WIDTHS + [(5, 126, 14, 252)])
 def test_ocab_kernel_matches_plain_version(device, bw, c, heads, hidden):
+    """K6 within K1's bound of its plain version, with the first 14 keys
+    zero as the overlap gather leaves an edge window's; twice to the same
+    bits, and on weights padded and packed once to the bits of a call that
+    packs them itself."""
     args = _hat_operands(c + heads + 1, bw, c, heads, hidden, device, nk=144)
+    args[2][:, :14] = 0
+    args[3][:, :14] = 0
     kw = dict(num_heads=heads, scale=(c // heads) ** -0.5)
     before = fused_ocab_block.launches
     got = fused_ocab_block(*args, **kw)
+    again = fused_ocab_block(*args, **kw)
+    padded = pad_ocab_operands(*args[5:])
+    once = fused_ocab_block(*args, **kw, padded=padded,
+                            packed=pack_ocab_weights(padded, num_heads=heads, channels=c))
     torch.cuda.synchronize()
-    assert fused_ocab_block.launches == before + 1
+    assert fused_ocab_block.launches == before + 3
     assert got.dtype == torch.bfloat16 and got.shape == (bw, 64, c)
+    assert torch.equal(got, again) and torch.equal(got, once)
     want = ocab_block_reference(*args, **kw).float()
     err = (got.float() - want).abs().max().item()
     assert err <= K1_TOL * max(1.0, want.abs().max().item()), err
+
+
+@pytest.mark.parametrize("store_h", [False, True])
+@pytest.mark.parametrize("bw", [1, 7, 133, 2048])
+def test_ocab_kernels_at_window_counts(device, bw, store_h):
+    """K6 (and K10a, ``store_h``) at HAT's widths on window counts below,
+    off and above one persistent wave of two-window blocks (2048: the
+    hybrid's batch 8), the first 14 keys zero: within K1's bound of the
+    plain version, twice to the same bits, and on weights packed once to the
+    bits of a call that packs them itself."""
+    args = _hat_operands(bw + 17, bw, 90, 6, 360, device, nk=144)
+    args[2][:, :14] = 0
+    args[3][:, :14] = 0
+    kw = dict(num_heads=6, scale=15**-0.5)
+    fn = ocab_fwd_h if store_h else fused_ocab_block
+    padded = pad_ocab_operands(*args[5:])
+    packed = pack_ocab_weights(padded, num_heads=6, channels=90)
+    before = fn.launches
+    runs = [fn(*args, **kw), fn(*args, **kw), fn(*args, **kw, padded=padded, packed=packed)]
+    torch.cuda.synchronize()
+    assert fn.launches == before + 3
+    runs = [r if store_h else (r,) for r in runs]
+    assert all(torch.equal(a, b) for other in runs[1:] for a, b in zip(runs[0], other))
+    wants = ocab_fwd_h_reference(*args, **kw)
+    for got, want in zip(runs[0], wants):
+        want = want.float()
+        err = (got.float() - want).abs().max().item()
+        assert err <= K1_TOL * max(1.0, want.abs().max().item()), err
 
 
 def _rdb_operands(seed, b, f, g, h, w, device):
