@@ -124,7 +124,8 @@ exit code:
     bf16 at the attention modules' shapes: SwinIR's (Bw=768, 6 heads, 64
     keys, head_dim 30), HAB's unshifted and shifted (Bw=2048, head_dim 15,
     the 256-window shift mask) and OCAB's (144 keys), on q, k, v that are
-    views of one qkv tensor as the modules pass them (relative L2 <= 1e-3),
+    views of one qkv tensor as the modules pass them (relative L2 <= 1e-3;
+    the bf16 kernel gathers them in place, ``repacks`` stays 0),
     plus one fp32 case;
     the raise under autograd; per shape its time, bound, plain time and
     ``F.scaled_dot_product_attention``'s;
@@ -136,8 +137,9 @@ exit code:
 28. the attention modules with ``attn_impl="pallas"``: the config-#1 SwinIR
     ``nn.Module`` in bf16 at batch 3 (36 mask-less K11 launches a forward)
     and the config-#2 hybrid at batch 8 (16 mask-less, 4 of them its OCABs'
-    as counted by forward hooks, and 12 masked), each
-    against the fp32 ``"xla"`` module and with its patches/s beside the bf16
+    as counted by forward hooks, and 12 masked), none of them repacking q,
+    k or v, each against the fp32 ``"xla"`` module and with its patches/s
+    beside the bf16
     ``"xla"`` module's (and the fused K1 forward's for SwinIR);
 29. ``make_fused_hybrid(trunk_impl="kernel")`` at batch 8: 36 K12 launches
     a forward, agreement with the fp32 module, patches/s beside the default
@@ -1678,8 +1680,11 @@ def main() -> None:
         sc = hd**-0.5
         fn = wattn.window_attention_masked if masked else wattn.window_attention_nomask
         kargs = (q, k, v, b_, m_) if masked else (q, k, v, b_)
+        repacks = fn.repacks
         got = fn(*kargs, scale=sc)
         torch.cuda.synchronize()
+        if fn.repacks != repacks:
+            raise SystemExit(f"K11 ({tag}) repacked the modules' views: {fn.repacks - repacks}")
         want = wattn.window_attention_reference(q, k, v, b_, m_, scale=sc)
         rel = rel_l2(got, want)
         err_ = (got.float() - want.float()).abs().max().item()
@@ -1787,21 +1792,25 @@ def main() -> None:
     with torch.no_grad():
         ref = swin32(x)
         for fn in k11_counters:
-            fn.launches = 0
+            fn.launches = fn.repacks = 0
         swin_p(x3.to(bf))
         torch.cuda.synchronize()
         k11_launches["swin"] = {fn.__name__: fn.launches for fn in k11_counters}
+        k11_repacks = sum(fn.repacks for fn in k11_counters)
         rel_p = rel_l2(swin_p(x.to(bf)), ref)
         rel_x = rel_l2(swin_x(x.to(bf)), ref)
         swin_ms = {name: cuda_ms(lambda: fwd(x3), reps=10, warmup=2, calls=2) for name, fwd in (
             ("pallas", lambda v: swin_p(v.to(bf))), ("xla", lambda v: swin_x(v.to(bf))),
             ("fused K1", swin_fused))}
     log("attn-module", f"SwinIR config #1, batch 3, 128->512 on {card}: launches per forward "
-        f"{k11_launches['swin']}; rel L2 to the fp32 module: attn_impl='pallas' bf16 "
-        f"{rel_p:.3e}, 'xla' bf16 {rel_x:.3e} (bound {FORWARD_REL_L2}); patches/s "
+        f"{k11_launches['swin']}, q/k/v repacked {k11_repacks}; rel L2 to the fp32 module: "
+        f"attn_impl='pallas' bf16 {rel_p:.3e}, 'xla' bf16 {rel_x:.3e} (bound {FORWARD_REL_L2}); "
+        "patches/s "
         + ", ".join(f"{k} {3e3 / ms:.3f} ({ms:.3f} ms)" for k, ms in swin_ms.items()))
     if k11_launches["swin"] != {"window_attention_nomask": 36, "window_attention_masked": 0}:
         raise SystemExit(f"expected 36 mask-less K11 launches, counted {k11_launches['swin']}")
+    if k11_repacks:
+        raise SystemExit(f"the pallas SwinIR's K11 launches repacked {k11_repacks} operands")
     if not rel_p <= FORWARD_REL_L2:
         raise SystemExit(f"the pallas SwinIR disagrees with the fp32 module: {rel_p}")
     del swin32, swin_p, swin_x, swin_fused, ref, x3
@@ -1824,10 +1833,11 @@ def main() -> None:
     with torch.no_grad():
         ref = hybrid(x)
         for fn in k11_counters:
-            fn.launches = 0
+            fn.launches = fn.repacks = 0
         hyb_p(x8.to(bf))
         torch.cuda.synchronize()
         k11_launches["hybrid"] = {fn.__name__: fn.launches for fn in k11_counters}
+        k11_repacks = sum(fn.repacks for fn in k11_counters)
         k11_ocab = ocab_calls[0]
         for hook in hooks:
             hook.remove()
@@ -1836,7 +1846,8 @@ def main() -> None:
         hyb_ms = {name: cuda_ms(lambda: fwd(x8.to(bf)), reps=5, warmup=2, calls=2)
                   for name, fwd in (("pallas", hyb_p), ("xla", hyb_x))}
     log("attn-module", f"hybrid config #2, batch {HYBRID_BATCH}, 128->512 on {card}: launches "
-        f"per forward {k11_launches['hybrid']} ({k11_ocab} of the mask-less at OCAB's 64x144); "
+        f"per forward {k11_launches['hybrid']} ({k11_ocab} of the mask-less at OCAB's 64x144), "
+        f"q/k/v repacked {k11_repacks}; "
         f"rel L2 to the fp32 module: attn_impl='pallas' "
         f"bf16 {rel_p:.3e}, 'xla' bf16 {rel_x:.3e} (bound max({FORWARD_REL_L2}, 2x)); patches/s "
         + ", ".join(f"{k} {HYBRID_BATCH * 1e3 / ms:.3f} ({ms:.3f} ms)" for k, ms in hyb_ms.items()))
@@ -1845,6 +1856,8 @@ def main() -> None:
         raise SystemExit(f"expected 16 + 12 K11 launches, counted {k11_launches['hybrid']}")
     if k11_ocab != 4:
         raise SystemExit(f"expected 4 of the mask-less K11 launches at OCAB's, counted {k11_ocab}")
+    if k11_repacks:
+        raise SystemExit(f"the pallas hybrid's K11 launches repacked {k11_repacks} operands")
     if not rel_p <= max(FORWARD_REL_L2, 2 * rel_x):
         raise SystemExit(f"the pallas hybrid disagrees with the fp32 module: {rel_p} vs {rel_x}")
     del hyb_p, hyb_x

@@ -249,16 +249,18 @@ __global__ void __launch_bounds__(OB_THREADS, 1) ocab_bwd_wg_kernel(const Params
         const size_t win = w0 + i;
         for (int j = 0; j < 2 && 2 * pass + j < heads; ++j) {
           const int base = ((2 * pass + j) * hd) & ~1;
-          fetch_head<HP, 128>(stg + L.q + j * QB, p.q + win * N * LD, N, N, LD, base, pt);
-          fetch_head<HP, 128>(stg + L.k + j * KB, p.k + win * nk * LD, nk, NKR, LD, base, pt);
-          fetch_head<HP, 128>(stg + L.k + (2 + j) * KB, p.v + win * nk * LD, nk, NKR, LD, base,
+          fetch_head<HP, 128>(stg + L.q + j * QB, p.q + win * N * LD, N, N, LD, base, LD, pt);
+          fetch_head<HP, 128>(stg + L.k + j * KB, p.k + win * nk * LD, nk, NKR, LD, base, LD,
                               pt);
+          fetch_head<HP, 128>(stg + L.k + (2 + j) * KB, p.v + win * nk * LD, nk, NKR, LD, base,
+                              LD, pt);
         }
         const bf16* dh = p.dh + win * N * LD;
         for (int idx = pt; idx < N * (CP / 2); idx += 128) {
           const int r = idx / (CP / 2), c = 2 * (idx - r * (CP / 2));
           const bool ok = c < LD;
-          cp_async4(stg + L.dh + kmaj(r, c, CP), ok ? dh + (size_t)r * LD + c : dh, ok);
+          cp_async4(stg + L.dh + kmaj(r, c, CP), ok ? dh + (size_t)r * LD + c : dh,
+                    ok ? 4 : 0);
         }
         mbar_arrive_cp_async(&full[st]);  // once this thread's copies land
       }

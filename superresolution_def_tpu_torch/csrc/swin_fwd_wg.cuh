@@ -72,9 +72,10 @@
 // qkv product and the overlap gather stay outside), so the mode has no
 // LN1, no qkv tiles, no mask and no conv branch; per head the scores run
 // over nk <= 144 keys (m64 x n144, A = bf16(q * scale) from registers,
-// keys past nk starting at -inf), P . v takes nine k16 steps, and the
-// rest is K5's: proj, the residual, LN2 over the cio real columns, the
-// MLP, out (and K10a's h) as dense cio-wide windows. Its extra operands
+// keys past nk starting at -inf), P . v takes nine k16 steps (one head's
+// attention: attn_head_wg.cuh, which K11 shares), and the rest is K5's:
+// proj, the residual, LN2 over the cio real columns, the MLP, out (and
+// K10a's h) as dense cio-wide windows. Its extra operands
 // (q, k, v, nk, the gather's stage count) are a kernel argument of their
 // own (OcabIn). The producer warpgroup's thread 0 streams per pass only
 // the heads' wproj tiles and the MLP's (pack_ocab's packing: zero wqkv
@@ -106,6 +107,7 @@
 
 #pragma once
 
+#include "attn_head_wg.cuh"
 #include "hopper.cuh"
 #include "swin_common.cuh"
 #include "swin_pack.cuh"
@@ -230,14 +232,6 @@ __device__ __forceinline__ void fwd_mma_mn(float (&d)[HP / 2], uint64_t da, uint
   else hopper::wgmma_n32<hopper::KMAJ, hopper::MNMAJ>(d, da, db, 1);
 }
 
-// o (m64 x hp) += P . v, P from registers, v MN-major
-template <int HP>
-__device__ __forceinline__ void fwd_mma_pv(float (&d)[HP / 2], const uint32_t (&a)[4],
-                                           uint64_t db) {
-  if constexpr (HP == 16) hopper::wgmma_n16_rs<hopper::MNMAJ>(d, a, db, 1);
-  else hopper::wgmma_n32_rs<hopper::MNMAJ>(d, a, db, 1);
-}
-
 // The A fragment of k16 step ks from an m64 accumulator's registers: the
 // m16n8 layout of each 8-column block is the m16k16 A layout of two.
 template <int R>
@@ -353,11 +347,12 @@ __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsign
               if (use > 0) mbar_wait(&gempty[w * L.ns + st], (use - 1) & 1);
               unsigned char* stg = fsm + L.ring + FWD_STAGES * L.slot + w * L.win + L.q +
                                    st * L.stage;
-              fetch_head<HP, OC_GATHER>(stg, oc.q + win * N * CIO, N, N, CIO, base, gt);
+              fetch_head<HP, OC_GATHER>(stg, oc.q + win * N * CIO, N, N, CIO, base, CIO,
+                                        gt);
               fetch_head<HP, OC_GATHER>(stg + N * HP * 2, oc.k + win * oc.nk * CIO, oc.nk,
-                                        OC_KEYS, CIO, base, gt);
+                                        OC_KEYS, CIO, base, CIO, gt);
               fetch_head<HP, OC_GATHER>(stg + (N + OC_KEYS) * HP * 2, oc.v + win * oc.nk * CIO,
-                                        oc.nk, OC_KEYS, CIO, base, gt);
+                                        oc.nk, OC_KEYS, CIO, base, CIO, gt);
               mbar_arrive_cp_async(&gfull[w * L.ns + st]);  // once this thread's copies land
             }
           }
@@ -418,100 +413,20 @@ __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsign
         for (int i = wt; i < N * CIO / 8; i += 128) fwd_cp_async16(x_s + 16 * i, xg + 8 * i);
         cp_async_commit();
         const int KO = heads * HP, nk = oc.nk;
-        const float ninf = -__int_as_float(0x7f800000);
         for (int hh = 0; hh < heads; ++hh, ++git) {
           // the scores' starting value: the bias, -inf past nk
-          const float* bh = p.bias + (size_t)hh * N * nk;
-          auto load_bias = [&](float (&d)[OC_KEYS / 2]) {
-#pragma unroll
-            for (int t = 0; t < OC_KEYS / 8; ++t) {
-              const int c = 8 * t + 2 * t4;
-              if (c < nk) {
-                const float2 b0 = __ldg(reinterpret_cast<const float2*>(bh + (r0 + g) * nk + c));
-                const float2 b1 =
-                    __ldg(reinterpret_cast<const float2*>(bh + (r0 + g + 8) * nk + c));
-                d[4 * t] = b0.x; d[4 * t + 1] = b0.y; d[4 * t + 2] = b1.x; d[4 * t + 3] = b1.y;
-              } else {
-                d[4 * t] = d[4 * t + 1] = d[4 * t + 2] = d[4 * t + 3] = ninf;
-              }
-            }
-          };
           float s[OC_KEYS / 2];
-          load_bias(s);
+          head_scores_start<OC_KEYS>(s, p.bias + (size_t)hh * N * nk, nk, nullptr, nk, r0, g,
+                                     t4);
           const int st = git % L.ns;
           mbar_wait(&gfull[wgi * L.ns + st], (git / L.ns) & 1);
           proxy_fence();  // the stage's copies are read by wgmma
           const unsigned char* q_h = wb + L.q + st * L.stage;
-          const unsigned char* k_h = q_h + N * HP * 2;
-          const unsigned char* v_h = k_h + OC_KEYS * HP * 2;
-          const int o = (hh * hd) & 1;  // the head's first slot
-          uint32_t fq[HP / 16][4];
-#pragma unroll
-          for (int kk = 0; kk < HP / 16; ++kk) {
-            ldsm_x4(fq[kk], reinterpret_cast<const bf16*>(
-                                q_h + kmaj(r0 + (lane & 15), kk * 16 + (lane >> 4) * 8, HP)));
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              fq[kk][e] = scaled_q(fq[kk][e], qscale, kk * 16 + 2 * t4 + (e >> 1) * 8, o, hd);
-          }
-          fence_regs(s);
-          wg_fence();
-#pragma unroll
-          for (int kk = 0; kk < HP / 16; ++kk)
-            wgmma_n144_rs<KMAJ>(s, fq[kk], desc(k_h + kk * 256, 128, CGS), 1);
-          wg_commit();
-          wg_wait<0>();
-          fence_regs(s);
-          // softmax over the keys of rows r0 + g and r0 + g + 8, fp32 (the
-          // hardware exponential), one reciprocal a row
-          float m0 = s[0], m1 = s[2];
-#pragma unroll
-          for (int t = 0; t < OC_KEYS / 8; ++t) {
-            m0 = fmaxf(m0, fmaxf(s[4 * t], s[4 * t + 1]));
-            m1 = fmaxf(m1, fmaxf(s[4 * t + 2], s[4 * t + 3]));
-          }
-#pragma unroll
-          for (int sh = 1; sh <= 2; sh <<= 1) {
-            m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, sh));
-            m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, sh));
-          }
-          float l0 = 0.f, l1 = 0.f;
-#pragma unroll
-          for (int t = 0; t < OC_KEYS / 8; ++t) {
-            s[4 * t] = __expf(s[4 * t] - m0);
-            s[4 * t + 1] = __expf(s[4 * t + 1] - m0);
-            s[4 * t + 2] = __expf(s[4 * t + 2] - m1);
-            s[4 * t + 3] = __expf(s[4 * t + 3] - m1);
-            l0 += s[4 * t] + s[4 * t + 1];
-            l1 += s[4 * t + 2] + s[4 * t + 3];
-          }
-#pragma unroll
-          for (int sh = 1; sh <= 2; sh <<= 1) {
-            l0 += __shfl_xor_sync(0xffffffffu, l0, sh);
-            l1 += __shfl_xor_sync(0xffffffffu, l1, sh);
-          }
-          const float i0 = 1.f / l0, i1 = 1.f / l1;
-          // every k16 step's P packed before the products: A registers
-          // written between two of them would cost a fence each
-          uint32_t pa[OC_KEYS / 16][4];
-#pragma unroll
-          for (int kb = 0; kb < OC_KEYS / 16; ++kb) {
-            pa[kb][0] = pack_bf16(s[8 * kb] * i0, s[8 * kb + 1] * i0);
-            pa[kb][1] = pack_bf16(s[8 * kb + 2] * i1, s[8 * kb + 3] * i1);
-            pa[kb][2] = pack_bf16(s[8 * kb + 4] * i0, s[8 * kb + 5] * i0);
-            pa[kb][3] = pack_bf16(s[8 * kb + 6] * i1, s[8 * kb + 7] * i1);
-          }
           float ov[HP / 2];
-#pragma unroll
-          for (int i = 0; i < HP / 2; ++i) ov[i] = 0.f;
-          fence_regs(ov);
-          wg_fence();
-#pragma unroll
-          for (int kb = 0; kb < OC_KEYS / 16; ++kb)
-            fwd_mma_pv<HP>(ov, pa[kb], desc(v_h + kb * 2 * CGS, CGS, 128));
-          wg_commit();
-          wg_wait<0>();
-          fence_regs(ov);
+          // the head's first slot: (hh hd) & 1
+          head_attention<OC_KEYS, HP>(ov, s, q_h, q_h + N * HP * 2,
+                                      q_h + (N + OC_KEYS) * HP * 2, qscale, (hh * hd) & 1, hd,
+                                      r0, lane);
           __syncwarp();
           if (lane == 0) mbar_arrive(&gempty[wgi * L.ns + st]);  // this warp is done with it
 #pragma unroll

@@ -5,8 +5,8 @@
 // attn_pack_kernel (wproj, wq, wk, wv per head), both in the interleaved
 // layout hopper.cuh describes, and kmaj, the byte offset of an element of a
 // 64-row K-major operand in that layout. Also the OCAB kernels' head gather
-// (K6/K10a in swin_fwd_wg.cuh, K10b in ocab_train.cu): fetch_head and
-// scaled_q.
+// (K6/K10a in swin_fwd_wg.cuh, K10b in ocab_train.cu, K11 in
+// window_attention.cu): fetch_head and scaled_q.
 
 #pragma once
 
@@ -65,28 +65,33 @@ __global__ void attn_pack_kernel(const bf16* wqkv, const bf16* wproj, int C, int
   }
 }
 
-// 4-byte asynchronous global -> shared copy; zero-fills when !valid.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+// 4-byte asynchronous global -> shared copy of the first `bytes` (0, 2 or
+// 4) of src, zero-filling the rest; src 4-byte aligned.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 4 : 0)
+               "r"(bytes)
                : "memory");
 }
 
 // `total` rows x hp slots of one head into the interleaved layout by NT
 // threads (pt: this thread's index): slot pair (2s, 2s + 1) from columns
-// base + 2s, + 1 of each row (zero past ld and past `rows`). A head whose
-// first column h hd is odd takes base = h hd - 1 and lands at slots 1 ..
-// hd; every copy is 4-byte aligned. A thread keeps one slot pair and walks
+// base + 2s, + 1 of each row, columns from `lim` on and rows from `rows` on
+// read as zero; with TAIL, lim may be odd, and a pair whose second column
+// is at lim copies 2 bytes (K11: a head's last column; the OCAB kernels'
+// lim is the row's even width). A head whose first column is odd takes base
+// one column before it and lands at slots 1 .. hd; every copy is 4-byte
+// aligned, so ld and base are even. A thread keeps one slot pair and walks
 // the rows NT / (hp / 2) apart.
-template <int HP, int NT>
+template <int HP, int NT, bool TAIL = false>
 __device__ __forceinline__ void fetch_head(unsigned char* dst, const bf16* src, int rows,
-                                           int total, int ld, int base, int pt) {
+                                           int total, int ld, int base, int lim, int pt) {
   static_assert(NT % (HP / 2) == 0, "a thread keeps one slot pair");
   const int s = 2 * (pt % (HP / 2)), col = base + s;
-  const bool in_row = col < ld;
+  const bool in_row = col < lim;
+  const int bytes = TAIL && col + 1 >= lim ? 2 : 4;
   for (int r = pt / (HP / 2); r < total; r += NT / (HP / 2)) {
     const bool ok = in_row && r < rows;
-    cp_async4(dst + kmaj(r, s, HP), ok ? src + (size_t)r * ld + col : src, ok);
+    cp_async4(dst + kmaj(r, s, HP), ok ? src + (size_t)r * ld + col : src, ok ? bytes : 0);
   }
 }
 

@@ -1,6 +1,6 @@
 """Compare this tree's CUDA kernels with another checkout's on one card.
 
-    python -m superresolution_def_tpu_torch.tools.kernel_ab --other DIR [--rounds 2]
+    python -m superresolution_def_tpu_torch.tools.kernel_ab --other DIR [--rounds 2] [--only RE]
 
 ``DIR`` is the root of another checkout of the repository (for example the
 parent commit, unpacked with ``git archive``). The tool
@@ -37,9 +37,16 @@ parent commit, unpacked with ``git archive``). The tool
    recompute step runs it (so K1 + K4b stands beside K2 + K3 + K4); at the
    fused-HAB step's Bw=512 (C=90, drop-path scales that drop one of two
    samples) K9a (``hab_fwd_h``) and K9c (``hab_bwd_attn``), unshifted and
-   shifted; and the device busy time of one fused-HAB hybrid GAN step at
-   micro 2 x accum 8 (config #4, ``torch.profiler``); each tree in its own
-   process, alternated other,
+   shifted; the device busy time of one fused-HAB hybrid GAN step at
+   micro 2 x accum 8 (config #4, ``torch.profiler``); K11 at
+   ``chip_smoke.py``'s [k11] shapes on the views the modules pass
+   (``window_attention_nomask`` at SwinIR's Bw=768 of 6 heads of 30, HAB's
+   Bw=2048 of 6 heads of 15 and OCAB's Bw=2048 against 144 keys;
+   ``window_attention_masked`` at HAB's with the shift mask of 256 windows)
+   and the bf16 ``attn_impl="pallas"`` modules' forwards (SwinIR batch 3,
+   the hybrid batch 8), each also as its device busy time; ``--only
+   REGEX`` times only the entries whose names it finds; each tree in its
+   own process, alternated other,
    this, this, other (``--rounds`` such sets of turns), by CUDA events on
    the same seeded inputs; each turn also hashes K1's output (Bw=768,
    flagship widths) to show whether the two trees' K1 give the same bits;
@@ -62,7 +69,7 @@ SOURCES = ["swin_block", "swin_block_train", "swin_block_bwd", "hab_block", "oca
 
 # one tree's timings, run in a process of its own with the tree first on the path
 TIMER = r'''
-import json, statistics, sys
+import json, re, statistics, sys
 import numpy as np, torch
 import importlib
 from superresolution_def_tpu_torch.kernels import fused_rdb, fused_rdb_cm, swin_block_fwd_h
@@ -241,38 +248,75 @@ def busy_ms(fn):
         else:
             cur_e = max(cur_e, e_)
     return (total + cur_e - cur_s) / 1e3
-out = {"K1 sha256": k1_sha,
-    "K7 B=8": cuda_ms(lambda: fused_rdb_cm(x8, ks, bs, h=256, w=256, packed=p7), reps=10),
-    "K7 B=2 stash": cuda_ms(lambda: fused_rdb_cm(x2, ks, bs, h=256, w=256, packed=p7,
-                                                 stash=stash), reps=10),
-    "K12 B=8": cuda_ms(lambda: fused_rdb(x8n, ks, bs, packed=p12), reps=10),
-    "K1 Bw=768": cuda_ms(lambda: fused_swin_block(*args768, **kw1), reps=10),
-    "K2 Bw=2048": cuda_ms(lambda: swin_block_fwd_h(*args, **kw), reps=10),
-    "K5 Bw=2048 unshifted": cuda_ms(lambda: fused_hab_block(hab_args[0], hab_args[1], None,
-                                                            *hab_args[2:], **kw5), reps=10),
-    "K5 Bw=2048 shifted": cuda_ms(lambda: fused_hab_block(hab_args[0], hab_args[1], mask5,
-                                                          *hab_args[2:], **kw5), reps=10),
-    "swinir forward B=3": cuda_ms(lambda: swin_fwd(xs), reps=10, warmup=2, calls=2),
-    "hybrid forward B=8": cuda_ms(lambda: fwd(xh), reps=5, warmup=2, calls=2),
-    "hybrid forward B=8 K12 trunk": cuda_ms(lambda: fwd12(xh), reps=5, warmup=2, calls=2),
-    "K10b Bw=512": cuda_ms(lambda: ocab_bwd_attn(q10, k10, v10, dh9, bias10, wproj10, **kw10),
-                           reps=10),
-    "K6 Bw=2048": cuda_ms(lambda: fused_ocab_block(*args6, **kw6), reps=10),
-    "K10a Bw=512": cuda_ms(lambda: ocab_fwd_h(*args10a, **kw6), reps=10),
-    "swin split step micro 8": cuda_ms(lambda: step(batch, 1e-4, 1e-4), reps=3, warmup=2,
-                                       calls=2),
-    "swin recompute step micro 8": cuda_ms(lambda: step_r(batch, 1e-4, 1e-4), reps=3,
-                                           warmup=2, calls=2),
-    "K1 Bw=2048 packing": cuda_ms(lambda: fused_swin_block(*args, **kw), reps=10),
-    "K3 Bw=2048": cuda_ms(lambda: swin_block_bwd_mlp(*mlp_args), reps=10),
-    "K4 Bw=2048": cuda_ms(lambda: swin_block_bwd_attn(*attn_args, **kw), reps=10),
-    "K4b Bw=2048": cuda_ms(lambda: swin_block_bwd(x, dout, *args[1:], **kw), reps=10),
-    "K9a Bw=512 unshifted": cuda_ms(lambda: k9a(None), reps=10),
-    "K9a Bw=512 shifted": cuda_ms(lambda: k9a(mask5), reps=10),
-    "K9c Bw=512 unshifted": cuda_ms(lambda: k9c(None), reps=10),
-    "K9c Bw=512 shifted": cuda_ms(lambda: k9c(mask5), reps=10),
-    "fused-HAB step busy micro 2 x 8": busy_ms(lambda: hat_step(hat_batch, 1e-4, 1e-4)),
+# K11 at chip_smoke.py's [k11] shapes, on the views the modules pass, and
+# the attn_impl="pallas" modules' forwards (SwinIR batch 3, hybrid batch 8)
+wattn = importlib.import_module("superresolution_def_tpu_torch.kernels.window_attention")
+def attn_views(bw, hd, nk):
+    if nk == 64:
+        qkv = torch.randn(bw, 64, 3, 6, hd, generator=gen).to(dev, bf).permute(2, 0, 3, 1, 4)
+        return qkv[0], qkv[1], qkv[2], (0.5 * torch.randn(6, 64, nk, generator=gen)).to(dev)
+    kv = torch.randn(bw, nk, 2, 6, hd, generator=gen).to(dev, bf).permute(2, 0, 3, 1, 4)
+    return (torch.randn(bw, 64, 6, hd, generator=gen).to(dev, bf).transpose(1, 2), kv[0], kv[1],
+            (0.5 * torch.randn(6, 64, nk, generator=gen)).to(dev))
+k11 = {"swin": attn_views(768, 30, 64), "hab": attn_views(2048, 15, 64),
+       "ocab": attn_views(2048, 15, 144)}
+swin_p = SwinIR(img_size=128, in_chans=1, embed_dim=180, depths=(6,) * 6, num_heads=(6,) * 6,
+                window_size=8, mlp_ratio=4.0, upscale=4, attn_impl="pallas").to(dev, bf).eval()
+hyb_p = HybridHATRealESRGAN(img_size=128, in_chans=1, embed_dim=90, depths=(6,) * 4,
+                            num_heads=(6,) * 4, window_size=8, num_rrdb=12, num_feat=48,
+                            num_grow_ch=24, attn_impl="pallas").to(dev, bf).eval()
+def no_grad(fn):
+    with torch.no_grad():
+        return fn()
+timings = {
+    "K7 B=8": lambda: cuda_ms(lambda: fused_rdb_cm(x8, ks, bs, h=256, w=256, packed=p7), reps=10),
+    "K7 B=2 stash": lambda: cuda_ms(lambda: fused_rdb_cm(x2, ks, bs, h=256, w=256, packed=p7,
+                                                         stash=stash), reps=10),
+    "K12 B=8": lambda: cuda_ms(lambda: fused_rdb(x8n, ks, bs, packed=p12), reps=10),
+    "K1 Bw=768": lambda: cuda_ms(lambda: fused_swin_block(*args768, **kw1), reps=10),
+    "K2 Bw=2048": lambda: cuda_ms(lambda: swin_block_fwd_h(*args, **kw), reps=10),
+    "K5 Bw=2048 unshifted": lambda: cuda_ms(lambda: fused_hab_block(
+        hab_args[0], hab_args[1], None, *hab_args[2:], **kw5), reps=10),
+    "K5 Bw=2048 shifted": lambda: cuda_ms(lambda: fused_hab_block(
+        hab_args[0], hab_args[1], mask5, *hab_args[2:], **kw5), reps=10),
+    "swinir forward B=3": lambda: cuda_ms(lambda: swin_fwd(xs), reps=10, warmup=2, calls=2),
+    "hybrid forward B=8": lambda: cuda_ms(lambda: fwd(xh), reps=5, warmup=2, calls=2),
+    "hybrid forward B=8 K12 trunk": lambda: cuda_ms(lambda: fwd12(xh), reps=5, warmup=2, calls=2),
+    "K10b Bw=512": lambda: cuda_ms(lambda: ocab_bwd_attn(q10, k10, v10, dh9, bias10, wproj10,
+                                                         **kw10), reps=10),
+    "K6 Bw=2048": lambda: cuda_ms(lambda: fused_ocab_block(*args6, **kw6), reps=10),
+    "K10a Bw=512": lambda: cuda_ms(lambda: ocab_fwd_h(*args10a, **kw6), reps=10),
+    "swin split step micro 8": lambda: cuda_ms(lambda: step(batch, 1e-4, 1e-4), reps=3,
+                                               warmup=2, calls=2),
+    "swin recompute step micro 8": lambda: cuda_ms(lambda: step_r(batch, 1e-4, 1e-4), reps=3,
+                                                   warmup=2, calls=2),
+    "K1 Bw=2048 packing": lambda: cuda_ms(lambda: fused_swin_block(*args, **kw), reps=10),
+    "K3 Bw=2048": lambda: cuda_ms(lambda: swin_block_bwd_mlp(*mlp_args), reps=10),
+    "K4 Bw=2048": lambda: cuda_ms(lambda: swin_block_bwd_attn(*attn_args, **kw), reps=10),
+    "K4b Bw=2048": lambda: cuda_ms(lambda: swin_block_bwd(x, dout, *args[1:], **kw), reps=10),
+    "K9a Bw=512 unshifted": lambda: cuda_ms(lambda: k9a(None), reps=10),
+    "K9a Bw=512 shifted": lambda: cuda_ms(lambda: k9a(mask5), reps=10),
+    "K9c Bw=512 unshifted": lambda: cuda_ms(lambda: k9c(None), reps=10),
+    "K9c Bw=512 shifted": lambda: cuda_ms(lambda: k9c(mask5), reps=10),
+    "fused-HAB step busy micro 2 x 8": lambda: busy_ms(lambda: hat_step(hat_batch, 1e-4, 1e-4)),
+    "K11a swin Bw=768": lambda: cuda_ms(lambda: wattn.window_attention_nomask(
+        *k11["swin"], scale=30 ** -0.5), reps=10),
+    "K11a hab Bw=2048": lambda: cuda_ms(lambda: wattn.window_attention_nomask(
+        *k11["hab"], scale=15 ** -0.5), reps=10),
+    "K11a ocab Bw=2048": lambda: cuda_ms(lambda: wattn.window_attention_nomask(
+        *k11["ocab"], scale=15 ** -0.5), reps=10),
+    "K11b hab-shifted Bw=2048": lambda: cuda_ms(lambda: wattn.window_attention_masked(
+        *k11["hab"], mask5, scale=15 ** -0.5), reps=10),
+    "swinir pallas forward B=3": lambda: cuda_ms(lambda: no_grad(lambda: swin_p(xs.to(bf))),
+                                                 reps=10, warmup=2, calls=2),
+    "hybrid pallas forward B=8": lambda: cuda_ms(lambda: no_grad(lambda: hyb_p(xh.to(bf))),
+                                                 reps=5, warmup=2, calls=2),
+    "swinir pallas forward B=3 busy": lambda: busy_ms(lambda: no_grad(lambda: swin_p(xs.to(bf)))),
+    "hybrid pallas forward B=8 busy": lambda: busy_ms(lambda: no_grad(lambda: hyb_p(xh.to(bf)))),
 }
+only = re.compile(sys.argv[1] if len(sys.argv) > 1 else "")
+out = {"K1 sha256": k1_sha}
+out.update({k: f() for k, f in timings.items() if only.search(k)})
 print(json.dumps(out))
 '''
 
@@ -315,6 +359,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, required=True, help="root of the other checkout")
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--only", default="", help="time only the entries this regex finds")
     args = ap.parse_args()
     here = Path(__file__).resolve().parents[2]
     other = args.other.resolve()
@@ -336,8 +381,8 @@ def main() -> None:
     for _ in range(args.rounds):
         for tag in ("other", "this", "this", "other"):
             tree = other if tag == "other" else here
-            done = subprocess.run([sys.executable, "-c", TIMER], cwd=tree, capture_output=True,
-                                  text=True, check=True)
+            done = subprocess.run([sys.executable, "-c", TIMER, args.only], cwd=tree,
+                                  capture_output=True, text=True, check=True)
             t = json.loads(done.stdout.strip().splitlines()[-1])
             turns[tag].append(t)
             print(json.dumps({"tree": tag, **t}), flush=True)

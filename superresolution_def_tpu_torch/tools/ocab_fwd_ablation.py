@@ -5,8 +5,9 @@ with one part taken out or changed.
 
 Builds ``csrc/ocab.cu`` (K6 and K10a, the OCAB mode of
 ``csrc/swin_fwd_wg.cuh``'s body) as it is and copies of it, each with text
-substitutions in ``ocab.cu`` or ``swin_fwd_wg.cuh``, into ``DIR`` (default:
-a temporary directory), and times each one's K6 (``fused_ocab_block`` on
+substitutions in ``ocab.cu``, ``swin_fwd_wg.cuh`` or ``attn_head_wg.cuh``
+(the per-head attention), into ``DIR`` (default: a temporary directory),
+and times each one's K6 (``fused_ocab_block`` on
 weights padded and packed once, CUDA events: the variants in turns, five
 passes, each the median of 15 rounds of 5 calls; per variant the median of
 its passes) at the hybrid's shape, Bw = 2048 windows, C = 90, 6 heads of 15,
@@ -15,10 +16,9 @@ at the fused-HAB step's Bw = 512. The copies:
 
 - ``no_bias``: the scores start from zero, not from the bias read from
   device memory;
-- ``bias_after``: the scores start from zero and the bias, loaded while
-  their product runs, is added after it;
-- ``no_attn_products``: the scores' and P . v's products are skipped (the
-  softmax still runs on the bias);
+- ``no_attn_products``: the scores' and P . v's products are skipped, and
+  with them what only they consume (the compiler drops the softmax and the
+  bias reads);
 - ``expf``: the softmax's hardware ``__expf`` is the library's ``expf``;
 - ``no_mlp``: the MLP's products are skipped (its tiles still stream);
 - ``no_gather``: the producer issues no copies of q, k or v (it still
@@ -30,11 +30,10 @@ at the fused-HAB step's Bw = 512. The copies:
 - ``sigmoid_gelu``: the MLP's tanh GELU computed as x sigmoid(2 s), by the
   hardware exponential and one division (every mode of the copy).
 
-Their outputs are wrong by design (but those of ``bias_after``, ``expf``,
-``producer_40`` and ``sigmoid_gelu``); only their
-times mean anything. Prints one JSON line: the card, its power limit, and
-milliseconds per variant and kernel. Needs a CUDA card and nvcc; imports
-nothing of the JAX package.
+Their outputs are wrong by design (but those of ``expf``, ``producer_40``
+and ``sigmoid_gelu``); only their times mean anything. Prints one JSON
+line: the card, its power limit, and milliseconds per variant and kernel.
+Needs a CUDA card and nvcc; imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -54,6 +53,7 @@ import torch
 from ..kernels import _build
 
 HEADER = "swin_fwd_wg.cuh"
+ATTN = "attn_head_wg.cuh"  # the per-head attention K6 shares with K11
 FIT = "const int options[4][2] = {{2, 2}, {2, 1}, {1, 2}, {1, 1}};"
 # the tanh GELU as x sigmoid(2 s), s = sqrt(2 / pi) (x + 0.044715 x^3): the same
 # function, by the hardware exponential and one division
@@ -62,28 +62,18 @@ SIGMOID_GELU = """__device__ __forceinline__ float sigmoid_gelu(float x) {
 }
 
 // The body of every instantiation:"""
-SCORES = ("            wgmma_n144_rs<KMAJ>(s, fq[kk], desc(k_h + kk * 256, 128, CGS), 1);\n"
-          "          wg_commit();\n")
 # (file, old, new) substitutions per variant
 VARIANTS = {
     "kernel": [],
-    "no_bias": [(HEADER, "              if (c < nk) {\n                const float2 b0",
-                 "              if (false) {\n                const float2 b0"),
-                (HEADER, "const float ninf = -__int_as_float(0x7f800000);",
+    "no_bias": [(ATTN, "    if (c < nk) {\n      float2 b0", "    if (false) {\n      float2 b0"),
+                (ATTN, "const float ninf = -__int_as_float(0x7f800000);",
                  "const float ninf = 0.f;")],
-    "bias_after": [(HEADER, "          load_bias(s);\n", "#pragma unroll\n"
-                    "          for (int i = 0; i < OC_KEYS / 2; ++i) s[i] = 0.f;\n"),
-                   (HEADER, SCORES + "          wg_wait<0>();\n          fence_regs(s);\n",
-                    SCORES + "          float bs[OC_KEYS / 2];\n          load_bias(bs);\n"
-                    "          fence_regs(bs);\n          wg_wait<0>();\n          fence_regs(s);\n"
-                    "#pragma unroll\n"
-                    "          for (int i = 0; i < OC_KEYS / 2; ++i) s[i] += bs[i];\n")],
     "no_attn_products": [
-        (HEADER, "for (int kk = 0; kk < HP / 16; ++kk)\n            wgmma_n144_rs",
-         "for (int kk = 0; kk < 0; ++kk)\n            wgmma_n144_rs"),
-        (HEADER, "for (int kb = 0; kb < OC_KEYS / 16; ++kb)\n            fwd_mma_pv",
-         "for (int kb = 0; kb < 0; ++kb)\n            fwd_mma_pv")],
-    "expf": [(HEADER, f"            s[4 * t{e}] = __expf(", f"            s[4 * t{e}] = expf(")
+        (ATTN, "for (int kk = 0; kk < HP / 16; ++kk) {\n    if constexpr (NK == 144)",
+         "for (int kk = 0; kk < 0; ++kk) {\n    if constexpr (NK == 144)"),
+        (ATTN, "for (int kb = 0; kb < NK / 16; ++kb)\n    fwd_mma_pv",
+         "for (int kb = 0; kb < 0; ++kb)\n    fwd_mma_pv")],
+    "expf": [(ATTN, f"    s[4 * t{e}] = __expf(", f"    s[4 * t{e}] = expf(")
              for e in ("", " + 1", " + 2", " + 3")],
     "no_mlp": [(HEADER, "      if (live && d2 != 0.f) {", "      if (false) {")],
     "no_gather": [(HEADER, "              fetch_head<HP, OC_GATHER>(stg, oc.q",
@@ -103,9 +93,10 @@ VARIANTS = {
 
 
 def build(out: Path, name: str) -> Path:
-    """``ocab.cu`` and ``swin_fwd_wg.cuh`` with ``name``'s substitutions,
-    compiled into ``out/name/``; the other headers from ``csrc``."""
-    texts = {f: (_build.CSRC / f).read_text() for f in ("ocab.cu", HEADER)}
+    """``ocab.cu``, ``swin_fwd_wg.cuh`` and ``attn_head_wg.cuh`` with
+    ``name``'s substitutions, compiled into ``out/name/``; the other
+    headers from ``csrc``."""
+    texts = {f: (_build.CSRC / f).read_text() for f in ("ocab.cu", HEADER, ATTN)}
     for f, old, new in VARIANTS[name]:
         if old not in texts[f]:
             raise RuntimeError(f"{name}: {f} no longer contains {old!r}")

@@ -26,7 +26,12 @@ version: both keep the Pallas rounding points, fp32 scores, bias and
 softmax, and differ by fp32 summation order; scores rounded to bf16 as the
 XLA path does would land near 3e-3) and fp32 (max |kernel - plain| <= 1e-5: the same fp32 arithmetic in
 another summation order), on q, k and v that are strided views of one qkv
-tensor. K12 (the dense block, NHWC) runs at F/G = 48/24, 64/32 and 16/8 and
+tensor; and at 1, 3, 133 and 265 windows of 1, 6 and 14 heads (with and
+without a mask of nW < Bw windows, twice to the same bits) on the modules'
+views, on views whose heads all start at odd elements and on contiguous
+ones (odd rows, which the bf16 kernel's gather repacks first, and even);
+the modules' flagship views go in with no copy (no repack, no allocation
+beyond out). K12 (the dense block, NHWC) runs at F/G = 48/24, 64/32 and 16/8 and
 on a 40 x 24 image, held to K1's bound against its plain version, and
 gives K7's bits (it runs K7's conv kernels on K7's packing, x read in
 place). K10b (the OCAB attention backward) also runs at 1, 7, 133 and 512
@@ -126,6 +131,7 @@ from superresolution_def_tpu_torch.kernels.fused_rdb_cm import dense_block_sourc
 from superresolution_def_tpu_torch.kernels.hab_block import pad_hab_operands
 from superresolution_def_tpu_torch.kernels.ocab import pad_ocab_operands
 from superresolution_def_tpu_torch.kernels.swin_stage_ablation import MODES
+from superresolution_def_tpu_torch.kernels.window_attention import gather_plan
 from superresolution_def_tpu_torch.models import HybridHATRealESRGAN, SwinIR
 from superresolution_def_tpu_torch.ops import shift_window_attn_mask
 
@@ -1014,24 +1020,38 @@ def test_fused_hab_hybrid_train_step_runs_the_kernels(device):
         assert torch.isfinite(g).all() and err <= max(2e-2, 2 * err16), (name, err, err16)
 
 
-def _attention_operands(seed, bw, heads, hd, nk, dtype, device):
-    """q, k, v as strided views: for nk = 64 the three slices of one (Bw, 64,
-    3, heads, hd) qkv tensor, as the modules pass them; for nk = 144 q of its
-    own and k, v the two halves of one (Bw, 144, 2, heads, hd) tensor."""
+def _attention_views(seed, layout, bw, heads, hd, nk, dtype, device):
+    """q, k, v and a (heads, 64, nk) bias, q, k and v laid out as ``layout``
+    says: "qkv" the modules' views of one (Bw, 64, 3, heads, hd) tensor (nk =
+    64), "ocab" q of its own (Bw, 64, heads, hd) and k, v the halves of one
+    (Bw, nk, 2, heads, hd), "shifted" each a view one element into a buffer of
+    even rows (every head at an odd element), "contiguous" (Bw, heads, rows,
+    hd) each."""
     rng = np.random.default_rng(seed)
 
     def t(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype)
 
-    if nk == 64:
+    if layout == "qkv":
         qkv = t(bw, 64, 3, heads, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]
-    else:
+    elif layout == "ocab":
         q = t(bw, 64, heads, hd).transpose(1, 2)
         kv = t(bw, nk, 2, heads, hd).permute(2, 0, 3, 1, 4)
         k, v = kv[0], kv[1]
+    elif layout == "shifted":
+        q, k, v = (t(bw, heads, n, hd + 2 - hd % 2)[..., 1:hd + 1] for n in (64, nk, nk))
+    else:
+        q, k, v = (t(bw, heads, n, hd) for n in (64, nk, nk))
     bias = torch.from_numpy(0.5 * rng.standard_normal((heads, 64, nk)).astype(np.float32))
     return q, k, v, bias.to(device)
+
+
+def _attention_operands(seed, bw, heads, hd, nk, dtype, device):
+    """q, k, v as strided views: for nk = 64 the three slices of one (Bw, 64,
+    3, heads, hd) qkv tensor, as the modules pass them; for nk = 144 q of its
+    own and k, v the two halves of one (Bw, 144, 2, heads, hd) tensor."""
+    return _attention_views(seed, "qkv" if nk == 64 else "ocab", bw, heads, hd, nk, dtype, device)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1080,6 +1100,81 @@ def test_window_attention_kernel_raises_on_what_it_does_not_take(device):
     with pytest.raises(ValueError, match="device"):
         window_attention_nomask(q, k, v, bias.cpu(), **kw)
     assert (window_attention_nomask.launches, window_attention_masked.launches) == before
+
+
+# the window counts: one, a few, and counts that divide neither by the 132
+# SMs nor by a block's consumers; nW a divisor below Bw where there is one
+ATTN_NW = {1: 1, 3: 1, 133: 7, 265: 5}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", ["qkv", "ocab", "shifted", "contiguous"])
+@pytest.mark.parametrize("heads,hd", [(1, 31), (6, 15), (14, 6)])
+@pytest.mark.parametrize("bw", sorted(ATTN_NW))
+def test_window_attention_kernel_at_window_and_head_counts(device, bw, heads, hd, layout, dtype):
+    """K11 with and without a mask of nW | Bw windows against its plain
+    version, twice to the same bits, on views with even and odd row strides
+    and heads at odd elements; the bf16 gather repacks exactly the operands
+    gather_plan names (none with even rows)."""
+    nk = 64 if layout == "qkv" else 144
+    q, k, v, bias = _attention_views(bw + heads + hd, layout, bw, heads, hd, nk, dtype, device)
+    mrng = np.random.default_rng(bw)
+    mask = torch.from_numpy(-100.0 * (mrng.random((ATTN_NW[bw], 64, nk)) < 0.3)).float()
+    mask = mask.to(device)
+    plan = gather_plan(q, k, v)
+    if dtype == torch.bfloat16 and layout != "contiguous" and (layout == "shifted" or (
+            heads * hd) % 2 == 0):
+        assert plan.repack == (False, False, False), plan
+    for fn, m in ((window_attention_nomask, None), (window_attention_masked, mask)):
+        before = (fn.launches, fn.repacks)
+        args = (q, k, v, bias) + (() if m is None else (m,))
+        got = fn(*args, scale=hd**-0.5)
+        again = fn(*args, scale=hd**-0.5)
+        torch.cuda.synchronize()
+        repacked = sum(plan.repack) if dtype == torch.bfloat16 else 0
+        assert (fn.launches, fn.repacks) == (before[0] + 2, before[1] + 2 * repacked)
+        assert got.dtype == dtype and got.shape == (bw, heads, 64, hd) and got.is_contiguous()
+        assert torch.equal(got, again)
+        want = window_attention_reference(q, k, v, bias, m, scale=hd**-0.5)
+        assert torch.isfinite(got).all()
+        if dtype == torch.bfloat16:
+            assert _rel_l2(got, want) <= 1e-3, _rel_l2(got, want)
+        else:
+            assert (got - want).abs().max().item() <= 1e-5
+
+
+def test_window_attention_flagship_views_take_no_copy(device):
+    """The modules' views at the flagship widths (SwinIR's C = 180, HAT's
+    HAB and OCAB at C = 90, 6 heads) reach the 4-byte gather as they are: no
+    repack and no allocation beyond out; and the attention modules' forwards
+    repack nothing."""
+    mask = torch.from_numpy(shift_window_attn_mask(16, 16, 8, 4)).to(device)
+    for layout, hd, nk, m in (("qkv", 30, 64, None), ("qkv", 15, 64, None), ("qkv", 15, 64, mask),
+                              ("ocab", 15, 144, None)):
+        q, k, v, bias = _attention_views(hd, layout, 16, 6, hd, nk, torch.bfloat16, device)
+        assert gather_plan(q, k, v) == (32 if hd > 15 else 16, (False, False, False))
+        fn = window_attention_nomask if m is None else window_attention_masked
+        args = (q, k, v, bias) + (() if m is None else (m,))
+        fn(*args, scale=hd**-0.5)
+        torch.cuda.synchronize()
+        before = (fn.repacks, torch.cuda.memory_stats(device)["allocation.all.allocated"])
+        fn(*args, scale=hd**-0.5)
+        torch.cuda.synchronize()
+        assert (fn.repacks, torch.cuda.memory_stats(device)["allocation.all.allocated"]) == (
+            before[0], before[1] + 1)
+    swin_cfg = dict(img_size=16, embed_dim=60, depths=(2,), num_heads=(6,), window_size=8,
+                    upscale=4)
+    x = torch.rand(2, 16, 32, 1, device=device, dtype=torch.bfloat16)
+    for cls, cfg in ((SwinIR, swin_cfg), (HybridHATRealESRGAN, HYBRID)):
+        model = cls(**cfg, attn_impl="pallas").to(device, torch.bfloat16).eval()
+        before = [(fn.launches, fn.repacks) for fn in (window_attention_nomask,
+                                                       window_attention_masked)]
+        with torch.no_grad():
+            model(x)
+        after = [(fn.launches, fn.repacks) for fn in (window_attention_nomask,
+                                                      window_attention_masked)]
+        assert after[0][0] > before[0][0]
+        assert [a[1] for a in after] == [b[1] for b in before], cls.__name__
 
 
 @pytest.mark.parametrize("f,g,h,w", [
