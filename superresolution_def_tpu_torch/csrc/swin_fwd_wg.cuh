@@ -1,12 +1,13 @@
-// The Swin block's forward on wgmma, in seven instantiations of one body:
+// The Swin block's forward on wgmma, in eight instantiations of one body:
 // K1, the inference block (swin_block.cu's swin_block_bf16), K2, the same
 // block for training, which also stores h (swin_block_fwd_h_bf16), K5,
 // HAT's hybrid attention block (hab_block.cu's hab_block_bf16), K9a, K5 for
 // training with K2's store of h and the two branches' drop-path scales
 // (hab_block_fwd_h_bf16), K4b's recompute, which stops at the fp32 h
-// (swin_block_bwd.cu), and K6 and K10a, HAT's OCAB tail for inference and
-// for training with K2's store of h (ocab.cu; the OCAB mode below). Each
-// computes, at K1's rounding points:
+// (swin_block_bwd.cu), K6 and K10a, HAT's OCAB tail for inference and
+// for training with K2's store of h (ocab.cu; the OCAB mode below), and
+// K13, K1 with a stage taken out or the GELU swapped (swin_stage_ablation.cu;
+// the STAGE and ACT modes below). Each computes, at K1's rounding points:
 //
 //   LN1 (fp32 stats) -> QKV (+bqkv, rounded to bf16; q then * scale, rounded)
 //   -> per head: softmax(q . k^T + bias[h] (+ mask[w], K5)) . v  (softmax fp32, P bf16)
@@ -104,6 +105,17 @@
 // rounds, the last with 100 busy (3%). One window a block (swin_block_bf16's
 // `windows` = 1: six rounds of 768 single windows) measured slower than two
 // at Bw = 768 (chip_smoke.py phase 3, PERF.md), so two stay the default.
+//
+// K13's modes (K1's instantiation otherwise: no h store, no HAB, cio = c).
+// Each only takes work away, from the producer's stream as well as from the
+// consumers, so a mode's time differs from the full block's by what it
+// removes or swaps. STAGE: NOATTN streams per head only the wq and wproj
+// tiles and gives proj bf16(q + bq), unscaled, as the head's attention
+// output (no k, v, scores, softmax or P . v); ATTNONLY stops after proj,
+// as H32 does, streams no MLP tiles and writes out = bf16(h) through x_s;
+// MLPONLY streams only the MLP's tiles, computes no LN1, qkv, attention or
+// proj, and starts from h = x in the accumulators. ACT: the MLP's
+// activation (activation<ACT> below); the default, ACT_TANH, is K1's.
 
 #pragma once
 
@@ -111,6 +123,58 @@
 #include "hopper.cuh"
 #include "swin_common.cuh"
 #include "swin_pack.cuh"
+
+namespace swin {
+
+// K13's switches (their defaults: the full block with K1's tanh GELU).
+// ACT picks the MLP's activation: the tanh GELU, the A&S erf GELU, none,
+// x * sigmoid(1.702 x), or erf as a Horner polynomial in x / sqrt(2)
+// clipped to [-4, 4].
+enum Stage { STAGE_FULL, STAGE_NOATTN, STAGE_ATTNONLY, STAGE_MLPONLY };
+enum Act { ACT_TANH, ACT_ERF, ACT_NONE, ACT_SIGMOID, ACT_POLY };
+
+// Abramowitz-Stegun 7.1.26 rational erf (max abs error 1.5e-7), the JAX
+// kernels' exact GELU: sign(x) (1 - t P(t) exp(-x^2)), t = 1 / (1 + p|x|).
+// t = 1 / y is taken as the hardware estimate, one Newton step and a
+// correcting fma (Markstein's sequence): the division's correctly rounded
+// result for y in [1, 2^126), without the division's branch and call to
+// its slow path, which the unrolled GELU loop paid for every element. y is
+// clipped to that range; past it exp(-x^2) is 0 and t does not matter.
+__device__ __forceinline__ float erf_as(float x) {
+  const float ax = fabsf(x);
+  const float y = fminf(1.0f + 0.3275911f * ax, 0x1p126f);
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(y));
+  r = fmaf(r, fmaf(-y, r, 1.0f), r);
+  const float t = fmaf(r, fmaf(-y, r, 1.0f), r);
+  const float poly =
+      t * (0.254829592f +
+           t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+  const float sgn = x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
+  return sgn * (1.0f - poly * expf(-ax * ax));
+}
+
+// ACT_POLY's erf polynomial, defined in swin_stage_ablation.cu (its
+// coefficients live there, in constant memory): only that source
+// instantiates ACT_POLY.
+__device__ float erf_poly(float u);
+
+template <int ACT>
+__device__ __forceinline__ float activation(float x) {
+  if constexpr (ACT == ACT_TANH) {
+    return gelu_tanh(x);
+  } else if constexpr (ACT == ACT_ERF) {
+    return x * 0.5f * (1.0f + erf_as(x * 0.70710678118654752f));
+  } else if constexpr (ACT == ACT_NONE) {
+    return x;
+  } else if constexpr (ACT == ACT_SIGMOID) {
+    return x / (1.0f + expf(-1.702f * x));
+  } else {
+    return x * 0.5f * (1.0f + erf_poly(fminf(fmaxf(x * 0.70710678118654752f, -4.0f), 4.0f)));
+  }
+}
+
+}  // namespace swin
 
 namespace {
 
@@ -254,13 +318,19 @@ __device__ __forceinline__ void fwd_cp_async16(void* dst, const void* src) {
 // recompute) stops at h = x + (proj + bproj), which it writes in fp32 to h32
 // ((Bw, 64, c)): no LN2, no MLP, no out, and no MLP tiles in the ring. OCAB
 // (K6; with STORE_H K10a) takes q, k, v from `oc` in place of LN1 and qkv,
-// and keeps the windows cio wide.
-template <int NCH, int HP, bool STORE_H, bool HAB, bool H32 = false, bool OCAB = false>
+// and keeps the windows cio wide. STAGE and ACT: K13's modes, on K1's
+// instantiation only.
+template <int NCH, int HP, bool STORE_H, bool HAB, bool H32 = false, bool OCAB = false,
+          int STAGE = STAGE_FULL, int ACT = ACT_TANH>
 __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsigned char* fsm,
                                             const float* dp1 = nullptr,
                                             const float* dp2 = nullptr, float* h32 = nullptr,
                                             const OcabIn& oc = OcabIn{}) {
   using namespace hopper;
+  static_assert(STAGE == STAGE_FULL || !(STORE_H || HAB || H32 || OCAB),
+                "the stage modes are K1's");
+  // the MLP runs (and its tiles stream) but in the recompute and ATTNONLY
+  constexpr bool MLP = !H32 && STAGE != STAGE_ATTNONLY;
   constexpr int CK = NCH * TILE, CGS = HP * 16, NB = HP / 8;
   const int C = p.c, CIO = HAB || OCAB ? p.cio : p.c, heads = p.heads, hd = p.hd,
             hidden = p.hidden;
@@ -284,11 +354,13 @@ __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsign
     const float* vsrc[] = {p.ln1_w, p.ln1_b, p.bqkv, p.bproj, p.ln2_w, p.ln2_b, p.b2};
     const int voff[] = {F_LN1W, F_LN1B, F_BQKV, F_BPROJ, F_LN2W, F_LN2B, F_B2};
     const int vlen[] = {C, C, 3 * C, C, C, C, C};
-    constexpr int NVEC = H32 ? 4 : 7;  // the recompute: LN1, bqkv and bproj only
+    // the recompute and ATTNONLY: LN1, bqkv and bproj only; MLPONLY: LN2
+    // and b2 only
+    constexpr int V0 = STAGE == STAGE_MLPONLY ? 4 : 0, NVEC = MLP ? 7 : 4;
 #pragma unroll
-    for (int v = 0; v < NVEC; ++v)
+    for (int v = V0; v < NVEC; ++v)
       for (int i = tid; i < vlen[v]; i += blockDim.x) vec[voff[v] * C + i] = __ldg(vsrc[v] + i);
-    if constexpr (!H32)
+    if constexpr (MLP)
       for (int i = tid; i < hidden; i += blockDim.x) vec[F_B1 * C + i] = __ldg(p.b1 + i);
   }
   if (tid == 0) {
@@ -305,9 +377,13 @@ __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsign
   }
   __syncthreads();
   const int npairs = (p.bw + nw - 1) / nw;
-  // per pass: OCAB's heads' wproj tiles, else their wq, wk, wv and wproj;
-  // then the MLP's (none for the recompute)
-  const int per_pass = OCAB ? heads + 2 * nj : 4 * heads + (H32 ? 0 : 2 * nj);
+  // per pass: OCAB's heads' wproj tiles, NOATTN's wq and wproj, MLPONLY's
+  // none, else their wq, wk, wv and wproj; then the MLP's (none for the
+  // recompute and ATTNONLY)
+  const int per_pass = OCAB                      ? heads + 2 * nj
+                       : STAGE == STAGE_MLPONLY ? 2 * nj
+                       : STAGE == STAGE_NOATTN  ? 2 * heads + 2 * nj
+                                                : 4 * heads + (MLP ? 2 * nj : 0);
 
   if (wgi == nw) {  // producer (OCAB's gathering threads keep 56 registers)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(OCAB ? 56 : 40) : "memory");
@@ -319,13 +395,23 @@ __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsign
       for (int pr = blockIdx.x; pr < npairs; pr += gridDim.x)
         for (int t = 0; t < per_pass; ++t, ++i) {
           // per head: wq, wk, wv (packed 4h + 1 .. 3), then wproj (4h); OCAB
-          // only wproj
-          const int u = t & 3;
-          const unsigned char* src =
-              OCAB ? (t < heads ? wa + (size_t)(4 * t) * ta : wm + (size_t)(t - heads) * tm)
-              : t < 4 * heads ? wa + (size_t)(4 * (t >> 2) + (u < 3 ? u + 1 : 0)) * ta
-                              : wm + (size_t)(t - 4 * heads) * tm;
-          const uint32_t bytes = OCAB ? (t < heads ? ta : tm) : t < 4 * heads ? ta : tm;
+          // only wproj, NOATTN wq then wproj
+          const unsigned char* src;
+          uint32_t bytes;
+          if constexpr (STAGE == STAGE_MLPONLY) {
+            src = wm + (size_t)t * tm;
+            bytes = tm;
+          } else if constexpr (STAGE == STAGE_NOATTN) {
+            src = t < 2 * heads ? wa + (size_t)(4 * (t >> 1) + (t & 1 ? 0 : 1)) * ta
+                                : wm + (size_t)(t - 2 * heads) * tm;
+            bytes = t < 2 * heads ? ta : tm;
+          } else {
+            const int u = t & 3;
+            src = OCAB ? (t < heads ? wa + (size_t)(4 * t) * ta : wm + (size_t)(t - heads) * tm)
+                  : t < 4 * heads ? wa + (size_t)(4 * (t >> 2) + (u < 3 ? u + 1 : 0)) * ta
+                                  : wm + (size_t)(t - 4 * heads) * tm;
+            bytes = OCAB ? (t < heads ? ta : tm) : t < 4 * heads ? ta : tm;
+          }
           const uint32_t st = i % FWD_STAGES, use = i / FWD_STAGES;
           if (use > 0) mbar_wait(&empty[st], (use - 1) & 1);
           mbar_arrive_expect_tx(&full[st], bytes);
@@ -404,7 +490,16 @@ __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsign
       if (live && dp2 != nullptr) d2 = __ldg(dp2 + win);
     }
 
-    if constexpr (OCAB) {
+    if constexpr (STAGE == STAGE_MLPONLY) {
+      // ---- x by 16-byte asynchronous copies, and no LN1
+      if (live) {
+        const bf16* xg = p.x + row0 * CIO;
+        for (int i = wt; i < N * CIO / 8; i += 128) fwd_cp_async16(x_s + 16 * i, xg + 8 * i);
+        cp_async_commit();
+        cp_async_wait<0>();
+        wg_sync();
+      }
+    } else if constexpr (OCAB) {
       // ---- x by 16-byte asynchronous copies (waited for at the residual);
       // per head: the gathered q, k, v, the scores over the nk keys, the
       // softmax, P . v, rounded, into a_s at the head's hp columns
@@ -497,7 +592,8 @@ __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsign
     }
 
     // ---- per head: q, k, v; the attention; proj into the residual h
-    // (OCAB: proj of the attention outputs waiting in a_s, a tile a head)
+    // (OCAB: proj of the attention outputs waiting in a_s, a tile a head;
+    // NOATTN: q alone, whose bf16(q + bq) proj reads; MLPONLY: none)
     float h[NCH][32];
 #pragma unroll
     for (int k = 0; k < NCH; ++k)
@@ -526,34 +622,53 @@ __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsign
         release_tiles(1);
       }
       if (live) wg_sync();  // the attention outputs are read before LN2's output lands there
-    } else
+    } else if constexpr (STAGE != STAGE_MLPONLY)
     for (int hh = 0; hh < heads; ++hh) {
-      wait_tiles(3);
+      constexpr bool KV = STAGE != STAGE_NOATTN;
+      wait_tiles(KV ? 3 : 1);
       float aq[HP / 2], ak[HP / 2], av[HP / 2];
       if (live) {
 #pragma unroll
         for (int i = 0; i < HP / 2; ++i) aq[i] = ak[i] = av[i] = 0.f;
         fence_regs(aq);
-        fence_regs(ak);
-        fence_regs(av);
+        if constexpr (KV) {
+          fence_regs(ak);
+          fence_regs(av);
+        }
         const unsigned char *tq = tile(0), *tk = tile(1), *tv = tile(2);
         wg_fence();
 #pragma unroll
         for (int ks = 0; ks < CK / 16; ++ks) {
           const uint64_t da = desc(a_s + ks * 256, 128, CK * 16);
           fwd_mma_mn<HP>(aq, da, desc(tq + ks * 2 * CGS, CGS, 128));
-          fwd_mma_mn<HP>(ak, da, desc(tk + ks * 2 * CGS, CGS, 128));
-          fwd_mma_mn<HP>(av, da, desc(tv + ks * 2 * CGS, CGS, 128));
+          if constexpr (KV) {
+            fwd_mma_mn<HP>(ak, da, desc(tk + ks * 2 * CGS, CGS, 128));
+            fwd_mma_mn<HP>(av, da, desc(tv + ks * 2 * CGS, CGS, 128));
+          }
         }
         wg_commit();
         wg_wait<0>();
         fence_regs(aq);
-        fence_regs(ak);
-        fence_regs(av);
+        if constexpr (KV) {
+          fence_regs(ak);
+          fence_regs(av);
+        }
       }
-      release_tiles(3);
+      release_tiles(KV ? 3 : 1);
       uint32_t af[HP / 16][4];  // the head's attention output as proj's A
-      if (live) {
+      if constexpr (!KV) {
+        if (live) {
+          // NOATTN: bf16(q + bq), unscaled, zero past hd
+          const float* bq = vec + F_BQKV * C + hh * hd;
+#pragma unroll
+          for (int i = 0; i < HP / 2; ++i) {
+            const int d = 8 * (i >> 2) + 2 * t4 + (i & 1);
+            aq[i] = d < hd ? round_bf16(aq[i] + bq[d]) : 0.f;
+          }
+#pragma unroll
+          for (int ks = 0; ks < HP / 16; ++ks) acc_to_a(af[ks], aq, ks);
+        }
+      } else if (live) {
         // q = bf16(bf16(acc + b) * scale), k, v = bf16(acc + b); zero past hd
         const float* bq = vec + F_BQKV * C + hh * hd;
 #pragma unroll
@@ -680,9 +795,10 @@ __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsign
       if (live) wg_sync();  // q, k, v are read before the next head writes them
     }
 
-    if constexpr (H32) {
+    if constexpr (H32 || STAGE == STAGE_ATTNONLY) {
       // ---- K4b's recompute: h = x + (proj + bproj) in fp32 to h32, straight
-      // from the accumulators (a quad writes 32 contiguous bytes of a row)
+      // from the accumulators (a quad writes 32 contiguous bytes of a row);
+      // ATTNONLY: out = bf16(h), over x in x_s, then in 16-byte runs
       if (live) {
 #pragma unroll
         for (int k = 0; k < NCH; ++k)
@@ -692,13 +808,20 @@ __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsign
             for (int s2 = 0; s2 < 2; ++s2) {
               const int r = r0 + g + 8 * s2, col = k * TILE + 8 * j8 + 2 * t4;
               if (col < C) {  // col and c even: both columns are real
-                const float2 x2 =
-                    __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xd + r * C + col));
-                *reinterpret_cast<float2*>(h32 + (row0 + r) * C + col) =
-                    make_float2(x2.x + (h[k][4 * j8 + 2 * s2] + vec[F_BPROJ * C + col]),
-                                x2.y + (h[k][4 * j8 + 2 * s2 + 1] + vec[F_BPROJ * C + col + 1]));
+                __nv_bfloat162* px = reinterpret_cast<__nv_bfloat162*>(xd + r * C + col);
+                const float2 x2 = __bfloat1622float2(*px);
+                const float v0 = x2.x + (h[k][4 * j8 + 2 * s2] + vec[F_BPROJ * C + col]);
+                const float v1 = x2.y + (h[k][4 * j8 + 2 * s2 + 1] + vec[F_BPROJ * C + col + 1]);
+                if constexpr (H32)
+                  *reinterpret_cast<float2*>(h32 + (row0 + r) * C + col) = make_float2(v0, v1);
+                else
+                  *px = __floats2bfloat162_rn(v0, v1);
               }
             }
+        if constexpr (!H32) {
+          wg_sync();
+          store_window(p.out + row0 * C, C);
+        }
         wg_sync();  // x_s is read before the next window's x lands there
       }
       continue;
@@ -720,7 +843,10 @@ __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsign
               const float2 x2 = __bfloat1622float2(*px);
               float& v0 = h[k][4 * j8 + 2 * s2];
               float& v1 = h[k][4 * j8 + 2 * s2 + 1];
-              if constexpr (HAB && STORE_H) {  // K9a: the attention branch scaled
+              if constexpr (STAGE == STAGE_MLPONLY) {  // h = x
+                v0 = x2.x;
+                v1 = x2.y;
+              } else if constexpr (HAB && STORE_H) {  // K9a: the attention branch scaled
                 v0 = x2.x + d1 * (v0 + vec[F_BPROJ * C + col]);
                 v1 = x2.y + d1 * (v1 + vec[F_BPROJ * C + col + 1]);
               } else {
@@ -797,8 +923,8 @@ __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsign
       }
     }
 
-    // ---- the MLP, 64 hidden columns at a time: u = LN2 . w1 (+ b1), GELU,
-    // rounded, h += g . w2 with g from registers
+    // ---- the MLP, 64 hidden columns at a time: u = LN2 . w1 (+ b1), GELU
+    // (ACT's activation), rounded, h += g . w2 with g from registers
     const float* b1s = vec + F_B1 * C;
     for (int j = 0; j < nj; ++j) {
       wait_tiles(2);
@@ -819,7 +945,7 @@ __device__ __forceinline__ void fwd_wg_body(const FwdWgParams& p, int nw, unsign
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
           const int hcol = j * TILE + 8 * (i >> 2) + 2 * t4 + (i & 1);
-          u[i] = hcol < hidden ? gelu_tanh(u[i] + b1s[hcol]) : 0.f;
+          u[i] = hcol < hidden ? activation<ACT>(u[i] + b1s[hcol]) : 0.f;
         }
         uint32_t ga[4][4];
 #pragma unroll

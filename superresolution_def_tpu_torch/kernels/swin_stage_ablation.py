@@ -4,13 +4,14 @@ Port of ``scripts/swin_stage_ablation.py::block`` (kernel body
 ``_make_kernel(mode)``), the JAX package's op-class ablation of its fused
 block: the same block in nine modes (:data:`MODES`), each removing or
 swapping one stage. On a CUDA tensor :func:`swin_stage_block` launches
-``csrc/swin_stage_ablation.cu`` (K1's kernel with the stage and the
-activation as compile-time switches; bf16, N = 64, C in 129..192) or raises;
-on a CPU tensor it runs :func:`swin_stage_block_reference`, which follows
-``_make_kernel`` step for step: LN2 reads h rounded to the io dtype, and
-``full``, ``allheads``, ``noattn``, ``attnonly`` and ``mlponly`` use the A&S
-erf GELU (K1 uses tanh in bf16). ``tools/swin_stage_ablation.py`` is the
-script's ``main()``.
+``csrc/swin_stage_ablation.cu`` (K1's wgmma kernel, ``csrc/swin_fwd_wg.cuh``,
+with the stage and the activation as compile-time modes of its body; bf16,
+N = 64, C in 129..192 with head_dim 17..32) on K1's packed weights, or
+raises; on a CPU tensor it runs :func:`swin_stage_block_reference`, which
+follows ``_make_kernel`` step for step: LN2 reads h rounded to the io
+dtype, and ``full``, ``allheads``, ``noattn``, ``attnonly`` and ``mlponly``
+use the A&S erf GELU (K1 uses tanh in bf16). ``tools/swin_stage_ablation.py``
+is the script's ``main()``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 from ._build import load_library
 from .swin_block import (
     _check,
+    _check_packed,
     _checked_block_operands,
     _ln_f32,
     _on_cuda,
@@ -31,6 +33,8 @@ from .swin_block import (
     _rounder,
     _softmax_f32,
     _stream,
+    attn_head_width,
+    pack_swin_block_weights,
 )
 
 # the script's variants, in its order (the kernel's mode numbers)
@@ -129,51 +133,70 @@ def swin_stage_block_reference(x, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj, 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = load_library("swin_stage_ablation")
-    lib.swin_stage_block_bf16.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.swin_stage_block_bf16.argtypes = [vp] * 12 + [i32] * 4 + [ctypes.c_float, i32, vp, vp]
     lib.swin_stage_block_bf16.restype = ctypes.c_int
-    lib.swin_stage_block_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.swin_stage_block_smem_bytes.argtypes = [i32] * 3
     lib.swin_stage_block_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
+def packed_elems(c: int, num_heads: int, hidden: int) -> int:
+    """Elements of K1's packed weights (:func:`~.swin_block.pack_swin_block_weights`)
+    at these widths: per head four ck x hp attention tiles, per 64 hidden
+    columns two ck x 64 MLP tiles (ck: C rounded up to 64)."""
+    ck, nj = -(-c // 64) * 64, -(-hidden // 64)
+    return ck * attn_head_width(c, num_heads) * 4 * num_heads + ck * 64 * 2 * nj
+
+
 def swin_stage_block(x, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj, ln2_w, ln2_b, w1, b1, w2,
                      b2, *, mode: str, num_heads: int, scale: float,
-                     erf_coef: np.ndarray | None = None) -> torch.Tensor:
+                     erf_coef: np.ndarray | None = None,
+                     packed: torch.Tensor | None = None) -> torch.Tensor:
     """K13: one block in ``mode`` over ``(Bw, N, C)`` windows -> ``(Bw, N, C)``.
 
     CUDA tensors launch the kernel (counted in ``swin_stage_block.launches``)
     or raise; CPU tensors take :func:`swin_stage_block_reference`.
-    ``erf_coef`` as there.
+    ``erf_coef`` as there. ``packed``: the weights already through
+    :func:`~.swin_block.pack_swin_block_weights`, as
+    :func:`~.swin_block.fused_swin_block` takes them (the kernel reads the
+    weights from there; the others are still checked); without it each call
+    packs them first. Its shape is checked on CPU tensors too.
     """
     args = (x, ln1_w, ln1_b, wqkv, bqkv, bias, wproj, bproj, ln2_w, ln2_b, w1, b1, w2, b2)
     if mode not in MODES:
         raise ValueError(f"mode is one of {MODES}, got {mode!r}")
     coef = _coefficients(mode, erf_coef)
-    if not _on_cuda("swin_stage_block", x):
+    name = "swin_stage_block"
+    if not _on_cuda(name, x):
+        if packed is not None:
+            _check_packed(name, packed, x.device,
+                          packed_elems(w1.shape[0], num_heads, w1.shape[1]))
         return swin_stage_block_reference(*args, mode=mode, num_heads=num_heads, scale=scale,
                                           erf_coef=coef)
-    name = "swin_stage_block"
     c = x.shape[-1]
-    if not 128 < c <= 192:
-        raise ValueError(f"{name} on CUDA is built for C in 129..192, got C={c}")
+    if not 128 < c <= 192 or not 16 < c // max(num_heads, 1) <= 32:
+        raise ValueError(f"{name} on CUDA is built for C in 129..192 with head_dim 17..32, got "
+                         f"C={c} with {num_heads} heads")
     lib = _library()
     x, w, f32, bias = _checked_block_operands(
         name, x, dict(ln1_w=ln1_w, ln1_b=ln1_b, bqkv=bqkv, bproj=bproj, ln2_w=ln2_w,
                       ln2_b=ln2_b, b1=b1, b2=b2), dict(wqkv=wqkv, wproj=wproj, w1=w1, w2=w2),
-        bias, num_heads, lib.swin_stage_block_smem_bytes)
-    bw, _, c = x.shape
-    hidden = w["w1"].shape[1]
+        bias, num_heads, lambda c_, h_: lib.swin_stage_block_smem_bytes(c_, num_heads, h_))
+    bw, hidden = x.shape[0], w["w1"].shape[1]
+    if packed is None:
+        packed = pack_swin_block_weights(w["wqkv"], w["wproj"], w["w1"], w["w2"],
+                                         num_heads=num_heads)
+    packed = _check_packed(name, packed, x.device, packed_elems(c, num_heads, hidden))
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         _check(lib.swin_stage_block_bf16(
-            x.data_ptr(), f32["ln1_w"].data_ptr(), f32["ln1_b"].data_ptr(), w["wqkv"].data_ptr(),
-            f32["bqkv"].data_ptr(), bias.data_ptr(), w["wproj"].data_ptr(),
-            f32["bproj"].data_ptr(), f32["ln2_w"].data_ptr(), f32["ln2_b"].data_ptr(),
-            w["w1"].data_ptr(), f32["b1"].data_ptr(), w["w2"].data_ptr(), f32["b2"].data_ptr(),
-            out.data_ptr(), bw, c, num_heads, hidden, float(scale), MODES.index(mode),
-            None if coef is None else coef.ctypes.data, _stream(x.device)),
-            "swin_stage_block_bf16")
+            x.data_ptr(), f32["ln1_w"].data_ptr(), f32["ln1_b"].data_ptr(),
+            f32["bqkv"].data_ptr(), bias.data_ptr(), f32["bproj"].data_ptr(),
+            f32["ln2_w"].data_ptr(), f32["ln2_b"].data_ptr(), f32["b1"].data_ptr(),
+            f32["b2"].data_ptr(), packed.data_ptr(), out.data_ptr(), bw, c, num_heads, hidden,
+            float(scale), MODES.index(mode), None if coef is None else coef.ctypes.data,
+            _stream(x.device)), "swin_stage_block_bf16")
     swin_stage_block.launches += 1
     return out
 

@@ -44,7 +44,10 @@ parent commit, unpacked with ``git archive``). The tool
    Bw=2048 of 6 heads of 15 and OCAB's Bw=2048 against 144 keys;
    ``window_attention_masked`` at HAB's with the shift mask of 256 windows)
    and the bf16 ``attn_impl="pallas"`` modules' forwards (SwinIR batch 3,
-   the hybrid batch 8), each also as its device busy time; ``--only
+   the hybrid batch 8), each also as its device busy time; K13
+   (``swin_stage_block``) in its ``full`` and ``mlp_tanhgelu`` modes at the
+   flagship train shape (on K1's weights packed once where the tree's K13
+   takes ``packed``); ``--only
    REGEX`` times only the entries whose names it finds; each tree in its
    own process, alternated other,
    this, this, other (``--rounds`` such sets of turns), by CUDA events on
@@ -69,7 +72,7 @@ SOURCES = ["swin_block", "swin_block_train", "swin_block_bwd", "hab_block", "oca
 
 # one tree's timings, run in a process of its own with the tree first on the path
 TIMER = r'''
-import json, re, statistics, sys
+import inspect, json, re, statistics, sys
 import numpy as np, torch
 import importlib
 from superresolution_def_tpu_torch.kernels import fused_rdb, fused_rdb_cm, swin_block_fwd_h
@@ -268,6 +271,10 @@ hyb_p = HybridHATRealESRGAN(img_size=128, in_chans=1, embed_dim=90, depths=(6,) 
 def no_grad(fn):
     with torch.no_grad():
         return fn()
+# K13 on the weights packed once where the tree's wrapper takes them
+kw13 = kw1 if "packed" in inspect.signature(kmod.swin_stage_block).parameters else kw
+def k13(mode):
+    return cuda_ms(lambda: kmod.swin_stage_block(*args, mode=mode, **kw13), reps=10)
 timings = {
     "K7 B=8": lambda: cuda_ms(lambda: fused_rdb_cm(x8, ks, bs, h=256, w=256, packed=p7), reps=10),
     "K7 B=2 stash": lambda: cuda_ms(lambda: fused_rdb_cm(x2, ks, bs, h=256, w=256, packed=p7,
@@ -313,6 +320,8 @@ timings = {
                                                  reps=5, warmup=2, calls=2),
     "swinir pallas forward B=3 busy": lambda: busy_ms(lambda: no_grad(lambda: swin_p(xs.to(bf)))),
     "hybrid pallas forward B=8 busy": lambda: busy_ms(lambda: no_grad(lambda: hyb_p(xh.to(bf)))),
+    "K13 full Bw=2048": lambda: k13("full"),
+    "K13 mlp_tanhgelu Bw=2048": lambda: k13("mlp_tanhgelu"),
 }
 only = re.compile(sys.argv[1] if len(sys.argv) > 1 else "")
 out = {"K1 sha256": k1_sha}

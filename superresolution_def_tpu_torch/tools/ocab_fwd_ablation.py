@@ -9,8 +9,10 @@ substitutions in ``ocab.cu``, ``swin_fwd_wg.cuh`` or ``attn_head_wg.cuh``
 (the per-head attention), into ``DIR`` (default: a temporary directory),
 and times each one's K6 (``fused_ocab_block`` on
 weights padded and packed once, CUDA events: the variants in turns, five
-passes, each the median of 15 rounds of 5 calls; per variant the median of
-its passes) at the hybrid's shape, Bw = 2048 windows, C = 90, 6 heads of 15,
+passes, each the median of 15 rounds of 5 calls, each round behind one
+untimed call as ``tools/kernel_ab.py`` times, so that the device is busy
+while the host queues the timed calls; per variant the median of its
+passes) at the hybrid's shape, Bw = 2048 windows, C = 90, 6 heads of 15,
 144 keys (the first 14 zero), hidden 360, and its K10a (``ocab_fwd_h``)
 at the fused-HAB step's Bw = 512. The copies:
 
@@ -86,8 +88,8 @@ VARIANTS = {
     "one_window": [("ocab.cu", FIT, FIT.replace("{2, 2}, {2, 1}", "{1, 2}, {1, 2}"))],
     "producer_40": [(HEADER, '"n"(OCAB ? 56 : 40)', '"n"(40)'),
                     (HEADER, '"n"(OCAB ? 224 : 232)', '"n"(232)')],
-    "sigmoid_gelu": [(HEADER, "u[i] = hcol < hidden ? gelu_tanh(u[i] + b1s[hcol]) : 0.f;",
-                      "u[i] = hcol < hidden ? sigmoid_gelu(u[i] + b1s[hcol]) : 0.f;"),
+    "sigmoid_gelu": [(HEADER, "hcol < hidden ? activation<ACT>(u[i] + b1s[hcol]) : 0.f;",
+                      "hcol < hidden ? sigmoid_gelu(u[i] + b1s[hcol]) : 0.f;"),
                      (HEADER, "// The body of every instantiation:", SIGMOID_GELU)],
 }
 
@@ -165,6 +167,7 @@ def main() -> None:
                 for _ in range(15):
                     s = torch.cuda.Event(enable_timing=True)
                     e = torch.cuda.Event(enable_timing=True)
+                    call()  # untimed: the device works while the timed calls are queued
                     s.record()
                     for _ in range(5):
                         call()

@@ -7,9 +7,10 @@ The twin of ``scripts/swin_stage_ablation.py``'s ``main()``: the flagship
 block (C=180, 6 heads of 30, N=64 tokens, hidden 720) over 2048 windows
 (batch 8 of 128x128), every operand drawn from ``np.random.default_rng(0)``
 with std 0.02 in bf16 as the script draws it (the relative-position bias in
-fp32). With ``allheads`` among the variants it first prints ``allheads vs
-full max|err|``. Then, after a line naming the device (on the card: its
-name and power limit from ``nvidia-smi``), per variant the time of a
+fp32), the weights packed once for the kernel (K1's packing, outside the
+timed chains). With ``allheads`` among the variants it first prints
+``allheads vs full max|err|``. Then, after a line naming the device (on the
+card: its name and power limit from ``nvidia-smi``), per variant the time of a
 chain of 36 blocks, each block's output the next one's input, timed with
 CUDA events (the least of 5 chains after one untimed), as ms per block and
 patches per second through 36 blocks. As in the script, the sizes are
@@ -31,6 +32,7 @@ import time
 import numpy as np
 import torch
 
+from ..kernels.swin_block import pack_swin_block_weights
 from ..kernels.swin_stage_ablation import MODES, swin_stage_block
 
 C, HEADS, N, HIDDEN = 180, 6, 64, 720
@@ -58,12 +60,20 @@ def operands(windows: int, device) -> tuple[torch.Tensor, tuple]:
     return w(windows, N, C), weights
 
 
-def chain_ms(x, weights, mode: str, device) -> float:
-    """Least milliseconds of ``BLOCKS`` chained blocks over ``REPS`` timings."""
+def packed_weights(weights: tuple) -> torch.Tensor:
+    """``operands``' weights packed for the kernel, as K1 takes them."""
+    return pack_swin_block_weights(weights[2], weights[5], weights[9], weights[11],
+                                   num_heads=HEADS)
+
+
+def chain_ms(x, weights, mode: str, device, packed) -> float:
+    """Least milliseconds of ``BLOCKS`` chained blocks over ``REPS`` timings,
+    on the weights ``packed`` once (``packed_weights``)."""
     def chain():
         out = x
         for _ in range(BLOCKS):
-            out = swin_stage_block(out, *weights, mode=mode, num_heads=HEADS, scale=SCALE)
+            out = swin_stage_block(out, *weights, mode=mode, num_heads=HEADS, scale=SCALE,
+                                   packed=packed)
         return out
 
     if device.type != "cuda":
@@ -109,10 +119,11 @@ def main(argv=None) -> dict[str, float]:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu for the plain versions")
     x, weights = operands(WINDOWS, device)
+    packed = packed_weights(weights)
 
     # parity first: allheads must equal full
     if "allheads" in args.variants:
-        kw = dict(num_heads=HEADS, scale=SCALE)
+        kw = dict(num_heads=HEADS, scale=SCALE, packed=packed)
         a = swin_stage_block(x, *weights, mode="full", **kw)
         b = swin_stage_block(x, *weights, mode="allheads", **kw)
         print(f"allheads vs full max|err|: {(a.float() - b.float()).abs().max().item():.2e}",
@@ -122,7 +133,7 @@ def main(argv=None) -> dict[str, float]:
     patches = WINDOWS / 256  # 128x128 patches: 256 windows each
     per_block = {}
     for mode in args.variants:
-        ms = chain_ms(x, weights, mode, device) / BLOCKS
+        ms = chain_ms(x, weights, mode, device, packed) / BLOCKS
         per_block[mode] = ms
         print(f"{mode:>13}: {ms:7.3f} ms/block  ({patches * 1e3 / (ms * 36):6.1f} p/s for 36 "
               f"blocks)", flush=True)

@@ -54,12 +54,15 @@ windows, held to K3/K4's bound against its plain version and against K3 +
 K4 on K2's h (the two differ by where they round: LN2 on the fp32 h and an
 fp32 dh against K2's bf16 h and K3's bf16 dh), twice to the same bits; the
 recompute SwinIR's gradients are held as the split one's. K13 (the
-stage-ablation block, C in 129..192) runs each of its nine modes at the
-flagship widths, held to K1's bound and to 5e-4 relative L2, with
-``mlp_tanhgelu`` within K1's bound of K1 (K13 runs K1's first design, K1
-its wgmma redesign) and ``allheads`` equal to ``full`` bit for bit (one
-instantiation); its activations, and a polygelu with zeroed coefficients,
-lie further apart than that.
+stage-ablation block, C in 129..192: K1's wgmma kernel with a stage taken
+out or the activation swapped) runs each of its nine modes at the
+flagship widths, held to K1's bound and to 5e-4 relative L2, its stage
+modes also at 1, 3, 7 and 263 windows twice to the same bits, with
+``mlp_tanhgelu`` equal to K1 bit for bit (it launches K1's instantiation),
+``allheads`` equal to ``full`` bit for bit (one instantiation) and every
+mode on weights packed once giving the bits of a per-call packing; its
+activations, and a polygelu with zeroed coefficients, lie further apart
+than that.
 
 Bounds. K1 and K2: bf16 io rounds the output to 8 significant bits, and
 kernel and plain version sum in different orders, so max |kernel - plain|
@@ -1412,17 +1415,45 @@ def test_stage_kernel_tells_its_activations_apart(device):
 
 
 def test_stage_kernel_tanhgelu_is_k1_and_allheads_is_full(device):
-    """mlp_tanhgelu computes K1's function on K1's first design, K1 on its
-    wgmma redesign: the two sum their products in other orders, so they
-    agree within K1's bound, not bit for bit. allheads is full's
-    instantiation: the same bits."""
+    """mlp_tanhgelu launches K1's own instantiation: K1's bits. allheads is
+    full's instantiation: the same bits."""
     args = _operands(11, 32, 180, 6, 720, device)
     kw = dict(num_heads=6, scale=30**-0.5)
-    k1 = fused_swin_block(*args, **kw).float()
-    err = (swin_stage_block(*args, mode="mlp_tanhgelu", **kw).float() - k1).abs().max().item()
-    assert err <= K1_TOL * max(1.0, k1.abs().max().item()), err
+    assert torch.equal(swin_stage_block(*args, mode="mlp_tanhgelu", **kw),
+                       fused_swin_block(*args, **kw))
     assert torch.equal(swin_stage_block(*args, mode="allheads", **kw),
                        swin_stage_block(*args, mode="full", **kw))
+
+
+@pytest.mark.parametrize("bw", [1, 3, 7, 263])
+@pytest.mark.parametrize("mode", ["full", "noattn", "attnonly", "mlponly"])
+def test_stage_kernel_modes_at_odd_window_counts(device, mode, bw):
+    """Each stage mode below, off and above one persistent wave of window
+    pairs (an odd count leaves a block's second window idle): its plain
+    version within K1's bound and K13_REL_L2, and twice the same bits."""
+    args = _operands(20 + bw, bw, 180, 6, 720, device)
+    kw = dict(mode=mode, num_heads=6, scale=30**-0.5)
+    got = swin_stage_block(*args, **kw)
+    again = swin_stage_block(*args, **kw)
+    torch.cuda.synchronize()
+    want = swin_stage_block_reference(*args, **kw).float()
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    err = (got.float() - want).abs().max().item()
+    assert err <= K1_TOL * max(1.0, want.abs().max().item()), (mode, bw, err)
+    assert _rel_l2(got, want) <= K13_REL_L2, (mode, bw, _rel_l2(got, want))
+
+
+def test_stage_kernel_on_weights_packed_once_gives_the_same_bits(device):
+    """Every mode on K1's weights packed once gives the bits of a call that
+    packs them itself; a packing of the wrong size raises."""
+    args = _operands(13, 7, 180, 6, 720, device)
+    kw = dict(num_heads=6, scale=30**-0.5)
+    packed = pack_swin_block_weights(args[3], args[6], args[10], args[12], num_heads=6)
+    for mode in MODES:
+        assert torch.equal(swin_stage_block(*args, mode=mode, **kw, packed=packed),
+                           swin_stage_block(*args, mode=mode, **kw)), mode
+    with pytest.raises(ValueError, match="packed"):
+        swin_stage_block(*args, mode="full", **kw, packed=packed[:-8])
 
 
 def test_stage_kernel_raises_on_what_it_does_not_take(device):

@@ -15,6 +15,9 @@ rounding points, so an intermediate on the other side of a rounding step
 moves what follows). The erf polynomial's 26 coefficients are the script's,
 bit for bit, and ``erf_coef`` takes others in their place (zeros, held
 against the script with its ``_ERF_COEF`` zeroed on the loaded module).
+The ``packed`` keyword (K1's packed weights, which the kernel reads) leaves
+the CPU result the plain version's, and a packing of the wrong size or
+type raises there as on the card.
 """
 
 import functools
@@ -28,8 +31,13 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from superresolution_def_tpu_torch.kernels import swin_stage_block
-from superresolution_def_tpu_torch.kernels.swin_stage_ablation import MODES, erf_coefficients
+from superresolution_def_tpu_torch.kernels import pack_swin_block_weights, swin_stage_block
+from superresolution_def_tpu_torch.kernels.swin_stage_ablation import (
+    MODES,
+    erf_coefficients,
+    packed_elems,
+    swin_stage_block_reference,
+)
 
 torch.set_num_threads(1)
 
@@ -143,3 +151,31 @@ def test_ablation_tool_runs_on_the_cpu(capsys, monkeypatch):
     assert out[0] == "allheads vs full max|err|: 0.00e+00"
     assert out[1].startswith("device: cpu")
     assert len(out) == 5 and out[2].split(":")[0].strip() == "full"
+
+
+def _bf16_args(seed):
+    x, p = _inputs(seed)
+    targs = [torch.from_numpy(p[k]).to(torch.bfloat16) if k in IO else torch.from_numpy(p[k])
+             for k in NAMES]
+    return torch.from_numpy(x).to(torch.bfloat16), targs
+
+
+@pytest.mark.parametrize("mode", ["full", "noattn", "mlponly", "mlp_tanhgelu"])
+def test_packed_weights_on_cpu_give_the_plain_version(mode):
+    xt, targs = _bf16_args(3)
+    kw = dict(mode=mode, num_heads=HEADS, scale=SCALE)
+    packed = pack_swin_block_weights(targs[2], targs[5], targs[9], targs[11], num_heads=HEADS)
+    assert packed.shape == (packed_elems(C, HEADS, HIDDEN),)
+    before = swin_stage_block.launches
+    got = swin_stage_block(xt, *targs, **kw, packed=packed)
+    assert torch.equal(got, swin_stage_block_reference(xt, *targs, **kw))
+    assert swin_stage_block.launches == before
+
+
+def test_wrongly_shaped_packed_weights_raise():
+    xt, targs = _bf16_args(4)
+    kw = dict(mode="full", num_heads=HEADS, scale=SCALE)
+    packed = pack_swin_block_weights(targs[2], targs[5], targs[9], targs[11], num_heads=HEADS)
+    for bad in (packed[:-8], packed.float(), packed.reshape(2, -1)):
+        with pytest.raises(ValueError, match="packed wants"):
+            swin_stage_block(xt, *targs, **kw, packed=bad)
