@@ -174,7 +174,27 @@ exit code:
     bound, so a swapped one fails; ``full``'s and ``mlp_tanhgelu``'s times
     beside K1's at Bw=2048 on weights packed once; then the tool
     (``tools/swin_stage_ablation.py``) over all nine modes: 36-block chains
-    timed per mode.
+    timed per mode;
+33. [prep]: bench.py's synthetic registered sky (HR 2048² at 2e-4 deg/px,
+    the observatory frame 512² at 4x the scale, made with the port's
+    ``TanWCS``, ``write_fits`` and ``reproject_bilinear``) through
+    ``fused_prep_target`` (stride 128, hr 512, lr 128: 169 pairs) twice on
+    the card and once with ``device="cpu"``: the same pair names, raw FITS
+    patches within 1e-5 and the same headers, TIFFs equal but for at most
+    0.1% of pixels by 1 LSB, the HR stats identical and the LR stats within
+    1e-6 relative; the card's pairs/s (the better of two) with the phase
+    times the function logs, then ``cli.main split`` of the card's output
+    (135/16/18, every pair once, every path there) and the staged
+    ``extract_patches`` + ``normalize_target`` on the card with its pairs/s;
+34. [upscale]: a seeded flagship SwinIR as ``checkpoints/best_gan_model.pth``
+    and a 512 x 640 16-bit FITS star field (BZERO 32768) through ``cli.main
+    upscale`` (2048 x 2560 out), then ``tiled_sr`` of the same normalized
+    frame (35 tiles of 128 with overlap 16, 5 calls of 8) through the fp32
+    ``nn.Module`` and ``make_fused_swinir`` (K1: 180 launches) and, for the
+    config-#2 hybrid, the fp32 module, the bf16 module and
+    ``make_fused_hybrid`` (K5/K6/K7: 120/20/180 launches), each fused output
+    within PERF.md §2's bound of the fp32 module's (relative L2 <= 2e-2; the
+    hybrid's max(2e-2, 2x the bf16 module's)), with wall time and tiles/s.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it fails at once:
@@ -543,6 +563,227 @@ def device_profile(fn, steps: int = 2) -> tuple[list, float, float]:
          for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU),
         key=lambda o: -o[1])
     return ops, busy / 1e3 / steps, 1.0 - busy / span
+
+def write_fits_u16(path: Path, counts: np.ndarray, header: dict) -> None:
+    """A 16-bit FITS frame: BITPIX 16 with BZERO 32768, as cameras write them."""
+    cards = {"SIMPLE": "T", "BITPIX": 16, "NAXIS": 2, "NAXIS1": counts.shape[1],
+             "NAXIS2": counts.shape[0], "BZERO": 32768.0, "BSCALE": 1.0, **header}
+    head = b"".join(
+        f"{k:<8}= {v if not isinstance(v, str) or v == 'T' else repr(v):>20}".ljust(80).encode()
+        for k, v in cards.items()) + b"END".ljust(80)
+    body = (counts.astype(np.int32) - 32768).astype(">i2").tobytes()
+    path.write_bytes(head + b" " * (-len(head) % 2880) + body + b"\0" * (-len(body) % 2880))
+
+
+def prep_phase(seed: int, device: torch.device, card: str) -> None:
+    """33. [prep]: fused dataset prep (BASELINE config #5) on the card against
+    the same call on the CPU, ``split`` of its output, and the staged steps."""
+    from superresolution_def_tpu_torch.cli.main import main as cli_main
+    from superresolution_def_tpu_torch.data import load_manifest, read_tiff_u16
+    from superresolution_def_tpu_torch.prep import (
+        TanWCS, extract_patches, fused_prep_target, normalize_target, read_fits,
+        reproject_bilinear, write_fits)
+
+    size, scale = 2048, 2e-4  # bench.py's synthetic registered sky
+    cut = dict(stride=128, hr_size=512, lr_size=128)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        rng = np.random.default_rng(seed)
+        sky = (rng.random((size, size)) * 0.6 + 0.2).astype(np.float32)
+        w_h = TanWCS((10.0, 20.0), (size / 2, size / 2), cdelt=[-scale, scale])
+        w_o = TanWCS((10.0, 20.0), (size / 8, size / 8), cdelt=[-scale * 4, scale * 4])
+        write_fits(root / "hub" / "reg_h.fits", sky, w_h.to_header())
+        obs = np.nan_to_num(reproject_bilinear(sky, w_h, w_o, (size // 4, size // 4),
+                                               device=device))
+        write_fits(root / "obs" / "reg_o.fits", obs, w_o.to_header())
+
+        runs = {}
+        for name, dev in (("card0", device), ("card1", device), ("cpu", "cpu")):
+            lines, stats = [], {}
+            t0 = time.perf_counter()
+            n = fused_prep_target(root / "hub", root / "obs", root / name / "6_patches_final",
+                                  root / name / "7_dataset_ready_LOG", **cut, log=lines.append,
+                                  device=dev, stats=stats)
+            runs[name] = dict(n=n, s=time.perf_counter() - t0, stats=stats, log=lines)
+        best = min(("card0", "card1"), key=lambda k: runs[k]["s"])
+        r = runs[best]
+        log("prep", f"fused_prep_target on {card}: {r['n']} pairs (HR 2048² at 2e-4 deg/px, "
+                    f"obs 512², stride 128, hr 512, lr 128) in {r['s']:.3f} s = "
+                    f"{r['n'] / r['s']:.3f} pairs/s, the better of two ({runs['card0']['s']:.3f}, "
+                    f"{runs['card1']['s']:.3f} s); the same call on the CPU "
+                    f"{runs['cpu']['s']:.3f} s = {runs['cpu']['n'] / runs['cpu']['s']:.3f} pairs/s")
+        log("prep", "phases on the card (s): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in r["stats"]["phases"].items())
+            + "; on the CPU: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in runs["cpu"]["stats"]["phases"].items()))
+        for line in r["log"]:
+            log("prep", f"  {line}")
+        t0 = time.perf_counter()
+        ops, busy_ms, idle = device_profile(lambda: fused_prep_target(
+            root / "hub", root / "obs", root / "prof" / "6_patches_final",
+            root / "prof" / "7_dataset_ready_LOG", **cut, log=lambda *a: None, device=device),
+            steps=1)
+        prof_ms = 1e3 * (time.perf_counter() - t0)
+        log("prep", f"one profiled fused_prep_target: device busy {busy_ms:.3f} ms "
+                    f"({busy_ms / (1e3 * r['s']):.2%} of the best unprofiled wall; the profiled "
+                    f"run's wall {prof_ms:.1f} ms), idle share of the kernels' span "
+                    f"{idle:.4f}; top device ops: " + "; ".join(
+                        f"{name[:50]} {t:.3f} ms x{n}" for name, t, n in ops[:6]))
+
+        card_dir, cpu_dir = root / best, root / "cpu"
+        names = sorted(p.name for p in (card_dir / "7_dataset_ready_LOG").glob("pair_*"))
+        same_names = (names == sorted(p.name for p in (cpu_dir / "7_dataset_ready_LOG")
+                                      .glob("pair_*"))
+                      == sorted(p.name for p in (card_dir / "6_patches_final").glob("pair_*")))
+        fits_err, headers_same, n_px, n_diff, max_lsb = 0.0, True, 0, 0, 0
+        for name in names:
+            for f in ("hubble.fits", "observatory.fits"):
+                a = read_fits(card_dir / "6_patches_final" / name / f)
+                b = read_fits(cpu_dir / "6_patches_final" / name / f)
+                fits_err = max(fits_err, float(np.abs(a.data - b.data).max()))
+                headers_same &= a.header == b.header
+            for f in ("hubble.tiff", "observatory.tiff"):
+                a = read_tiff_u16(card_dir / "7_dataset_ready_LOG" / name / f).astype(np.int64)
+                b = read_tiff_u16(cpu_dir / "7_dataset_ready_LOG" / name / f).astype(np.int64)
+                d = np.abs(a - b)
+                n_px, n_diff, max_lsb = n_px + d.size, n_diff + int((d > 0).sum()), max(
+                    max_lsb, int(d.max()))
+        hr_card, hr_cpu = r["stats"]["hr"], runs["cpu"]["stats"]["hr"]
+        lr_card, lr_cpu = r["stats"]["lr"], runs["cpu"]["stats"]["lr"]
+        lr_rel = max(abs(a - b) / abs(b) for a, b in zip(lr_card, lr_cpu))
+        log("prep", f"card against CPU: {len(names)} pairs, names equal {same_names}; raw FITS "
+                    f"max abs {fits_err:.3e} (bound 1e-5), headers equal {headers_same}; TIFF "
+                    f"pixels differing {n_diff} of {n_px} ({n_diff / n_px:.3e}, bound 1e-3), "
+                    f"by at most {max_lsb} LSB (bound 1); HR lo/hi {hr_card} vs {hr_cpu}; LR "
+                    f"lo/hi {lr_card} vs {lr_cpu}, rel {lr_rel:.3e} (bound 1e-6)")
+        if not (r["n"] == runs["cpu"]["n"] == len(names) == 169 and same_names and headers_same
+                and fits_err <= 1e-5 and n_diff <= 1e-3 * n_px and max_lsb <= 1
+                and hr_card == hr_cpu and lr_rel <= 1e-6):
+            raise SystemExit("fused prep on the card disagrees with the CPU")
+
+        counts = cli_main(["split", "--data-root", str(root), "--target", best])[best]
+        splits = {k: load_manifest(card_dir / "8_dataset_split" / "splits_json" / f"{k}.json")
+                  for k in ("train", "val", "test")}
+        ids = sorted(e.patch_id for es in splits.values() for e in es)
+        paths_ok = all(Path(p).exists() for es in splits.values() for e in es
+                       for p in (e.hubble_path, e.ground_path))
+        log("prep", f"split: {counts}, every pair once {ids == names}, paths exist {paths_ok}")
+        if counts != {"train": 135, "val": 16, "test": 18} or ids != names or not paths_ok:
+            raise SystemExit(f"split of the fused output is wrong: {counts}")
+
+        quiet = dict(log=lambda *a: None, device=device)
+        t0 = time.perf_counter()
+        n3 = extract_patches(root / "hub", root / "obs", root / "staged" / "6_patches_final",
+                             **cut, **quiet)
+        t3 = time.perf_counter()
+        n4 = normalize_target(root / "staged" / "6_patches_final",
+                              root / "staged" / "7_dataset_ready_LOG", **quiet)
+        t4 = time.perf_counter()
+        log("prep", f"staged extract_patches + normalize_target on {card}: {n4} pairs in "
+                    f"{t4 - t0:.3f} s = {n4 / (t4 - t0):.3f} pairs/s (step 3 {t3 - t0:.3f} s, "
+                    f"step 4 {t4 - t3:.3f} s)")
+        if not n3 == n4 == 169:
+            raise SystemExit(f"staged prep wrote {n3} and {n4} pairs, not 169")
+
+
+def upscale_phase(seed: int, device: torch.device, card: str) -> None:
+    """34. [upscale]: ``upscale`` of a whole 16-bit FITS frame with the
+    flagship SwinIR, then ``tiled_sr`` through K1 and, for the hybrid,
+    through K5/K6/K7, each against the fp32 ``nn.Module`` on the same tiles."""
+    from superresolution_def_tpu_torch.cli.infer import tiled_sr
+    from superresolution_def_tpu_torch.cli.main import main as cli_main
+    from superresolution_def_tpu_torch.data import read_tiff_u16
+    from superresolution_def_tpu_torch.kernels import (
+        fused_hab_block, fused_ocab_block, fused_rdb_cm, fused_swin_block, make_fused_hybrid,
+        make_fused_swinir)
+    from superresolution_def_tpu_torch.models import HybridHATRealESRGAN, SwinIR
+    from superresolution_def_tpu_torch.ops.normalize import log_stretch_normalize, robust_minmax
+    from superresolution_def_tpu_torch.prep import TanWCS, read_fits
+
+    h, w, tile, overlap = 512, 640, 128, 16  # the 128-px tiles do not divide 640
+    ys = len(range(0, h - tile + 1, tile - 2 * overlap)) + ((h - tile) % (tile - 2 * overlap) > 0)
+    xs = len(range(0, w - tile + 1, tile - 2 * overlap)) + ((w - tile) % (tile - 2 * overlap) > 0)
+    n_tiles, n_calls = ys * xs, -(-(ys * xs) // 8)
+    rng = np.random.default_rng(seed + 34)
+    yy, xx = np.mgrid[0:h, 0:w]
+    counts = 800.0 + 40.0 * rng.standard_normal((h, w))
+    for cy, cx, amp, sig in zip(rng.uniform(0, h, 60), rng.uniform(0, w, 60),
+                                rng.uniform(500, 40000, 60), rng.uniform(0.8, 3.0, 60)):
+        counts += amp * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * sig**2))
+    counts = np.clip(counts, 0, 65535)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        frame = root / "m42.fits"
+        write_fits_u16(frame, counts, TanWCS((83.8, -5.4), (w / 2, h / 2),
+                                            cdelt=[-2e-4, 2e-4]).to_header())
+        raw = read_fits(frame).data
+        if not np.array_equal(raw, counts.astype(np.int32).astype(np.float32)):
+            raise SystemExit("the 16-bit FITS frame does not read back")
+        lo, hi = robust_minmax(raw, device=device)
+        img01 = log_stretch_normalize(raw, lo, hi, device=device).cpu().numpy()
+
+        model = SwinIR(**FLAGSHIP, generator=torch.Generator().manual_seed(seed + 34))
+        run = root / "run"
+        (run / "checkpoints").mkdir(parents=True)
+        torch.save({"net_g": model.state_dict()}, run / "checkpoints" / "best_gan_model.pth")
+        t0 = time.perf_counter()
+        res = cli_main(["upscale", str(frame), "--folder", str(run)])
+        cli_s = time.perf_counter() - t0
+        sr_cli = read_tiff_u16(res["out"])
+        log("upscale", f"upscale {frame.name} ({h}x{w}, 16-bit FITS, {n_tiles} tiles of {tile} "
+                       f"with overlap {overlap}) -> {sr_cli.shape}, {cli_s:.2f} s wall with the "
+                       f"checkpoint's load, on {card}; robust_minmax lo {float(lo):.6f} hi "
+                       f"{float(hi):.6f}")
+        if sr_cli.shape != (4 * h, 4 * w) or sr_cli.std() == 0:
+            raise SystemExit(f"upscale gave {sr_cli.shape}, std {sr_cli.std()}")
+
+        hybrid = HybridHATRealESRGAN(**HYBRID, generator=torch.Generator().manual_seed(seed + 35))
+        for arch, net, make, counters, per_call in (
+                ("SwinIR", model, make_fused_swinir, (fused_swin_block,), (36,)),
+                ("hybrid", hybrid, make_fused_hybrid,
+                 (fused_hab_block, fused_ocab_block, fused_rdb_cm), (24, 4, 36))):
+            net = net.to(device).eval()
+            forwards = {"fp32 nn.Module": net, "fused bf16": make(net)}
+            if arch == "hybrid":
+                forwards["bf16 nn.Module"] = lambda x, m=copy.deepcopy(net).to(
+                    torch.bfloat16): m(x.to(torch.bfloat16))
+            outs, walls, call_ms = {}, {}, {}
+            x8 = torch.rand(8, tile, tile, 1, generator=torch.Generator().manual_seed(seed)).to(
+                device)
+            for name, fwd in forwards.items():
+                # warm at the timed shape: one padded call of 8
+                tiled_sr(fwd, img01[:tile, :2 * tile], tile=tile, overlap=overlap, device=device)
+                for fn in counters:
+                    fn.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[name] = tiled_sr(fwd, img01, tile=tile, overlap=overlap, device=device)
+                walls[name] = time.perf_counter() - t0
+                if name == "fused bf16":
+                    launches = {fn.__name__: fn.launches for fn in counters}
+                with torch.no_grad():  # one call's device time, at the tiles' shape
+                    call_ms[name] = cuda_ms(lambda: fwd(x8), reps=3, warmup=1, calls=1)
+            ref = outs["fp32 nn.Module"]
+            rel = {k: float(np.linalg.norm(v - ref) / np.linalg.norm(ref))
+                   for k, v in outs.items() if k != "fp32 nn.Module"}
+            bound = FORWARD_REL_L2 if arch == "SwinIR" else max(FORWARD_REL_L2,
+                                                                 2 * rel["bf16 nn.Module"])
+            log("upscale", f"tiled_sr of the frame, {arch} at full width, {n_tiles} tiles in "
+                           f"{n_calls} calls of 8 on {card}: " + ", ".join(
+                               f"{k} {walls[k]:.3f} s = {n_tiles / walls[k]:.2f} tiles/s "
+                               f"(device {n_calls} x {call_ms[k]:.3f} ms a call of 8 = "
+                               f"{n_calls * call_ms[k] / 1e3 / walls[k]:.1%} of it)"
+                               for k in outs)
+                + "; rel L2 to the fp32 module: " + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+                + f" (bound {bound:.3e}); launches " + ", ".join(f"{k} {v}" for k, v in
+                                                                 launches.items()))
+            want = {fn.__name__: n_calls * n for fn, n in zip(counters, per_call)}
+            if not (rel["fused bf16"] <= bound and np.isfinite(outs["fused bf16"]).all()
+                    and outs["fused bf16"].shape == (4 * h, 4 * w, 1) and launches == want):
+                raise SystemExit(f"tiled {arch} through its kernels disagrees: rel "
+                                 f"{rel['fused bf16']} > {bound}, or launches {launches} != {want}")
+            del forwards, outs, net
+            torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -2171,6 +2412,10 @@ def main() -> None:
     if k13_launches != len(stage.MODES) * 6 * 36 + 2:
         raise SystemExit(f"expected {len(stage.MODES) * 6 * 36 + 2} K13 launches, counted "
                          f"{k13_launches}")
+
+    # 33.-34. the dataset prep and the tiled upscale of a whole frame
+    prep_phase(seed, device, card)
+    upscale_phase(seed, device, card)
 
     work = block_work(768)
     work.update({k: v for k, v in block_work(bw_train).items() if k != "K1"})

@@ -8,8 +8,10 @@ layout and, slice by slice, its behaviour:
                  checkpoint loading and the JAX -> torch weight bridge
 - ``kernels``  — hand-written Hopper kernels (``csrc/*.cu``, built with nvcc
                  on first use) and their plain PyTorch versions
-- ``data``     — manifests, 16-bit TIFF IO, the ordered patch iterator
-- ``cli``      — ``infer`` (``python -m superresolution_def_tpu_torch.cli.main``)
+- ``data``     — manifests and the split, 16-bit TIFF IO, the ordered patch iterator
+- ``prep``     — FITS/WCS dataset prep: registration, patch pairs, normalization
+- ``cli``      — ``prep``, ``split``, ``train``, ``infer``, ``upscale``
+                 (``python -m superresolution_def_tpu_torch.cli.main``)
 
 It imports torch and never jax.
 """

@@ -10,7 +10,8 @@
 - targets from the run-folder name (strip ``_DDP_SwinIR``, split on '_');
 - per image: SR -> nan_to_num -> clamp [0, 1] -> ``test_NNNN_sr.tiff``, the
   ``test_NNNN_tris.png`` comparison strip and PSNR/SSIM accumulation, plus
-  ``test_metrics.csv`` [ID, PSNR, SSIM] (by default for the hybrid only).
+  ``test_metrics.csv`` [ID, PSNR, SSIM] (by default for the hybrid only);
+- ``tiled_sr``: overlap-blended tiled SR of a whole frame (``sr upscale``).
 """
 
 from __future__ import annotations
@@ -18,10 +19,13 @@ from __future__ import annotations
 import csv as csv_mod
 import pickle
 from pathlib import Path
+from typing import Callable
 
+import numpy as np
 import torch
 
 from ..data import DataIterator, PatchDataset, load_manifest, write_tiff_u16
+from ..device import resolve_device
 from ..kernels import make_fused_hybrid, make_fused_swinir
 from ..models import (
     HybridHATRealESRGAN,
@@ -46,15 +50,6 @@ def _torch_candidates(folder: Path, arch: str) -> list[Path]:
         out += sorted(base.glob("hybrid_epoch_*.pth"), reverse=True)
         out += sorted(base.glob("*.pth"))
     return list(dict.fromkeys(out))
-
-
-def resolve_device(device: torch.device | str) -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA device must exist. There is no
-    quiet fall-back to the CPU: the caller asks for it."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass --device cpu (device='cpu') to run on the CPU")
-    return device
 
 
 def _build(arch: str, sd) -> tuple[torch.nn.Module, dict]:
@@ -93,6 +88,83 @@ def load_generator(folder: str | Path, device: torch.device | str = "cuda", arch
         model = model.to(device).eval()
         return model, {"source": str(cand), "format": "torch", "detected": det}
     raise FileNotFoundError(f"No .pth checkpoint found under {folder}")
+
+
+def tiled_sr(
+    forward: Callable[[torch.Tensor], torch.Tensor],
+    img01: np.ndarray,
+    *,
+    tile: int = 128,
+    overlap: int = 16,
+    scale: int = 4,
+    batch_tiles: int = 8,
+    device: torch.device | str = "cuda",
+) -> np.ndarray:
+    """SR an arbitrarily large (H, W) or (H, W, 1) image by overlap-blending
+    (the JAX ``tiled_sr`` without its mesh).
+
+    ``forward`` maps NHWC tensors on ``device`` to NHWC: the ``nn.Module``,
+    or ``make_fused_swinir(model)`` / ``make_fused_hybrid(model)``. Tiles of
+    ``tile`` x ``tile`` with an ``overlap`` halo go through it in batches of
+    ``batch_tiles``, the last padded with copies of its last tile so every
+    call has one shape; a frame no larger than a tile is reflect-padded to
+    one. The tiles are blended on the host in float32 with a linear feather
+    that stays strictly positive, so pixels at the frame's border (covered
+    by one tile's ramp) keep their full signal.
+    """
+    device = resolve_device(device)
+    x = np.asarray(img01, np.float32)
+    if x.ndim == 2:
+        x = x[..., None]
+    h, w, _ = x.shape
+
+    def run(batch: np.ndarray) -> np.ndarray:
+        with torch.no_grad():
+            return forward(torch.from_numpy(batch).to(device)).float().cpu().numpy()
+
+    if h <= tile and w <= tile:
+        pad_h, pad_w = tile - h, tile - w
+        xin = np.pad(x, ((0, pad_h), (0, pad_w), (0, 0)), mode="reflect") if (pad_h or pad_w) else x
+        return run(np.ascontiguousarray(xin[None]))[0][: h * scale, : w * scale]
+
+    stride = tile - 2 * overlap
+    if stride <= 0:
+        raise ValueError(f"overlap {overlap} too large for tile {tile}")
+    ys = list(range(0, max(h - tile, 0) + 1, stride))
+    xs = list(range(0, max(w - tile, 0) + 1, stride))
+    if ys[-1] + tile < h:
+        ys.append(h - tile)
+    if xs[-1] + tile < w:
+        xs.append(w - tile)
+
+    tiles = np.stack([x[y : y + tile, xx : xx + tile] for y in ys for xx in xs])
+    outs = []
+    for i in range(0, len(tiles), batch_tiles):
+        chunk = tiles[i : i + batch_tiles]
+        n_real = len(chunk)
+        if n_real < batch_tiles:  # pad the batch to keep one shape
+            chunk = np.concatenate([chunk, np.repeat(chunk[-1:], batch_tiles - n_real, axis=0)])
+        outs.append(run(chunk)[:n_real])
+    sr_tiles = np.concatenate(outs)
+
+    ramp = np.ones(tile * scale, np.float32)
+    ov = overlap * scale
+    if ov:
+        rise = (np.arange(ov, dtype=np.float32) + 1.0) / (ov + 1.0)
+        ramp[:ov] = rise
+        ramp[-ov:] = rise[::-1]
+    weight2d = np.outer(ramp, ramp)[..., None]
+
+    acc = np.zeros((h * scale, w * scale, 1), np.float32)
+    wacc = np.zeros_like(acc)
+    k = 0
+    for y in ys:
+        for xx in xs:
+            ys_, xs_ = y * scale, xx * scale
+            acc[ys_ : ys_ + tile * scale, xs_ : xs_ + tile * scale] += sr_tiles[k] * weight2d
+            wacc[ys_ : ys_ + tile * scale, xs_ : xs_ + tile * scale] += weight2d
+            k += 1
+    return acc / np.maximum(wacc, 1e-8)
 
 
 def targets_from_folder_name(name: str) -> list[str]:

@@ -1,19 +1,28 @@
-"""Command-line entry of the port: ``train`` and ``infer`` for SwinIR and the HAT hybrid.
+"""Command-line entry of the port: ``prep``, ``split``, ``train``, ``infer`` and ``upscale``.
 
+  python -m superresolution_def_tpu_torch.cli.main prep [--target T] \
+      [--steps 1,2,3,4] [--desired-count N] [--fused]
+  python -m superresolution_def_tpu_torch.cli.main split [--target T]
   python -m superresolution_def_tpu_torch.cli.main train --arch {swin,hat} \
       --target T1 [--bf16] [--batch-size N] [--accum-steps N] [--epochs 300]
   python -m superresolution_def_tpu_torch.cli.main infer --arch {swin,hat} \
       [--impl fused] [--folder RUN] [--data-root DATA]
+  python -m superresolution_def_tpu_torch.cli.main upscale FRAME.fits|FRAME.tiff \
+      --folder RUN [--arch {swin,hat}] [--out OUT.tiff] [--tile 128] [--overlap 16]
 
-The flags are those of the JAX ``sr train`` / ``sr infer``, plus ``--device``:
-both run on the card (``cuda``) unless ``--device cpu`` is given, and raise
-without a card. ``train --bf16`` on the card runs the kernels: for swin the
-fused Swin blocks (K2-K4), for hat the RRDB trunk's dense blocks (K7/K8);
-``train --arch hat --fused-hab`` also runs the backbone's HABs and OCAB tails
-through their training kernels (K9a-c, K10a-b), on the card with ``--bf16``,
-on the CPU through the kernels' plain versions.
-Without ``--folder`` (``infer``) or ``--target`` (``train``) the run
-folders or targets are offered in a numbered menu.
+The flags are those of the JAX ``sr`` subcommands, plus ``--device``: prep,
+train, infer and upscale run on the card (``cuda``) unless ``--device cpu``
+is given, and raise without a card (``split`` is host work). ``prep
+--fused`` runs steps 3+4 as the device-resident fused pipeline
+(``prep/fused.py``, BASELINE config #5); step 2 and the staged steps' debug
+cards need matplotlib. ``train --bf16`` on the card runs the kernels: for
+swin the fused Swin blocks (K2-K4), for hat the RRDB trunk's dense blocks
+(K7/K8); ``train --arch hat --fused-hab`` also runs the backbone's HABs and
+OCAB tails through their training kernels (K9a-c, K10a-b), on the card with
+``--bf16``, on the CPU through the kernels' plain versions. ``upscale``
+super-resolves a whole FITS or 16-bit TIFF frame by tiles through the fp32
+``nn.Module``. Without ``--folder`` (``infer``) or ``--target`` (``train``)
+the run folders or targets are offered in a numbered menu.
 """
 
 from __future__ import annotations
@@ -30,6 +39,81 @@ def _pick_from(items: list[str], what: str) -> str:
     for i, t in enumerate(items, 1):
         print(f"  [{i}] {t}")
     return items[int(input(f"Select {what}: ").strip()) - 1]
+
+
+def get_available_pair_targets(data_root: str) -> list[str]:
+    return [d.name for d in sorted(Path(data_root).glob("*"))
+            if (d / "7_dataset_ready_LOG").exists() or (d / "7_dataset_ready").exists()]
+
+
+def cmd_split(args) -> dict:
+    from ..prep.splits import prepare_full_dataset
+
+    targets = args.target.split(",") if args.target else get_available_pair_targets(args.data_root)
+    return {t: prepare_full_dataset(Path(args.data_root) / t) for t in targets}
+
+
+def cmd_prep(args) -> None:
+    """Dataset prep steps 1-4 for each target (misc/Dataset_step*)."""
+    from ..device import resolve_device
+    from ..prep import (
+        extract_patches,
+        fused_prep_target,
+        main_registration,
+        make_prep_logger,
+        mosaic_check,
+        normalize_target,
+        process_step1_folder,
+    )
+
+    device = resolve_device(args.device)
+    steps = set((args.steps or "1,2,3,4").split(","))
+    targets = args.target.split(",") if args.target else [
+        p.name for p in sorted(Path(args.data_root).glob("*")) if (p / "1_originarie").exists()
+    ]
+    # timestamped log file + console, like the reference's step-1 logging
+    # (Dataset_step1:44-54) but covering every step run
+    log, log_path = make_prep_logger(Path(args.data_root) / "logs", prefix="prep")
+    log(f"prep steps={sorted(steps)} targets={targets} (log: {log_path})")
+    for t in targets:
+        root = Path(args.data_root) / t
+        orig = root / "1_originarie"
+        solved_o = root / "2_solved_astap" / "observatory"
+        solved_h = root / "2_solved_astap" / "hubble"
+        reg_o = root / "3_registered_native" / "observatory"
+        reg_h = root / "3_registered_native" / "hubble"
+        if "1" in steps:
+            process_step1_folder(orig / "local_raw", solved_o, log=log)
+            process_step1_folder(orig / "img_lights", solved_h, log=log)
+            main_registration(solved_h, solved_o, reg_h, reg_o, log=log, device=device)
+        if "2" in steps:
+            mosaic_check(
+                reg_h, reg_o, root / "4_quality_check" / f"{t}_mosaic_check.png",
+                target_name=t, log=log, device=device,
+            )
+        if args.fused and {"3", "4"} <= steps:
+            # config #5 hot path: steps 3+4 device-resident (prep/fused.py),
+            # without the per-patch debug cards and zips of the staged steps
+            fused_prep_target(
+                reg_h, reg_o, root / "6_patches_final", root / "7_dataset_ready_LOG",
+                target_name=t, desired_count=args.desired_count, log=log, device=device,
+            )
+        else:
+            if args.fused:
+                log("[prep] --fused needs both steps 3 and 4; running staged")
+            if "3" in steps:
+                extract_patches(
+                    reg_h, reg_o, root / "6_patches_final",
+                    target_name=t, desired_count=args.desired_count,
+                    debug_dir=root / "6_patches_final_debug",
+                    zip_outputs=True, log=log, device=device,
+                )
+            if "4" in steps:
+                normalize_target(
+                    root / "6_patches_final", root / "7_dataset_ready_LOG",
+                    debug_dir=root / "7_dataset_ready_LOG_debug",
+                    zip_debug=True, log=log, device=device,
+                )
 
 
 def cmd_train(args) -> dict:
@@ -89,9 +173,51 @@ def cmd_infer(args) -> dict:
     return result
 
 
-def main(argv=None) -> dict:
+def cmd_upscale(args) -> dict:
+    """SR a whole 16-bit TIFF or FITS frame by tiles (the JAX ``cmd_upscale``)."""
+    import numpy as np
+
+    from ..data import read_tiff_u16, write_tiff_u16
+    from ..device import resolve_device
+    from .infer import load_generator, tiled_sr
+
+    device = resolve_device(args.device)
+    src = Path(args.image)
+    if src.suffix.lower() in (".fits", ".fit", ".fts"):
+        from ..ops.normalize import log_stretch_normalize, robust_minmax
+        from ..prep import read_fits
+
+        raw = np.nan_to_num(read_fits(src).data)
+        lo, hi = robust_minmax(raw, device=device)
+        img01 = log_stretch_normalize(raw, lo, hi, device=device).cpu().numpy()
+    else:
+        img01 = read_tiff_u16(src).astype(np.float32) / 65535.0
+
+    model, info = load_generator(args.folder, device, args.arch)
+    sr = tiled_sr(model, img01, tile=args.tile, overlap=args.overlap, scale=4, device=device)
+    out = args.out or str(src.with_suffix("")) + "_sr.tiff"
+    write_tiff_u16(out, sr[..., 0])
+    print(f"{src} {img01.shape} -> {out} {sr.shape[:2]}  [ckpt: {info['source']}]")
+    return {"out": out, "shape": sr.shape[:2], "checkpoint": info}
+
+
+def main(argv=None):
     p = argparse.ArgumentParser(prog="sr", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    ps = sub.add_parser("split", help="build 80/10/10 split manifests")
+    ps.add_argument("--data-root", default="data")
+    ps.add_argument("--target", default=None)
+
+    pp = sub.add_parser("prep", help="dataset prep steps 1-4 (solve/register/QC/patches/normalize)")
+    pp.add_argument("--data-root", default="data")
+    pp.add_argument("--target", default=None)
+    pp.add_argument("--steps", default=None, help="comma subset of 1,2,3,4")
+    pp.add_argument("--desired-count", type=int, default=None)
+    pp.add_argument("--fused", action="store_true",
+                    help="run steps 3+4 as the device-resident fused pipeline (prep/fused.py, "
+                         "BASELINE config #5; no per-patch debug cards or zips)")
+    pp.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
 
     pt = sub.add_parser("train", help="train a GAN generator")
     pt.add_argument("--arch", choices=["swin", "hat"], default="swin",
@@ -148,8 +274,18 @@ def main(argv=None) -> dict:
                     help="'fused' = bf16 through the CUDA kernels (SwinIR: the fused "
                          "Swin block; hat: the HAB, OCAB and dense-block kernels)")
 
+    pu = sub.add_parser("upscale", help="tiled x4 SR of an arbitrary-size TIFF/FITS image")
+    pu.add_argument("image")
+    pu.add_argument("--folder", required=True, help="trained run folder (checkpoint source)")
+    pu.add_argument("--arch", choices=["swin", "hat"], default="swin")
+    pu.add_argument("--out", default=None)
+    pu.add_argument("--tile", type=int, default=128)
+    pu.add_argument("--overlap", type=int, default=16)
+    pu.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+
     args = p.parse_args(argv)
-    return cmd_train(args) if args.cmd == "train" else cmd_infer(args)
+    return {"split": cmd_split, "prep": cmd_prep, "train": cmd_train, "infer": cmd_infer,
+            "upscale": cmd_upscale}[args.cmd](args)
 
 
 if __name__ == "__main__":

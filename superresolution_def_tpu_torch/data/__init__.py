@@ -1,4 +1,4 @@
-from .manifest import ManifestEntry, fix_path, load_manifest, write_manifest
+from .manifest import ManifestEntry, fix_path, load_manifest, split_pairs, write_manifest
 from .tiff import read_tiff_u16, write_tiff_u16
 from .pipeline import DataIterator, PatchDataset
 from .augment import augment_pair_batch, draw_augment
@@ -7,6 +7,7 @@ __all__ = [
     "ManifestEntry",
     "fix_path",
     "load_manifest",
+    "split_pairs",
     "write_manifest",
     "read_tiff_u16",
     "write_tiff_u16",

@@ -13,6 +13,7 @@ from .pixelshuffle import pixel_shuffle
 from .padding import reflect_pad_2d
 from .metrics import psnr, ssim, TrainMetrics
 from .resize import interpolate_bilinear, resize_nearest
+from .normalize import log_stretch_normalize, robust_minmax, quantize_u16
 
 __all__ = [
     "window_partition",
@@ -31,4 +32,7 @@ __all__ = [
     "TrainMetrics",
     "interpolate_bilinear",
     "resize_nearest",
+    "log_stretch_normalize",
+    "robust_minmax",
+    "quantize_u16",
 ]

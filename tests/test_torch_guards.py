@@ -11,10 +11,13 @@
   and through ``make_fused_hybrid(trunk_impl="kernel")``; ``train --arch
   hat``, plain, with the fused trunk's ``autograd.Function`` and with the
   fused HAB and OCAB training nodes (``fused_hab``), then ``infer --arch
-  hat`` of what it trained) in a subprocess and inspects its
-  ``sys.modules``.
-- ``train``, ``infer`` and the stage-ablation tool run on the card unless
-  ``--device cpu`` is given: without a card and without it they raise.
+  hat`` of what it trained; ``prep --fused`` of a target with solved
+  headers, ``split`` and ``upscale`` of a FITS frame) in a subprocess and
+  inspects its ``sys.modules``. Importing every module of the port loads
+  no matplotlib.
+- ``train``, ``infer``, ``prep``, ``upscale`` and the stage-ablation tool
+  run on the card unless ``--device cpu`` is given: without a card and
+  without it they raise.
 - ``chip_smoke.py`` has no CPU fallback: without a GPU, or without the rest
   of the repository beside it, it fails and prints no result line.
 """
@@ -40,6 +43,7 @@ SLICE = textwrap.dedent(
     import superresolution_def_tpu_torch as port
     for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
         importlib.import_module(m.name)
+    assert "matplotlib" not in sys.modules  # step 2 and the debug cards import it to draw
     from superresolution_def_tpu_torch.cli.main import main
     from superresolution_def_tpu_torch.data import ManifestEntry, write_manifest, write_tiff_u16
     from superresolution_def_tpu_torch.models import SwinIR
@@ -79,6 +83,25 @@ SLICE = textwrap.dedent(
                       backward="recompute")(torch.rand(1, 16, 16, 1)).sum().backward()
     ablation.WINDOWS, ablation.BLOCKS = 2, 1
     ablation.main(["full", "allheads", "mlp_polygelu", "--device", "cpu"])
+    # prep --fused of a target with solved headers (4 pairs at hr 512, stride
+    # 40), split, then upscale of a FITS frame with the saved SwinIR
+    from superresolution_def_tpu_torch.prep import TanWCS, reproject_bilinear, write_fits
+    sky = (rng.random((552, 552)) * 0.6 + 0.2).astype(np.float32)
+    w_h = TanWCS((10.0, 20.0), (276.0, 276.0), cdelt=[-2e-4, 2e-4])
+    w_o = TanWCS((10.0, 20.0), (69.0, 69.0), cdelt=[-8e-4, 8e-4])
+    orig = root / "prep" / "SYN" / "1_originarie"
+    write_fits(orig / "img_lights" / "hst.fits", sky, w_h.to_header())
+    write_fits(orig / "local_raw" / "obs.fits",
+               reproject_bilinear(sky, w_h, w_o, (138, 138), fill_nan=False, device="cpu"),
+               w_o.to_header())
+    main(["prep", "--data-root", str(root / "prep"), "--steps", "1,3,4", "--fused",
+          "--device", "cpu"])
+    counts = main(["split", "--data-root", str(root / "prep")])
+    assert counts == {"SYN": {"train": 3, "val": 0, "test": 1}}, counts
+    write_fits(root / "frame.fits", sky[:40, :56], w_h.to_header())
+    res = main(["upscale", str(root / "frame.fits"), "--folder", str(run), "--tile", "32",
+                "--overlap", "4", "--device", "cpu"])
+    assert res["shape"] == (160, 224), res
     print("JAX_LOADED", sorted(m for m in sys.modules if m.split(".")[0] in
                                ("jax", "jaxlib", "flax", "optax", "orbax",
                                 "superresolution_def_tpu")))
@@ -169,7 +192,7 @@ def test_port_hat_cpu_slice_never_loads_jax(tmp_path):
 
 
 @pytest.mark.parametrize("cmd", ["train", "infer", "infer-hat", "train-hat",
-                                 "train-hat-fused-hab", "stage-ablation"])
+                                 "train-hat-fused-hab", "stage-ablation", "prep", "upscale"])
 def test_entry_points_raise_without_a_card_unless_asked_for_the_cpu(tmp_path, cmd):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
@@ -189,7 +212,9 @@ def test_entry_points_raise_without_a_card_unless_asked_for_the_cpu(tmp_path, cm
             "train-hat": ["train", "--arch", "hat", "--bf16", "--target", "T1", "--data-root",
                           str(tmp_path)],
             "train-hat-fused-hab": ["train", "--arch", "hat", "--bf16", "--fused-hab",
-                                    "--target", "T1", "--data-root", str(tmp_path)]}[cmd]
+                                    "--target", "T1", "--data-root", str(tmp_path)],
+            "prep": ["prep", "--fused", "--data-root", str(tmp_path)],
+            "upscale": ["upscale", str(tmp_path / "frame.fits"), "--folder", str(tmp_path)]}[cmd]
     with pytest.raises(RuntimeError, match="--device cpu"):
         main(args)
 
