@@ -194,7 +194,28 @@ exit code:
     config-#2 hybrid, the fp32 module, the bf16 module and
     ``make_fused_hybrid`` (K5/K6/K7: 120/20/180 launches), each fused output
     within PERF.md §2's bound of the fp32 module's (relative L2 <= 2e-2; the
-    hybrid's max(2e-2, 2x the bf16 module's)), with wall time and tiles/s.
+    hybrid's max(2e-2, 2x the bf16 module's)), with wall time and tiles/s;
+35. [dp-step]: the data-parallel steps (``make_*_train_step(mesh=)``, the
+    batches staged by ``prefetch_to_mesh``) in an NCCL world of one (env://
+    on localhost, as torchrun sets it), bit for bit the plain steps on the
+    same seed and batches (G, D with its u/v, EMA, metrics; cuDNN
+    deterministic for both): the flagship SwinIR split step (micro 8,
+    K2/K3/K4) for two steps, the config-#4 hybrid step (micro 2 x accum 2,
+    K7/K8) for a warm-up and a GAN step; then both kinds' ms a step on
+    fresh batches, alternated;
+36. [dp-train]: ``cli.main train --arch swin --bf16`` in that world, 1
+    epoch of 2 steps on phase 10's split: 72 K2/K3/K4 launches each, rank
+    0's checkpoints, ``metrics.csv`` and TensorBoard ``Metrics/PSNR``;
+37. [spatial] (run by phase 34 on its frame): ``make_spatial_swinir``
+    (flagship SwinIR) and ``make_spatial_hybrid`` (config #2) with
+    ``attn_impl="pallas"`` on the whole 512 x 640 frame at one rank, within
+    relative L2 1e-5 of the fp32 modules with ``attn_impl="pallas"``, 36
+    K11a, and 16 K11a + 12 K11b launches, wall time and peak memory;
+38. [upscale-mesh] (run by phase 34): ``upscale --mesh`` in an NCCL world
+    of one writes the TIFF bits of ``upscale``; ``upscale --spatial``
+    writes a frame of the right shape (its relative L2 to the tiled frame
+    printed, without a bound). Each of phases 35-38 destroys its process
+    group before it ends.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it fails at once:
@@ -204,13 +225,17 @@ the port has no CPU path here.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import ctypes
 import importlib
 import itertools
 import json
+import os
 import re
+import socket
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -686,6 +711,304 @@ def prep_phase(seed: int, device: torch.device, card: str) -> None:
             raise SystemExit(f"staged prep wrote {n3} and {n4} pairs, not 169")
 
 
+# the spatial forwards against the fp32 modules, relative L2: at one rank
+# they differ only in how the 3x3 convs get their padding (a halo
+# concatenated, or the conv's own), so cuDNN may pick other algorithms
+SPATIAL_REL_L2 = 1e-5
+
+
+@contextlib.contextmanager
+def world_of_one():
+    """torchrun's environment for a world of one process on card 0 (env://
+    on a free localhost port): what ``initialize_distributed`` reads. Any
+    process group left at the end is destroyed, and the environment restored."""
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port), "RANK": "0",
+           "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           # NCCL's bootstrap on the loopback, unless the caller names an interface
+           "NCCL_SOCKET_IFNAME": os.environ.get("NCCL_SOCKET_IFNAME", "lo")}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def state_bits(state) -> dict:
+    """G, D (with its spectral u, v) and the EMA copy, on the host."""
+    return {f"{part}.{k}": v.detach().cpu().clone() for part in ("g", "d", "ema")
+            for k, v in getattr(state, part).state_dict().items()}
+
+
+def dp_step_phase(seed: int, device: torch.device, card: str) -> None:
+    """35. [dp-step]: the data-parallel GAN steps in an NCCL world of one,
+    through ``prefetch_to_mesh``, bit for bit the plain steps on the same
+    seed and batches: the flagship SwinIR split step (micro 8, bf16,
+    K2/K3/K4) for two steps, and the config-#4 hybrid step (micro 2 x accum
+    2, K7/K8) for one warm-up and one GAN step; then both kinds' step times
+    on fresh batches, alternated (plain, DP, DP, plain)."""
+    from superresolution_def_tpu_torch.kernels import (
+        fused_rdb_cm, fused_rdb_cm_bwd, swin_block_bwd_attn, swin_block_bwd_mlp,
+        swin_block_fwd_h)
+    from superresolution_def_tpu_torch.parallel import (
+        initialize_distributed, make_mesh, prefetch_to_mesh)
+    from superresolution_def_tpu_torch.train import (
+        CombinedGANLoss, VGG19Features, create_hat_train_state, create_swin_train_state,
+        make_hat_train_step, make_swin_train_step)
+
+    bgen = np.random.default_rng(seed + 40)
+
+    def batches(micro, accum, n):
+        return [{"lr": bgen.integers(0, 65535, (accum, micro, 128, 128, 1), dtype=np.uint16),
+                 "hr": bgen.integers(0, 65535, (accum, micro, 512, 512, 1), dtype=np.uint16)}
+                for _ in range(n)]
+
+    def run(step, data, warmups, mesh):
+        """The step on each batch (staged by ``prefetch_to_mesh`` with a
+        mesh): its metrics and CUDA-event ms a step."""
+        stream = (prefetch_to_mesh(iter(data), mesh) if mesh is not None
+                  else contextlib.nullcontext((b, b) for b in data))
+        metrics, ms = [], []
+        with stream as pairs:
+            for (_, b), warmup in zip(pairs, warmups):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                metrics.append(step(b, 1e-4, 1e-4, **({} if warmup is None
+                                                       else {"warmup": warmup})))
+                end.record()
+                end.synchronize()
+                ms.append(start.elapsed_time(end))
+        return metrics, ms
+
+    # both runs must pick the same convolution algorithms, backward included
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with world_of_one():
+            initialize_distributed("cuda")
+            mesh = make_mesh()
+            vgg = VGG19Features(35, dtype=torch.bfloat16).to(device).requires_grad_(False)
+            cases = (
+                ("swin", "micro 8, two GAN steps", MICRO, 1, (None, None),
+                 (swin_block_fwd_h, swin_block_bwd_mlp, swin_block_bwd_attn), 36),
+                ("hybrid", "micro 2 x accum 2, warm-up then GAN", HAT_MICRO, 2, (True, False),
+                 (fused_rdb_cm, fused_rdb_cm_bwd), 36 * 2))
+            for arch, desc, micro, accum, warmups, counters, per_step in cases:
+                data = batches(micro, accum, len(warmups))
+                kinds = {}
+                for kind in ("plain", "dp"):
+                    gen = torch.Generator().manual_seed(seed)
+                    crit = CombinedGANLoss(pixel_weight=1.0,
+                                           perceptual_weight=0.5 if arch == "swin" else 1.0,
+                                           adversarial_weight=0.005, vgg_apply=vgg)
+                    aug = torch.Generator().manual_seed(seed + 41)
+                    dp = mesh if kind == "dp" else None
+                    if arch == "swin":
+                        state = create_swin_train_state(gen, dtype=torch.bfloat16, fused=True,
+                                                        device=device)
+                        step = make_swin_train_step(state, accum_steps=accum, criterion_g=crit,
+                                                    generator=aug, mesh=dp)
+                    else:
+                        state = create_hat_train_state(gen, dtype=torch.bfloat16, fused=True,
+                                                       device=device)
+                        step = make_hat_train_step(
+                            state, accum_steps=accum, criterion_g=crit, generator=aug,
+                            drop_generator=torch.Generator(device).manual_seed(seed + 42),
+                            mesh=dp)
+                    for fn in counters:
+                        fn.launches = 0
+                    metrics, ms = run(step, data, warmups, dp)
+                    kinds[kind] = (state, step, dp, metrics, ms, state_bits(state),
+                                   {fn.__name__: fn.launches for fn in counters})
+                (*_, m0, ms0, bits0, n0), (*_, m1, ms1, bits1, n1) = kinds["plain"], kinds["dp"]
+                differ = [k for k, v in bits0.items() if not torch.equal(v, bits1[k])]
+                want = {fn.__name__: per_step * len(data) for fn in counters}
+                # the steps' times on fresh batches, alternated
+                timed = {"plain": [], "dp": []}
+                for kind in ("plain", "dp", "dp", "plain"):
+                    _, step, dp, *_ = kinds[kind]
+                    timed[kind] += run(step, batches(micro, accum, 2), (warmups[-1],) * 2, dp)[1]
+                log("dp-step", f"{arch} ({desc}, bf16) on {card}: the DP step through "
+                               f"prefetch_to_mesh in an NCCL world of one vs the plain step: "
+                               f"G, D (u, v), EMA bit-identical: {not differ} ({len(differ)} "
+                               f"of {len(bits0)} tensors differ); metrics identical: "
+                               f"{m0 == m1}; checked steps' ms " + ", ".join(
+                                   f"{a:.2f} (plain {b:.2f})" for a, b in zip(ms1, ms0))
+                               + "; alternated, ms a step: DP " + ", ".join(
+                                   f"{t:.2f}" for t in timed["dp"]) + " (median "
+                               f"{statistics.median(timed['dp']):.2f}), plain " + ", ".join(
+                                   f"{t:.2f}" for t in timed["plain"]) + " (median "
+                               f"{statistics.median(timed['plain']):.2f}); launches dp {n1}, "
+                               f"plain {n0}; last metrics {m1[-1]}")
+                if differ or m0 != m1 or n0 != want or n1 != want:
+                    raise SystemExit(f"[dp-step] {arch}: the DP step differs from the plain "
+                                     f"step ({differ[:5]}, metrics {m0} vs {m1}) or launches "
+                                     f"{n1}/{n0} != {want}")
+                del kinds
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def read_scalars(path: Path, tag: str) -> list[tuple[int, float]]:
+    """(step, value) of every ``tag`` scalar in a TensorBoard event file,
+    the framing's CRCs checked."""
+    from superresolution_def_tpu_torch.obs.tbevents import _masked_crc
+
+    raw, off, out = path.read_bytes(), 0, []
+    while off < len(raw):
+        (length,) = struct.unpack_from("<Q", raw, off)
+        data = raw[off + 12:off + 12 + length]
+        crcs = struct.unpack_from("<I", raw, off + 8) + struct.unpack_from("<I", raw,
+                                                                            off + 12 + length)
+        if crcs != (_masked_crc(raw[off:off + 8]), _masked_crc(data)):
+            raise SystemExit(f"{path}: a record's CRC does not match")
+        at = data.find(tag.encode())
+        if at >= 0:  # Event field 2 (step) follows the wall time; Value field 2 the float
+            out.append((data[10], struct.unpack_from("<f", data, at + len(tag) + 1)[0]))
+        off += 12 + length + 4
+    return out
+
+
+def dp_train_phase(seed: int, device: torch.device, card: str) -> None:
+    """36. [dp-train]: ``train --arch swin --bf16`` in an NCCL world of one,
+    1 epoch of 2 steps (micro 8) on phase 10's synthetic split: K2/K3/K4
+    launches (36 each a step) and rank 0's artifacts, the TensorBoard
+    event file's ``Metrics/PSNR`` among them."""
+    from superresolution_def_tpu_torch.cli.main import main as cli_main
+    from superresolution_def_tpu_torch.kernels import (
+        swin_block_bwd_attn, swin_block_bwd_mlp, swin_block_fwd_h)
+
+    counters = (swin_block_fwd_h, swin_block_bwd_mlp, swin_block_bwd_attn)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_split(root / "data", np.random.default_rng(seed + 4),
+                    {"train": TRAIN_PAIRS, "val": VAL_PAIRS})
+        for fn in counters:
+            fn.launches = 0
+        with world_of_one():
+            t0 = time.perf_counter()
+            last = cli_main(["train", "--arch", "swin", "--target", "T1", "--bf16",
+                             "--batch-size", str(MICRO), "--accum-steps", "1", "--epochs", "1",
+                             "--data-root", str(root / "data"),
+                             "--outputs-root", str(root / "outputs"), "--seed", str(seed)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        run = root / "outputs" / "T1_DDP_SwinIR"
+        rows = (run / "metrics.csv").read_text().strip().splitlines()[1:]
+        events = sorted((run / "tensorboard").glob("events.out.tfevents.*"))
+        psnr = read_scalars(events[0], "Metrics/PSNR") if events else []
+        ckpts = sorted(p.name for p in (run / "checkpoints").glob("*.pth"))
+        steps = TRAIN_PAIRS // MICRO
+        log("dp-train", f"train --bf16 in an NCCL world of one, micro {MICRO}, 1 epoch x "
+                        f"{steps} steps on {card}: loss_g={last['loss_g']:.5f} "
+                        f"loss_d={last['loss_d']:.5f} val PSNR={last['psnr']:.4f} dB, "
+                        f"{wall:.2f} s wall; launches " + ", ".join(
+                            f"{k} {v}" for k, v in launches.items())
+                        + f"; rank 0 wrote {ckpts}, metrics.csv rows {len(rows)}, "
+                        f"TensorBoard Metrics/PSNR {psnr}")
+        if any(n != 36 * steps for n in launches.values()):
+            raise SystemExit(f"[dp-train] expected {36 * steps} launches each, counted {launches}")
+        if (ckpts != ["best_gan_model.pth", "latest_checkpoint.pth"] or len(rows) != 1
+                or len(psnr) != 1 or psnr[0][0] != 1
+                or abs(psnr[0][1] - last["psnr"]) > 1e-4 * abs(last["psnr"])
+                or not np.isfinite([last["loss_g"], last["loss_d"]]).all()):
+            raise SystemExit(f"[dp-train] artifacts: checkpoints {ckpts}, csv rows {len(rows)}, "
+                             f"Metrics/PSNR {psnr} vs {last['psnr']}, losses {last}")
+
+
+def spatial_phase(device: torch.device, card: str, img01: np.ndarray, swinir, hybrid) -> None:
+    """37. [spatial]: ``make_spatial_swinir`` (the flagship SwinIR) and
+    ``make_spatial_hybrid`` (config #2) with ``attn_impl="pallas"`` on the
+    whole [upscale] frame in an NCCL world of one, against the fp32 module
+    forward with ``attn_impl="pallas"``, and their K11 launches."""
+    from superresolution_def_tpu_torch.kernels.window_attention import (
+        window_attention_masked, window_attention_nomask)
+    from superresolution_def_tpu_torch.parallel import (
+        initialize_distributed, make_mesh, make_spatial_hybrid, make_spatial_swinir)
+
+    counters = (window_attention_nomask, window_attention_masked)
+    x = torch.from_numpy(np.ascontiguousarray(img01[None, :, :, None])).to(device)
+    with world_of_one():
+        initialize_distributed("cuda")
+        mesh = make_mesh()
+        for arch, net, make, want in (
+                ("SwinIR", swinir, make_spatial_swinir, (36, 0)),
+                ("hybrid", hybrid, make_spatial_hybrid, (16, 12))):
+            net = copy.deepcopy(net).to(device).eval()
+            for m in net.modules():
+                if hasattr(m, "attn_impl"):
+                    m.attn_impl = "pallas"
+            fn = make(mesh, net, attn_impl="pallas")
+            with torch.no_grad():
+                dense = net(x)
+            torch.cuda.synchronize()
+            for f in counters:
+                f.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            got = fn(x)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            launches = tuple(f.launches for f in counters)
+            rel = float((got - dense).norm() / dense.norm())
+            max_abs = float((got - dense).abs().max())
+            log("spatial", f"{arch} fp32, attn_impl=pallas, the {img01.shape[0]}x"
+                           f"{img01.shape[1]} frame H-sharded over an NCCL world of one on "
+                           f"{card}: rel L2 to the module {rel:.3e} (bound {SPATIAL_REL_L2:.0e}),"
+                           f" max |diff| {max_abs:.3e}, {wall:.3f} s wall, peak {peak:.2f} GB; "
+                           f"K11a {launches[0]}, K11b {launches[1]} launches")
+            if not (rel <= SPATIAL_REL_L2 and launches == want and torch.isfinite(got).all()
+                    and got.shape == (1, 4 * img01.shape[0], 4 * img01.shape[1], 1)):
+                raise SystemExit(f"[spatial] {arch}: rel L2 {rel} > {SPATIAL_REL_L2}, launches "
+                                 f"{launches} != {want} or shape {tuple(got.shape)}")
+            del net, fn, dense, got
+            torch.cuda.empty_cache()
+
+
+def upscale_mesh_phase(frame: Path, run: Path, sr_cli: np.ndarray, card: str) -> None:
+    """38. [upscale-mesh]: ``upscale --mesh`` in an NCCL world of one writes
+    the TIFF bits of ``upscale`` without it; ``upscale --spatial`` writes a
+    frame of the right shape (its distance to the tiled frame has no bound:
+    tile blending differs at the seams)."""
+    from superresolution_def_tpu_torch.cli.main import main as cli_main
+    from superresolution_def_tpu_torch.data import read_tiff_u16
+
+    out, wall = {}, {}
+    for flag in ("--mesh", "--spatial"):
+        with world_of_one():
+            t0 = time.perf_counter()
+            res = cli_main(["upscale", str(frame), "--folder", str(run), flag,
+                            "--out", str(run / f"sr{flag[1:]}.tiff")])
+            wall[flag] = time.perf_counter() - t0
+        out[flag] = read_tiff_u16(res["out"])
+    same = np.array_equal(out["--mesh"], sr_cli)
+    rel = float(np.linalg.norm(out["--spatial"].astype(np.float64) - sr_cli)
+                / np.linalg.norm(sr_cli.astype(np.float64)))
+    log("upscale-mesh", f"on {card}: upscale --mesh (NCCL world of one) {wall['--mesh']:.2f} s "
+                        f"wall, the TIFF bits of upscale: {same}; upscale --spatial "
+                        f"{wall['--spatial']:.2f} s wall, {out['--spatial'].shape}, rel L2 to "
+                        f"the tiled frame {rel:.3e} (no bound: the tiles' seams)")
+    if not same or out["--spatial"].shape != sr_cli.shape or out["--spatial"].std() == 0:
+        raise SystemExit(f"[upscale-mesh] --mesh bits equal {same}, --spatial shape "
+                         f"{out['--spatial'].shape} std {out['--spatial'].std()}")
+
+
+
 def upscale_phase(seed: int, device: torch.device, card: str) -> None:
     """34. [upscale]: ``upscale`` of a whole 16-bit FITS frame with the
     flagship SwinIR, then ``tiled_sr`` through K1 and, for the hybrid,
@@ -736,6 +1059,7 @@ def upscale_phase(seed: int, device: torch.device, card: str) -> None:
                        f"{float(hi):.6f}")
         if sr_cli.shape != (4 * h, 4 * w) or sr_cli.std() == 0:
             raise SystemExit(f"upscale gave {sr_cli.shape}, std {sr_cli.std()}")
+        upscale_mesh_phase(frame, run, sr_cli, card)
 
         hybrid = HybridHATRealESRGAN(**HYBRID, generator=torch.Generator().manual_seed(seed + 35))
         for arch, net, make, counters, per_call in (
@@ -784,6 +1108,7 @@ def upscale_phase(seed: int, device: torch.device, card: str) -> None:
                                  f"{rel['fused bf16']} > {bound}, or launches {launches} != {want}")
             del forwards, outs, net
             torch.cuda.empty_cache()
+        spatial_phase(device, card, img01, model, hybrid)
 
 
 def main() -> None:
@@ -2413,9 +2738,13 @@ def main() -> None:
         raise SystemExit(f"expected {len(stage.MODES) * 6 * 36 + 2} K13 launches, counted "
                          f"{k13_launches}")
 
-    # 33.-34. the dataset prep and the tiled upscale of a whole frame
+    # 33.-34. the dataset prep and the tiled upscale of a whole frame, with
+    # 37.-38. the spatial forwards and upscale --mesh/--spatial on its frame
     prep_phase(seed, device, card)
     upscale_phase(seed, device, card)
+    # 35.-36. the data-parallel steps and trainer in a world of one
+    dp_step_phase(seed, device, card)
+    dp_train_phase(seed, device, card)
 
     work = block_work(768)
     work.update({k: v for k, v in block_work(bw_train).items() if k != "K1"})

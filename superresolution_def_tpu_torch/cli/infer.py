@@ -11,7 +11,8 @@
 - per image: SR -> nan_to_num -> clamp [0, 1] -> ``test_NNNN_sr.tiff``, the
   ``test_NNNN_tris.png`` comparison strip and PSNR/SSIM accumulation, plus
   ``test_metrics.csv`` [ID, PSNR, SSIM] (by default for the hybrid only);
-- ``tiled_sr``: overlap-blended tiled SR of a whole frame (``sr upscale``).
+- ``tiled_sr``: overlap-blended tiled SR of a whole frame (``sr upscale``),
+  its tile batches spread over the ranks with ``mesh=``.
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ from ..models import (
 )
 from ..obs import save_tris_preview
 from ..ops.metrics import TrainMetrics, psnr, ssim
+from ..parallel.mesh import Mesh
+from ..parallel.spatial import gather_rows
 
 
 ARCHES = ("swin", "hat")
@@ -99,9 +102,10 @@ def tiled_sr(
     scale: int = 4,
     batch_tiles: int = 8,
     device: torch.device | str = "cuda",
+    mesh: Mesh | None = None,
 ) -> np.ndarray:
     """SR an arbitrarily large (H, W) or (H, W, 1) image by overlap-blending
-    (the JAX ``tiled_sr`` without its mesh).
+    (the JAX ``tiled_sr``).
 
     ``forward`` maps NHWC tensors on ``device`` to NHWC: the ``nn.Module``,
     or ``make_fused_swinir(model)`` / ``make_fused_hybrid(model)``. Tiles of
@@ -111,21 +115,33 @@ def tiled_sr(
     one. The tiles are blended on the host in float32 with a linear feather
     that stays strictly positive, so pixels at the frame's border (covered
     by one tile's ramp) keep their full signal.
+
+    With a ``mesh`` (``parallel.make_mesh``; every rank calls with the same
+    frame) the tile batches are rounded to a multiple of the ranks, each
+    rank runs its share of every batch on the mesh's device, and the
+    outputs are all-gathered, so every rank blends the whole frame; a
+    world of one runs the batches of a call without it.
     """
+    if mesh is not None:
+        device = mesh.device
     device = resolve_device(device)
     x = np.asarray(img01, np.float32)
     if x.ndim == 2:
         x = x[..., None]
     h, w, _ = x.shape
 
-    def run(batch: np.ndarray) -> np.ndarray:
+    def run(batch: np.ndarray, shard: bool = True) -> np.ndarray:
         with torch.no_grad():
-            return forward(torch.from_numpy(batch).to(device)).float().cpu().numpy()
+            if mesh is None or not shard:
+                return forward(torch.from_numpy(batch).to(device)).float().cpu().numpy()
+            n = len(batch) // mesh.size
+            local = torch.from_numpy(batch[mesh.rank * n:(mesh.rank + 1) * n]).to(device)
+            return gather_rows(forward(local).float(), mesh, axis=0).cpu().numpy()
 
-    if h <= tile and w <= tile:
+    if h <= tile and w <= tile:  # one tile: every rank runs it whole, as without a mesh
         pad_h, pad_w = tile - h, tile - w
         xin = np.pad(x, ((0, pad_h), (0, pad_w), (0, 0)), mode="reflect") if (pad_h or pad_w) else x
-        return run(np.ascontiguousarray(xin[None]))[0][: h * scale, : w * scale]
+        return run(np.ascontiguousarray(xin[None]), shard=False)[0][: h * scale, : w * scale]
 
     stride = tile - 2 * overlap
     if stride <= 0:
@@ -138,6 +154,8 @@ def tiled_sr(
         xs.append(w - tile)
 
     tiles = np.stack([x[y : y + tile, xx : xx + tile] for y in ys for xx in xs])
+    if mesh is not None:  # divisible tile batches
+        batch_tiles = max(batch_tiles, mesh.size) // mesh.size * mesh.size
     outs = []
     for i in range(0, len(tiles), batch_tiles):
         chunk = tiles[i : i + batch_tiles]

@@ -4,11 +4,14 @@
       [--steps 1,2,3,4] [--desired-count N] [--fused]
   python -m superresolution_def_tpu_torch.cli.main split [--target T]
   python -m superresolution_def_tpu_torch.cli.main train --arch {swin,hat} \
-      --target T1 [--bf16] [--batch-size N] [--accum-steps N] [--epochs 300]
+      --target T1 [--bf16] [--batch-size N] [--accum-steps N] [--epochs 300] \
+      [--fused {on,off}] [--no-vgg]
   python -m superresolution_def_tpu_torch.cli.main infer --arch {swin,hat} \
       [--impl fused] [--folder RUN] [--data-root DATA]
   python -m superresolution_def_tpu_torch.cli.main upscale FRAME.fits|FRAME.tiff \
-      --folder RUN [--arch {swin,hat}] [--out OUT.tiff] [--tile 128] [--overlap 16]
+      --folder RUN [--arch {swin,hat}] [--out OUT.tiff] [--tile 128] [--overlap 16] \
+      [--mesh | --spatial]
+  torchrun --nproc-per-node N -m superresolution_def_tpu_torch.cli.main train|upscale ...
 
 The flags are those of the JAX ``sr`` subcommands, plus ``--device``: prep,
 train, infer and upscale run on the card (``cuda``) unless ``--device cpu``
@@ -17,12 +20,24 @@ is given, and raise without a card (``split`` is host work). ``prep
 (``prep/fused.py``, BASELINE config #5); step 2 and the staged steps' debug
 cards need matplotlib. ``train --bf16`` on the card runs the kernels: for
 swin the fused Swin blocks (K2-K4), for hat the RRDB trunk's dense blocks
-(K7/K8); ``train --arch hat --fused-hab`` also runs the backbone's HABs and
-OCAB tails through their training kernels (K9a-c, K10a-b), on the card with
-``--bf16``, on the CPU through the kernels' plain versions. ``upscale``
-super-resolves a whole FITS or 16-bit TIFF frame by tiles through the fp32
-``nn.Module``. Without ``--folder`` (``infer``) or ``--target`` (``train``)
-the run folders or targets are offered in a numbered menu.
+(K7/K8); ``--fused on|off`` overrides that default (on runs the fused
+structure through the kernels' plain versions on the CPU), ``--no-vgg``
+drops the perceptual term; ``train --arch hat --fused-hab`` also runs the
+backbone's HABs and OCAB tails through their training kernels (K9a-c,
+K10a-b), on the card with ``--bf16``, on the CPU through the kernels' plain
+versions. ``upscale`` super-resolves a whole FITS or 16-bit TIFF frame by
+tiles through the fp32 ``nn.Module``; ``--mesh`` spreads the tiles over the
+ranks, ``--spatial`` runs the whole frame H-sharded over the ranks with
+halo exchange (``parallel/spatial*.py``) instead of tiles. Without
+``--folder`` (``infer``) or ``--target`` (``train``) the run folders or
+targets are offered in a numbered menu (targets: several, comma-separated,
+or ``all``).
+
+Launched by torchrun (``WORLD_SIZE`` set), ``train`` and ``upscale`` run in
+the world ``parallel.initialize_distributed`` builds (NCCL on the cards,
+gloo with ``--device cpu``), one process a card, rank 0 writing; without
+torchrun they run in a world of one. The other commands run in one
+process and refuse a larger world.
 """
 
 from __future__ import annotations
@@ -32,13 +47,19 @@ import sys
 from pathlib import Path
 
 
-def _pick_from(items: list[str], what: str) -> str:
+def _pick_from(items: list[str], what: str, multi: bool = False) -> list[str]:
+    """A numbered menu of ``items``; with ``multi`` several numbers,
+    comma-separated, or ``all``."""
     if not items:
         sys.exit(f"No {what} found.")
     print(f"Available {what}:")
     for i, t in enumerate(items, 1):
         print(f"  [{i}] {t}")
-    return items[int(input(f"Select {what}: ").strip()) - 1]
+    raw = input(f"Select {what}" + (" (comma-separated or 'all')" if multi else "") + ": ").strip()
+    if multi and raw.lower() == "all":
+        return items
+    idxs = [int(x) - 1 for x in raw.split(",")]
+    return [items[i] for i in idxs] if multi else [items[idxs[0]]]
 
 
 def get_available_pair_targets(data_root: str) -> list[str]:
@@ -124,12 +145,14 @@ def cmd_train(args) -> dict:
     else:
         found = sorted(p.name for p in Path(args.data_root).glob("*")
                        if (p / "8_dataset_split" / "splits_json" / "train.json").exists())
-        targets = [_pick_from(found, "targets")]
+        targets = _pick_from(found, "targets", multi=True)
     config = SwinTrainConfig if args.arch == "swin" else HATTrainConfig
     cfg = config(
         targets=tuple(targets), data_root=args.data_root, outputs_root=args.outputs_root,
-        epochs=args.epochs, use_bf16=args.bf16, vgg_weights=args.vgg_weights, seed=args.seed,
-        max_steps_per_epoch=args.max_steps_per_epoch, device=args.device)
+        epochs=args.epochs, use_bf16=args.bf16, use_vgg=not args.no_vgg,
+        vgg_weights=args.vgg_weights, seed=args.seed,
+        max_steps_per_epoch=args.max_steps_per_epoch, device=args.device,
+        fused=None if args.fused is None else args.fused == "on")
     fields = ["batch_size", "accum_steps", "img_size", "embed_dim"]
     if args.arch == "hat":
         fields += ["warmup_epochs", "num_rrdb", "num_feat", "num_grow_ch", "ckpt_interval",
@@ -154,7 +177,7 @@ def cmd_infer(args) -> dict:
             folder = str(Path(args.outputs_root) / folder)
     else:
         runs = sorted(str(p) for p in Path(args.outputs_root).glob("*") if p.is_dir())
-        folder = _pick_from(runs, "run folders")
+        folder = _pick_from(runs, "run folders")[0]
     result = run_test(
         folder,
         args.arch,
@@ -174,14 +197,21 @@ def cmd_infer(args) -> dict:
 
 
 def cmd_upscale(args) -> dict:
-    """SR a whole 16-bit TIFF or FITS frame by tiles (the JAX ``cmd_upscale``)."""
+    """SR a whole 16-bit TIFF or FITS frame (the JAX ``cmd_upscale``): by
+    tiles, spread over the ranks with ``--mesh``, or with ``--spatial`` the
+    whole frame H-sharded over the ranks (reflect-padded to ranks x ws rows
+    and ws columns). Rank 0 writes."""
     import numpy as np
+    import torch
 
     from ..data import read_tiff_u16, write_tiff_u16
     from ..device import resolve_device
+    from ..parallel import make_mesh, make_spatial_hybrid, make_spatial_swinir
+    from ..parallel.mesh import barrier
     from .infer import load_generator, tiled_sr
 
-    device = resolve_device(args.device)
+    mesh = make_mesh(args.device) if args.mesh or args.spatial else None
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     src = Path(args.image)
     if src.suffix.lower() in (".fits", ".fit", ".fts"):
         from ..ops.normalize import log_stretch_normalize, robust_minmax
@@ -194,11 +224,51 @@ def cmd_upscale(args) -> dict:
         img01 = read_tiff_u16(src).astype(np.float32) / 65535.0
 
     model, info = load_generator(args.folder, device, args.arch)
-    sr = tiled_sr(model, img01, tile=args.tile, overlap=args.overlap, scale=4, device=device)
+    if args.spatial:
+        # halo-exact context parallelism: the whole frame in one sharded
+        # forward, no tile blending
+        ws = model.window_size if args.arch == "swin" else model.hat.window_size
+        quantum = mesh.size * ws
+        h, w = img01.shape[:2]
+        xin = np.pad(img01, ((0, (quantum - h % quantum) % quantum), (0, (ws - w % ws) % ws)),
+                     mode="reflect")[None, ..., None]
+        make = make_spatial_swinir if args.arch == "swin" else make_spatial_hybrid
+        sr = make(mesh, model)(torch.from_numpy(np.ascontiguousarray(xin)))
+        sr = sr.float().cpu().numpy()[0, : h * 4, : w * 4]
+    else:
+        sr = tiled_sr(model, img01, tile=args.tile, overlap=args.overlap, scale=4,
+                      device=device, mesh=mesh)
     out = args.out or str(src.with_suffix("")) + "_sr.tiff"
-    write_tiff_u16(out, sr[..., 0])
-    print(f"{src} {img01.shape} -> {out} {sr.shape[:2]}  [ckpt: {info['source']}]")
+    if mesh is None or mesh.rank == 0:
+        write_tiff_u16(out, sr[..., 0])
+        print(f"{src} {img01.shape} -> {out} {sr.shape[:2]}  [ckpt: {info['source']}]")
+    barrier(mesh)
     return {"out": out, "shape": sr.shape[:2], "checkpoint": info}
+
+
+def _in_world(args, command):
+    """Runs ``command(args)``. Launched by torchrun, ``train`` and
+    ``upscale`` run in its world (made here, and torn down at the end, when
+    no process group exists yet); the other commands refuse a world of more
+    than one process."""
+    import os
+
+    if args.cmd not in ("train", "upscale"):
+        if int(os.environ.get("WORLD_SIZE", 1)) > 1:
+            sys.exit(f"`{args.cmd}` runs in one process; launch it without torchrun")
+        return command(args)
+    import torch.distributed as dist
+
+    from ..parallel import initialize_distributed
+
+    made = "WORLD_SIZE" in os.environ and not dist.is_initialized()
+    if made:
+        initialize_distributed(args.device)
+    try:
+        return command(args)
+    finally:
+        if made:
+            dist.destroy_process_group()
 
 
 def main(argv=None):
@@ -232,6 +302,11 @@ def main(argv=None):
     pt.add_argument("--accum-steps", type=int, default=None, help="default: swin 1, hat 8")
     pt.add_argument("--bf16", action="store_true",
                     help="bf16 compute; on the card the generator runs the kernels")
+    pt.add_argument("--fused", choices=["on", "off"], default=None,
+                    help="the generator through the kernels (swin K2-K4, hat's trunk K7/K8); "
+                         "default: on for the card with --bf16; on the CPU they run their "
+                         "plain versions")
+    pt.add_argument("--no-vgg", action="store_true", help="no perceptual (VGG19) term")
     pt.add_argument("--vgg-weights", default=None, help="npz of the JAX package's VGG19 params")
     pt.add_argument("--no-resume", action="store_true",
                     help="start over instead of resuming from the run folder's checkpoints")
@@ -282,10 +357,15 @@ def main(argv=None):
     pu.add_argument("--tile", type=int, default=128)
     pu.add_argument("--overlap", type=int, default=16)
     pu.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    spread = pu.add_mutually_exclusive_group()
+    spread.add_argument("--mesh", action="store_true", help="spread the tiles over the ranks")
+    spread.add_argument("--spatial", action="store_true",
+                        help="halo-exact spatial sharding over the ranks instead of tile "
+                             "blending")
 
     args = p.parse_args(argv)
-    return {"split": cmd_split, "prep": cmd_prep, "train": cmd_train, "infer": cmd_infer,
-            "upscale": cmd_upscale}[args.cmd](args)
+    return _in_world(args, {"split": cmd_split, "prep": cmd_prep, "train": cmd_train,
+                            "infer": cmd_infer, "upscale": cmd_upscale}[args.cmd])
 
 
 if __name__ == "__main__":

@@ -30,8 +30,24 @@ JAX trainers restore their PRNG key, so a resumed run draws what an
 uninterrupted one would. ``resume=False`` (``train --no-resume``) starts
 over and rewrites the log.
 
-One process on one device. Not ported yet: TensorBoard, host-to-device
-prefetch overlap, multi-GPU.
+Both run in the process group of the launch (``torchrun --nproc-per-node
+N``, one process a card, NCCL; gloo on the CPU), or in a world of one
+without it, as the JAX trainers run over the mesh of every chip:
+
+- ``batch_size`` is per rank; the global micro-batch is ``batch_size *
+  ranks``, and the check that the split holds one optimizer step uses it;
+- each rank reads a disjoint rank-strided share of every epoch
+  (``DataIterator(process_index=, process_count=)``), the train and the
+  validation split alike, staged onto its card by ``prefetch_to_mesh``
+  (the upload of batch i+1 overlaps step i);
+- the step is data-parallel (``make_*_train_step(mesh=)``: global draws,
+  losses and NaN guard, gradients averaged over the ranks), the validation
+  sums are all-reduced (``sync_metrics``);
+- only rank 0 writes: checkpoints, the CSV log, previews and, for swin,
+  TensorBoard's ``Metrics/PSNR`` per epoch (``<run>/tensorboard``), with a
+  barrier after each epoch's writes;
+- a resumed run reads the checkpoint on every rank, then ``replicate``s
+  rank 0's state.
 """
 
 from __future__ import annotations
@@ -47,7 +63,15 @@ import torch
 
 from ..data import DataIterator, PatchDataset, load_manifest
 from ..models import load_torch_state_dict, vgg19_state_dict_from_jax
-from ..obs import HAT_CSV_COLUMNS, SWIN_CSV_COLUMNS, CSVLogger, save_tris_preview
+from ..obs import (
+    HAT_CSV_COLUMNS,
+    SWIN_CSV_COLUMNS,
+    CSVLogger,
+    TensorBoardLogger,
+    save_tris_preview,
+)
+from ..parallel import make_mesh, prefetch_to_mesh, replicate, sync_metrics
+from ..parallel.mesh import barrier
 from ..train import (
     HAT_METRICS,
     CombinedGANLoss,
@@ -59,7 +83,6 @@ from ..train import (
     make_hat_train_step,
     make_swin_train_step,
 )
-from .infer import resolve_device
 
 
 @dataclasses.dataclass
@@ -83,6 +106,9 @@ class SwinTrainConfig:
     window_size: int = 8
     mlp_ratio: float = 4.0
     use_bf16: bool = False
+    # the fused generator (K2-K4); None: on for the card with bf16
+    fused: bool | None = None
+    use_vgg: bool = True  # False: no perceptual term
     vgg_weights: str | None = None  # npz of the JAX package's VGG params; None -> seeded
     seed: int = 0
     max_steps_per_epoch: int | None = None
@@ -119,6 +145,9 @@ class HATTrainConfig:
     num_feat: int = 48
     num_grow_ch: int = 24
     use_bf16: bool = False
+    # the fused trunk (K7/K8); None: on for the card with bf16, or with fused_hab
+    fused: bool | None = None
+    use_vgg: bool = True  # False: no perceptual term
     vgg_weights: str | None = None  # npz of the JAX package's VGG params; None -> seeded
     pretrained_hat: str | None = None  # a HAT-only .pth to seed the backbone
     fused_hab: bool = False  # the backbone's HABs and OCABs through K9/K10 too
@@ -137,9 +166,11 @@ def _split_entries(cfg, split: str) -> list:
         cfg.data_root)]
 
 
-def _load_vgg(cfg, dtype: torch.dtype, device) -> VGG19Features:
+def _load_vgg(cfg, dtype: torch.dtype, device) -> VGG19Features | None:
     """VGG19[:36] for the perceptual loss: the JAX package's npz when given
-    (read with numpy), else seeded weights."""
+    (read with numpy), else seeded weights; None without ``use_vgg``."""
+    if not cfg.use_vgg:
+        return None
     model = VGG19Features(cutoff=35, dtype=dtype, generator=torch.Generator().manual_seed(0))
     if cfg.vgg_weights:
         loaded = np.load(cfg.vgg_weights, allow_pickle=True)
@@ -171,6 +202,20 @@ def _generator_states(generators: dict) -> dict:
     return {key: gen.get_state() for key, gen in generators.items()}
 
 
+def _reshape_accum(batch: dict, accum: int, micro: int) -> dict:
+    return {k: v.reshape(accum, micro, *v.shape[1:]) for k, v in batch.items()}
+
+
+def _check_split(n: int, cfg, ranks: int) -> int:
+    """The global micro-batch; raises when the split holds no optimizer step."""
+    micro = cfg.batch_size * ranks
+    per_step = micro * cfg.accum_steps
+    if n < per_step:
+        raise ValueError(f"train split has {n} pairs < one optimizer step ({cfg.batch_size}/rank "
+                         f"x {ranks} ranks x {cfg.accum_steps} accum = {per_step})")
+    return micro
+
+
 def latest_epoch_checkpoint(ckpt_dir: Path) -> Path | None:
     """The ``hybrid_epoch_N.pth`` of the largest N (compared as integers), or None."""
     found = [(int(m.group(1)), p) for p in ckpt_dir.glob("hybrid_epoch_*.pth")
@@ -180,24 +225,25 @@ def latest_epoch_checkpoint(ckpt_dir: Path) -> Path | None:
 
 def train_swin_run(cfg: SwinTrainConfig, resume: bool = True) -> dict:
     """Full SwinIR-GAN training. Returns the last epoch's metrics."""
-    device = resolve_device(cfg.device)
+    mesh = make_mesh(cfg.device)
+    device, master = mesh.device, mesh.rank == 0
     run_dir = Path(cfg.outputs_root) / cfg.run_name
-    (run_dir / "images").mkdir(parents=True, exist_ok=True)
-    (run_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
+    if master:
+        (run_dir / "images").mkdir(parents=True, exist_ok=True)
+        (run_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
 
     hr_size = cfg.img_size * cfg.upscale
     train_ds = PatchDataset(_split_entries(cfg, "train"), cfg.img_size, hr_size)
     val_ds = PatchDataset(_split_entries(cfg, "val"), cfg.img_size, hr_size)
-    per_step = cfg.batch_size * cfg.accum_steps
-    if len(train_ds) < per_step:
-        raise ValueError(f"train split has {len(train_ds)} pairs < one optimizer step "
-                         f"({cfg.batch_size} x {cfg.accum_steps} accum = {per_step})")
-    it = DataIterator(train_ds, per_step, shuffle=True, drop_last=True, seed=cfg.seed)
-    val_it = DataIterator(val_ds, 1)
+    _check_split(len(train_ds), cfg, mesh.size)
+    shard = dict(process_index=mesh.rank, process_count=mesh.size)
+    it = DataIterator(train_ds, cfg.batch_size * cfg.accum_steps, shuffle=True, drop_last=True,
+                      seed=cfg.seed, **shard)
+    val_it = DataIterator(val_ds, 1, **shard)
 
     dtype = torch.bfloat16 if cfg.use_bf16 else torch.float32
     # the fused kernels take bf16 on the card; the CPU runs the module path
-    fused = device.type == "cuda" and cfg.use_bf16
+    fused = cfg.fused if cfg.fused is not None else device.type == "cuda" and cfg.use_bf16
     state = create_swin_train_state(
         torch.Generator().manual_seed(cfg.seed), img_size=cfg.img_size, upscale=cfg.upscale,
         embed_dim=cfg.embed_dim, depths=cfg.depths, num_heads=cfg.num_heads,
@@ -208,15 +254,21 @@ def train_swin_run(cfg: SwinTrainConfig, resume: bool = True) -> dict:
                                   vgg_apply=_load_vgg(cfg, dtype, device))
     generators = {"rng_augment": torch.Generator().manual_seed(cfg.seed + 1)}
     step = make_swin_train_step(state, accum_steps=cfg.accum_steps, criterion_g=criterion_g,
-                                ema_decay=cfg.ema_decay, generator=generators["rng_augment"])
+                                ema_decay=cfg.ema_decay, generator=generators["rng_augment"],
+                                mesh=mesh)
     eval_step = make_eval_step(state.ema_forward)
     start_epoch, best_psnr = 1, 0.0
     latest = run_dir / "checkpoints" / "latest_checkpoint.pth"
     if resume and latest.exists():
         ck = _restore(state, latest, device, generators)
         start_epoch, best_psnr = ck["epoch"] + 1, ck["best_psnr"]
-        print(f"Resumed from epoch {start_epoch}")
-    csv_log = CSVLogger(run_dir / "metrics.csv", SWIN_CSV_COLUMNS, resume=start_epoch > 1)
+        if master:
+            print(f"Resumed from epoch {start_epoch}")
+    replicate(state, mesh)
+    csv_log = tb = None
+    if master:
+        csv_log = CSVLogger(run_dir / "metrics.csv", SWIN_CSV_COLUMNS, resume=start_epoch > 1)
+        tb = TensorBoardLogger(run_dir / "tensorboard")
 
     last = {}
     for epoch in range(start_epoch, cfg.epochs + 1):
@@ -224,51 +276,60 @@ def train_swin_run(cfg: SwinTrainConfig, resume: bool = True) -> dict:
         lr_g = cosine_annealing_lr(epoch, cfg.lr_g, cfg.epochs)
         lr_d = cosine_annealing_lr(epoch, cfg.lr_d, cfg.epochs)
         g_sum = d_sum = valid = 0.0
-        for bi, b in enumerate(it.epoch(epoch)):
-            if cfg.max_steps_per_epoch and bi >= cfg.max_steps_per_epoch:
-                break
-            b = {k: v.reshape(cfg.accum_steps, cfg.batch_size, *v.shape[1:])
-                 for k, v in b.items()}
-            m = step(b, lr_g, lr_d)
-            g_sum += m["loss_g"] * m["valid_batches"]
-            d_sum += m["loss_d"] * m["valid_batches"]
-            valid += m["valid_batches"]
+        with prefetch_to_mesh(it.epoch(epoch), mesh, transform=lambda b: _reshape_accum(
+                b, cfg.accum_steps, cfg.batch_size)) as stream:
+            for bi, (_, b) in enumerate(stream):
+                if cfg.max_steps_per_epoch and bi >= cfg.max_steps_per_epoch:
+                    break
+                m = step(b, lr_g, lr_d)
+                g_sum += m["loss_g"] * m["valid_batches"]
+                d_sum += m["loss_d"] * m["valid_batches"]
+                valid += m["valid_batches"]
         avg_g, avg_d = g_sum / max(valid, 1.0), d_sum / max(valid, 1.0)
 
-        # EMA-copy validation (train_swin.py:277-300)
-        psnr_sum = ssim_sum = count = 0.0
+        # EMA-copy validation (train_swin.py:277-300), summed over the ranks
+        sums = {"psnr_sum": 0.0, "ssim_sum": 0.0, "count": 0.0}
         preview = None
         for vi, vb in enumerate(val_it.epoch(0)):
             if cfg.max_steps_per_epoch and vi >= cfg.max_steps_per_epoch:
                 break
             out = eval_step(vb, device)
-            psnr_sum += out["psnr_sum"]
-            ssim_sum += out["ssim_sum"]
-            count += out["count"]
+            for k in sums:
+                sums[k] += out[k]
             preview = (vb, out["sr"][0].cpu().numpy())
-        val_psnr, val_ssim = psnr_sum / max(count, 1.0), ssim_sum / max(count, 1.0)
+        sums = sync_metrics(sums, mesh)
+        val_psnr = sums["psnr_sum"] / max(sums["count"], 1.0)
+        val_ssim = sums["ssim_sum"] / max(sums["count"], 1.0)
 
         dt = time.time() - t0
         last = {"epoch": epoch, "loss_g": avg_g, "loss_d": avg_d, "psnr": val_psnr,
                 "ssim": val_ssim, "time_sec": dt}
-        print(f"Ep {epoch}: G={avg_g:.4f} D={avg_d:.4f} PSNR={val_psnr:.2f} "
-              f"SSIM={val_ssim:.4f} ({dt:.1f}s)", flush=True)
-        csv_log.log({"Epoch": epoch, "Loss_G": avg_g, "Loss_D": avg_d, "PSNR": val_psnr,
-                     "SSIM": val_ssim, "Time_Sec": round(dt, 1)})
         if val_psnr > best_psnr:
             best_psnr = val_psnr
-            torch.save({"net_g": state.ema.state_dict()},
-                       run_dir / "checkpoints" / "best_gan_model.pth")
-        torch.save({
-            "net_g": state.g.state_dict(), "net_d": state.d.state_dict(),
-            "optimizer_g": state.g_opt.state_dict(), "optimizer_d": state.d_opt.state_dict(),
-            "ema": state.ema.state_dict(), "epoch": epoch, "best_psnr": best_psnr,
-            **_generator_states(generators),
-        }, run_dir / "checkpoints" / "latest_checkpoint.pth")
-        if preview is not None:
-            vb, sr = preview
-            save_tris_preview(run_dir / "images" / f"epoch_{epoch:03d}.png",
-                              vb["lr"][0] / 65535.0, sr, vb["hr"][0] / 65535.0)
+            if master:
+                torch.save({"net_g": state.ema.state_dict()},
+                           run_dir / "checkpoints" / "best_gan_model.pth")
+        if master:
+            print(f"Ep {epoch}: G={avg_g:.4f} D={avg_d:.4f} PSNR={val_psnr:.2f} "
+                  f"SSIM={val_ssim:.4f} ({dt:.1f}s)", flush=True)
+            csv_log.log({"Epoch": epoch, "Loss_G": avg_g, "Loss_D": avg_d, "PSNR": val_psnr,
+                         "SSIM": val_ssim, "Time_Sec": round(dt, 1)})
+            tb.scalar("Metrics/PSNR", val_psnr, epoch)
+            tb.flush()
+            torch.save({
+                "net_g": state.g.state_dict(), "net_d": state.d.state_dict(),
+                "optimizer_g": state.g_opt.state_dict(),
+                "optimizer_d": state.d_opt.state_dict(),
+                "ema": state.ema.state_dict(), "epoch": epoch, "best_psnr": best_psnr,
+                **_generator_states(generators),
+            }, run_dir / "checkpoints" / "latest_checkpoint.pth")
+            if preview is not None:
+                vb, sr = preview
+                save_tris_preview(run_dir / "images" / f"epoch_{epoch:03d}.png",
+                                  vb["lr"][0] / 65535.0, sr, vb["hr"][0] / 65535.0)
+        barrier(mesh)
+    if tb is not None:
+        tb.close()
     return last
 
 
@@ -288,22 +349,24 @@ def _load_pretrained_hat(path: str, model) -> None:
 
 def train_hat_run(cfg: HATTrainConfig, resume: bool = True) -> dict:
     """Full Hybrid-HAT GAN training. Returns the last epoch's metrics."""
-    device = resolve_device(cfg.device)
+    mesh = make_mesh(cfg.device)
+    device, master = mesh.device, mesh.rank == 0
     run_dir = Path(cfg.outputs_root) / cfg.run_name
-    (run_dir / "previews").mkdir(parents=True, exist_ok=True)
-    (run_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
+    if master:
+        (run_dir / "previews").mkdir(parents=True, exist_ok=True)
+        (run_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
 
     train_ds = PatchDataset(_split_entries(cfg, "train"), cfg.img_size, cfg.img_size * 4)
-    per_step = cfg.batch_size * cfg.accum_steps
-    if len(train_ds) < per_step:
-        raise ValueError(f"train split has {len(train_ds)} pairs < one optimizer step "
-                         f"({cfg.batch_size} x {cfg.accum_steps} accum = {per_step})")
-    it = DataIterator(train_ds, per_step, shuffle=True, drop_last=True, seed=cfg.seed)
+    _check_split(len(train_ds), cfg, mesh.size)
+    it = DataIterator(train_ds, cfg.batch_size * cfg.accum_steps, shuffle=True, drop_last=True,
+                      seed=cfg.seed, process_index=mesh.rank, process_count=mesh.size)
 
     dtype = torch.bfloat16 if cfg.use_bf16 else torch.float32
     # the fused trunk takes bf16 on the card; the CPU runs the module path
     # unless fused_hab asks for the fused generator (its plain versions there)
-    fused = cfg.fused_hab or (device.type == "cuda" and cfg.use_bf16)
+    fused = cfg.fused
+    if fused is None:
+        fused = cfg.fused_hab or (device.type == "cuda" and cfg.use_bf16)
     state = create_hat_train_state(
         torch.Generator().manual_seed(cfg.seed), img_size=cfg.img_size, embed_dim=cfg.embed_dim,
         depths=cfg.depths, num_heads=cfg.num_heads, window_size=cfg.window_size,
@@ -312,7 +375,8 @@ def train_hat_run(cfg: HATTrainConfig, resume: bool = True) -> dict:
     if cfg.pretrained_hat:
         _load_pretrained_hat(cfg.pretrained_hat, state.g)
         state.ema.load_state_dict(state.g.state_dict())
-        print(f"Seeded HAT backbone from {cfg.pretrained_hat}")
+        if master:
+            print(f"Seeded HAT backbone from {cfg.pretrained_hat}")
     criterion_g = CombinedGANLoss(pixel_weight=1.0, perceptual_weight=1.0,
                                   adversarial_weight=0.005,
                                   vgg_apply=_load_vgg(cfg, dtype, device))
@@ -320,14 +384,19 @@ def train_hat_run(cfg: HATTrainConfig, resume: bool = True) -> dict:
                   "rng_drop_path": torch.Generator(device).manual_seed(cfg.seed + 2)}
     step = make_hat_train_step(
         state, accum_steps=cfg.accum_steps, criterion_g=criterion_g, ema_decay=cfg.ema_decay,
-        generator=generators["rng_augment"], drop_generator=generators["rng_drop_path"])
+        generator=generators["rng_augment"], drop_generator=generators["rng_drop_path"],
+        mesh=mesh)
     ckpt = run_dir / "checkpoints"
     start_epoch = 1
     latest = latest_epoch_checkpoint(ckpt) if resume else None
     if latest is not None:
         start_epoch = _restore(state, latest, device, generators)["epoch"] + 1
-        print(f"Resume from epoch {start_epoch}")
-    csv_log = CSVLogger(run_dir / "train_log.csv", HAT_CSV_COLUMNS, resume=start_epoch > 1)
+        if master:
+            print(f"Resume from epoch {start_epoch}")
+    replicate(state, mesh)
+    csv_log = None
+    if master:
+        csv_log = CSVLogger(run_dir / "train_log.csv", HAT_CSV_COLUMNS, resume=start_epoch > 1)
 
     last = {}
     for epoch in range(start_epoch, cfg.epochs + 1):
@@ -336,40 +405,45 @@ def train_hat_run(cfg: HATTrainConfig, resume: bool = True) -> dict:
         lr_d = cosine_annealing_lr(epoch, cfg.lr_d, cfg.epochs)
         sums = dict.fromkeys(HAT_METRICS, 0.0)
         steps, last_batch = 0, None
-        for bi, b in enumerate(it.epoch(epoch)):
-            if cfg.max_steps_per_epoch and bi >= cfg.max_steps_per_epoch:
-                break
-            m = step({k: v.reshape(cfg.accum_steps, cfg.batch_size, *v.shape[1:])
-                      for k, v in b.items()}, lr_g, lr_d, warmup=warmup)
-            for k in sums:
-                sums[k] += m[k]
-            steps += 1
-            last_batch = b
+        with prefetch_to_mesh(it.epoch(epoch), mesh, transform=lambda b: _reshape_accum(
+                b, cfg.accum_steps, cfg.batch_size)) as stream:
+            for bi, (host, b) in enumerate(stream):
+                if cfg.max_steps_per_epoch and bi >= cfg.max_steps_per_epoch:
+                    break
+                m = step(b, lr_g, lr_d, warmup=warmup)
+                for k in sums:
+                    sums[k] += m[k]
+                steps += 1
+                last_batch = host
         n, cnt = max(steps, 1), max(sums["count"], 1.0)
         last = {"epoch": epoch, "g_total": sums["loss_g"] / n, "l1": sums["l1"] / n,
                 "g_adv": sums["g_adv"] / n, "d_total": sums["loss_d"] / n,
                 "psnr": sums["psnr_sum"] / cnt, "ssim": sums["ssim_sum"] / cnt, "lr": lr_g}
-        print(f"Ep {epoch} [{'WARMUP' if warmup else 'GAN'}]: G={last['g_total']:.4f} "
-              f"L1={last['l1']:.4f} D={last['d_total']:.4f} PSNR={last['psnr']:.2f}", flush=True)
-        if epoch % cfg.csv_interval == 0:
-            csv_log.log({"Epoch": epoch, "G_Total": last["g_total"], "L1": last["l1"],
-                         "G_Adv": last["g_adv"], "D_Total": last["d_total"],
-                         "PSNR": last["psnr"], "SSIM": last["ssim"], "LR": lr_g})
-        if epoch % cfg.ckpt_interval == 0:
-            torch.save({"net_g": state.g.state_dict(), "net_d": state.d.state_dict(),
-                        "optimizer_g": state.g_opt.state_dict(),
-                        "optimizer_d": state.d_opt.state_dict(), "ema": state.ema.state_dict(),
-                        "epoch": epoch, **_generator_states(generators)},
-                       ckpt / f"hybrid_epoch_{epoch}.pth")
-            # the reference overwrites 'best' unconditionally (train_hat.py:314-322)
-            torch.save({"model_state_dict": state.g.state_dict()},
-                       ckpt / "best_hybrid_model.pth")
-            torch.save({"model_state_dict": state.ema.state_dict()},
-                       ckpt / "best_hybrid_model_EMA.pth")
-        if epoch % cfg.img_interval == 0 and last_batch is not None:
-            pv = {k: v[:1] for k, v in last_batch.items()}
-            out = make_eval_step(state.g_forward)(pv, device)
-            save_tris_preview(run_dir / "previews" / f"epoch_{epoch:03d}_preview.png",
-                              pv["lr"][0] / 65535.0, out["sr"][0].cpu().numpy(),
-                              pv["hr"][0] / 65535.0)
+        if master:
+            print(f"Ep {epoch} [{'WARMUP' if warmup else 'GAN'}]: G={last['g_total']:.4f} "
+                  f"L1={last['l1']:.4f} D={last['d_total']:.4f} PSNR={last['psnr']:.2f}",
+                  flush=True)
+            if epoch % cfg.csv_interval == 0:
+                csv_log.log({"Epoch": epoch, "G_Total": last["g_total"], "L1": last["l1"],
+                             "G_Adv": last["g_adv"], "D_Total": last["d_total"],
+                             "PSNR": last["psnr"], "SSIM": last["ssim"], "LR": lr_g})
+            if epoch % cfg.ckpt_interval == 0:
+                torch.save({"net_g": state.g.state_dict(), "net_d": state.d.state_dict(),
+                            "optimizer_g": state.g_opt.state_dict(),
+                            "optimizer_d": state.d_opt.state_dict(),
+                            "ema": state.ema.state_dict(), "epoch": epoch,
+                            **_generator_states(generators)},
+                           ckpt / f"hybrid_epoch_{epoch}.pth")
+                # the reference overwrites 'best' unconditionally (train_hat.py:314-322)
+                torch.save({"model_state_dict": state.g.state_dict()},
+                           ckpt / "best_hybrid_model.pth")
+                torch.save({"model_state_dict": state.ema.state_dict()},
+                           ckpt / "best_hybrid_model_EMA.pth")
+            if epoch % cfg.img_interval == 0 and last_batch is not None:
+                pv = {k: v[:1] for k, v in last_batch.items()}
+                out = make_eval_step(state.g_forward)(pv, device)
+                save_tris_preview(run_dir / "previews" / f"epoch_{epoch:03d}_preview.png",
+                                  pv["lr"][0] / 65535.0, out["sr"][0].cpu().numpy(),
+                                  pv["hr"][0] / 65535.0)
+        barrier(mesh)
     return last

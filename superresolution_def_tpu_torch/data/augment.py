@@ -12,12 +12,20 @@ from __future__ import annotations
 import torch
 
 
-def draw_augment(batch: int, generator: torch.Generator):
-    """Per-sample draws ``(do_h, do_v, k)``: two bool (B,) and one int64 (B,) in 0..3."""
-    do_h = torch.rand(batch, generator=generator) < 0.5
-    do_v = torch.rand(batch, generator=generator) < 0.5
-    k = torch.randint(0, 4, (batch,), generator=generator)
-    return do_h, do_v, k
+def draw_augment(batch: int, generator: torch.Generator, rank: int = 0, world: int = 1):
+    """Per-sample draws ``(do_h, do_v, k)``: two bool (B,) and one int64 (B,) in 0..3.
+
+    Under data parallelism the draws are for the global micro-batch, as the
+    JAX step draws them: each of ``world`` ranks draws ``batch * world``
+    samples from the same generator and keeps rows ``rank * batch`` on, so
+    the ranks together draw what one process would for the concatenated
+    batch (rank 0's rows, then rank 1's, ...)."""
+    n = batch * world
+    do_h = torch.rand(n, generator=generator) < 0.5
+    do_v = torch.rand(n, generator=generator) < 0.5
+    k = torch.randint(0, 4, (n,), generator=generator)
+    rows = slice(rank * batch, (rank + 1) * batch)
+    return do_h[rows], do_v[rows], k[rows]
 
 
 def augment_pair_batch(lr: torch.Tensor, hr: torch.Tensor, draws):

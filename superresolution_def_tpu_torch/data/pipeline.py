@@ -1,12 +1,16 @@
 """Host input pipeline: threaded PIL TIFF decode into uint16 batches.
 
-The JAX ``data/pipeline.py`` for one process: batches in manifest order or
-in a seeded per-epoch shuffle (the JAX ``_epoch_order``, so both packages
-see the same batch order), decoded on a thread pool and kept a few batches
-ahead by a producer thread. A file that fails to decode is replaced by
-another sample chosen deterministically from the failing index
-(astronomical_dataset_swin.py:53-55). Unless ``drop_last``, the last batch
-wraps around to the start when the split does not divide.
+The JAX ``data/pipeline.py``: batches in manifest order or in a seeded
+per-epoch shuffle (the JAX ``_epoch_order``, so both packages see the same
+batch order), decoded on a thread pool and kept a few batches ahead by a
+producer thread. A file that fails to decode is replaced by another sample
+chosen deterministically from the failing index
+(astronomical_dataset_swin.py:53-55). With several processes each takes a
+disjoint rank-strided share of every epoch (DistributedSampler semantics,
+train_swin.py:141-145): the order is wrap-padded to whole global batches,
+unless ``drop_last`` cuts it to them, and rank r takes every
+``process_count``-th sample from the r-th. One process sees the order as
+it is, the last batch wrapping to the start when the split does not divide.
 """
 
 from __future__ import annotations
@@ -66,24 +70,38 @@ def _epoch_order(n: int, epoch: int, shuffle: bool, seed: int = 0) -> np.ndarray
 
 
 class DataIterator:
-    """Yields ``{'lr': (B, h, w, 1), 'hr': (B, H, W, 1)}`` uint16 batches."""
+    """Yields ``{'lr': (B, h, w, 1), 'hr': (B, H, W, 1)}`` uint16 batches of
+    this process's share: ``batch_size`` is per process."""
 
     def __init__(self, dataset: PatchDataset, batch_size: int, *, shuffle: bool = False,
-                 drop_last: bool = False, seed: int = 0):
+                 drop_last: bool = False, seed: int = 0, process_index: int = 0,
+                 process_count: int = 1):
         self.ds = dataset
         self.batch = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.pidx = process_index
+        self.pcount = process_count
+
+    def batches_per_epoch(self) -> int:
+        n = len(self.ds)
+        global_batch = self.batch * self.pcount
+        return n // global_batch if self.drop_last else -(-n // global_batch)
+
+    def _indices(self, epoch: int) -> np.ndarray:
+        """This process's samples of the epoch, in order: the epoch's order
+        wrap-padded (or cut) to whole global batches, then strided by rank."""
+        total = self.batches_per_epoch() * self.batch * self.pcount
+        order = np.resize(_epoch_order(len(self.ds), epoch, self.shuffle, self.seed), total)
+        return order[self.pidx::self.pcount]
 
     def epoch(self, epoch: int = 0) -> Iterator[dict[str, np.ndarray]]:
-        """One pass over the split; ``epoch`` seeds the shuffle."""
-        n = len(self.ds)
-        nb = n // self.batch if self.drop_last else -(-n // self.batch)
+        """One pass over this process's share; ``epoch`` seeds the shuffle."""
+        order = self._indices(epoch)
+        nb = len(order) // self.batch
         if nb == 0:
             return iter(())
-        # wrap-around padding, like DistributedSampler
-        order = np.resize(_epoch_order(n, epoch, self.shuffle, self.seed), nb * self.batch)
         out_q: queue.Queue = queue.Queue(maxsize=PREFETCH_BATCHES)
         stop = threading.Event()
 

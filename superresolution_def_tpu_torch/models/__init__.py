@@ -1,5 +1,5 @@
 from .discriminators import UNetDiscriminatorSNHAT, UNetDiscriminatorSNSwin
-from .hat import DropPath, injected_drop_masks
+from .hat import DrawShard, DropPath, injected_drop_masks
 from .hat import HAT
 from .hybrid import HybridHATRealESRGAN
 from .spectral_norm import SNConv2d
@@ -18,6 +18,7 @@ from .weights import (
 )
 
 __all__ = [
+    "DrawShard",
     "DropPath",
     "HAT",
     "HybridHATRealESRGAN",

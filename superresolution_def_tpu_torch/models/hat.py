@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Callable, Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -58,6 +58,17 @@ def injected_drop_masks(masks: Callable):
         _DROP_MASKS = None
 
 
+class DrawShard(NamedTuple):
+    """A generator whose per-sample draws are for the global batch of
+    ``world`` ranks: each draw is made for ``world`` times the local batch
+    and the rank keeps its own run of rows, so the ranks draw what one
+    process draws for the concatenated batch."""
+
+    generator: torch.Generator | None
+    rank: int
+    world: int
+
+
 class DropPath(nn.Module):
     """Stochastic depth per sample (the JAX ``DropPath``, timm semantics):
     each sample is kept with ``floor(keep + U)``, U uniform in x's dtype, and
@@ -69,17 +80,21 @@ class DropPath(nn.Module):
         self.rate = rate
         self.index = index
 
-    def keep_mask(self, x: torch.Tensor, generator: torch.Generator | None = None,
+    def keep_mask(self, x: torch.Tensor, generator: torch.Generator | DrawShard | None = None,
                   call: int = 0) -> torch.Tensor:
         """The 0/1 keep of each sample of ``x``, shaped ``(B, 1, ...)``: drawn
-        from ``generator`` in x's dtype (one uniform per sample), or taken
-        from :func:`injected_drop_masks`. The fused HAT draws through here
-        too, so one generator gives both paths the same masks."""
+        from ``generator`` in x's dtype (one uniform per sample; a
+        :class:`DrawShard` draws for the global batch and keeps the rank's
+        rows), or taken from :func:`injected_drop_masks`. The fused HAT draws
+        through here too, so one generator gives both paths the same masks."""
         if _DROP_MASKS is not None:
             return _DROP_MASKS(self.index, call, x)
-        u = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), generator=generator,
-                       dtype=x.dtype, device=x.device)
-        return torch.floor(1.0 - self.rate + u)
+        if not isinstance(generator, DrawShard):
+            generator = DrawShard(generator, 0, 1)
+        b = x.shape[0]
+        u = torch.rand((b * generator.world,) + (1,) * (x.ndim - 1),
+                       generator=generator.generator, dtype=x.dtype, device=x.device)
+        return torch.floor(1.0 - self.rate + u[generator.rank * b:(generator.rank + 1) * b])
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: torch.Generator | None = None, call: int = 0) -> torch.Tensor:

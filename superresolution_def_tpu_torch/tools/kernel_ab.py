@@ -37,8 +37,11 @@ parent commit, unpacked with ``git archive``). The tool
    recompute step runs it (so K1 + K4b stands beside K2 + K3 + K4); at the
    fused-HAB step's Bw=512 (C=90, drop-path scales that drop one of two
    samples) K9a (``hab_fwd_h``) and K9c (``hab_bwd_attn``), unshifted and
-   shifted; the device busy time of one fused-HAB hybrid GAN step at
-   micro 2 x accum 8 (config #4, ``torch.profiler``); K11 at
+   shifted; the device busy time and the wall time of one fused-HAB hybrid
+   GAN step at micro 2 x accum 8 (config #4, ``torch.profiler``; CUDA
+   events); the wall time of a short ``sr train --arch swin --bf16`` (micro
+   8, 1 epoch of 4 steps and its validation on ``chip_smoke.py``'s
+   synthetic split, the run's set-up and writes included); K11 at
    ``chip_smoke.py``'s [k11] shapes on the views the modules pass
    (``window_attention_nomask`` at SwinIR's Bw=768 of 6 heads of 30, HAB's
    Bw=2048 of 6 heads of 15 and OCAB's Bw=2048 against 144 keys;
@@ -251,6 +254,26 @@ def busy_ms(fn):
         else:
             cur_e = max(cur_e, e_)
     return (total + cur_e - cur_s) / 1e3
+# a short `sr train` on chip_smoke.py's synthetic split, written on first use
+import tempfile, time
+from pathlib import Path
+train_tmp = tempfile.TemporaryDirectory()
+train_root = Path(train_tmp.name)
+def train_ms():
+    from chip_smoke import write_split
+    from superresolution_def_tpu_torch.cli.main import main as cli_main
+    if not (train_root / "data").exists():
+        write_split(train_root / "data", np.random.default_rng(7), {"train": 32, "val": 4})
+    t0 = time.perf_counter()
+    cli_main(["train", "--arch", "swin", "--target", "T1", "--bf16", "--batch-size", "8",
+              "--accum-steps", "1", "--epochs", "1", "--no-resume", "--seed", "0",
+              "--data-root", str(train_root / "data"), "--outputs-root", str(train_root / "out")])
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+def median_ms(fn, reps=3, warmup=1):
+    for _ in range(warmup):
+        fn()
+    return statistics.median(fn() for _ in range(reps))
 # K11 at chip_smoke.py's [k11] shapes, on the views the modules pass, and
 # the attn_impl="pallas" modules' forwards (SwinIR batch 3, hybrid batch 8)
 wattn = importlib.import_module("superresolution_def_tpu_torch.kernels.window_attention")
@@ -306,6 +329,9 @@ timings = {
     "K9c Bw=512 unshifted": lambda: cuda_ms(lambda: k9c(None), reps=10),
     "K9c Bw=512 shifted": lambda: cuda_ms(lambda: k9c(mask5), reps=10),
     "fused-HAB step busy micro 2 x 8": lambda: busy_ms(lambda: hat_step(hat_batch, 1e-4, 1e-4)),
+    "fused-HAB step micro 2 x 8": lambda: cuda_ms(lambda: hat_step(hat_batch, 1e-4, 1e-4),
+                                                  reps=3, warmup=1, calls=1),
+    "swin train 1 epoch x 4 steps": lambda: median_ms(train_ms),
     "K11a swin Bw=768": lambda: cuda_ms(lambda: wattn.window_attention_nomask(
         *k11["swin"], scale=30 ** -0.5), reps=10),
     "K11a hab Bw=2048": lambda: cuda_ms(lambda: wattn.window_attention_nomask(

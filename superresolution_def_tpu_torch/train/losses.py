@@ -3,7 +3,10 @@
 - GANLoss: 'vanilla' = BCE-with-logits vs constant targets, 'lsgan'/'ragan'
   = MSE vs constant targets (gan_losses_swin.py:6-27).
 - RaGAN: symmetric relativistic-average BCE, halved (gan_losses_swin.py:29-42).
-  The detach pattern is the caller's job, as in the reference.
+  The detach pattern is the caller's job, as in the reference. Its averages
+  of the logits are over the global micro-batch: with a ``mesh`` the local
+  sums are all-reduced (differentiably) over the global count, the one
+  formula at every world size (``parallel.mesh.batch_means``).
 - CombinedGANLoss: pixel_w*L1 + perc_w*VGG + adv_w*RaGAN-G (+ texture)
   (gan_losses_swin.py:74-112; swin weights 1.0/0.5/0.005).
 - DiscriminatorLoss: RaGAN-D (gan_losses_swin.py:117-134).
@@ -17,6 +20,8 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+
+from ..parallel.mesh import Mesh, batch_means
 
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -50,12 +55,14 @@ def gan_loss(prediction: torch.Tensor, target_is_real: bool, gan_type: str = "ra
 
 
 def relative_gan_loss(real_pred: torch.Tensor, fake_pred: torch.Tensor,
-                      for_discriminator: bool = True) -> torch.Tensor:
-    """RaGAN: relativistic average BCE, both directions halved."""
+                      for_discriminator: bool = True, mesh: Mesh | None = None) -> torch.Tensor:
+    """RaGAN: relativistic average BCE, both directions halved; the logits'
+    averages are over every rank of ``mesh``."""
     if not for_discriminator:
         real_pred, fake_pred = fake_pred, real_pred
-    return (_bce_with_logits(real_pred - fake_pred.mean(), torch.ones_like(real_pred))
-            + _bce_with_logits(fake_pred - real_pred.mean(), torch.zeros_like(fake_pred))) / 2
+    fake_mean, real_mean = batch_means([fake_pred, real_pred], mesh)
+    return (_bce_with_logits(real_pred - fake_mean, torch.ones_like(real_pred))
+            + _bce_with_logits(fake_pred - real_mean, torch.zeros_like(fake_pred))) / 2
 
 
 def gram_matrix(feats: torch.Tensor) -> torch.Tensor:
@@ -75,7 +82,7 @@ class CombinedGANLoss:
     """Generator loss: pixel + perceptual + adversarial (+ texture).
 
     ``vgg_apply(x) -> features`` is the perceptual feature function; None
-    disables the perceptual term.
+    disables the perceptual term. ``mesh``: the ranks RaGAN averages over.
     """
 
     gan_type: str = "ragan"
@@ -85,6 +92,7 @@ class CombinedGANLoss:
     texture_weight: float = 0.0
     vgg_apply: Optional[Callable] = None
     texture_vgg_apply: Optional[Callable] = None
+    mesh: Optional[Mesh] = None
 
     def __call__(self, pred, target, real_pred=None, fake_pred=None):
         losses: dict[str, torch.Tensor] = {"pixel": l1_loss(pred, target) * self.pixel_weight}
@@ -98,7 +106,8 @@ class CombinedGANLoss:
                                              self.texture_vgg_apply(target)) * self.texture_weight
         if fake_pred is not None:
             if self.gan_type == "ragan" and real_pred is not None:
-                adv = relative_gan_loss(real_pred, fake_pred, for_discriminator=False)
+                adv = relative_gan_loss(real_pred, fake_pred, for_discriminator=False,
+                                        mesh=self.mesh)
             else:
                 adv = gan_loss(fake_pred, True, self.gan_type)
             losses["adversarial"] = adv * self.adversarial_weight
@@ -110,10 +119,12 @@ class CombinedGANLoss:
 @dataclasses.dataclass(frozen=True)
 class DiscriminatorLoss:
     gan_type: str = "ragan"
+    mesh: Optional[Mesh] = None
 
     def __call__(self, real_pred, fake_pred):
         if self.gan_type == "ragan":
-            adv = relative_gan_loss(real_pred, fake_pred, for_discriminator=True)
+            adv = relative_gan_loss(real_pred, fake_pred, for_discriminator=True,
+                                    mesh=self.mesh)
         else:
             adv = (gan_loss(real_pred, True, self.gan_type)
                    + gan_loss(fake_pred, False, self.gan_type)) / 2

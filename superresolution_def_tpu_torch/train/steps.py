@@ -22,26 +22,45 @@ to the SR image, and ``sr.backward`` carries it through the generator, as
 the JAX step's ``vjp`` does; D's gradients come from the D phase alone.
 Whether a loss is finite is read on the host, once per phase.
 
+With a ``mesh`` (``parallel.make_mesh``) the step is data-parallel, each
+rank holding its rows of every micro-batch, and computes what one process
+computes on the concatenated batch, as the JAX step does under SPMD: the
+augmentation and drop-path draws are for the global micro-batch (each rank
+keeps its rows), RaGAN averages the logits over the global micro-batch,
+the NaN guard decides on the global loss (every rank skips the same
+window), the accumulated gradients are averaged over the ranks before the
+optimizers step (:class:`~..parallel.mesh.FlatGrads`), and the
+returned metrics are global. Each global statistic is written once, as a
+sum all-reduced over a count, so a world of one computes the bits of the
+step without a mesh.
+
 :func:`make_hat_train_step` is the hybrid's (train_hat.py:219-266): G phase
 first, then D; no NaN guard; see its docstring.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from ..data.augment import augment_pair_batch, draw_augment
+from ..models.hat import DrawShard
+from ..parallel.mesh import FlatGrads, Mesh, all_reduce_sum, global_mean
 from ..ops.metrics import psnr as psnr_fn, ssim as ssim_fn
 from .ema import EMA_DECAY, ema_update
 from .losses import CombinedGANLoss, DiscriminatorLoss, l1_loss
 from .state import HATTrainState, SwinTrainState
 
 
-def to01(u16: np.ndarray, device) -> torch.Tensor:
+def to01(u16, device) -> torch.Tensor:
     """uint16 array -> float32 in [0, 1] on ``device``; the copy moves 2 bytes
-    a pixel (as int16 bits), widened on the device."""
-    bits = torch.from_numpy(np.ascontiguousarray(u16).view(np.int16)).to(device)
+    a pixel (as int16 bits), widened on the device. A tensor is taken as
+    int16 bits already staged (``parallel.shard_batch``)."""
+    if not isinstance(u16, torch.Tensor):
+        u16 = torch.from_numpy(np.ascontiguousarray(u16).view(np.int16))
+    bits = u16.to(device)
     return (bits.to(torch.int32) & 0xFFFF).to(torch.float32) / 65535.0
 
 
@@ -51,13 +70,11 @@ def _set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
 
 
 def _zero_grads(module: torch.nn.Module) -> None:
-    """Zero every gradient, creating missing ones: the optimizer then steps
-    every parameter, as the JAX step does even when no micro-batch was valid."""
+    """Zero one network's gradients (views of the step's :class:`FlatGrads`)
+    in place: the optimizer still steps every parameter, as the JAX step
+    does even when no micro-batch was valid."""
     for p in module.parameters():
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-        else:
-            p.grad.zero_()
+        p.grad.zero_()
 
 
 def make_swin_train_step(
@@ -69,32 +86,36 @@ def make_swin_train_step(
     criterion_d: DiscriminatorLoss | None = None,
     ema_decay: float = EMA_DECAY,
     generator: torch.Generator | None = None,
+    mesh: Mesh | None = None,
 ):
     """SwinIR-GAN step: ``step(batch, lr_g, lr_d) -> metrics``, updating
-    ``state`` in place. ``generator`` draws the augmentation."""
-    criterion_g = criterion_g or CombinedGANLoss(
-        pixel_weight=1.0, perceptual_weight=0.5, adversarial_weight=0.005)
-    criterion_d = criterion_d or DiscriminatorLoss()
+    ``state`` in place. ``generator`` draws the augmentation; ``mesh`` makes
+    the step data-parallel (the module docstring)."""
+    criterion_g = dataclasses.replace(criterion_g or CombinedGANLoss(
+        pixel_weight=1.0, perceptual_weight=0.5, adversarial_weight=0.005), mesh=mesh)
+    criterion_d = dataclasses.replace(criterion_d or DiscriminatorLoss(), mesh=mesh)
     generator = generator or torch.Generator().manual_seed(0)
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.size)
     g, d = state.g, state.d
     device = next(g.parameters()).device
+    grads = FlatGrads((g, d), mesh)
 
     def step(batch, lr_g: float, lr_d: float) -> dict[str, float]:
-        _zero_grads(g)
-        _zero_grads(d)
+        grads.zero_()
         valid, g_sum, d_sum = 0, 0.0, 0.0
         for i in range(accum_steps):
             lr01, hr01 = to01(batch["lr"][i], device), to01(batch["hr"][i], device)
             if augment:
-                lr01, hr01 = augment_pair_batch(lr01, hr01,
-                                                draw_augment(lr01.shape[0], generator))
+                lr01, hr01 = augment_pair_batch(
+                    lr01, hr01, draw_augment(lr01.shape[0], generator, rank, world))
             sr = state.g_forward(lr01)
 
             # ---- D phase (reference order: real then fake)
             d_real = d(hr01, True)
             d_fake = d(sr.detach(), True)
             d_loss = criterion_d(d_real, d_fake)[0] / accum_steps
-            if not torch.isfinite(d_loss).item():
+            d_global = global_mean(d_loss, mesh)
+            if not torch.isfinite(d_global).item():
                 # reference zero_grad() + `continue`: drop D's window, skip G's phase
                 _zero_grads(d)
                 continue
@@ -104,15 +125,17 @@ def make_swin_train_step(
             d_fake = d(sr, True)
             d_real = d(hr01, True).detach()
             g_loss = criterion_g(sr, hr01, d_real, d_fake)[0] / accum_steps
-            if not torch.isfinite(g_loss).item():
+            g_global = global_mean(g_loss, mesh)
+            if not torch.isfinite(g_global).item():
                 _zero_grads(g)
                 continue
             (sr_grad,) = torch.autograd.grad(g_loss, sr)
             sr.backward(sr_grad)
             valid += 1
-            g_sum += g_loss.item() * accum_steps
-            d_sum += d_loss.item() * accum_steps
+            g_sum += g_global.item() * accum_steps
+            d_sum += d_global.item() * accum_steps
 
+        grads.average()
         _set_lr(state.d_opt, lr_d)
         state.d_opt.step()
         _set_lr(state.g_opt, lr_g)
@@ -138,10 +161,12 @@ def make_hat_train_step(
     ema_decay: float = EMA_DECAY,
     generator: torch.Generator | None = None,
     drop_generator: torch.Generator | None = None,
+    mesh: Mesh | None = None,
 ):
     """Hybrid-HAT GAN step: ``step(batch, lr_g, lr_d, warmup=False) ->
     metrics``, updating ``state`` in place. ``generator`` draws the
-    augmentation, ``drop_generator`` (on the model's device) the drop-path.
+    augmentation, ``drop_generator`` (on the model's device) the drop-path;
+    ``mesh`` makes the step data-parallel (the module docstring).
 
     Per micro-batch: /65535, paired augmentation, one G forward with
     drop-path on. G phase first: L1 alone during ``warmup`` (no D forward),
@@ -153,25 +178,26 @@ def make_hat_train_step(
     follows, then D's. The metrics are summed on the device and read on the
     host once per step; the names are the JAX step's (:data:`HAT_METRICS`).
     """
-    criterion_g = criterion_g or CombinedGANLoss(
-        pixel_weight=1.0, perceptual_weight=1.0, adversarial_weight=0.005)
-    criterion_d = criterion_d or DiscriminatorLoss()
+    criterion_g = dataclasses.replace(criterion_g or CombinedGANLoss(
+        pixel_weight=1.0, perceptual_weight=1.0, adversarial_weight=0.005), mesh=mesh)
+    criterion_d = dataclasses.replace(criterion_d or DiscriminatorLoss(), mesh=mesh)
     generator = generator or torch.Generator().manual_seed(0)
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.size)
     g, d = state.g, state.d
     device = next(g.parameters()).device
-    drop_generator = drop_generator or torch.Generator(device).manual_seed(0)
+    drops = DrawShard(drop_generator or torch.Generator(device).manual_seed(0), rank, world)
+    grads = FlatGrads((g, d), mesh)
 
     def step(batch, lr_g: float, lr_d: float, warmup: bool = False) -> dict[str, float]:
-        _zero_grads(g)
-        _zero_grads(d)
+        grads.zero_()  # D's stay zero in warmup: its average is zero too
         # loss_g, l1, g_adv, loss_d, psnr_sum, ssim_sum, count
         sums = torch.zeros(len(HAT_METRICS), device=device)
         for i in range(accum_steps):
             lr01, hr01 = to01(batch["lr"][i], device), to01(batch["hr"][i], device)
             if augment:
-                lr01, hr01 = augment_pair_batch(lr01, hr01,
-                                                draw_augment(lr01.shape[0], generator))
-            sr = state.g_forward(lr01, False, drop_generator)
+                lr01, hr01 = augment_pair_batch(
+                    lr01, hr01, draw_augment(lr01.shape[0], generator, rank, world))
+            sr = state.g_forward(lr01, False, drops)
 
             # ---- G phase first (train_hat.py:225-251)
             if warmup:
@@ -203,6 +229,7 @@ def make_hat_train_step(
                     ssim_fn(sr.clamp(0, 1), hr01.clamp(0, 1)).float() * b,
                     torch.tensor(float(b), device=device)])
 
+        grads.average()
         _set_lr(state.g_opt, lr_g)
         state.g_opt.step()
         ema_update(state.ema, g, ema_decay)
@@ -210,9 +237,9 @@ def make_hat_train_step(
             _set_lr(state.d_opt, lr_d)
             state.d_opt.step()
         state.step += 1
-        values = dict(zip(HAT_METRICS, sums.tolist()))
-        for k in ("loss_g", "l1", "g_adv", "loss_d"):
-            values[k] /= accum_steps
+        values = dict(zip(HAT_METRICS, all_reduce_sum(sums, mesh).tolist()))
+        for k in ("loss_g", "l1", "g_adv", "loss_d"):  # means: over micro-batches and ranks
+            values[k] /= accum_steps * world
         return values
 
     return step

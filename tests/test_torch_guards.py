@@ -12,12 +12,14 @@
   hat``, plain, with the fused trunk's ``autograd.Function`` and with the
   fused HAB and OCAB training nodes (``fused_hab``), then ``infer --arch
   hat`` of what it trained; ``prep --fused`` of a target with solved
-  headers, ``split`` and ``upscale`` of a FITS frame) in a subprocess and
-  inspects its ``sys.modules``. Importing every module of the port loads
+  headers, ``split`` and ``upscale`` of a FITS frame, plain, ``--mesh`` and
+  ``--spatial``) in a subprocess and inspects its ``sys.modules``; the
+  worker script of the multi-rank tests (tests/_torch_dist_worker.py)
+  reports the same of itself. Importing every module of the port loads
   no matplotlib.
-- ``train``, ``infer``, ``prep``, ``upscale`` and the stage-ablation tool
-  run on the card unless ``--device cpu`` is given: without a card and
-  without it they raise.
+- ``train``, ``infer``, ``prep``, ``upscale`` (``--mesh`` and ``--spatial``
+  too) and the stage-ablation tool run on the card unless ``--device cpu``
+  is given: without a card and without it they raise.
 - ``chip_smoke.py`` has no CPU fallback: without a GPU, or without the rest
   of the repository beside it, it fails and prints no result line.
 """
@@ -102,6 +104,10 @@ SLICE = textwrap.dedent(
     res = main(["upscale", str(root / "frame.fits"), "--folder", str(run), "--tile", "32",
                 "--overlap", "4", "--device", "cpu"])
     assert res["shape"] == (160, 224), res
+    for spread in ("--mesh", "--spatial"):  # the parallel layer, in a world of one
+        res = main(["upscale", str(root / "frame.fits"), "--folder", str(run), "--tile", "32",
+                    "--overlap", "4", "--device", "cpu", spread, "--out", str(root / "m.tiff")])
+        assert res["shape"] == (160, 224), res
     print("JAX_LOADED", sorted(m for m in sys.modules if m.split(".")[0] in
                                ("jax", "jaxlib", "flax", "optax", "orbax",
                                 "superresolution_def_tpu")))
@@ -191,8 +197,23 @@ def test_port_hat_cpu_slice_never_loads_jax(tmp_path):
     assert _run_slice(tmp_path, HAT_SLICE) == "JAX_LOADED []"
 
 
+def test_dist_worker_never_loads_jax(tmp_path):
+    from _torch_dist_worker import run_world
+
+    from superresolution_def_tpu_torch.models import SwinIR
+
+    config = dict(img_size=16, embed_dim=16, depths=(2,), num_heads=(2,), window_size=8,
+                  mlp_ratio=2.0, upscale=4)
+    (out,) = run_world("tiled", 1, tmp_path, {
+        "config": config, "state_dict": SwinIR(**config).state_dict(),
+        "imgs": [torch.rand(20, 24).numpy()], "tile": 16, "overlap": 2})
+    assert out["outs"][0].shape == (80, 96, 1)
+    assert out["jax_loaded"] == []
+
+
 @pytest.mark.parametrize("cmd", ["train", "infer", "infer-hat", "train-hat",
-                                 "train-hat-fused-hab", "stage-ablation", "prep", "upscale"])
+                                 "train-hat-fused-hab", "stage-ablation", "prep", "upscale",
+                                 "upscale-mesh", "upscale-spatial"])
 def test_entry_points_raise_without_a_card_unless_asked_for_the_cpu(tmp_path, cmd):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
@@ -214,7 +235,11 @@ def test_entry_points_raise_without_a_card_unless_asked_for_the_cpu(tmp_path, cm
             "train-hat-fused-hab": ["train", "--arch", "hat", "--bf16", "--fused-hab",
                                     "--target", "T1", "--data-root", str(tmp_path)],
             "prep": ["prep", "--fused", "--data-root", str(tmp_path)],
-            "upscale": ["upscale", str(tmp_path / "frame.fits"), "--folder", str(tmp_path)]}[cmd]
+            "upscale": ["upscale", str(tmp_path / "frame.fits"), "--folder", str(tmp_path)],
+            "upscale-mesh": ["upscale", str(tmp_path / "frame.fits"), "--folder", str(tmp_path),
+                             "--mesh"],
+            "upscale-spatial": ["upscale", str(tmp_path / "frame.fits"), "--folder",
+                                str(tmp_path), "--spatial"]}[cmd]
     with pytest.raises(RuntimeError, match="--device cpu"):
         main(args)
 
