@@ -215,7 +215,20 @@ exit code:
     of one writes the TIFF bits of ``upscale``; ``upscale --spatial``
     writes a frame of the right shape (its relative L2 to the tiled frame
     printed, without a bound). Each of phases 35-38 destroys its process
-    group before it ends.
+    group before it ends;
+39. [run-loop]: the steps as the epoch loops drive them
+    (``prefetch_to_mesh``, ``cli/trainers.py``'s ``_run_steps`` with its
+    read of the step ``_RUNAHEAD_SYNC`` back, one ``_drain``): 16 flagship
+    swin split steps (micro 8, K2/K3/K4) and 16 fused-HAB hybrid GAN steps
+    (micro 2 x accum 8, K7/K8, K9a-c, K10a-b), after two warm-up steps each,
+    under ``torch.cuda.set_sync_debug_mode("error")`` (off only around the
+    loop's reads), with their launches, finite metrics and ms a step; each
+    step's device idle share and host synchronizations per step in a
+    ``torch.profiler`` trace (8 swin steps, 1 fused-HAB step); the NaN guard
+    on the card (swin, micro 8 x accum 2): a D loss NaN on every micro-batch
+    keeps G's and D's weights to the bit and D's (u, v) at the D phases'
+    power iterations, a NaN G loss keeps G to the bit and gives D the bits
+    of a finite step.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it fails at once:
@@ -551,6 +564,28 @@ def ptxas_stats(log_text: str, fragment: str) -> str:
     raise SystemExit(f"no ptxas statistics for {fragment} in the build log")
 
 
+def device_busy(prof) -> tuple[float, float]:
+    """The device's busy microseconds in a ``torch.profiler`` run (the union
+    of its ops' intervals) and the span from its first op to its last. A
+    ``record_function`` range also leaves a device-side annotation spanning
+    its work, idle gaps included: those are not ops."""
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)
+                     and e.name not in LOOP_RANGES)
+    if not kernels:
+        raise SystemExit("torch.profiler saw no device time")
+    busy, cur_s, cur_e = 0.0, *kernels[0]
+    for s, e in kernels[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return busy, kernels[-1][1] - kernels[0][0]
+
+
 def device_profile(fn, steps: int = 2) -> tuple[list, float, float]:
     """Device ops (name, ms per step, calls per step) of ``steps`` calls of
     ``fn``, longest first, the device's busy ms per step and its idle share
@@ -562,19 +597,7 @@ def device_profile(fn, steps: int = 2) -> tuple[list, float, float]:
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
-    kernels = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not kernels:
-        raise SystemExit("torch.profiler saw no device time")
-    busy, cur_s, cur_e = 0.0, *kernels[0]
-    for s, e in kernels[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    span = kernels[-1][1] - kernels[0][0]
+    busy, span = device_busy(prof)
     ops = []
     for e in prof.key_averages():
         t = getattr(e, "device_time_total", None)
@@ -785,11 +808,11 @@ def dp_step_phase(seed: int, device: torch.device, card: str) -> None:
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
-                metrics.append(step(b, 1e-4, 1e-4, **({} if warmup is None
-                                                       else {"warmup": warmup})))
+                m = step(b, 1e-4, 1e-4, **({} if warmup is None else {"warmup": warmup}))
                 end.record()
                 end.synchronize()
                 ms.append(start.elapsed_time(end))
+                metrics.append({k: float(v) for k, v in m.items()})
         return metrics, ms
 
     # both runs must pick the same convolution algorithms, backward included
@@ -928,6 +951,244 @@ def dp_train_phase(seed: int, device: torch.device, card: str) -> None:
                 or not np.isfinite([last["loss_g"], last["loss_d"]]).all()):
             raise SystemExit(f"[dp-train] artifacts: checkpoints {ckpts}, csv rows {len(rows)}, "
                              f"Metrics/PSNR {psnr} vs {last['psnr']}, losses {last}")
+
+
+# [run-loop]: steps a loop runs under the sync check, and the runtime calls
+# that make the host wait for the device (``cudaMemcpy`` is the blocking copy)
+RUN_LOOP_STEPS = 16
+# its record_function ranges: a step, the loop's run-ahead read, the drain
+LOOP_RANGES = ("step", "run-ahead read", "drain")
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpy")
+
+
+def loop_syncs(prof, reads: int) -> tuple[int, int]:
+    """Host synchronizations of a profiled loop's steps: the synchronizing
+    runtime calls inside its ``step`` ranges, and the device-to-host copies
+    less the loop's own (one for each of its ``reads`` run-ahead reads, one
+    for the drain)."""
+    events = list(prof.events())
+    steps = [(e.time_range.start, e.time_range.end) for e in events
+             if e.name == "step" and e.device_type == torch.autograd.DeviceType.CPU]
+    calls = sum(e.name in SYNC_CALLS and any(a <= e.time_range.start <= b for a, b in steps)
+                for e in events)
+    copies = sum(e.device_type == torch.autograd.DeviceType.CUDA and "DtoH" in e.name
+                 and not getattr(e, "is_user_annotation", False) for e in events)
+    return calls, copies - reads - 1
+
+
+def run_loop_phase(seed: int, device: torch.device, card: str) -> None:
+    """39. [run-loop]: the epoch loops' steps as ``cli/trainers.py`` drives
+    them (``prefetch_to_mesh``, ``_run_steps`` with its read of the step
+    ``_RUNAHEAD_SYNC`` back, ``_drain``). (a) After two warm-up steps, 16
+    flagship swin split steps (micro 8, bf16, K2/K3/K4) and 16 fused-HAB
+    hybrid GAN steps (micro 2 x accum 8, K7/K8, K9a-c, K10a-b) under
+    ``torch.cuda.set_sync_debug_mode("error")``, off only around the loop's
+    run-ahead reads: a step that makes the host wait raises. Their launches,
+    their metrics (finite, every micro-batch valid) and CUDA-event ms a step.
+    (b) The NaN guard on the card, on fresh swin states at micro 8 x accum 2
+    with cuDNN deterministic: a D loss that is NaN on every micro-batch
+    leaves ``valid_batches`` 0, G and D's ``weight_orig`` their bits and
+    D's (u, v) where the D phases' power iterations take them (four, from
+    the start); a NaN G loss leaves G its bits and D the bits of a finite
+    step on the same batch (D's window and (u, v) kept). (c) Each step's
+    device idle share and host synchronizations per step (synchronizing
+    runtime calls and device-to-host copies in the ``torch.profiler``
+    trace, the loop's own reads apart), over 8 swin steps and 1 fused-HAB step."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from superresolution_def_tpu_torch.cli import trainers
+    from superresolution_def_tpu_torch.kernels import (
+        fused_rdb_cm, fused_rdb_cm_bwd, hab_bwd_attn, hab_bwd_mlp, hab_fwd_h, ocab_bwd_attn,
+        ocab_fwd_h, swin_block_bwd_attn, swin_block_bwd_mlp, swin_block_fwd_h)
+    from superresolution_def_tpu_torch.models.spectral_norm import SNConv2d, _l2norm
+    from superresolution_def_tpu_torch.parallel import make_mesh, prefetch_to_mesh
+    from superresolution_def_tpu_torch.train import (
+        CombinedGANLoss, DiscriminatorLoss, VGG19Features, create_hat_train_state,
+        create_swin_train_state, make_hat_train_step, make_swin_train_step)
+
+    mesh = make_mesh(device)
+    bgen = np.random.default_rng(seed + 50)
+    vgg = VGG19Features(35, dtype=torch.bfloat16).to(device).requires_grad_(False)
+
+    def batches(micro, accum, n):
+        return [{"lr": bgen.integers(0, 65535, (accum, micro, 128, 128, 1), dtype=np.uint16),
+                 "hr": bgen.integers(0, 65535, (accum, micro, 512, 512, 1), dtype=np.uint16)}
+                for _ in range(n)]
+
+    def swin(crit_d=None, crit_g=None, accum=1):
+        state = create_swin_train_state(torch.Generator().manual_seed(seed),
+                                        dtype=torch.bfloat16, fused=True, device=device)
+        crit_g = crit_g or CombinedGANLoss(pixel_weight=1.0, perceptual_weight=0.5,
+                                           adversarial_weight=0.005, vgg_apply=vgg)
+        return state, make_swin_train_step(state, accum_steps=accum, criterion_g=crit_g,
+                                           criterion_d=crit_d,
+                                           generator=torch.Generator().manual_seed(seed + 51))
+
+    def hybrid():
+        state = create_hat_train_state(torch.Generator().manual_seed(seed),
+                                       dtype=torch.bfloat16, fused=True, fused_hab=True,
+                                       device=device)
+        return state, make_hat_train_step(
+            state, accum_steps=HAT_ACCUM, criterion_g=CombinedGANLoss(
+                pixel_weight=1.0, perceptual_weight=1.0, adversarial_weight=0.005,
+                vgg_apply=vgg), generator=torch.Generator().manual_seed(seed + 52),
+            drop_generator=torch.Generator(device).manual_seed(seed + 53))
+
+    wait = trainers._wait_for
+
+    def loop(step, data, *args, sync_mode=0, **kwargs):
+        """``step`` on ``data`` as the trainers' loop runs it, the sync debug
+        mode ``sync_mode`` inside the steps and off around the loop's reads."""
+        def read(value):
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                with record_function("run-ahead read"):
+                    return wait(value)
+            finally:
+                torch.cuda.set_sync_debug_mode(sync_mode)
+
+        def traced(*a, **k):
+            with record_function("step"):
+                return step(*a, **k)
+
+        trainers._wait_for = read
+        torch.cuda.set_sync_debug_mode(sync_mode)
+        try:
+            with prefetch_to_mesh(iter(data), mesh) as stream:
+                metrics, _ = trainers._run_steps(stream, traced, None, *args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            trainers._wait_for = wait
+        return metrics
+
+    kinds = (
+        ("swin split", swin, MICRO, 1, (), 8,
+         {swin_block_fwd_h: 36, swin_block_bwd_mlp: 36, swin_block_bwd_attn: 36}),
+        ("fused-HAB", hybrid, HAT_MICRO, HAT_ACCUM, (False,), 1,
+         {hab_fwd_h: 192, hab_bwd_mlp: 224, hab_bwd_attn: 192, ocab_fwd_h: 32,
+          ocab_bwd_attn: 32, fused_rdb_cm: 288, fused_rdb_cm_bwd: 288}))
+    for name, make, micro, accum, warmup, profiled, per_step in kinds:
+        t_kind = time.perf_counter()
+        state, step = make()
+        loop(step, batches(micro, accum, 2), 1e-4, 1e-4, *warmup)  # packing, cached tables
+        torch.cuda.synchronize()
+        for fn in per_step:
+            fn.launches = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        data = batches(micro, accum, RUN_LOOP_STEPS)
+        t0 = time.perf_counter()
+        start.record()
+        metrics = loop(step, data, 1e-4, 1e-4, *warmup, sync_mode="error")
+        end.record()
+        rows = trainers._drain(metrics, list(metrics[0]))
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in per_step}
+        want = {fn.__name__: n * RUN_LOOP_STEPS for fn, n in per_step.items()}
+        ms = start.elapsed_time(end) / RUN_LOOP_STEPS
+        # (c) one profiled run: the device's idle share, the host's waits
+        data = batches(micro, accum, profiled)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prof_metrics = loop(step, data, 1e-4, 1e-4, *warmup)
+            with record_function("drain"):
+                trainers._drain(prof_metrics, list(prof_metrics[0]))
+        busy, span = device_busy(prof)
+        reads = profiled // trainers._RUNAHEAD_SYNC
+        calls, copies = loop_syncs(prof, reads)
+        log("run-loop", f"{name} step on {card}: {RUN_LOOP_STEPS} steps as the loop drives "
+                        f"them under set_sync_debug_mode('error'), no synchronizing call; "
+                        f"{ms:.2f} ms a step (CUDA events), host wall "
+                        f"{1e3 * wall / RUN_LOOP_STEPS:.2f} ms a step with the drain; "
+                        f"launches {launches}; first and last "
+                        f"metrics {rows[0]}, {rows[-1]}; profiled over {profiled} steps: busy "
+                        f"{busy / 1e3 / profiled:.3f} ms a step, idle "
+                        f"{100 * (1 - busy / span):.2f}%, host synchronizations a step inside "
+                        f"the steps: "
+                        f"{calls / profiled:.3f} synchronizing calls, {copies / profiled:.3f} "
+                        f"device-to-host copies beside the loop's {reads} run-ahead read(s) "
+                        f"and drain; {time.perf_counter() - t_kind:.1f} s for this kind")
+        finite = np.isfinite(rows).all()
+        valid = name != "swin split" or all(r[list(metrics[0]).index("valid_batches")] == accum
+                                             for r in rows)
+        if launches != want or not finite or not valid or calls or copies:
+            raise SystemExit(f"[run-loop] {name}: launches {launches} (want {want}), metrics "
+                             f"finite {finite}, every micro-batch valid {valid}, the profiled "
+                             f"steps' synchronizing calls {calls} and device-to-host copies "
+                             f"{copies} (want 0)")
+        del state, step, metrics, prof
+        torch.cuda.empty_cache()
+
+    # (b) the guard on the card: NaN times the loss sends NaN gradients in,
+    # which only a select drops
+    class NaNDLoss(DiscriminatorLoss):
+        def __call__(self, real_pred, fake_pred):
+            loss, parts = super().__call__(real_pred, fake_pred)
+            return loss * float("nan"), parts
+
+    class NaNGLoss(CombinedGANLoss):
+        def __call__(self, *args):
+            loss, parts = super().__call__(*args)
+            return loss * float("nan"), parts
+
+    def snapshot(state):
+        return ({k: v.clone() for k, v in state.g.state_dict().items()},
+                {k: v.clone() for k, v in state.d.state_dict().items()})
+
+    accum = 2
+    data = batches(MICRO, accum, 1)[0]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref, ref_step = swin(accum=accum)
+        ref_step(data, 1e-4, 1e-4)
+        _, d_finite = snapshot(ref)
+        del ref, ref_step
+        results = {}
+        for case in ("D", "G"):
+            state, step = swin(crit_d=NaNDLoss() if case == "D" else None,
+                               crit_g=NaNGLoss(pixel_weight=1.0, perceptual_weight=0.5,
+                                               adversarial_weight=0.005, vgg_apply=vgg)
+                               if case == "G" else None, accum=accum)
+            g0, d0 = snapshot(state)
+            # where the D phases alone take (u, v): two power iterations a micro-batch
+            uv = {}
+            with torch.no_grad():
+                for mname, m in state.d.named_modules():
+                    if isinstance(m, SNConv2d):
+                        w2d, u = m.weight_mat(), m.weight_u
+                        for _ in range(2 * accum):
+                            v = _l2norm(w2d.T @ u)
+                            u = _l2norm(w2d @ v)
+                        uv[f"{mname}.weight_u"], uv[f"{mname}.weight_v"] = u, v
+            m = {k: float(v) for k, v in step(data, 1e-4, 1e-4).items()}
+            g1, d1 = snapshot(state)
+            g_kept = all(torch.equal(v, g0[k]) for k, v in g1.items())
+            if case == "D":
+                w_kept = all(torch.equal(v, d0[k]) for k, v in d1.items()
+                             if k.endswith("weight_orig"))
+                uv_diff = max(float((d1[k] - v).abs().max()) for k, v in uv.items())
+                uv_bits = all(torch.equal(d1[k], v) for k, v in uv.items())
+                ok = m["valid_batches"] == 0 and g_kept and w_kept and uv_bits
+                results[case] = (f"valid {m['valid_batches']}, G bits kept {g_kept}, D "
+                                 f"weight_orig bits kept {w_kept}, (u, v) the D phases' bits "
+                                 f"{uv_bits} (max |diff| {uv_diff:.3e})")
+            else:
+                d_same = [k for k, v in d1.items() if not torch.equal(v, d_finite[k])]
+                d_moved = any(not torch.equal(v, d0[k]) for k, v in d1.items()
+                              if k.endswith("weight_orig"))
+                ok = m["valid_batches"] == 0 and g_kept and not d_same and d_moved
+                results[case] = (f"valid {m['valid_batches']}, G bits kept {g_kept}, D (weights, "
+                                 f"u, v) the bits of the finite step {not d_same} "
+                                 f"({len(d_same)} tensors differ), D moved {d_moved}")
+            if not ok:
+                raise SystemExit(f"[run-loop] {case}-NaN guard on the card: {results[case]}")
+            del state, step
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log("run-loop", f"NaN guard on {card} (flagship swin split step, micro {MICRO} x accum "
+                    f"{accum}, every micro-batch NaN): D-NaN: {results['D']}; G-NaN: "
+                    f"{results['G']}")
+    torch.cuda.empty_cache()
 
 
 def spatial_phase(device: torch.device, card: str, img01: np.ndarray, swinir, hybrid) -> None:
@@ -2745,6 +3006,8 @@ def main() -> None:
     # 35.-36. the data-parallel steps and trainer in a world of one
     dp_step_phase(seed, device, card)
     dp_train_phase(seed, device, card)
+    # 39. the epoch loops' steps: no host sync, the NaN guard on the card
+    run_loop_phase(seed, device, card)
 
     work = block_work(768)
     work.update({k: v for k, v in block_work(bw_train).items() if k != "K1"})

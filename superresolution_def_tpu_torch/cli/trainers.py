@@ -48,6 +48,11 @@ without it, as the JAX trainers run over the mesh of every chip:
   barrier after each epoch's writes;
 - a resumed run reads the checkpoint on every rank, then ``replicate``s
   rank 0's state.
+
+Both keep every step's metrics on the device, as the JAX loops do (JAX
+``cli/trainers.py:316-339, 481-501``): the steps return 0-d tensors, the
+loop waits for the device once every :data:`_RUNAHEAD_SYNC` steps, and the
+epoch's metrics come to the host in one transfer at its end.
 """
 
 from __future__ import annotations
@@ -216,6 +221,45 @@ def _check_split(n: int, cfg, ranks: int) -> int:
     return micro
 
 
+# Deferring metric reads to epoch end removes every per-step sync, so the
+# host could dispatch arbitrarily far ahead of the device, keeping each
+# dispatched step's batch alive: the pinned host copy and the side-stream
+# upload that prefetch_to_mesh records on the consumer's stream are freed
+# only once the step that read them has run. Every _RUNAHEAD_SYNC steps the
+# loop reads one scalar from that many steps back: at most ~2x_RUNAHEAD_SYNC
+# steps' batches are ever held, while paying one wait per _RUNAHEAD_SYNC
+# steps instead of one per step.
+_RUNAHEAD_SYNC = 8
+
+
+def _wait_for(value: torch.Tensor) -> float:
+    """The run-ahead bound's read: the host waits until ``value`` is computed."""
+    return value.item()
+
+
+def _run_steps(stream, step, max_steps: int | None, *args, **kwargs) -> tuple[list, dict | None]:
+    """``step(batch, *args, **kwargs)`` on each staged batch of ``stream``, at
+    most ``max_steps`` of them: the steps' metrics, kept on the device, and
+    the last host batch. Every :data:`_RUNAHEAD_SYNC` steps the host waits
+    for ``loss_g`` of the step that many back."""
+    metrics, last = [], None
+    for bi, (host, b) in enumerate(stream):
+        if max_steps and bi >= max_steps:
+            break
+        metrics.append(step(b, *args, **kwargs))
+        last = host
+        if len(metrics) % _RUNAHEAD_SYNC == 0:
+            _wait_for(metrics[-_RUNAHEAD_SYNC]["loss_g"])
+    return metrics, last
+
+
+def _drain(metrics: list[dict], keys: Sequence[str]) -> list[list[float]]:
+    """Each step's ``keys`` as Python floats, in one host transfer."""
+    if not metrics:
+        return []
+    return torch.stack([torch.stack([m[k] for k in keys]) for m in metrics]).cpu().tolist()
+
+
 def latest_epoch_checkpoint(ckpt_dir: Path) -> Path | None:
     """The ``hybrid_epoch_N.pth`` of the largest N (compared as integers), or None."""
     found = [(int(m.group(1)), p) for p in ckpt_dir.glob("hybrid_epoch_*.pth")
@@ -275,16 +319,14 @@ def train_swin_run(cfg: SwinTrainConfig, resume: bool = True) -> dict:
         t0 = time.time()
         lr_g = cosine_annealing_lr(epoch, cfg.lr_g, cfg.epochs)
         lr_d = cosine_annealing_lr(epoch, cfg.lr_d, cfg.epochs)
-        g_sum = d_sum = valid = 0.0
         with prefetch_to_mesh(it.epoch(epoch), mesh, transform=lambda b: _reshape_accum(
                 b, cfg.accum_steps, cfg.batch_size)) as stream:
-            for bi, (_, b) in enumerate(stream):
-                if cfg.max_steps_per_epoch and bi >= cfg.max_steps_per_epoch:
-                    break
-                m = step(b, lr_g, lr_d)
-                g_sum += m["loss_g"] * m["valid_batches"]
-                d_sum += m["loss_d"] * m["valid_batches"]
-                valid += m["valid_batches"]
+            step_metrics, _ = _run_steps(stream, step, cfg.max_steps_per_epoch, lr_g, lr_d)
+        g_sum = d_sum = valid = 0.0
+        for loss_g, loss_d, n in _drain(step_metrics, ("loss_g", "loss_d", "valid_batches")):
+            g_sum += loss_g * n
+            d_sum += loss_d * n
+            valid += n
         avg_g, avg_d = g_sum / max(valid, 1.0), d_sum / max(valid, 1.0)
 
         # EMA-copy validation (train_swin.py:277-300), summed over the ranks
@@ -403,19 +445,15 @@ def train_hat_run(cfg: HATTrainConfig, resume: bool = True) -> dict:
         warmup = epoch <= cfg.warmup_epochs
         lr_g = cosine_annealing_lr(epoch, cfg.lr_g, cfg.epochs)
         lr_d = cosine_annealing_lr(epoch, cfg.lr_d, cfg.epochs)
-        sums = dict.fromkeys(HAT_METRICS, 0.0)
-        steps, last_batch = 0, None
         with prefetch_to_mesh(it.epoch(epoch), mesh, transform=lambda b: _reshape_accum(
                 b, cfg.accum_steps, cfg.batch_size)) as stream:
-            for bi, (host, b) in enumerate(stream):
-                if cfg.max_steps_per_epoch and bi >= cfg.max_steps_per_epoch:
-                    break
-                m = step(b, lr_g, lr_d, warmup=warmup)
-                for k in sums:
-                    sums[k] += m[k]
-                steps += 1
-                last_batch = host
-        n, cnt = max(steps, 1), max(sums["count"], 1.0)
+            step_metrics, last_batch = _run_steps(stream, step, cfg.max_steps_per_epoch,
+                                                  lr_g, lr_d, warmup=warmup)
+        sums = dict.fromkeys(HAT_METRICS, 0.0)
+        for row in _drain(step_metrics, HAT_METRICS):
+            for k, v in zip(HAT_METRICS, row):
+                sums[k] += v
+        n, cnt = max(len(step_metrics), 1), max(sums["count"], 1.0)
         last = {"epoch": epoch, "g_total": sums["loss_g"] / n, "l1": sums["l1"] / n,
                 "g_adv": sums["g_adv"] / n, "d_total": sums["loss_d"] / n,
                 "psnr": sums["psnr_sum"] / cnt, "ssim": sums["ssim_sum"] / cnt, "lr": lr_g}

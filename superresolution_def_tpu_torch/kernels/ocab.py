@@ -121,6 +121,13 @@ def slot_rows(channels: int, num_heads: int) -> torch.Tensor:
     return h * hs + (h * hd) % 2 + torch.arange(hd).repeat(num_heads)
 
 
+@functools.cache
+def _slot_rows_on(channels: int, num_heads: int, device: torch.device) -> torch.Tensor:
+    """:func:`slot_rows` on ``device``, uploaded once: the training step's
+    packing a step copies nothing from the host."""
+    return slot_rows(channels, num_heads).to(device)
+
+
 def pack_ocab_weights(padded: tuple, *, num_heads: int, channels: int) -> torch.Tensor:
     """K6's and K10a's kernel weights: the padded wproj, w1 and w2 of
     :func:`pad_ocab_operands`'s tuple (of a block of ``channels`` = C),
@@ -137,7 +144,7 @@ def pack_ocab_weights(padded: tuple, *, num_heads: int, channels: int) -> torch.
     cs = num_heads * (hd + hd % 2)
     ncol = min(cs, cp)
     wslots = torch.zeros(cs, cs, dtype=wproj.dtype, device=wproj.device)
-    wslots[slot_rows(channels, num_heads).to(wproj.device), :ncol] = wproj[:channels, :ncol]
+    wslots[_slot_rows_on(channels, num_heads, wproj.device), :ncol] = wproj[:channels, :ncol]
     wzero = torch.zeros(cs, 3 * cs, dtype=wproj.dtype, device=wproj.device)
     if not _on_cuda("pack_ocab_weights", wproj):
         # the tiles cut to the kernels' ck rows (cp rounded up to 64), which

@@ -12,6 +12,7 @@ batch mean times the batch size.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from math import exp
 
 import numpy as np
@@ -27,6 +28,13 @@ def gaussian_1d(window_size: int = 11, sigma: float = 1.5) -> np.ndarray:
     return g / g.sum()
 
 
+@functools.cache
+def _gaussian_on(window_size: int, device: torch.device) -> torch.Tensor:
+    """:func:`gaussian_1d` on ``device``, uploaded once: a train step's SSIM
+    copies nothing from the host."""
+    return torch.from_numpy(gaussian_1d(window_size)).to(device)
+
+
 def _blur_valid_separable(x: torch.Tensor, g1d: torch.Tensor) -> torch.Tensor:
     """Depthwise 'valid' Gaussian blur of NCHW ``x``, rows then columns."""
     c = x.shape[1]
@@ -40,7 +48,7 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11) -> torch
     """Scalar SSIM over the whole NHWC batch, computed in float32."""
     img1 = img1.float().permute(0, 3, 1, 2)
     img2 = img2.float().permute(0, 3, 1, 2)
-    g1 = torch.from_numpy(gaussian_1d(window_size)).to(img1.device)
+    g1 = _gaussian_on(window_size, img1.device)
     c = img1.shape[1]
     stack = torch.cat([img1, img2, img1 * img1, img2 * img2, img1 * img2], dim=1)
     blurred = _blur_valid_separable(stack, g1)

@@ -8,6 +8,8 @@ the hybrid's head upsamples its trunk with :func:`resize_nearest`.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -35,6 +37,14 @@ def _linear_weights(out_size: int, in_size: int, align_corners: bool) -> np.ndar
     return w
 
 
+@functools.cache
+def _linear_weights_on(out_size: int, in_size: int, align_corners: bool, device: torch.device,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """:func:`_linear_weights` on ``device`` in ``dtype``, uploaded once: a
+    train step's D forwards copy nothing from the host."""
+    return torch.from_numpy(_linear_weights(out_size, in_size, align_corners)).to(device, dtype)
+
+
 def resize_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
     """(B, H, W, C) -> (B, H*scale, W*scale, C): torch 'nearest' at an integer
     factor, each pixel repeated scale x scale."""
@@ -48,7 +58,7 @@ def interpolate_bilinear(x: torch.Tensor, size: tuple[int, int],
     """(B, H, W, C) -> (B, out_h, out_w, C), torch bilinear semantics."""
     out_h, out_w = size
     _, h, w, _ = x.shape
-    wh = torch.from_numpy(_linear_weights(out_h, h, align_corners)).to(x.device, x.dtype)
-    ww = torch.from_numpy(_linear_weights(out_w, w, align_corners)).to(x.device, x.dtype)
+    wh = _linear_weights_on(out_h, h, align_corners, x.device, x.dtype)
+    ww = _linear_weights_on(out_w, w, align_corners, x.device, x.dtype)
     x = torch.einsum("oh,bhwc->bowc", wh, x)
     return torch.einsum("ow,bhwc->bhoc", ww, x)

@@ -36,11 +36,21 @@ def relative_position_index_sa(window_size: int) -> np.ndarray:
     return rel.sum(-1).astype(np.int32)
 
 
+@functools.cache
+def _bias_index(window_size: int, overlap_ratio: float | None, device: torch.device
+                ) -> torch.Tensor:
+    """The flat int64 index of :func:`relative_position_index_sa` (or, with
+    ``overlap_ratio``, ``_oca``) on ``device``, uploaded once: a forward
+    copies nothing from the host."""
+    idx = (relative_position_index_sa(window_size) if overlap_ratio is None
+           else relative_position_index_oca(window_size, overlap_ratio))
+    return torch.from_numpy(idx).to(device).long().reshape(-1)
+
+
 def relative_position_bias(table: torch.Tensor, window_size: int) -> torch.Tensor:
     """Gather a ((2*ws-1)**2, heads) table into the (heads, N, N) bias."""
     n = window_size * window_size
-    idx = torch.from_numpy(relative_position_index_sa(window_size)).to(table.device).long()
-    return table[idx.reshape(-1)].reshape(n, n, -1).permute(2, 0, 1)
+    return table[_bias_index(window_size, None, table.device)].reshape(n, n, -1).permute(2, 0, 1)
 
 
 def relative_position_index_oca(window_size: int, overlap_ratio: float) -> np.ndarray:
@@ -66,10 +76,10 @@ def relative_position_index_oca(window_size: int, overlap_ratio: float) -> np.nd
 def relative_position_bias_oca(table: torch.Tensor, window_size: int,
                                overlap_ratio: float) -> torch.Tensor:
     """Gather a ((ws+wse-1)**2, heads) table into the (heads, Nq, Nk) bias."""
-    idx = relative_position_index_oca(window_size, overlap_ratio)
-    nq, nk = idx.shape
-    idx = torch.from_numpy(idx).to(table.device).long()
-    return table[idx.reshape(-1)].reshape(nq, nk, -1).permute(2, 0, 1)
+    nq = window_size * window_size
+    nk = (window_size + int(overlap_ratio * window_size)) ** 2
+    idx = _bias_index(window_size, overlap_ratio, table.device)
+    return table[idx].reshape(nq, nk, -1).permute(2, 0, 1)
 
 
 def shift_window_attn_mask(h: int, w: int, window_size: int, shift_size: int) -> np.ndarray:

@@ -151,21 +151,33 @@ class FlatGrads:
     :meth:`average` averages them over the ranks in one in-place all-reduce
     a buffer, with no gather or scatter copy (the all-reduce XLA inserts in
     the JAX step). Backward accumulates into existing gradients in place,
-    so the views hold. Without a mesh, or in a world of one without a
-    group, :meth:`average` is the identity."""
+    so the views hold. ``segments[i]`` holds the i-th module's gradients as
+    one contiguous run of each buffer, for selects written in place.
+    Without a mesh, or in a world of one without a group, :meth:`average`
+    is the identity."""
 
     def __init__(self, modules: Iterable[torch.nn.Module], mesh: Mesh | None):
         self.mesh = mesh
-        groups: dict[tuple, list[torch.nn.Parameter]] = {}
-        for m in modules:
+        modules = list(modules)
+        groups: dict[tuple, list[tuple[int, torch.nn.Parameter]]] = {}
+        for i, m in enumerate(modules):
             for p in m.parameters():
-                groups.setdefault((p.dtype, p.device), []).append(p)
+                groups.setdefault((p.dtype, p.device), []).append((i, p))
         self.buffers, self._views = [], []
-        for (dtype, device), params in groups.items():
+        # each module's gradients: one contiguous run of each buffer
+        self.segments: list[list[torch.Tensor]] = [[] for _ in modules]
+        for (dtype, device), owned in groups.items():
+            params = [p for _, p in owned]
             flat = torch.zeros(sum(p.numel() for p in params), dtype=dtype, device=device)
             parts = flat.split([p.numel() for p in params])
             self.buffers.append(flat)
             self._views += [(p, v.view_as(p)) for p, v in zip(params, parts)]
+            start = 0
+            for i, _ in enumerate(modules):
+                n = sum(p.numel() for j, p in owned if j == i)
+                if n:
+                    self.segments[i].append(flat[start:start + n])
+                start += n
 
     def zero_(self) -> None:
         """Zero every gradient, pointing each parameter's ``.grad`` at its

@@ -123,7 +123,7 @@ def dp_ranks(mesh, cfg, steps: int, out: dict) -> bool:
 
     full = batch(micro * world)
     state, step = state_and_step(True)
-    m_dp = step(rows(full), 1e-4, 1e-4)
+    m_dp = {k: float(v) for k, v in step(rows(full), 1e-4, 1e-4).items()}
     sums = _bits_checksums(state, device)
     gathered = [sums]
     if mesh.group is not None:
@@ -134,7 +134,7 @@ def dp_ranks(mesh, cfg, steps: int, out: dict) -> bool:
     ref = ref_step = None
     if mesh.rank == 0:
         ref, ref_step = state_and_step(False)
-        m_ref = ref_step(full, 1e-4, 1e-4)
+        m_ref = {k: float(v) for k, v in ref_step(full, 1e-4, 1e-4).items()}
         dist_max, share = 0.0, 0.0
         for part in ("g", "d", "ema"):
             want = getattr(ref, part).state_dict()

@@ -12,15 +12,23 @@ step's (train_swin.py:210-259):
 - every D forward runs in training mode, so the four of a micro-batch
   advance the spectral power iteration in that order;
 - NaN guard: a non-finite D loss drops the accumulated D gradients and
-  skips the G phase (its D forwards never run, so (u, v) stay as the D
-  phase left them); a non-finite G loss drops the accumulated G gradients;
+  skips the G phase (its gradient and its spectral updates are discarded,
+  so (u, v) stay as the D phase left them); a non-finite G loss drops the
+  accumulated G gradients;
 - D's optimizer steps, then G's, once per window even when no micro-batch
   was valid; the EMA follows G's step.
 
 The G-phase gradient reaches only G: ``torch.autograd.grad`` takes the loss
 to the SR image, and ``sr.backward`` carries it through the generator, as
 the JAX step's ``vjp`` does; D's gradients come from the D phase alone.
-Whether a loss is finite is read on the host, once per phase.
+The guard is the JAX step's selects (``train/steps.py:162-193`` there), on
+the device: both phases always run, and 0-d bool tensors choose, in place
+in the :class:`FlatGrads` buffer, between the accumulation with the
+micro-batch's gradient, without it, or zero (``torch.where``: NaN * 0 is
+NaN), and between the spectral vectors after the G phase and after the D
+phase. The loss sums and the count of valid micro-batches stay on the
+device, and the step returns them as 0-d tensors: it never waits for the
+device, so the host can queue the next step while this one runs.
 
 With a ``mesh`` (``parallel.make_mesh``) the step is data-parallel, each
 rank holding its rows of every micro-batch, and computes what one process
@@ -47,6 +55,7 @@ import torch
 
 from ..data.augment import augment_pair_batch, draw_augment
 from ..models.hat import DrawShard
+from ..models.spectral_norm import SNConv2d
 from ..parallel.mesh import FlatGrads, Mesh, all_reduce_sum, global_mean
 from ..ops.metrics import psnr as psnr_fn, ssim as ssim_fn
 from .ema import EMA_DECAY, ema_update
@@ -69,12 +78,12 @@ def _set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
-def _zero_grads(module: torch.nn.Module) -> None:
-    """Zero one network's gradients (views of the step's :class:`FlatGrads`)
-    in place: the optimizer still steps every parameter, as the JAX step
-    does even when no micro-batch was valid."""
-    for p in module.parameters():
-        p.grad.zero_()
+def _select_(ok: torch.Tensor, acc: list[torch.Tensor],
+             other: list[torch.Tensor] | None = None) -> None:
+    """``acc`` <- ``where(ok, acc, other)`` in place, one run of a flat
+    gradient buffer at a time; ``other`` None is zero."""
+    for i, t in enumerate(acc):
+        torch.where(ok, t, t.new_zeros(()) if other is None else other[i], out=t)
 
 
 def make_swin_train_step(
@@ -90,7 +99,9 @@ def make_swin_train_step(
 ):
     """SwinIR-GAN step: ``step(batch, lr_g, lr_d) -> metrics``, updating
     ``state`` in place. ``generator`` draws the augmentation; ``mesh`` makes
-    the step data-parallel (the module docstring)."""
+    the step data-parallel (the module docstring). The metrics, ``loss_g``,
+    ``loss_d`` (means over the valid micro-batches) and ``valid_batches``,
+    are 0-d float32 tensors on the model's device."""
     criterion_g = dataclasses.replace(criterion_g or CombinedGANLoss(
         pixel_weight=1.0, perceptual_weight=0.5, adversarial_weight=0.005), mesh=mesh)
     criterion_d = dataclasses.replace(criterion_d or DiscriminatorLoss(), mesh=mesh)
@@ -99,10 +110,12 @@ def make_swin_train_step(
     g, d = state.g, state.d
     device = next(g.parameters()).device
     grads = FlatGrads((g, d), mesh)
+    g_acc, d_acc = grads.segments
+    spectral = [m for m in d.modules() if isinstance(m, SNConv2d)]
 
-    def step(batch, lr_g: float, lr_d: float) -> dict[str, float]:
+    def step(batch, lr_g: float, lr_d: float) -> dict[str, torch.Tensor]:
         grads.zero_()
-        valid, g_sum, d_sum = 0, 0.0, 0.0
+        valid = g_sum = d_sum = torch.zeros((), device=device)
         for i in range(accum_steps):
             lr01, hr01 = to01(batch["lr"][i], device), to01(batch["hr"][i], device)
             if augment:
@@ -115,25 +128,32 @@ def make_swin_train_step(
             d_fake = d(sr.detach(), True)
             d_loss = criterion_d(d_real, d_fake)[0] / accum_steps
             d_global = global_mean(d_loss, mesh)
-            if not torch.isfinite(d_global).item():
-                # reference zero_grad() + `continue`: drop D's window, skip G's phase
-                _zero_grads(d)
-                continue
+            d_ok = torch.isfinite(d_global)
             d_loss.backward()
+            # reference zero_grad() on a non-finite D loss: drop D's window
+            _select_(d_ok, d_acc)
+            spec1 = [(m.weight_u, m.weight_v) for m in spectral]  # SNConv2d rebinds them
 
             # ---- G phase (fake then real; d_real detached)
+            g_before = [t.clone() for t in g_acc] if i else None  # zero before the first
             d_fake = d(sr, True)
             d_real = d(hr01, True).detach()
             g_loss = criterion_g(sr, hr01, d_real, d_fake)[0] / accum_steps
             g_global = global_mean(g_loss, mesh)
-            if not torch.isfinite(g_global).item():
-                _zero_grads(g)
-                continue
+            g_ok = torch.isfinite(g_global)
             (sr_grad,) = torch.autograd.grad(g_loss, sr)
             sr.backward(sr_grad)
-            valid += 1
-            g_sum += g_global.item() * accum_steps
-            d_sum += d_global.item() * accum_steps
+            both = d_ok & g_ok
+            # G-NaN drops G's window; D-NaN `continue`s past the G phase
+            if g_before is not None:
+                _select_(~d_ok, g_before)
+            _select_(both, g_acc, g_before)
+            for m, (u, v) in zip(spectral, spec1):
+                m.weight_u = torch.where(d_ok, m.weight_u, u)
+                m.weight_v = torch.where(d_ok, m.weight_v, v)
+            valid = valid + both.float()
+            g_sum = g_sum + torch.where(both, g_global.float() * accum_steps, 0.0)
+            d_sum = d_sum + torch.where(both, d_global.float() * accum_steps, 0.0)
 
         grads.average()
         _set_lr(state.d_opt, lr_d)
@@ -142,8 +162,8 @@ def make_swin_train_step(
         state.g_opt.step()
         ema_update(state.ema, g, ema_decay)
         state.step += 1
-        return {"loss_g": g_sum / max(valid, 1), "loss_d": d_sum / max(valid, 1),
-                "valid_batches": float(valid)}
+        count = valid.clamp(min=1.0)
+        return {"loss_g": g_sum / count, "loss_d": d_sum / count, "valid_batches": valid}
 
     return step
 
@@ -175,8 +195,11 @@ def make_hat_train_step(
     detached SR, D(fake) then D(real), skipped in warmup, when neither D's
     optimizer nor its (u, v) move. Live metrics on the detached SR: L1, the
     PSNR sum and SSIM of the clipped images. G's optimizer steps, the EMA
-    follows, then D's. The metrics are summed on the device and read on the
-    host once per step; the names are the JAX step's (:data:`HAT_METRICS`).
+    follows, then D's. The metrics are summed on the device, all-reduced
+    over the ranks, and returned as 0-d float32 tensors on the model's
+    device (the four losses as means over the micro-batches and ranks); the
+    names are the JAX step's (:data:`HAT_METRICS`). No guard: the JAX step
+    has none.
     """
     criterion_g = dataclasses.replace(criterion_g or CombinedGANLoss(
         pixel_weight=1.0, perceptual_weight=1.0, adversarial_weight=0.005), mesh=mesh)
@@ -188,7 +211,7 @@ def make_hat_train_step(
     drops = DrawShard(drop_generator or torch.Generator(device).manual_seed(0), rank, world)
     grads = FlatGrads((g, d), mesh)
 
-    def step(batch, lr_g: float, lr_d: float, warmup: bool = False) -> dict[str, float]:
+    def step(batch, lr_g: float, lr_d: float, warmup: bool = False) -> dict[str, torch.Tensor]:
         grads.zero_()  # D's stay zero in warmup: its average is zero too
         # loss_g, l1, g_adv, loss_d, psnr_sum, ssim_sum, count
         sums = torch.zeros(len(HAT_METRICS), device=device)
@@ -227,7 +250,7 @@ def make_hat_train_step(
                     g_loss.detach().float(), l1_loss(sr, hr01).float(), g_adv.detach().float(),
                     d_loss.detach().float(), psnr_fn(sr, hr01).sum().float(),
                     ssim_fn(sr.clamp(0, 1), hr01.clamp(0, 1)).float() * b,
-                    torch.tensor(float(b), device=device)])
+                    torch.full((), b, dtype=torch.float32, device=device)])
 
         grads.average()
         _set_lr(state.g_opt, lr_g)
@@ -237,10 +260,10 @@ def make_hat_train_step(
             _set_lr(state.d_opt, lr_d)
             state.d_opt.step()
         state.step += 1
-        values = dict(zip(HAT_METRICS, all_reduce_sum(sums, mesh).tolist()))
-        for k in ("loss_g", "l1", "g_adv", "loss_d"):  # means: over micro-batches and ranks
-            values[k] /= accum_steps * world
-        return values
+        sums = all_reduce_sum(sums, mesh)
+        # loss_g, l1, g_adv, loss_d: means over the micro-batches and ranks
+        sums = torch.cat([sums[:4] / (accum_steps * world), sums[4:]])
+        return dict(zip(HAT_METRICS, sums.unbind()))
 
     return step
 

@@ -81,8 +81,9 @@ def _states(state, inputs):
 
 
 def _results(state, metrics):
+    """The state and the step's metrics, its 0-d tensors as floats."""
     return {"g": state.g.state_dict(), "d": state.d.state_dict(),
-            "ema": state.ema.state_dict(), "metrics": metrics}
+            "ema": state.ema.state_dict(), "metrics": {k: float(v) for k, v in metrics.items()}}
 
 
 def _rows(batch, mesh):

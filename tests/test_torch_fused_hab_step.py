@@ -76,7 +76,7 @@ def test_fused_hab_gan_step_matches_jax():
     tm = tstep(batch, 1e-4, 1e-4)
     assert set(tm) == set(m)
     for k in m:
-        np.testing.assert_allclose(tm[k], float(m[k]), rtol=1e-5, atol=1e-7, err_msg=k)
+        np.testing.assert_allclose(float(tm[k]), float(m[k]), rtol=1e-5, atol=1e-7, err_msg=k)
     want_d = discriminator_hat_state_dict_from_jax(_np_tree(new.d_params),
                                                    _np_tree(new.spectral))
     _assert_weights(port.d.state_dict(), want_d, "D", noise_only=("conv9.bias",))

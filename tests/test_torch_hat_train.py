@@ -219,9 +219,9 @@ def test_hat_train_step_matches_jax(start, mode, fused):
 
     assert set(tm) == set(m)
     for k in m:
-        np.testing.assert_allclose(tm[k], float(m[k]), rtol=1e-5, atol=1e-7, err_msg=k)
+        np.testing.assert_allclose(float(tm[k]), float(m[k]), rtol=1e-5, atol=1e-7, err_msg=k)
     if warmup:
-        assert tm["g_adv"] == tm["loss_d"] == 0.0
+        assert float(tm["g_adv"]) == float(tm["loss_d"]) == 0.0
         for k, v in port.d.state_dict().items():
             assert torch.equal(v, d_before[k]), k
     want_d = discriminator_hat_state_dict_from_jax(_np_tree(new.d_params),

@@ -290,7 +290,7 @@ def test_hybrid_dp_step_matches_one_process_on_the_whole_batch(tmp_path, warmup)
     _assert_same_on_every_rank(outs)
     got = outs[0]
     for k, v in want.items():
-        np.testing.assert_allclose(got["metrics"][k], v, rtol=2e-4, atol=2e-5, err_msg=k)
+        np.testing.assert_allclose(got["metrics"][k], float(v), rtol=2e-4, atol=2e-5, err_msg=k)
     assert got["metrics"]["count"] == 8.0
     for part, module in (("g", state.g), ("d", state.d), ("ema", state.ema)):
         # RaGAN sees only differences of D's logits: conv9's bias has no gradient

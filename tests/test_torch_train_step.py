@@ -15,6 +15,8 @@ weight agrees to 2.1e-4, and all but 2% of each tensor's entries to 1e-6
 most gradients at the size of fp32 summation noise).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -62,16 +64,71 @@ class TorchNaNDLoss(DiscriminatorLoss):
         return bad, {"adversarial": bad, "total": bad}
 
 
+# NaN in one micro-batch: the one whose two samples are the same patch
+# (``_batch(marked=)``). D's criterion sees it as two logit maps, G's as two
+# HR patches, equal to rounding (XLA's CPU code may round the two samples'
+# /65535 apart); the loss times NaN sends NaN gradients into the
+# accumulation, which only a select (not a product with 0) drops.
+def _jax_same(x):
+    return jnp.max(jnp.abs(x[0] - x[1])) <= 1e-4 * jnp.max(jnp.abs(x))
+
+
+def _torch_same(x):
+    return (x[0] - x[1]).abs().max() <= 1e-4 * x.abs().max()
+
+
+class MarkedNaNDLoss(JaxDLoss):
+    def __call__(self, real_pred, fake_pred):
+        loss, parts = super().__call__(real_pred, fake_pred)
+        loss = loss * jnp.where(_jax_same(real_pred), jnp.nan, 1.0)
+        return loss, {**parts, "total": loss}
+
+
+class TorchMarkedNaNDLoss(DiscriminatorLoss):
+    def __call__(self, real_pred, fake_pred):
+        loss, parts = super().__call__(real_pred, fake_pred)
+        loss = loss * torch.where(_torch_same(real_pred), float("nan"), 1.0)
+        return loss, {**parts, "total": loss}
+
+
+@dataclasses.dataclass(frozen=True)
+class NaNGLoss(JaxCombined):
+    every: bool = True
+
+    def __call__(self, pred, target, real_pred=None, fake_pred=None):
+        loss, parts = super().__call__(pred, target, real_pred, fake_pred)
+        hit = True if self.every else _jax_same(target)
+        loss = loss * jnp.where(hit, jnp.nan, 1.0)
+        return loss, {**parts, "total": loss}
+
+
+@dataclasses.dataclass(frozen=True)
+class TorchNaNGLoss(CombinedGANLoss):
+    every: bool = True
+
+    def __call__(self, pred, target, real_pred=None, fake_pred=None):
+        loss, parts = super().__call__(pred, target, real_pred, fake_pred)
+        hit = torch.tensor(True) if self.every else _torch_same(target)
+        loss = loss * torch.where(hit, float("nan"), 1.0)
+        return loss, {**parts, "total": loss}
+
+
 def _np_tree(t):
     return jax.tree_util.tree_map(np.asarray, t)
 
 
-def _batch(seed=0):
+def _batch(seed=0, marked=None):
+    """uint16 (ACCUM, MICRO, H, W, 1) pairs; micro-batch ``marked`` holds its
+    first patch twice."""
     rng = np.random.default_rng(seed)
-    return {
+    batch = {
         "lr": rng.integers(0, 65535, (ACCUM, MICRO, 16, 16, 1), dtype=np.uint16),
         "hr": rng.integers(0, 65535, (ACCUM, MICRO, 64, 64, 1), dtype=np.uint16),
     }
+    if marked is not None:
+        for v in batch.values():
+            v[marked, 1:] = v[marked, :1]
+    return batch
 
 
 @pytest.fixture(scope="module")
@@ -95,10 +152,10 @@ def _port(start):
     return port, vgg.requires_grad_(False)
 
 
-def _jax_criterion(vgg_params):
+def _jax_criterion(vgg_params, cls=JaxCombined, **kw):
     model = JaxVGG(cutoff=35)
-    return JaxCombined(pixel_weight=1.0, perceptual_weight=0.5, adversarial_weight=0.005,
-                       vgg_apply=lambda x: model.apply({"params": vgg_params}, x))
+    return cls(pixel_weight=1.0, perceptual_weight=0.5, adversarial_weight=0.005,
+               vgg_apply=lambda x: model.apply({"params": vgg_params}, x), **kw)
 
 
 def _assert_weights(got: dict, want: dict, what: str):
@@ -125,9 +182,9 @@ def test_train_step_matches_jax(start):
                                     adversarial_weight=0.005, vgg_apply=vgg))
     tm = tstep(batch, 1e-4, 1e-4)
 
-    assert tm["valid_batches"] == float(m["valid_batches"]) == ACCUM
-    np.testing.assert_allclose(tm["loss_g"], float(m["loss_g"]), rtol=1e-5)
-    np.testing.assert_allclose(tm["loss_d"], float(m["loss_d"]), rtol=1e-5)
+    assert float(tm["valid_batches"]) == float(m["valid_batches"]) == ACCUM
+    np.testing.assert_allclose(float(tm["loss_g"]), float(m["loss_g"]), rtol=1e-5)
+    np.testing.assert_allclose(float(tm["loss_d"]), float(m["loss_d"]), rtol=1e-5)
     want_d = discriminator_swin_state_dict_from_jax(_np_tree(new.d_params),
                                                     _np_tree(new.spectral))
     got_d = port.d.state_dict()
@@ -142,31 +199,65 @@ def test_train_step_matches_jax(start):
                     "EMA")
 
 
-def test_nan_d_loss_skips_the_window_like_jax(start):
-    """D-NaN: valid 0, both networks unchanged, and (u, v) as the D phases
-    left them (the G phases' D forwards never count)."""
+# the NaN guard's cases: which loss is NaN, on every micro-batch (None) or
+# on the marked one; each against the JAX step with the same criterion
+GUARD_CASES = {"d-every": ("d", None), "g-every": ("g", None), "d-one": ("d", 1),
+               "g-one": ("g", 1)}
+
+
+@pytest.mark.parametrize("case", list(GUARD_CASES))
+def test_nan_guard_matches_jax(start, case):
+    """The guard against the JAX step's selects. D-NaN: D's window is
+    dropped and the G phase skipped, so (u, v) stay as the D phases left
+    them; G-NaN: G's window is dropped, D's kept. On every micro-batch both
+    networks keep their bits where their window is dropped (AdamW at zero
+    gradient, swin's weight decay 0)."""
+    which, marked = GUARD_CASES[case]
     state, bundle, vgg_params = start
-    batch = _batch(1)
-    step = jax_step(bundle, accum_steps=ACCUM, augment=False, criterion_d=NaNDLoss(),
-                    criterion_g=_jax_criterion(vgg_params), donate=False)
+    batch = _batch(1, marked)
+    every = marked is None
+    jax_d = {"d": NaNDLoss() if every else MarkedNaNDLoss(), "g": JaxDLoss()}[which]
+    jax_g = _jax_criterion(vgg_params, *((NaNGLoss,) if which == "g" else ()),
+                           **({"every": every} if which == "g" else {}))
+    step = jax_step(bundle, accum_steps=ACCUM, augment=False, criterion_d=jax_d,
+                    criterion_g=jax_g, donate=False)
     new, m = step(state, batch, 1e-4, 1e-4)
 
     port, vgg = _port(start)
     g_before = {k: v.clone() for k, v in port.g.state_dict().items()}
     d_before = {k: v.clone() for k, v in port.d.state_dict().items()
                 if k.endswith("weight_orig")}
-    tstep = make_swin_train_step(
-        port, accum_steps=ACCUM, augment=False, criterion_d=TorchNaNDLoss(),
-        criterion_g=CombinedGANLoss(pixel_weight=1.0, perceptual_weight=0.5,
-                                    adversarial_weight=0.005, vgg_apply=vgg))
+    torch_d = {"d": TorchNaNDLoss() if every else TorchMarkedNaNDLoss(),
+               "g": DiscriminatorLoss()}[which]
+    torch_g = (TorchNaNGLoss if which == "g" else CombinedGANLoss)(
+        pixel_weight=1.0, perceptual_weight=0.5, adversarial_weight=0.005, vgg_apply=vgg,
+        **({"every": every} if which == "g" else {}))
+    tstep = make_swin_train_step(port, accum_steps=ACCUM, augment=False, criterion_d=torch_d,
+                                 criterion_g=torch_g)
     tm = tstep(batch, 1e-4, 1e-4)
-    assert tm["valid_batches"] == float(m["valid_batches"]) == 0.0
-    for k, v in g_before.items():
-        assert torch.equal(port.g.state_dict()[k], v), k
-    for k, v in d_before.items():
-        assert torch.equal(port.d.state_dict()[k], v), k
+
+    assert set(tm) == {"loss_g", "loss_d", "valid_batches"}
+    for k, v in tm.items():  # 0-d tensors on the model's device, never read by the step
+        assert isinstance(v, torch.Tensor) and v.shape == () and v.dtype == torch.float32, k
+        assert v.device == next(port.g.parameters()).device, k
+    assert float(tm["valid_batches"]) == float(m["valid_batches"]) == (0.0 if every else 1.0)
+    for k in ("loss_g", "loss_d"):
+        np.testing.assert_allclose(float(tm[k]), float(m[k]), rtol=1e-5, err_msg=k)
+    if every:
+        for k, v in g_before.items():
+            assert torch.equal(port.g.state_dict()[k], v), k
+        if which == "d":
+            for k, v in d_before.items():
+                assert torch.equal(port.d.state_dict()[k], v), k
     want_d = discriminator_swin_state_dict_from_jax(_np_tree(new.d_params),
                                                     _np_tree(new.spectral))
-    for k, v in port.d.state_dict().items():
+    got_d = port.d.state_dict()
+    for k in want_d:
         if k.endswith(("weight_u", "weight_v")):
-            np.testing.assert_allclose(v.numpy(), want_d[k].numpy(), atol=1e-5, err_msg=k)
+            np.testing.assert_allclose(got_d[k].numpy(), want_d[k].numpy(), atol=1e-5,
+                                       err_msg=k)
+    _assert_weights(got_d, want_d, "D")
+    _assert_weights(port.g.state_dict(), swinir_state_dict_from_jax(_np_tree(new.g_params)),
+                    "G")
+    _assert_weights(port.ema.state_dict(), swinir_state_dict_from_jax(_np_tree(new.ema)),
+                    "EMA")
