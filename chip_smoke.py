@@ -229,6 +229,13 @@ exit code:
     keeps G's and D's weights to the bit and D's (u, v) at the D phases'
     power iterations, a NaN G loss keeps G to the bit and gives D the bits
     of a finite step.
+40. [learns]: ``tools/train_learns.py``'s synthetic skies (64 pairs at HR
+    512, written by the native writer) and ``train --arch swin --bf16`` at
+    full width for 2 epochs with a torchvision-layout VGG19 ``.pth`` made in
+    the phase: every TIFF read decoded natively, 2 finite CSV rows, K2/K3/K4
+    (and K1 in the EMA validation) launched, the codec's files/s; and
+    ``SRVGGNetCompact()`` (128->512) on the card within relative L2 1e-4 of
+    the CPU, fp32, TF32 off.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it fails at once:
@@ -1268,6 +1275,110 @@ def upscale_mesh_phase(frame: Path, run: Path, sr_cli: np.ndarray, card: str) ->
         raise SystemExit(f"[upscale-mesh] --mesh bits equal {same}, --spatial shape "
                          f"{out['--spatial'].shape} std {out['--spatial'].std()}")
 
+
+
+# [learns]: the convergence path of tools/train_learns.py, cut to 2 epochs of
+# a 64-pair synthetic split (51/6/7), and SRVGGNetCompact's forward
+LEARNS_PAIRS, LEARNS_EPOCHS = 64, 2
+# SRVGGNetCompact on the card against the CPU, fp32 with TF32 off: 18 convs
+# in other summation orders
+SRVGG_REL_L2 = 1e-4
+
+
+def learns_phase(seed: int, device: torch.device, card: str) -> None:
+    """40. [learns]: ``tools/train_learns.py``'s dataset (64 synthetic skies
+    at HR 512, written by the native writer, the seed-42 split) and
+    ``train_swin_run`` at full width for 2 epochs, bf16, fused, its
+    ``vgg_weights`` a torchvision-layout ``.pth`` saved here from a seeded
+    ``VGG19Features`` (nothing is downloaded). It fails unless every TIFF the
+    iterators read was decoded natively (the codec's count against the files
+    the epochs read), the CSV has 2 rows of finite metrics, and K2, K3, K4
+    (36 a step) and K1 (36 an EMA validation forward) launched. It prints
+    both epochs' PSNR, the wall time and the codec's decode rate (files/s,
+    warm). Then one ``SRVGGNetCompact()`` forward at its defaults (64
+    features, 16 convs, 128 -> 512) on the card against the same weights on
+    the CPU, fp32 with TF32 off: relative L2 <= ``SRVGG_REL_L2``."""
+    from superresolution_def_tpu_torch.cli.trainers import SwinTrainConfig, train_swin_run
+    from superresolution_def_tpu_torch.data import fast_tiff, load_manifest
+    from superresolution_def_tpu_torch.kernels import (
+        fused_swin_block, swin_block_bwd_attn, swin_block_bwd_mlp, swin_block_fwd_h)
+    from superresolution_def_tpu_torch.models import SRVGGNetCompact
+    from superresolution_def_tpu_torch.tools.train_learns import build_dataset
+    from superresolution_def_tpu_torch.train import VGG19Features
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        build_dataset(root / "data", n_pairs=LEARNS_PAIRS, seed=seed, hr_size=512)
+        t_data = time.perf_counter() - t_phase
+        torch.save(VGG19Features(generator=torch.Generator().manual_seed(seed + 5)).state_dict(),
+                   root / "vgg19.pth")
+        split = {k: load_manifest(root / "data" / "SYN" / "8_dataset_split" / "splits_json"
+                                  / f"{k}.json") for k in ("train", "val")}
+        steps = len(split["train"]) // MICRO
+        # each epoch: its train batches (drop_last) and the whole val split, 2 files a pair
+        files = 2 * LEARNS_EPOCHS * (steps * MICRO + len(split["val"]))
+        counters = (swin_block_fwd_h, swin_block_bwd_mlp, swin_block_bwd_attn, fused_swin_block)
+        for fn in counters:
+            fn.launches = 0
+        fast_tiff.decoded = 0
+        t0 = time.perf_counter()
+        last = train_swin_run(SwinTrainConfig(
+            targets=("SYN",), data_root=str(root / "data"), outputs_root=str(root / "out"),
+            epochs=LEARNS_EPOCHS, use_bf16=True, vgg_weights=str(root / "vgg19.pth"),
+            seed=seed, device="cuda"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        decoded = fast_tiff.decoded
+        launches = {fn.__name__: fn.launches for fn in counters}
+        rows = (root / "out" / "SYN_DDP_SwinIR" / "metrics.csv").read_text().strip().splitlines()
+        values = [[float(v) for v in r.split(",")] for r in rows[1:]]
+        paths = [p for e in split["train"] for p in (e.hubble_path, e.ground_path)]
+        fast_tiff.read_batch_u16(paths[::2], 512, 512)  # warm: the run read them all
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fast_tiff.read_batch_u16(paths[::2], 512, 512)
+            fast_tiff.read_batch_u16(paths[1::2], 128, 128)
+        rate = 3 * len(paths) / (time.perf_counter() - t0)
+    psnr = [v[3] for v in values]
+    log("learns", f"tools/train_learns.py's data: {LEARNS_PAIRS} skies at HR 512 "
+                  f"({len(split['train'])}/{len(split['val'])} train/val) in {t_data:.2f} s; "
+                  f"train --bf16 fused with a torchvision-layout VGG19 .pth on {card}, "
+                  f"{LEARNS_EPOCHS} epochs x {steps} steps (micro {MICRO}): val PSNR by epoch "
+                  f"{psnr}, loss_g {last['loss_g']:.5f}, {wall:.2f} s wall; launches "
+                  + ", ".join(f"{k} {v}" for k, v in launches.items())
+                  + f"; native decodes {decoded} of {files} files read; the codec reads "
+                  f"{rate:.1f} files/s (8 threads, warm, 512² and 128² files)")
+    want = {"swin_block_fwd_h": 36 * steps * LEARNS_EPOCHS,
+            "swin_block_bwd_mlp": 36 * steps * LEARNS_EPOCHS,
+            "swin_block_bwd_attn": 36 * steps * LEARNS_EPOCHS,
+            "fused_swin_block": 36 * len(split["val"]) * LEARNS_EPOCHS}
+    if decoded != files:
+        raise SystemExit(f"[learns] {decoded} native decodes, {files} files read")
+    if len(values) != LEARNS_EPOCHS or not np.isfinite(values).all():
+        raise SystemExit(f"[learns] metrics.csv: {rows}")
+    if launches != want:
+        raise SystemExit(f"[learns] launches {launches}, expected {want}")
+
+    srvgg = SRVGGNetCompact(generator=torch.Generator().manual_seed(seed)).eval()
+    x = torch.rand(1, 128, 128, 3, generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        want_sr = srvgg(x)
+        tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        try:
+            on_card, x_card = srvgg.to(device), x.to(device)
+            got = on_card(x_card)
+            srvgg_ms = cuda_ms(lambda: on_card(x_card), reps=5, calls=2)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    rel = rel_l2(got.cpu(), want_sr)
+    log("learns", f"SRVGGNetCompact() (64 features, 16 convs, prelu) 128->512 on {card}: "
+                  f"shape {tuple(got.shape)}, relative L2 to the CPU {rel:.3e} (bound "
+                  f"{SRVGG_REL_L2}, fp32, TF32 off), {srvgg_ms:.3f} ms a forward; the phase "
+                  f"{time.perf_counter() - t_phase:.1f} s")
+    if tuple(got.shape) != (1, 512, 512, 3) or not rel <= SRVGG_REL_L2:
+        raise SystemExit(f"[learns] SRVGGNetCompact on the card: rel L2 {rel}")
 
 
 def upscale_phase(seed: int, device: torch.device, card: str) -> None:
@@ -3008,6 +3119,8 @@ def main() -> None:
     dp_train_phase(seed, device, card)
     # 39. the epoch loops' steps: no host sync, the NaN guard on the card
     run_loop_phase(seed, device, card)
+    # 40. the convergence path: synthetic skies, the native codec, a VGG19 .pth
+    learns_phase(seed, device, card)
 
     work = block_work(768)
     work.update({k: v for k, v in block_work(bw_train).items() if k != "K1"})

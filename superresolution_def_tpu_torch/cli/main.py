@@ -307,7 +307,10 @@ def main(argv=None):
                          "default: on for the card with --bf16; on the CPU they run their "
                          "plain versions")
     pt.add_argument("--no-vgg", action="store_true", help="no perceptual (VGG19) term")
-    pt.add_argument("--vgg-weights", default=None, help="npz of the JAX package's VGG19 params")
+    pt.add_argument("--vgg-weights", default=None,
+                    help="pretrained VGG19 for the perceptual term, supplied by the user (nothing "
+                         "is downloaded): torchvision's vgg19 state dict as .pth, or the npz "
+                         "that cli.port_vgg writes from it; without it seeded random weights")
     pt.add_argument("--no-resume", action="store_true",
                     help="start over instead of resuming from the run folder's checkpoints")
     pt.add_argument("--seed", type=int, default=0)

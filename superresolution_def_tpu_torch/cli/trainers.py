@@ -66,7 +66,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..data import DataIterator, PatchDataset, load_manifest
+from ..data import DataIterator, PatchDataset, merge_manifests
 from ..models import load_torch_state_dict, vgg19_state_dict_from_jax
 from ..obs import (
     HAT_CSV_COLUMNS,
@@ -114,7 +114,7 @@ class SwinTrainConfig:
     # the fused generator (K2-K4); None: on for the card with bf16
     fused: bool | None = None
     use_vgg: bool = True  # False: no perceptual term
-    vgg_weights: str | None = None  # npz of the JAX package's VGG params; None -> seeded
+    vgg_weights: str | None = None  # torchvision .pth or the JAX package's npz; None -> seeded
     seed: int = 0
     max_steps_per_epoch: int | None = None
     device: str = "cuda"
@@ -153,7 +153,7 @@ class HATTrainConfig:
     # the fused trunk (K7/K8); None: on for the card with bf16, or with fused_hab
     fused: bool | None = None
     use_vgg: bool = True  # False: no perceptual term
-    vgg_weights: str | None = None  # npz of the JAX package's VGG params; None -> seeded
+    vgg_weights: str | None = None  # torchvision .pth or the JAX package's npz; None -> seeded
     pretrained_hat: str | None = None  # a HAT-only .pth to seed the backbone
     fused_hab: bool = False  # the backbone's HABs and OCABs through K9/K10 too
     seed: int = 0
@@ -166,18 +166,22 @@ class HATTrainConfig:
 
 
 def _split_entries(cfg, split: str) -> list:
-    return [e for t in cfg.targets for e in load_manifest(
-        Path(cfg.data_root) / t / "8_dataset_split" / "splits_json" / f"{split}.json",
-        cfg.data_root)]
+    return merge_manifests([Path(cfg.data_root) / t / "8_dataset_split" / "splits_json"
+                            / f"{split}.json" for t in cfg.targets], cfg.data_root)
 
 
 def _load_vgg(cfg, dtype: torch.dtype, device) -> VGG19Features | None:
-    """VGG19[:36] for the perceptual loss: the JAX package's npz when given
-    (read with numpy), else seeded weights; None without ``use_vgg``."""
+    """VGG19[:36] for the perceptual loss, None without ``use_vgg``: from
+    ``vgg_weights`` when given, a torchvision ``vgg19`` state dict (``.pth``:
+    its ``features.{i}`` keys load as they are) or the JAX package's npz
+    (``cli/port_vgg.py``'s, read with numpy); else seeded weights."""
     if not cfg.use_vgg:
         return None
     model = VGG19Features(cutoff=35, dtype=dtype, generator=torch.Generator().manual_seed(0))
-    if cfg.vgg_weights:
+    if cfg.vgg_weights and str(cfg.vgg_weights).endswith((".pth", ".pt")):
+        sd = load_torch_state_dict(cfg.vgg_weights)
+        model.load_state_dict({k: v for k, v in sd.items() if k.startswith("features.")})
+    elif cfg.vgg_weights:
         loaded = np.load(cfg.vgg_weights, allow_pickle=True)
         params = loaded["params"].item() if "params" in loaded else dict(loaded)
         model.load_state_dict(vgg19_state_dict_from_jax(params))

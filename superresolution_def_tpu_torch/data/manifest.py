@@ -57,6 +57,11 @@ def write_manifest(path: str | Path, entries: Sequence[ManifestEntry]) -> None:
         json.dump([e.to_json() for e in entries], f, indent=2)
 
 
+def merge_manifests(paths: Sequence[str | Path], base_path=None) -> list[ManifestEntry]:
+    """Concatenate several split files (multi-target training, train_swin.py:123-136)."""
+    return [e for p in paths for e in load_manifest(p, base_path)]
+
+
 def split_pairs(
     entries: Sequence[ManifestEntry],
     train_ratio: float = 0.8,

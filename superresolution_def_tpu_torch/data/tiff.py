@@ -1,4 +1,10 @@
-"""16-bit grayscale TIFF IO through PIL (the JAX ``data/tiff.py`` PIL path)."""
+"""16-bit grayscale TIFF IO (the JAX ``data/tiff.py``).
+
+:func:`read_tiff_u16` decodes with PIL; :func:`write_tiff_u16` encodes through
+the native writer (``fast_tiff``: the uncompressed little-endian single-strip
+layout that PIL writes and both decoders read), with PIL for a file the
+writer cannot open.
+"""
 
 from __future__ import annotations
 
@@ -6,6 +12,8 @@ from pathlib import Path
 
 import numpy as np
 from PIL import Image
+
+from .fast_tiff import write_u16_native
 
 
 def read_tiff_u16(path: str | Path) -> np.ndarray:
@@ -25,4 +33,5 @@ def write_tiff_u16(path: str | Path, img01: np.ndarray) -> None:
     arr = np.asarray(img01)
     if arr.dtype != np.uint16:
         arr = (np.clip(arr.astype(np.float64), 0.0, 1.0) * 65535.0).astype(np.uint16)
-    Image.fromarray(arr).save(str(path))  # uint16 -> PIL mode 'I;16'
+    if not write_u16_native(path, arr):
+        Image.fromarray(arr).save(str(path))  # uint16 -> PIL mode 'I;16'

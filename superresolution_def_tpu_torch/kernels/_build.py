@@ -6,6 +6,8 @@ the directory). The hash covers the source, the shared ``csrc/*.cuh``
 headers and the compiler flags, so an edited source is rebuilt on its next
 load and an unchanged one is reused. Nothing here runs at import time: the
 first :func:`load_library` (or :func:`build_all`) call builds.
+:func:`hashed_path` and :func:`compile_once` also build the native TIFF
+codec with g++ (``data/fast_tiff.py``).
 """
 
 from __future__ import annotations
@@ -44,33 +46,48 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: install the CUDA toolkit or put nvcc on PATH")
 
 
+def hashed_path(stem: str, inputs, flags, build_dir: Path = BUILD_DIR) -> Path:
+    """``build_dir/lib<stem>-<hash>.so``: the hash covers the bytes of each of
+    ``inputs`` in order and the compiler flags, never a file's mtime."""
+    h = hashlib.sha256()
+    for path in inputs:
+        h.update(Path(path).read_bytes())
+    h.update(" ".join(flags).encode())
+    return build_dir / f"lib{stem}-{h.hexdigest()[:16]}.so"
+
+
+def compile_once(out: Path, command, what: str) -> Path:
+    """Run ``command(tmp)`` (the compiler line writing ``tmp``) unless ``out``
+    exists, then rename ``tmp`` to ``out``; raises with the compiler's stderr."""
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    # compile to a private name, then rename: a process building at the
+    # same time never loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    try:
+        cmd = command(tmp)
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{what} failed:\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
 def library_path(name: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    digest = h.hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return hashed_path(name, [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))], NVCC_FLAGS)
 
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a library of the same hash exists."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a process building at the
-    # same time never loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    return compile_once(library_path(name),
+                        lambda tmp: [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+                        f"nvcc for {name}.cu")
 
 
 def build_all(names) -> list[Path]:

@@ -3,6 +3,7 @@ from .hat import DrawShard, DropPath, injected_drop_masks
 from .hat import HAT
 from .hybrid import HybridHATRealESRGAN
 from .spectral_norm import SNConv2d
+from .srvgg import SRVGGNetCompact
 from .swinir import SwinIR, SwinTransformerBlock, WindowAttention
 from .weights import (
     detect_hybrid_params,
@@ -11,6 +12,7 @@ from .weights import (
     discriminator_swin_state_dict_from_jax,
     hat_state_dict_from_jax,
     hybrid_state_dict_from_jax,
+    srvgg_state_dict_from_jax,
     vgg19_state_dict_from_jax,
     load_torch_state_dict,
     swinir_state_dict_from_jax,
@@ -26,6 +28,8 @@ __all__ = [
     "hat_state_dict_from_jax",
     "hybrid_state_dict_from_jax",
     "SNConv2d",
+    "SRVGGNetCompact",
+    "srvgg_state_dict_from_jax",
     "UNetDiscriminatorSNHAT",
     "UNetDiscriminatorSNSwin",
     "discriminator_hat_state_dict_from_jax",

@@ -7,10 +7,11 @@ inverse of its ``swinir_from_torch``: it turns the JAX SwinIR params tree
 (numpy arrays) into this package's ``state_dict``;
 :func:`hat_state_dict_from_jax`, :func:`hybrid_state_dict_from_jax`,
 :func:`discriminator_swin_state_dict_from_jax`,
-:func:`discriminator_hat_state_dict_from_jax` and
-:func:`vgg19_state_dict_from_jax` invert ``hat_from_torch``,
-``hybrid_from_torch``, ``discriminator_swin_from_torch``,
-``discriminator_hat_from_torch`` and ``vgg19_from_torch`` the same way.
+:func:`discriminator_hat_state_dict_from_jax`,
+:func:`vgg19_state_dict_from_jax` and :func:`srvgg_state_dict_from_jax`
+invert ``hat_from_torch``, ``hybrid_from_torch``,
+``discriminator_swin_from_torch``, ``discriminator_hat_from_torch``,
+``vgg19_from_torch`` and ``srvgg_from_torch`` the same way.
 """
 
 from __future__ import annotations
@@ -168,6 +169,20 @@ def vgg19_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tens
         i = int(name.split("_")[1])
         out[f"features.{i}.weight"] = _t(p["kernel"]).permute(3, 2, 0, 1).contiguous()
         out[f"features.{i}.bias"] = _t(p["bias"])
+    return out
+
+
+def srvgg_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The JAX ``SRVGGNetCompact`` params (``body_{i}``, ``prelu_{i}``,
+    ``body_last``) -> ``body.{2i}.*``, ``body.{2i+1}.weight`` and the last
+    conv's ``body.{2n}.*``: the inverse of ``srvgg_from_torch``."""
+    out: dict[str, torch.Tensor] = {}
+    n = sum(1 for name in params if name.startswith("body_") and name != "body_last")
+    for i in range(n):
+        _conv(out, f"body.{2 * i}", params[f"body_{i}"])
+        if f"prelu_{i}" in params:
+            out[f"body.{2 * i + 1}.weight"] = _t(params[f"prelu_{i}"])
+    _conv(out, f"body.{2 * n}", params["body_last"])
     return out
 
 

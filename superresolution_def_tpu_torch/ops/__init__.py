@@ -9,10 +9,10 @@ from .windows import (
     shift_window_attn_mask,
     overlap_windows,
 )
-from .pixelshuffle import pixel_shuffle
+from .pixelshuffle import pixel_shuffle, pixel_unshuffle
 from .padding import reflect_pad_2d
-from .metrics import psnr, ssim, TrainMetrics
-from .resize import interpolate_bilinear, resize_nearest
+from .metrics import psnr, ssim, TrainMetrics, gaussian_window
+from .resize import interpolate_bilinear, interpolate_nearest, resize_nearest
 from .normalize import log_stretch_normalize, robust_minmax, quantize_u16
 
 __all__ = [
@@ -26,11 +26,14 @@ __all__ = [
     "shift_window_attn_mask",
     "overlap_windows",
     "pixel_shuffle",
+    "pixel_unshuffle",
     "reflect_pad_2d",
     "psnr",
     "ssim",
     "TrainMetrics",
+    "gaussian_window",
     "interpolate_bilinear",
+    "interpolate_nearest",
     "resize_nearest",
     "log_stretch_normalize",
     "robust_minmax",

@@ -28,6 +28,12 @@ def gaussian_1d(window_size: int = 11, sigma: float = 1.5) -> np.ndarray:
     return g / g.sum()
 
 
+def gaussian_window(window_size: int = 11, sigma: float = 1.5) -> np.ndarray:
+    """The normalized separable Gaussian as a (ws, ws) float32 window."""
+    g = gaussian_1d(window_size, sigma)
+    return np.outer(g, g).astype(np.float32)
+
+
 @functools.cache
 def _gaussian_on(window_size: int, device: torch.device) -> torch.Tensor:
     """:func:`gaussian_1d` on ``device``, uploaded once: a train step's SSIM

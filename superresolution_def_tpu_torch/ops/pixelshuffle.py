@@ -17,3 +17,12 @@ def pixel_shuffle(x: torch.Tensor, upscale: int) -> torch.Tensor:
     c = crr // (r * r)
     x = x.reshape(b, h, w, c, r, r)
     return x.permute(0, 1, 4, 2, 5, 3).reshape(b, h * r, w * r, c)
+
+
+def pixel_unshuffle(x: torch.Tensor, downscale: int) -> torch.Tensor:
+    """(B, H*r, W*r, C) -> (B, H, W, C*r*r). Inverse of :func:`pixel_shuffle`."""
+    b, hr, wr, c = x.shape
+    r = downscale
+    h, w = hr // r, wr // r
+    x = x.reshape(b, h, r, w, r, c)
+    return x.permute(0, 1, 3, 5, 2, 4).reshape(b, h, w, c * r * r)

@@ -45,6 +45,21 @@ def _linear_weights_on(out_size: int, in_size: int, align_corners: bool, device:
     return torch.from_numpy(_linear_weights(out_size, in_size, align_corners)).to(device, dtype)
 
 
+def _nearest_index(out_size: int, in_size: int) -> np.ndarray:
+    # torch 'nearest': src = floor(dst * in/out)
+    idx = np.floor(np.arange(out_size) * (in_size / out_size)).astype(np.int64)
+    return np.clip(idx, 0, in_size - 1)
+
+
+def interpolate_nearest(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """(B, H, W, C) -> (B, out_h, out_w, C), torch 'nearest' semantics."""
+    out_h, out_w = size
+    _, h, w, _ = x.shape
+    hi = torch.from_numpy(_nearest_index(out_h, h)).to(x.device)
+    wi = torch.from_numpy(_nearest_index(out_w, w)).to(x.device)
+    return x[:, hi][:, :, wi]
+
+
 def resize_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
     """(B, H, W, C) -> (B, H*scale, W*scale, C): torch 'nearest' at an integer
     factor, each pixel repeated scale x scale."""

@@ -8,9 +8,17 @@ EMA shadow.
 
 from __future__ import annotations
 
+import copy
+
 import torch
 
 EMA_DECAY = 0.999
+
+
+def ema_init(model: torch.nn.Module) -> torch.nn.Module:
+    """The shadow: a copy of ``model`` (never an alias of its parameters)
+    that takes no gradient."""
+    return copy.deepcopy(model).requires_grad_(False)
 
 
 @torch.no_grad()

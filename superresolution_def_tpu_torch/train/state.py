@@ -11,7 +11,6 @@ torch's default 0.01 for hat (train_hat.py:152-153).
 
 from __future__ import annotations
 
-import copy
 import dataclasses
 from typing import Callable
 
@@ -25,6 +24,7 @@ from ..models import (
     UNetDiscriminatorSNHAT,
     UNetDiscriminatorSNSwin,
 )
+from .ema import ema_init
 
 
 @dataclasses.dataclass
@@ -95,7 +95,7 @@ def create_swin_train_state(
                upscale=upscale, generator=generator).to(device)
     d = UNetDiscriminatorSNSwin(num_in_ch=1, num_feat=64, dtype=dtype,
                                 generator=generator).to(device)
-    ema = copy.deepcopy(g).requires_grad_(False)
+    ema = ema_init(g)
     return SwinTrainState(
         g=g, d=d, g_opt=_adamw(g), d_opt=_adamw(d), ema=ema,
         g_forward=generator_forward(g, dtype, fused, backward),
@@ -178,6 +178,6 @@ def create_hat_train_state(
                                generator=generator).to(device)
     return HATTrainState(
         g=g, d=d, g_opt=_adamw(g, 0.01), d_opt=_adamw(d, 0.01),
-        ema=copy.deepcopy(g).requires_grad_(False),
+        ema=ema_init(g),
         g_forward=hybrid_forward(g, dtype, fused, fused_hab),
     )

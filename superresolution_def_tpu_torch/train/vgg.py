@@ -5,13 +5,16 @@ with feature_layer=35 (through relu5_4), utils/losses_train_swin.py:6-40.
 Inputs are grayscale repeated to 3 channels, then ImageNet-normalised.
 ``features.{i}`` keeps torchvision's indices, so a torchvision state dict
 loads as it is, and ``models.weights.vgg19_state_dict_from_jax`` turns the
-JAX package's parameters (or its npz) into this module's state dict. Without
+JAX package's parameters (or its npz) into this module's state dict;
+:func:`vgg19_from_torch` goes the other way, to the parameters that the JAX
+package's npz holds (``cli/port_vgg.py`` writes it). Without
 weights the parameters are drawn from an explicit generator (a random-feature
 perceptual loss, as the JAX package's seeded fallback).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -59,3 +62,32 @@ class VGG19Features(nn.Module):
             else:
                 x = m(x)
         return x.permute(0, 2, 3, 1)
+
+
+def _conv_indices(cutoff: int) -> list[int]:
+    """``features`` indices of the convs in ``features[:cutoff+1]``."""
+    out, idx = [], 0
+    for v in _CFG:
+        if v != "M":
+            out.append(idx)
+        idx += 1 if v == "M" else 2  # a conv is followed by its ReLU
+    return [i for i in out if i <= cutoff]
+
+
+def vgg19_from_torch(sd, cutoff: int = 35) -> dict:
+    """A torchvision vgg19 state dict (``features.{i}.weight``) -> the JAX
+    ``VGG19Features`` params: ``conv_{i}`` with an HWIO ``kernel`` and a
+    ``bias``, numpy arrays (the JAX ``train/vgg.py::vgg19_from_torch``)."""
+
+    def _np(v):
+        return v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+
+    return {f"conv_{i}": {"kernel": _np(sd[f"features.{i}.weight"]).transpose(2, 3, 1, 0),
+                          "bias": _np(sd[f"features.{i}.bias"])}
+            for i in _conv_indices(cutoff)}
+
+
+def init_vgg_params(cutoff: int = 35, seed: int = 0) -> dict[str, torch.Tensor]:
+    """The seeded fall-back weights (a random-feature perceptual loss): the
+    state dict of a :class:`VGG19Features` drawn from a generator seeded ``seed``."""
+    return VGG19Features(cutoff, generator=torch.Generator().manual_seed(seed)).state_dict()

@@ -13,10 +13,18 @@
   fused HAB and OCAB training nodes (``fused_hab``), then ``infer --arch
   hat`` of what it trained; ``prep --fused`` of a target with solved
   headers, ``split`` and ``upscale`` of a FITS frame, plain, ``--mesh`` and
-  ``--spatial``) in a subprocess and inspects its ``sys.modules``; the
+  ``--spatial``; the synthetic skies and the native TIFF codec, a
+  ``SRVGGNetCompact`` forward, ``cli/port_vgg.py`` and ``train
+  --vgg-weights`` of a torchvision-layout ``.pth``, and
+  ``tools/train_learns.py`` at tiny widths) in a subprocess and inspects
+  its ``sys.modules``; the
   worker script of the multi-rank tests (tests/_torch_dist_worker.py)
   reports the same of itself. Importing every module of the port loads
   no matplotlib.
+- The port never touches the repository's ``native/`` (the JAX package's
+  codec and its library): an audit hook in the same subprocesses records
+  every path opened, listed, loaded or passed to a subprocess, and none
+  lies under it. The port builds its own copy of the codec.
 - ``train``, ``infer``, ``prep``, ``upscale`` (``--mesh`` and ``--spatial``
   too) and the stage-ablation tool run on the card unless ``--device cpu``
   is given: without a card and without it they raise.
@@ -37,7 +45,28 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 
-SLICE = textwrap.dedent(
+# run first in each slice: records every path under the repo's native/ that
+# the process opens, lists, loads or hands to a subprocess
+NATIVE_AUDIT = textwrap.dedent(
+    """
+    import os, sys
+    _NATIVE = os.path.join(os.environ["SR_REPO"], "native")
+    NATIVE_HITS = []
+
+    def _audit(event, args):
+        if event in ("open", "os.listdir", "os.scandir", "ctypes.dlopen", "subprocess.Popen"):
+            for a in args if event == "subprocess.Popen" else args[:1]:
+                for s in (a if isinstance(a, (list, tuple)) else [a]):
+                    if isinstance(s, (str, bytes, os.PathLike)):
+                        p = os.path.abspath(os.fsdecode(s))
+                        if p == _NATIVE or p.startswith(_NATIVE + os.sep):
+                            NATIVE_HITS.append(p)
+
+    sys.addaudithook(_audit)
+    """
+)
+
+SLICE = NATIVE_AUDIT + textwrap.dedent(
     """
     import pkgutil, importlib, sys, tempfile
     from pathlib import Path
@@ -108,6 +137,33 @@ SLICE = textwrap.dedent(
         res = main(["upscale", str(root / "frame.fits"), "--folder", str(run), "--tile", "32",
                     "--overlap", "4", "--device", "cpu", spread, "--out", str(root / "m.tiff")])
         assert res["shape"] == (160, 224), res
+    # the modules ported last: synth and the native codec, SRVGGNetCompact,
+    # port_vgg and a torchvision-layout .pth for --vgg-weights, the
+    # convergence tool at tiny widths
+    from superresolution_def_tpu_torch.cli import port_vgg
+    from superresolution_def_tpu_torch.data import PatchDataset, fast_tiff, synth_batch_u16
+    from superresolution_def_tpu_torch.models import SRVGGNetCompact
+    from superresolution_def_tpu_torch.tools import train_learns
+    from superresolution_def_tpu_torch.train import init_vgg_params
+    sky = synth_batch_u16(2, 64, seed=0)["hr"][..., 0]
+    fast_tiff.write_u16_native(root / "s.tiff", sky[0])
+    assert (fast_tiff.read_batch_u16([root / "s.tiff"], 64, 64)[0][0] == sky[0]).all()
+    assert PatchDataset(entries, 16, 64).read_batch([0, 1])["hr"].shape == (2, 64, 64, 1)
+    with torch.no_grad():
+        SRVGGNetCompact(1, 1, 8, 2)(torch.rand(1, 8, 8, 1))
+    torch.save(init_vgg_params(seed=1), root / "vgg19.pth")
+    port_vgg.convert(str(root / "vgg19.pth"), str(root / "vgg19.npz"))
+    main(["train", "--target", "T1", "--data-root", str(root / "data"),
+          "--outputs-root", str(root / "vgg"), "--device", "cpu", "--epochs", "1",
+          "--batch-size", "2", "--img-size", "16", "--embed-dim", "16", "--depths", "2",
+          "--num-heads", "2", "--vgg-weights", str(root / "vgg19.pth")])
+    res = train_learns.main(["--arch", "swin", "--epochs", "1", "--tiny", "--device", "cpu",
+                             "--no-bf16", "--hr-size", "64", "--pairs", "12",
+                             "--data-root", str(root / "learn"),
+                             "--outputs-root", str(root / "learn_out"),
+                             "--out", str(root / "learn_res")])
+    assert (root / "learn_res" / "metrics.csv").exists() and res["epoch"] == 1.0, res
+    print("NATIVE_OPENED", NATIVE_HITS)
     print("JAX_LOADED", sorted(m for m in sys.modules if m.split(".")[0] in
                                ("jax", "jaxlib", "flax", "optax", "orbax",
                                 "superresolution_def_tpu")))
@@ -115,7 +171,7 @@ SLICE = textwrap.dedent(
 )
 
 
-HAT_SLICE = textwrap.dedent(
+HAT_SLICE = NATIVE_AUDIT + textwrap.dedent(
     """
     import sys, tempfile
     from pathlib import Path
@@ -172,6 +228,7 @@ HAT_SLICE = textwrap.dedent(
                                        num_feat=16, num_grow_ch=8, fused=True,
                                        fused_hab=fused_hab, device="cpu")
         make_hat_train_step(state, accum_steps=1)(batch, 1e-4, 1e-4)
+    print("NATIVE_OPENED", NATIVE_HITS)
     print("JAX_LOADED", sorted(m for m in sys.modules if m.split(".")[0] in
                                ("jax", "jaxlib", "flax", "optax", "orbax",
                                 "superresolution_def_tpu")))
@@ -180,21 +237,46 @@ HAT_SLICE = textwrap.dedent(
 
 
 def _run_slice(tmp_path, script):
+    """The slice's last two lines: the paths it touched under native/, and
+    the JAX modules it loaded."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
+    env["SR_REPO"] = str(REPO)
     env["OMP_NUM_THREADS"] = "1"  # one torch thread, as the suite's workers run
     proc = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    return proc.stdout.strip().splitlines()[-1]
+    return proc.stdout.strip().splitlines()[-2:]
 
 
 def test_port_cpu_slice_never_loads_jax(tmp_path):
-    assert _run_slice(tmp_path, SLICE) == "JAX_LOADED []"
+    assert _run_slice(tmp_path, SLICE) == ["NATIVE_OPENED []", "JAX_LOADED []"]
 
 
 def test_port_hat_cpu_slice_never_loads_jax(tmp_path):
-    assert _run_slice(tmp_path, HAT_SLICE) == "JAX_LOADED []"
+    assert _run_slice(tmp_path, HAT_SLICE) == ["NATIVE_OPENED []", "JAX_LOADED []"]
+
+
+def test_native_audit_sees_the_repo_native_dir(tmp_path):
+    """The audit hook of the slices catches an open, a listing and a load
+    under the repo's ``native/``, and nothing under the port's own copy."""
+    script = NATIVE_AUDIT + textwrap.dedent(
+        """
+        import ctypes
+        from superresolution_def_tpu_torch.data import fast_tiff
+        open(os.path.join(_NATIVE, "tifffast.cpp")).close()
+        os.listdir(_NATIVE)
+        try:
+            ctypes.CDLL(os.path.join(_NATIVE, "no_such_lib.so"))
+        except OSError:
+            pass
+        fast_tiff.native_available()
+        open(fast_tiff.SOURCE).close()
+        print("NATIVE_OPENED", [os.path.relpath(p, os.environ["SR_REPO"]) for p in NATIVE_HITS])
+        print("done")
+        """)
+    assert _run_slice(tmp_path, script) == [
+        "NATIVE_OPENED ['native/tifffast.cpp', 'native', 'native/no_such_lib.so']", "done"]
 
 
 def test_dist_worker_never_loads_jax(tmp_path):
