@@ -236,6 +236,20 @@ exit code:
     (and K1 in the EMA validation) launched, the codec's files/s; and
     ``SRVGGNetCompact()`` (128->512) on the card within relative L2 1e-4 of
     the CPU, fp32, TF32 off.
+41. [remat]: the JAX package's rematerialization at full width, bf16, the
+    variants of each case stepping one state in turns: the swin split step
+    (micro 8 x 1, K2/K3/K4) and the hybrid K7/K8 step (micro 2 x 8 and
+    8 x 2) with ``remat_loss`` off and on, the hybrid at 8 x 2 also with
+    ``remat`` (its HAT RHAGs), and the bf16 SwinIR module step (fused off,
+    micro 8) with ``remat`` off and on: after one step from the same start
+    the plain variant's bits (cuDNN deterministic), then 5 timed steps a
+    variant under ``torch.cuda.set_sync_debug_mode("error")``, their median
+    ms (CUDA events), peak memory and launches a step; every rematerialized
+    variant must peak lower. [d-learns]: ``UNetDiscriminatorSNHAT`` alone,
+    40 steps of the hybrid step's D phase on synthetic HR against its LR
+    nearest-upsampled, bf16 and fp32 (TF32 off), ``remat_loss`` off and on,
+    its loss at steps 0, 10, 20 and 40; it fails where the bf16 D stalls
+    near ln 2 while the fp32 D learns.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it fails at once:
@@ -251,6 +265,7 @@ import ctypes
 import importlib
 import itertools
 import json
+import math
 import os
 import re
 import socket
@@ -1379,6 +1394,229 @@ def learns_phase(seed: int, device: torch.device, card: str) -> None:
                   f"{time.perf_counter() - t_phase:.1f} s")
     if tuple(got.shape) != (1, 512, 512, 3) or not rel <= SRVGG_REL_L2:
         raise SystemExit(f"[learns] SRVGGNetCompact on the card: rel L2 {rel}")
+
+
+# [remat]: timed steps a variant after its first (the bits' step, also its
+# warm-up), alternated over the variants; [d-learns]: D-alone steps, and the
+# steps whose D loss it prints
+REMAT_TIMED = 5
+D_LEARNS_STEPS, D_LEARNS_READ = 40, (0, 10, 20, 40)
+
+
+def remat_phase(seed: int, device: torch.device, card: str) -> None:
+    """41. [remat]: the JAX package's rematerialization on the card, full
+    width, bf16, every variant of a case stepping one state in turns: the
+    flagship swin split step (micro 8 x 1, K2/K3/K4) and the config-#4
+    hybrid K7/K8 step (micro 2 x 8 and 8 x 2) with ``remat_loss`` off and
+    on, the hybrid at 8 x 2 also with ``remat`` (its HAT RHAGs around the
+    trunk), and the bf16 SwinIR module step (``fused=False``, micro 8) with
+    ``remat`` off and on. For each variant: the parameters, (u, v) and EMA
+    after one step from the same start, cuDNN deterministic, the bits of
+    the plain variant's (each variant's warm-up); then ``REMAT_TIMED`` steps
+    a variant, alternated
+    (CUDA events, median), each under ``torch.cuda.set_sync_debug_mode(
+    "error")`` on batches staged on the card, its peak memory
+    (``reset_peak_memory_stats`` before each step) and its kernel launches
+    a step. It fails unless every rematerialized variant peaks lower than
+    the plain one, gives its bits, launches the plain step's kernels as
+    often (36 K2/K3/K4, 288 or 72 K7/K8 a step) and finite metrics. Then
+    [d-learns] (:func:`d_learns`)."""
+    from superresolution_def_tpu_torch.kernels import (
+        fused_rdb_cm, fused_rdb_cm_bwd, swin_block_bwd_attn, swin_block_bwd_mlp, swin_block_fwd_h)
+    from superresolution_def_tpu_torch.train import (
+        CombinedGANLoss, VGG19Features, create_hat_train_state, create_swin_train_state,
+        make_hat_train_step, make_swin_train_step)
+
+    t_phase = time.perf_counter()
+    bgen = np.random.default_rng(seed + 60)
+    vgg = VGG19Features(35, dtype=torch.bfloat16).to(device).requires_grad_(False)
+    swin_k = (swin_block_fwd_h, swin_block_bwd_mlp, swin_block_bwd_attn)
+    hat_k = (fused_rdb_cm, fused_rdb_cm_bwd)
+
+    def batch(micro, accum):
+        """A batch staged on the card as int16 bits, as ``prefetch_to_mesh``
+        leaves it: no upload inside the step."""
+        return {k: torch.from_numpy(bgen.integers(0, 65535, (accum, micro, n, n, 1),
+                                                  dtype=np.uint16).view(np.int16)).to(device)
+                for k, n in (("lr", 128), ("hr", 512))}
+
+    def swin(fused):
+        state = create_swin_train_state(torch.Generator().manual_seed(seed),
+                                        dtype=torch.bfloat16, fused=fused, device=device)
+        gens = [torch.Generator().manual_seed(seed + 61)]
+        crit = CombinedGANLoss(pixel_weight=1.0, perceptual_weight=0.5,
+                               adversarial_weight=0.005, vgg_apply=vgg)
+        steps = {flag: make_swin_train_step(state, accum_steps=1, criterion_g=crit,
+                                            generator=gens[0], remat_loss=flag)
+                 for flag in (False, True)}
+        return state, gens, steps, state.g, ()
+
+    def hybrid(accum):
+        state = create_hat_train_state(torch.Generator().manual_seed(seed),
+                                       dtype=torch.bfloat16, fused=True, device=device)
+        gens = [torch.Generator().manual_seed(seed + 62),
+                torch.Generator(device).manual_seed(seed + 63)]
+        crit = CombinedGANLoss(pixel_weight=1.0, perceptual_weight=1.0,
+                               adversarial_weight=0.005, vgg_apply=vgg)
+        steps = {flag: make_hat_train_step(state, accum_steps=accum, criterion_g=crit,
+                                           generator=gens[0], drop_generator=gens[1],
+                                           remat_loss=flag)
+                 for flag in (False, True)}
+        return state, gens, steps, state.g.hat, (False,)
+
+    cases = (
+        ("swin split step, micro 8 x 1", lambda: swin(True), MICRO, 1,
+         ("plain", "remat_loss"), dict.fromkeys(swin_k, 36)),
+        ("hybrid K7/K8 step, micro 2 x 8", lambda: hybrid(HAT_ACCUM), HAT_MICRO, HAT_ACCUM,
+         ("plain", "remat_loss"), dict.fromkeys(hat_k, 36 * HAT_ACCUM)),
+        ("hybrid K7/K8 step, micro 8 x 2", lambda: hybrid(2), 8, 2,
+         ("plain", "remat_loss", "remat"), dict.fromkeys(hat_k, 36 * 2)),
+        ("SwinIR module step (fused off), micro 8 x 1", lambda: swin(False), MICRO, 1,
+         ("plain", "remat"), dict.fromkeys(swin_k, 0)),
+    )
+    results = {}
+    for name, make, micro, accum, variants, per_step in cases:
+        t_case = time.perf_counter()
+        state, gens, steps, remat_module, args = make()
+        start = {part: copy.deepcopy(getattr(state, part).state_dict())
+                 for part in ("g", "d", "ema", "g_opt", "d_opt")}
+        gen_start = [g.get_state() for g in gens]
+
+        def run(variant, data, sync_mode="error"):
+            """One step of ``variant``; under the sync check a step that waits
+            for the device raises."""
+            remat_module.remat = variant == "remat"
+            step = steps[variant == "remat_loss"]
+            torch.cuda.set_sync_debug_mode(sync_mode)
+            try:
+                return step(data, 1e-4, 1e-4, *args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        # (a) the bits after one step from the same start; each variant's
+        # warm-up too (the first calls upload the cached tables), so unchecked
+        first, bits, ok_metrics = batch(micro, accum), {}, True
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for variant in variants:
+                for part, sd in start.items():
+                    getattr(state, part).load_state_dict(sd)
+                for g, st in zip(gens, gen_start):
+                    g.set_state(st)
+                m = run(variant, first, 0)
+                ok_metrics &= all(math.isfinite(float(v)) for v in m.values())
+                bits[variant] = state_bits(state)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        differ = {v: [k for k, t in bits[v].items() if not torch.equal(t, bits["plain"][k])]
+                  for v in variants[1:]}
+        del bits
+        # (b) alternated timed steps: ms, peak memory, launches a step
+        data = batch(micro, accum)
+        order = [v for i in range(REMAT_TIMED) for v in (variants if i % 2 == 0
+                                                        else variants[::-1])]
+        ms = {v: [] for v in variants}
+        peak = dict.fromkeys(variants, 0)
+        launches = {v: dict.fromkeys((fn.__name__ for fn in per_step), 0) for v in variants}
+        for variant in order:
+            before = {fn: fn.launches for fn in per_step}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record()
+            m = run(variant, data)
+            t1.record()
+            t1.synchronize()
+            ms[variant].append(t0.elapsed_time(t1))
+            peak[variant] = max(peak[variant], torch.cuda.max_memory_allocated())
+            ok_metrics &= all(math.isfinite(float(v)) for v in m.values())
+            for fn, n in before.items():
+                launches[variant][fn.__name__] += fn.launches - n
+        want = {fn.__name__: n * REMAT_TIMED for fn, n in per_step.items()}
+        med = {v: statistics.median(t) for v, t in ms.items()}
+        log("remat", f"{name} on {card}, bf16: " + "; ".join(
+            f"{v}: median {med[v]:.2f} ms a step of {REMAT_TIMED} ("
+            + ", ".join(f"{t:.2f}" for t in ms[v]) + f"), peak {peak[v] / 1e9:.2f} GB, "
+            f"launches {launches[v]}" + (f", bits of plain after one step: {not differ[v]} "
+                                         f"({len(differ[v])} tensors differ)"
+                                         if v != "plain" else "")
+            for v in variants) + f"; no host sync under set_sync_debug_mode('error'); "
+            f"metrics finite {ok_metrics}; {time.perf_counter() - t_case:.1f} s")
+        results[name] = med
+        bad = [v for v in variants[1:] if differ[v] or peak[v] >= peak["plain"]]
+        bad += [v for v in variants if launches[v] != want]
+        if bad or not ok_metrics:
+            raise SystemExit(f"[remat] {name}: {bad} (want lower peak than plain "
+                             f"{peak['plain']}, the plain bits, launches {want}), metrics "
+                             f"finite {ok_metrics}: peaks {peak}, differ {differ}, "
+                             f"launches {launches}")
+        remat_module.remat = False
+        del state, steps, start
+        torch.cuda.empty_cache()
+    swin_m, hat_m = results[cases[0][0]], results[cases[1][0]]
+    log("remat", "at the trainers' default splits, remat_loss on against off: swin (micro 8 x "
+                 f"1) {swin_m['remat_loss']:.2f} against {swin_m['plain']:.2f} ms, hybrid "
+                 f"(micro 2 x 8) {hat_m['remat_loss']:.2f} against {hat_m['plain']:.2f} ms "
+                 "a step: the faster is the default")
+    d_learns(seed, device, card)
+    log("remat", f"the phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def d_learns(seed: int, device: torch.device, card: str) -> None:
+    """[d-learns]: ``UNetDiscriminatorSNHAT`` alone (num_feat 64) for
+    ``D_LEARNS_STEPS`` AdamW steps (lr 1e-4, betas 0.9/0.99, weight decay
+    0.01, the hybrid's) of the hybrid step's own D phase
+    (``train.steps.hat_d_phase``, RaGAN) on 2 fixed pairs at 512²: real is
+    ``data/synth.py``'s HR, fake its LR nearest-upsampled x4. In bf16 and in
+    fp32 (TF32 off), ``remat_loss`` off and on; the D loss at steps
+    ``D_LEARNS_READ``. It fails where the bf16 D stalls near ln 2 (above
+    0.68 at the last step) while the fp32 D falls below 0.6."""
+    from superresolution_def_tpu_torch.data import synth_batch_u16
+    from superresolution_def_tpu_torch.models import UNetDiscriminatorSNHAT
+    from superresolution_def_tpu_torch.ops import resize_nearest
+    from superresolution_def_tpu_torch.train import DiscriminatorLoss
+    from superresolution_def_tpu_torch.train.steps import hat_d_phase, to01
+
+    t0 = time.perf_counter()
+    pairs = synth_batch_u16(2, 512, seed=seed)
+    real = to01(pairs["hr"], device)
+    fake = resize_nearest(to01(pairs["lr"], device), 4)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    read = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        if dtype == torch.float32:
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        try:
+            for remat in (False, True):
+                d = UNetDiscriminatorSNHAT(num_in_ch=1, num_feat=64, dtype=dtype,
+                                           generator=torch.Generator().manual_seed(seed))
+                d = d.to(device)
+                opt = torch.optim.AdamW(d.parameters(), lr=1e-4, betas=(0.9, 0.99), eps=1e-8,
+                                        weight_decay=0.01)
+                losses = []
+                for _ in range(D_LEARNS_STEPS + 1):
+                    opt.zero_grad()
+                    losses.append(hat_d_phase(d, DiscriminatorLoss(), fake, real, 1,
+                                              remat).detach().float())
+                    opt.step()
+                read[str(dtype).removeprefix("torch."), remat] = [
+                    float(losses[i]) for i in D_LEARNS_READ]
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    log("d-learns", f"UNetDiscriminatorSNHAT alone on {card}, {D_LEARNS_STEPS} RaGAN AdamW "
+                    f"steps (lr 1e-4, wd 0.01, micro 2) on synthetic HR against its LR "
+                    f"nearest-upsampled, D loss at steps {list(D_LEARNS_READ)} (ln 2 = "
+                    f"{math.log(2):.4f}): " + "; ".join(
+                        f"{dt}{' (TF32 off)' if dt == 'float32' else ''} remat_loss "
+                        f"{'on' if r else 'off'}: " + ", ".join(f"{v:.4f}" for v in vals)
+                        for (dt, r), vals in read.items())
+                    + f"; {time.perf_counter() - t0:.1f} s")
+    stalled = [k for k, v in read.items() if k[0] == "bfloat16" and v[-1] > 0.68]
+    falls = all(v[-1] < 0.6 for k, v in read.items() if k[0] == "float32")
+    if stalled and falls:
+        raise SystemExit(f"[d-learns] the bf16 D stalls near ln 2 where the fp32 D learns: "
+                         f"{read}")
 
 
 def upscale_phase(seed: int, device: torch.device, card: str) -> None:
@@ -3121,6 +3359,8 @@ def main() -> None:
     run_loop_phase(seed, device, card)
     # 40. the convergence path: synthetic skies, the native codec, a VGG19 .pth
     learns_phase(seed, device, card)
+    # 41. rematerialization against the plain steps, and the hybrid's D alone
+    remat_phase(seed, device, card)
 
     work = block_work(768)
     work.update({k: v for k, v in block_work(bw_train).items() if k != "K1"})

@@ -153,7 +153,8 @@ def cmd_train(args) -> dict:
         vgg_weights=args.vgg_weights, seed=args.seed,
         max_steps_per_epoch=args.max_steps_per_epoch, device=args.device,
         fused=None if args.fused is None else args.fused == "on")
-    fields = ["batch_size", "accum_steps", "img_size", "embed_dim"]
+    cfg.remat = args.remat
+    fields = ["batch_size", "accum_steps", "img_size", "embed_dim", "attn_impl", "remat_loss"]
     if args.arch == "hat":
         fields += ["warmup_epochs", "num_rrdb", "num_feat", "num_grow_ch", "ckpt_interval",
                    "img_interval", "csv_interval", "pretrained_hat", "fused_hab"]
@@ -306,6 +307,20 @@ def main(argv=None):
                     help="the generator through the kernels (swin K2-K4, hat's trunk K7/K8); "
                          "default: on for the card with --bf16; on the CPU they run their "
                          "plain versions")
+    pt.add_argument("--remat", action="store_true",
+                    help="rematerialize the generator module's blocks (SwinIR's Swin blocks, "
+                         "the hybrid's HAT RHAGs): less memory, a second forward of each in "
+                         "the backward; the fused SwinIR and --fused-hab generators ignore it")
+    pt.add_argument("--remat-loss", action=argparse.BooleanOptionalAction, default=None,
+                    help="rematerialize D and the perceptual VGG19 in both loss phases (only "
+                         "their stage boundaries kept): the same step in less peak memory, "
+                         "for larger micro-batches. Default: the per-arch measured winner on "
+                         "the card, off for both (the default splits fit, and the recompute "
+                         "costs step time)")
+    pt.add_argument("--attn-impl", choices=["xla", "pallas"], default=None,
+                    help="the generator module's window attention: 'xla' (default), or "
+                         "'pallas' (K11, forward-only: training through it raises at the "
+                         "first G step); the fused generators ignore it")
     pt.add_argument("--no-vgg", action="store_true", help="no perceptual (VGG19) term")
     pt.add_argument("--vgg-weights", default=None,
                     help="pretrained VGG19 for the perceptual term, supplied by the user (nothing "

@@ -113,6 +113,15 @@ class SwinTrainConfig:
     use_bf16: bool = False
     # the fused generator (K2-K4); None: on for the card with bf16
     fused: bool | None = None
+    # the SwinIR module's window attention ("xla" or "pallas", K11: forward
+    # only, so a train step through it raises); the fused generator ignores it
+    attn_impl: str = "xla"
+    remat: bool = False  # the module's blocks rematerialized; the fused generator ignores it
+    # D and the perceptual VGG rematerialized (train/steps.py): the same step
+    # in less memory. Off, unlike the JAX swin default, whose micro-8 step
+    # did not fit the TPU's 15.75 GB without it: on an 80 GB H100 the fused
+    # micro-8 step fits, and the recompute only adds step time
+    remat_loss: bool = False
     use_vgg: bool = True  # False: no perceptual term
     vgg_weights: str | None = None  # torchvision .pth or the JAX package's npz; None -> seeded
     seed: int = 0
@@ -152,6 +161,12 @@ class HATTrainConfig:
     use_bf16: bool = False
     # the fused trunk (K7/K8); None: on for the card with bf16, or with fused_hab
     fused: bool | None = None
+    # the HAT backbone's window attention and its RHAGs rematerialized, where
+    # it runs as the module (unfused, and around the K7/K8 trunk); fused_hab
+    # ignores both
+    attn_impl: str = "xla"
+    remat: bool = False
+    remat_loss: bool = False  # D and the perceptual VGG rematerialized, as the JAX default
     use_vgg: bool = True  # False: no perceptual term
     vgg_weights: str | None = None  # torchvision .pth or the JAX package's npz; None -> seeded
     pretrained_hat: str | None = None  # a HAT-only .pth to seed the backbone
@@ -296,14 +311,14 @@ def train_swin_run(cfg: SwinTrainConfig, resume: bool = True) -> dict:
         torch.Generator().manual_seed(cfg.seed), img_size=cfg.img_size, upscale=cfg.upscale,
         embed_dim=cfg.embed_dim, depths=cfg.depths, num_heads=cfg.num_heads,
         window_size=cfg.window_size, mlp_ratio=cfg.mlp_ratio, dtype=dtype, fused=fused,
-        device=device)
+        device=device, attn_impl=cfg.attn_impl, remat=cfg.remat)
     criterion_g = CombinedGANLoss(pixel_weight=1.0, perceptual_weight=0.5,
                                   adversarial_weight=0.005,
                                   vgg_apply=_load_vgg(cfg, dtype, device))
     generators = {"rng_augment": torch.Generator().manual_seed(cfg.seed + 1)}
     step = make_swin_train_step(state, accum_steps=cfg.accum_steps, criterion_g=criterion_g,
                                 ema_decay=cfg.ema_decay, generator=generators["rng_augment"],
-                                mesh=mesh)
+                                mesh=mesh, remat_loss=cfg.remat_loss)
     eval_step = make_eval_step(state.ema_forward)
     start_epoch, best_psnr = 1, 0.0
     latest = run_dir / "checkpoints" / "latest_checkpoint.pth"
@@ -417,7 +432,8 @@ def train_hat_run(cfg: HATTrainConfig, resume: bool = True) -> dict:
         torch.Generator().manual_seed(cfg.seed), img_size=cfg.img_size, embed_dim=cfg.embed_dim,
         depths=cfg.depths, num_heads=cfg.num_heads, window_size=cfg.window_size,
         num_rrdb=cfg.num_rrdb, num_feat=cfg.num_feat, num_grow_ch=cfg.num_grow_ch, dtype=dtype,
-        fused=fused, fused_hab=cfg.fused_hab, device=device)
+        fused=fused, fused_hab=cfg.fused_hab, device=device, attn_impl=cfg.attn_impl,
+        remat=cfg.remat)
     if cfg.pretrained_hat:
         _load_pretrained_hat(cfg.pretrained_hat, state.g)
         state.ema.load_state_dict(state.g.state_dict())
@@ -431,7 +447,7 @@ def train_hat_run(cfg: HATTrainConfig, resume: bool = True) -> dict:
     step = make_hat_train_step(
         state, accum_steps=cfg.accum_steps, criterion_g=criterion_g, ema_decay=cfg.ema_decay,
         generator=generators["rng_augment"], drop_generator=generators["rng_drop_path"],
-        mesh=mesh)
+        mesh=mesh, remat_loss=cfg.remat_loss)
     ckpt = run_dir / "checkpoints"
     start_epoch = 1
     latest = latest_epoch_checkpoint(ckpt) if resume else None

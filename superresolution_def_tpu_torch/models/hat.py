@@ -37,7 +37,7 @@ from ..ops import (
     window_reverse,
 )
 from ..kernels.window_attention import window_attention
-from .layers import Mlp, conv_nhwc, reset_torch_default_, trunc_normal_
+from .layers import Mlp, checkpoint_module, conv_nhwc, reset_torch_default_, trunc_normal_
 
 
 # test hook: (block index, call 0/1, x) -> the keep-mask of that call
@@ -67,6 +67,39 @@ class DrawShard(NamedTuple):
     generator: torch.Generator | None
     rank: int
     world: int
+
+
+def replay_drop_draws(generator: torch.Generator | DrawShard | None) -> Callable:
+    """A ``context_fn`` for :func:`~.layers.checkpoint_module` over blocks
+    with drop-path: called at the forward, it notes ``generator``'s state and
+    the :func:`injected_drop_masks` hook, and its recompute context puts both
+    back, so that the recompute draws the forward's keep-masks, then returns
+    the generator to where the recompute found it. ``checkpoint``'s own
+    ``preserve_rng_state`` covers the default generators only; ``None``
+    draws from those."""
+    gen = generator.generator if isinstance(generator, DrawShard) else generator
+
+    def context_fn():
+        state = gen.get_state() if gen is not None else None
+        hook = _DROP_MASKS
+
+        @contextlib.contextmanager
+        def recompute():
+            global _DROP_MASKS
+            after, outer = (gen.get_state() if gen is not None else None), _DROP_MASKS
+            if gen is not None:
+                gen.set_state(state)
+            _DROP_MASKS = hook
+            try:
+                yield
+            finally:
+                if gen is not None:
+                    gen.set_state(after)
+                _DROP_MASKS = outer
+
+        return contextlib.nullcontext(), recompute()
+
+    return context_fn
 
 
 class DropPath(nn.Module):
@@ -296,7 +329,9 @@ class HAT(nn.Module):
     fresh one seeded 0 if None): convs and linears as torch's default init,
     the bias tables trunc-normal(0.02). ``attn_impl`` picks every HAB's and
     OCAB's window-attention implementation (``"xla"``, or ``"pallas"``: K11,
-    forward-only).
+    forward-only). ``remat`` runs each :class:`RHAG` as a rematerialized
+    region when grad is enabled (the JAX ``nn.remat``), its recompute taking
+    the forward's drop-path masks (:func:`replay_drop_draws`).
     """
 
     def __init__(self, *, img_size: int = 64, in_chans: int = 3, embed_dim: int = 96,
@@ -305,8 +340,10 @@ class HAT(nn.Module):
                  conv_scale: float = 0.01, overlap_ratio: float = 0.5, mlp_ratio: float = 4.0,
                  patch_norm: bool = True, upscale: int = 2, img_range: float = 1.0,
                  num_feat: int = 64, drop_path_rate: float = 0.1,
-                 attn_impl: str = "xla", generator: torch.Generator | None = None):
+                 attn_impl: str = "xla", remat: bool = False,
+                 generator: torch.Generator | None = None):
         super().__init__()
+        self.remat = remat
         self.img_size = img_size
         self.in_chans = in_chans
         self.embed_dim = embed_dim
@@ -363,7 +400,11 @@ class HAT(nn.Module):
         if self.patch_embed is not None:
             res = self.patch_embed.norm(res)
         for layer in self.layers:
-            res = layer(res, (h, w), deterministic, generator)
+            if self.remat:
+                res = checkpoint_module(layer, res, (h, w), deterministic, generator,
+                                        context_fn=replay_drop_draws(generator))
+            else:
+                res = layer(res, (h, w), deterministic, generator)
         res = self.norm(res).reshape(b, h, w, self.embed_dim)
         feat = conv_nhwc(self.conv_after_body, res) + feat
         out = conv_nhwc(self.conv_before_upsample, feat)

@@ -68,20 +68,24 @@ class HybridHATRealESRGAN(nn.Module):
     num_feat=48, num_grow_ch=24, in_chans=1, and HAT's drop-path 0.1, which
     acts only in a ``deterministic=False`` forward. Parameters are drawn from
     ``generator`` (a fresh one seeded 0 if None). ``attn_impl``: the HAT
-    backbone's window-attention implementation (see :class:`~.hat.HAT`)."""
+    backbone's window-attention implementation, ``remat``: its RHAGs as
+    rematerialized regions (see :class:`~.hat.HAT`; the JAX hybrid remats
+    nothing else)."""
 
     def __init__(self, *, img_size: int = 128, in_chans: int = 1, embed_dim: int = 180,
                  depths: Sequence[int] = (6,) * 6, num_heads: Sequence[int] = (6,) * 6,
                  window_size: int = 8, num_rrdb: int = 23, num_feat: int = 64,
                  num_grow_ch: int = 32, drop_path_rate: float = 0.1,
-                 attn_impl: str = "xla", generator: torch.Generator | None = None):
+                 attn_impl: str = "xla", remat: bool = False,
+                 generator: torch.Generator | None = None):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.num_rrdb = num_rrdb
         self.hat = HAT(img_size=img_size, in_chans=in_chans, embed_dim=embed_dim, depths=depths,
                        num_heads=num_heads, window_size=window_size, upscale=2, img_range=1.0,
-                       drop_path_rate=drop_path_rate, attn_impl=attn_impl, generator=generator)
+                       drop_path_rate=drop_path_rate, attn_impl=attn_impl, remat=remat,
+                       generator=generator)
         self.conv_adapt = nn.Conv2d(in_chans, num_feat, 3, 1, 1)
         self.rrdb_trunk = nn.ModuleList(RRDBBlock(num_feat, num_grow_ch)
                                         for _ in range(num_rrdb))

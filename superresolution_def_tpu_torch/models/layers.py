@@ -6,15 +6,22 @@ Initialisation reproduces torch's defaults, drawn from an explicit
 relative-position tables trunc-normal(0.02) cut at two standard deviations.
 GELU is the exact erf form (``nn.GELU``'s default); the LeakyReLU slope
 before the upsampler is 0.01.
+
+:func:`checkpoint_call` and :func:`checkpoint_module` are the JAX package's
+``jax.checkpoint`` / ``nn.remat`` regions: ``torch.utils.checkpoint``
+without reentrance, only when grad is enabled.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -25,6 +32,34 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 def conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """Apply an NCHW conv (or conv stack) to an NHWC tensor through permuted views."""
     return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def checkpoint_call(fn: Callable, *args, context_fn: Callable | None = None,
+                    preserve_rng_state: bool = False):
+    """``fn(*args)`` as one rematerialized region: the backward keeps its
+    inputs and recomputes what its ops saved when it needs them
+    (``torch.utils.checkpoint``, ``use_reentrant=False``: the forward's
+    autograd graph, so the gradients are those of the plain call when the
+    recompute gives the forward's bits). A plain call when grad is disabled.
+    ``context_fn`` as ``checkpoint``'s: called at the forward, it returns the
+    forward's and the recompute's context managers. An error in the region
+    or its recompute raises."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    kwargs = {} if context_fn is None else {"context_fn": context_fn}
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=preserve_rng_state,
+                      **kwargs)
+
+
+def checkpoint_module(module: nn.Module, *args, context_fn: Callable | None = None):
+    """``module(*args)`` as one region (``nn.remat`` of a flax module). Its
+    parameters are taken as they are at the forward and passed into the
+    region: inside ``functional_call`` (a forward in the compute dtype)
+    they are the casts, which the recompute, run in the backward after
+    ``functional_call`` has put the fp32 masters back, must use again."""
+    params = dict(module.named_parameters())
+    return checkpoint_call(lambda p, *a: functional_call(module, p, a), params, *args,
+                           context_fn=context_fn, preserve_rng_state=True)
 
 
 @torch.no_grad()

@@ -7,8 +7,9 @@ names); unlike it, the power iteration runs only when the caller passes
 ``update_stats=True`` (the JAX argument), never as a hidden hook, so a train
 step can snapshot and restore (u, v) around a phase.
 
-A training forward runs one power iteration without grad and computes
-sigma = u^T W v with the new, detached vectors; gradients flow through W in
+A training forward runs one power iteration without grad
+(:meth:`SNConv2d.power_iteration`) and computes sigma = u^T W v with the
+new, detached vectors (:meth:`SNConv2d.conv`); gradients flow through W in
 sigma. The 2-D view of the weight is torch's: O-first, (I, kh, kw)
 flattened; a transposed conv keeps torch's (I, O, kh, kw) weight and views
 it through its dim 1.
@@ -53,17 +54,24 @@ class SNConv2d(nn.Module):
             w = w.transpose(0, 1)
         return w.reshape(w.shape[0], -1)
 
-    def forward(self, x: torch.Tensor, update_stats: bool = False,
-                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    @torch.no_grad()
+    def power_iteration(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """One power iteration from the stored u; rebinds ``weight_u`` and
+        ``weight_v`` to the new vectors (new tensors, not in place: the graph
+        of an earlier forward keeps the vectors it used) and returns them."""
         w2d = self.weight_mat()
-        if update_stats:
-            with torch.no_grad():
-                v = _l2norm(w2d.T @ self.weight_u)
-                u = _l2norm(w2d @ v)
-            # new tensors, not in-place: the graph of an earlier forward
-            # keeps the vectors it used
-            self.weight_u, self.weight_v = u, v
-        sigma = self.weight_u @ (w2d @ self.weight_v)
+        v = _l2norm(w2d.T @ self.weight_u)
+        u = _l2norm(w2d @ v)
+        self.weight_u, self.weight_v = u, v
+        return u, v
+
+    def conv(self, x: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """The conv with the weight divided by sigma = u^T W v of the given
+        vectors: a rematerialized region takes (u, v) as inputs, so that its
+        recompute uses the forward's vectors and not those a later forward
+        left in the buffers."""
+        sigma = u @ (self.weight_mat() @ v)
         w = (self.weight_orig / sigma).to(dtype)
         x = x.to(dtype).permute(0, 3, 1, 2)
         if self.transpose:
@@ -71,3 +79,9 @@ class SNConv2d(nn.Module):
         else:
             y = F.conv2d(x, w, stride=self.stride, padding=self.padding)
         return y.permute(0, 2, 3, 1)
+
+    def forward(self, x: torch.Tensor, update_stats: bool = False,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        if update_stats:
+            self.power_iteration()
+        return self.conv(x, self.weight_u, self.weight_v, dtype)

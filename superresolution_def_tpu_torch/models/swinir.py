@@ -33,7 +33,7 @@ from ..ops import (
     window_reverse,
 )
 from ..kernels.window_attention import window_attention
-from .layers import Mlp, conv_nhwc, reset_torch_default_, trunc_normal_
+from .layers import Mlp, checkpoint_module, conv_nhwc, reset_torch_default_, trunc_normal_
 
 
 class WindowAttention(nn.Module):
@@ -103,7 +103,10 @@ class SwinIR(nn.Module):
     depths=(6,)*6, num_heads=(6,)*6, window_size=8, upscale=4 (mlp_ratio 4).
     Parameters are drawn from ``generator`` (a fresh one seeded 0 if None).
     ``attn_impl`` picks every block's window-attention implementation
-    (``"xla"``, or ``"pallas"``: K11, forward-only).
+    (``"xla"``, or ``"pallas"``: K11, forward-only). ``remat`` runs each
+    :class:`SwinTransformerBlock` as a rematerialized region when grad is
+    enabled (the JAX ``nn.remat``): the backward keeps the blocks' inputs
+    and recomputes their interiors.
     """
 
     def __init__(
@@ -118,9 +121,11 @@ class SwinIR(nn.Module):
         mlp_ratio: float = 4.0,
         upscale: int = 2,
         attn_impl: str = "xla",
+        remat: bool = False,
         generator: torch.Generator | None = None,
     ):
         super().__init__()
+        self.remat = remat
         self.img_size = img_size
         self.in_chans = in_chans
         self.embed_dim = embed_dim
@@ -176,7 +181,8 @@ class SwinIR(nn.Module):
         res = x_first.reshape(b, hp * wp, self.embed_dim)
         for layer in self.layers:
             for blk in layer:
-                res = blk(res, (hp, wp))
+                res = (checkpoint_module(blk, res, (hp, wp)) if self.remat
+                       else blk(res, (hp, wp)))
         res = self.norm(res).reshape(b, hp, wp, self.embed_dim)
         res = conv_nhwc(self.conv_after_body, res) + x_first
 

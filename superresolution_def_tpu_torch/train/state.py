@@ -77,9 +77,15 @@ def create_swin_train_state(
     fused: bool = False,
     device: torch.device | str = "cuda",
     backward: str = "split",
+    attn_impl: str = "xla",
+    remat: bool = False,
 ) -> SwinTrainState:
     """Reference swin train config (train_swin.py:147-156), parameters drawn
     from ``generator`` (G first, then D).
+
+    ``attn_impl`` and ``remat`` go to the :class:`~..models.SwinIR` module
+    (its window attention, its blocks as rematerialized regions); the fused
+    generator runs neither, as the JAX fused state ignores both.
 
     ``fused=True`` routes the generator's forward and backward through the
     fused-block kernels; on a CUDA device they take bf16 only, so fp32 with
@@ -92,7 +98,8 @@ def create_swin_train_state(
         raise ValueError("the fused generator runs in bfloat16 on CUDA; pass dtype=bfloat16")
     g = SwinIR(img_size=img_size, in_chans=1, embed_dim=embed_dim, depths=tuple(depths),
                num_heads=tuple(num_heads), window_size=window_size, mlp_ratio=mlp_ratio,
-               upscale=upscale, generator=generator).to(device)
+               upscale=upscale, attn_impl=attn_impl, remat=remat,
+               generator=generator).to(device)
     d = UNetDiscriminatorSNSwin(num_in_ch=1, num_feat=64, dtype=dtype,
                                 generator=generator).to(device)
     ema = ema_init(g)
@@ -122,7 +129,9 @@ def hybrid_forward(model: HybridHATRealESRGAN, dtype: torch.dtype, fused: bool,
     RRDB trunk through K7/K8 when ``fused`` (:func:`make_fused_hybrid_train`),
     with ``fused_hab`` also the HAT backbone's HABs and OCAB tails through
     K9a-c and K10a-b, else the ``nn.Module`` with its parameters cast inside
-    autograd."""
+    autograd. The HAT backbone's ``attn_impl`` and ``remat`` (the module's
+    own) act wherever it runs as the module: unfused, and fused without
+    ``fused_hab``."""
     if fused:
         return make_fused_hybrid_train(model, dtype=dtype, fused_hab=fused_hab)
     if dtype == torch.float32:
@@ -151,6 +160,8 @@ def create_hat_train_state(
     fused_hab: bool = False,
     drop_path_rate: float = 0.1,
     device: torch.device | str = "cuda",
+    attn_impl: str = "xla",
+    remat: bool = False,
 ) -> HATTrainState:
     """Reference 'Soft' hybrid config (train_hat.py:132-136), parameters
     drawn from ``generator`` (G first, then D); AdamW with weight decay 0.01.
@@ -162,7 +173,10 @@ def create_hat_train_state(
     OCAB tails through their training kernels (K9a-c, K10a-b), the JAX
     package's opt-in ``fused_hab`` path. On a CUDA device the kernels take
     bf16 only, so fp32 with ``fused`` there raises; on the CPU the same
-    structure runs through the kernels' plain versions.
+    structure runs through the kernels' plain versions. ``attn_impl`` and
+    ``remat`` go to the HAT backbone: they act where it runs as the module
+    (unfused, and around the K7/K8 trunk), not under ``fused_hab``, as in
+    the JAX fused state.
     """
     device = torch.device(device)
     if fused_hab and not fused:
@@ -173,7 +187,7 @@ def create_hat_train_state(
                             depths=tuple(depths), num_heads=tuple(num_heads),
                             window_size=window_size, num_rrdb=num_rrdb, num_feat=num_feat,
                             num_grow_ch=num_grow_ch, drop_path_rate=drop_path_rate,
-                            generator=generator).to(device)
+                            attn_impl=attn_impl, remat=remat, generator=generator).to(device)
     d = UNetDiscriminatorSNHAT(num_in_ch=1, num_feat=64, dtype=dtype,
                                generator=generator).to(device)
     return HATTrainState(

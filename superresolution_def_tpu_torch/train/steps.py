@@ -44,11 +44,24 @@ step without a mesh.
 
 :func:`make_hat_train_step` is the hybrid's (train_hat.py:219-266): G phase
 first, then D; no NaN guard; see its docstring.
+
+``remat_loss`` (both steps, the JAX flag) runs every D forward and the
+perceptual VGG forward of SR stage by stage as rematerialized regions: D
+keeps only its stage boundaries (the JAX ``d_stage`` tags), VGG its pooled
+block outputs (``vgg_block``; the criterion's ``vgg_apply`` is called with
+``remat=True``, as :class:`~.vgg.VGG19Features` takes it), and the backward
+recomputes each stage's interior. Only the stages are regions, never the
+loss arithmetic, so no collective (RaGAN's ``batch_means``, the guard's
+``global_mean``) runs in a recompute; D's power iterations run once a
+forward, outside the regions, and the recompute divides by the forward's
+sigma. The step is the same: the same autograd graph, the stash recomputed
+to the same values.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -78,6 +91,15 @@ def _set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
+def _remat_perceptual(criterion: CombinedGANLoss) -> CombinedGANLoss:
+    """``criterion`` whose perceptual feature function is called with
+    ``remat=True`` (:class:`~.vgg.VGG19Features`: block by block)."""
+    if criterion.vgg_apply is None:
+        return criterion
+    return dataclasses.replace(criterion,
+                               vgg_apply=functools.partial(criterion.vgg_apply, remat=True))
+
+
 def _select_(ok: torch.Tensor, acc: list[torch.Tensor],
              other: list[torch.Tensor] | None = None) -> None:
     """``acc`` <- ``where(ok, acc, other)`` in place, one run of a flat
@@ -96,14 +118,18 @@ def make_swin_train_step(
     ema_decay: float = EMA_DECAY,
     generator: torch.Generator | None = None,
     mesh: Mesh | None = None,
+    remat_loss: bool = False,
 ):
     """SwinIR-GAN step: ``step(batch, lr_g, lr_d) -> metrics``, updating
     ``state`` in place. ``generator`` draws the augmentation; ``mesh`` makes
-    the step data-parallel (the module docstring). The metrics, ``loss_g``,
+    the step data-parallel, ``remat_loss`` rematerializes D and the
+    perceptual VGG (the module docstring). The metrics, ``loss_g``,
     ``loss_d`` (means over the valid micro-batches) and ``valid_batches``,
     are 0-d float32 tensors on the model's device."""
     criterion_g = dataclasses.replace(criterion_g or CombinedGANLoss(
         pixel_weight=1.0, perceptual_weight=0.5, adversarial_weight=0.005), mesh=mesh)
+    if remat_loss:
+        criterion_g = _remat_perceptual(criterion_g)
     criterion_d = dataclasses.replace(criterion_d or DiscriminatorLoss(), mesh=mesh)
     generator = generator or torch.Generator().manual_seed(0)
     rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.size)
@@ -124,8 +150,8 @@ def make_swin_train_step(
             sr = state.g_forward(lr01)
 
             # ---- D phase (reference order: real then fake)
-            d_real = d(hr01, True)
-            d_fake = d(sr.detach(), True)
+            d_real = d(hr01, True, remat_loss)
+            d_fake = d(sr.detach(), True, remat_loss)
             d_loss = criterion_d(d_real, d_fake)[0] / accum_steps
             d_global = global_mean(d_loss, mesh)
             d_ok = torch.isfinite(d_global)
@@ -136,8 +162,8 @@ def make_swin_train_step(
 
             # ---- G phase (fake then real; d_real detached)
             g_before = [t.clone() for t in g_acc] if i else None  # zero before the first
-            d_fake = d(sr, True)
-            d_real = d(hr01, True).detach()
+            d_fake = d(sr, True, remat_loss)
+            d_real = d(hr01, True, remat_loss).detach()
             g_loss = criterion_g(sr, hr01, d_real, d_fake)[0] / accum_steps
             g_global = global_mean(g_loss, mesh)
             g_ok = torch.isfinite(g_global)
@@ -168,6 +194,19 @@ def make_swin_train_step(
     return step
 
 
+def hat_d_phase(d, criterion_d: DiscriminatorLoss, fake: torch.Tensor, real: torch.Tensor,
+                accum_steps: int = 1, remat: bool = False) -> torch.Tensor:
+    """The hybrid step's D phase (train_hat.py:258-266): D(fake), then D(real),
+    both training forwards, and the backward of the RaGAN-D loss over
+    ``accum_steps`` into D's gradients; returns the loss. ``fake`` is the
+    detached SR; ``remat`` is the step's ``remat_loss``."""
+    d_fake = d(fake, True, remat)
+    d_real = d(real, True, remat)
+    d_loss = criterion_d(d_real, d_fake)[0]
+    (d_loss / accum_steps).backward()
+    return d_loss
+
+
 HAT_METRICS = ("loss_g", "l1", "g_adv", "loss_d", "psnr_sum", "ssim_sum", "count")
 
 
@@ -182,11 +221,13 @@ def make_hat_train_step(
     generator: torch.Generator | None = None,
     drop_generator: torch.Generator | None = None,
     mesh: Mesh | None = None,
+    remat_loss: bool = False,
 ):
     """Hybrid-HAT GAN step: ``step(batch, lr_g, lr_d, warmup=False) ->
     metrics``, updating ``state`` in place. ``generator`` draws the
     augmentation, ``drop_generator`` (on the model's device) the drop-path;
-    ``mesh`` makes the step data-parallel (the module docstring).
+    ``mesh`` makes the step data-parallel, ``remat_loss`` rematerializes D
+    and the perceptual VGG (the module docstring).
 
     Per micro-batch: /65535, paired augmentation, one G forward with
     drop-path on. G phase first: L1 alone during ``warmup`` (no D forward),
@@ -203,6 +244,8 @@ def make_hat_train_step(
     """
     criterion_g = dataclasses.replace(criterion_g or CombinedGANLoss(
         pixel_weight=1.0, perceptual_weight=1.0, adversarial_weight=0.005), mesh=mesh)
+    if remat_loss:
+        criterion_g = _remat_perceptual(criterion_g)
     criterion_d = dataclasses.replace(criterion_d or DiscriminatorLoss(), mesh=mesh)
     generator = generator or torch.Generator().manual_seed(0)
     rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.size)
@@ -227,8 +270,8 @@ def make_hat_train_step(
                 g_loss = l1_loss(sr, hr01)
                 g_adv = torch.zeros((), device=device)
             else:
-                d_fake = d(sr, True)
-                d_real = d(hr01, True).detach()
+                d_fake = d(sr, True, remat_loss)
+                d_real = d(hr01, True, remat_loss).detach()
                 g_loss, parts = criterion_g(sr, hr01, d_real, d_fake)
                 g_adv = parts["adversarial"]
             (sr_grad,) = torch.autograd.grad(g_loss / accum_steps, sr)
@@ -238,10 +281,7 @@ def make_hat_train_step(
             # ---- D phase (fake then real, train_hat.py:258-266)
             d_loss = torch.zeros((), device=device)
             if not warmup:
-                d_fake = d(sr, True)
-                d_real = d(hr01, True)
-                d_loss = criterion_d(d_real, d_fake)[0]
-                (d_loss / accum_steps).backward()
+                d_loss = hat_d_phase(d, criterion_d, sr, hr01, accum_steps, remat_loss)
 
             # ---- live train metrics (train_hat.py:228)
             with torch.no_grad():

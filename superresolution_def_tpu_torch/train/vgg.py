@@ -19,7 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..models.layers import reset_torch_default_
+from ..models.layers import checkpoint_call, reset_torch_default_
 
 _CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
         512, 512, 512, 512, "M", 512, 512, 512, 512, "M"]
@@ -32,7 +32,10 @@ class VGG19Features(nn.Module):
     """features[:cutoff+1] of VGG19, NHWC in and out; cutoff=35 is the reference VGGLoss.
 
     ``dtype`` casts the input and the weights of every conv, as the JAX
-    module's ``dtype`` does (parameters stay fp32).
+    module's ``dtype`` does (parameters stay fp32). ``forward(x, remat=True)``
+    runs each block up to and with its max-pool as one rematerialized region
+    (the JAX ``vgg_block`` boundaries, ``train/steps.py``'s ``remat_loss``):
+    the backward keeps the pooled outputs and recomputes each block's convs.
     """
 
     def __init__(self, cutoff: int = 35, *, dtype: torch.dtype = torch.float32,
@@ -52,15 +55,27 @@ class VGG19Features(nn.Module):
         self.register_buffer("mean", torch.tensor(IMAGENET_MEAN), persistent=False)
         self.register_buffer("std", torch.tensor(IMAGENET_STD), persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.shape[-1] == 1:
-            x = x.repeat(1, 1, 1, 3)
-        x = ((x - self.mean) / self.std).to(self.dtype).permute(0, 3, 1, 2)
-        for m in self.features:
+    def blocks(self) -> list[tuple[int, int]]:
+        """``features`` index ranges [lo, hi) of the blocks, each ending after its max-pool."""
+        ends = [i + 1 for i, m in enumerate(self.features) if isinstance(m, nn.MaxPool2d)]
+        ends += [len(self.features)] if not ends or ends[-1] < len(self.features) else []
+        return list(zip([0] + ends[:-1], ends))
+
+    def _block(self, x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+        if lo == 0:
+            if x.shape[-1] == 1:
+                x = x.repeat(1, 1, 1, 3)
+            x = ((x - self.mean) / self.std).to(self.dtype).permute(0, 3, 1, 2)
+        for m in self.features[lo:hi]:
             if isinstance(m, nn.Conv2d):
                 x = F.conv2d(x, m.weight.to(self.dtype), m.bias.to(self.dtype), padding=1)
             else:
                 x = m(x)
+        return x
+
+    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        for lo, hi in self.blocks():
+            x = checkpoint_call(self._block, x, lo, hi) if remat else self._block(x, lo, hi)
         return x.permute(0, 2, 3, 1)
 
 

@@ -18,7 +18,8 @@ Modes:
   this rank's rows of the batch, from the given state dicts; with
   ``nan_rank`` that rank's D loss is NaN (after its collectives ran);
 - ``hat_step``: one hybrid GAN step (``make_hat_train_step(mesh=)``),
-  augmentation and drop-path on, warm-up or GAN;
+  augmentation and drop-path on, warm-up or GAN, ``remat_loss`` and the
+  generator's ``remat`` as the inputs say (off by default);
 - ``spatial``: ``make_spatial_swinir`` / ``make_spatial_hybrid`` on the frame;
 - ``tiled``: ``tiled_sr(mesh=)`` of a tiny SwinIR on each frame;
 - ``replicate``: a module with spectral norm and its AdamW state, made
@@ -126,11 +127,12 @@ def hat_step(inputs, mesh):
     from superresolution_def_tpu_torch.train import create_hat_train_state, make_hat_train_step
 
     state = create_hat_train_state(torch.Generator().manual_seed(0), **inputs["config"],
-                                   device="cpu")
+                                   device="cpu", remat=inputs.get("remat", False))
     _states(state, inputs)
     step = make_hat_train_step(state, accum_steps=inputs["batch"]["lr"].shape[0],
                                generator=torch.Generator().manual_seed(1),
-                               drop_generator=torch.Generator().manual_seed(2), mesh=mesh)
+                               drop_generator=torch.Generator().manual_seed(2), mesh=mesh,
+                               remat_loss=inputs.get("remat_loss", False))
     metrics = step(_rows(inputs["batch"], mesh), 1e-4, 1e-4, warmup=inputs["warmup"])
     return _results(state, metrics)
 

@@ -17,7 +17,8 @@
   ``SRVGGNetCompact`` forward, ``cli/port_vgg.py`` and ``train
   --vgg-weights`` of a torchvision-layout ``.pth``, and
   ``tools/train_learns.py`` at tiny widths) in a subprocess and inspects
-  its ``sys.modules``; the
+  its ``sys.modules`` (the swin and hybrid ``train`` with ``--remat
+  --remat-loss --attn-impl xla``); the
   worker script of the multi-rank tests (tests/_torch_dist_worker.py)
   reports the same of itself. Importing every module of the port loads
   no matplotlib.
@@ -94,7 +95,7 @@ SLICE = NATIVE_AUDIT + textwrap.dedent(
     main(["train", "--target", "T1", "--data-root", str(root / "data"),
           "--outputs-root", str(root / "trained"), "--device", "cpu", "--epochs", "1",
           "--batch-size", "2", "--img-size", "16", "--embed-dim", "16", "--depths", "2",
-          "--num-heads", "2"])
+          "--num-heads", "2", "--remat", "--remat-loss", "--attn-impl", "xla"])
     run = root / "outputs" / "T1_DDP_SwinIR"
     run.mkdir(parents=True)
     model = SwinIR(img_size=16, embed_dim=16, depths=(2,), num_heads=(2,), window_size=8,
@@ -214,7 +215,8 @@ HAT_SLICE = NATIVE_AUDIT + textwrap.dedent(
           "--outputs-root", str(root / "trained"), "--device", "cpu", "--epochs", "1",
           "--warmup-epochs", "0", "--batch-size", "2", "--accum-steps", "1", "--img-size", "16",
           "--embed-dim", "30", "--depths", "6", "--num-rrdb", "1", "--num-feat", "16",
-          "--num-grow-ch", "8", "--ckpt-interval", "1"])
+          "--num-grow-ch", "8", "--ckpt-interval", "1", "--remat", "--remat-loss",
+          "--attn-impl", "xla"])
     res = main(["infer", "--arch", "hat", "--folder", str(root / "trained" / "T1"),
                 "--data-root", str(root / "data"), "--lr-size", "16", "--hr-size", "64",
                 "--device", "cpu"])
